@@ -1,0 +1,17 @@
+"""PyTorch/CUDA port of the decentralized quasi-global momentum system.
+
+This package mirrors ``src/repro`` (the JAX package, which stays the
+reference) module for module: ``repro_torch/core/transforms.py`` stands
+against ``repro/core/transforms.py`` and so on.  It imports ``torch`` and
+``numpy`` only, never ``jax`` nor anything of ``repro``.
+
+Ported so far (slice 1, the main path): the quickstart presets end to end
+-- synthetic classification data with a Dirichlet split, the ring topology,
+dense gossip, the DSGD/DSGDm/QG-DSGDm chains with the fused optimizer
+passes as hand-written CUDA kernels (``kernels/csrc/qg_update.cu``), the
+MLP, the vmap trainer and the spec/preset/``run`` API.
+
+Entry points (``api.build``, ``api.run``, ``python -m repro_torch.api``)
+run on the CUDA device unless the caller passes ``device="cpu"``; there the
+kernels' plain PyTorch versions serve the CPU tensors.
+"""

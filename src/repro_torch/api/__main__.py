@@ -1,0 +1,62 @@
+"""Run a spec from the command line:
+
+    python -m repro_torch.api <preset-name> [--set k=v ...] [--out result.json]
+    python -m repro_torch.api path/to/spec.json [--device cpu]
+    python -m repro_torch.api --list
+
+A spec JSON written by the reference (``repro.api``) loads unchanged.  The
+run goes to the CUDA device unless ``--device cpu`` is given.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from . import presets
+from .build import run
+from .spec import ExperimentSpec
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.api",
+        description="Run a declarative ExperimentSpec (preset or JSON file) "
+                    "with the PyTorch port.")
+    ap.add_argument("spec", nargs="?",
+                    help="preset name (see --list) or path to a spec JSON")
+    ap.add_argument("--set", dest="overrides", action="append", default=[],
+                    metavar="KEY=VALUE",
+                    help="dotted spec override; repeatable")
+    ap.add_argument("--out", default="", help="write the Result JSON here")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run on (default: cuda)")
+    ap.add_argument("--list", action="store_true", help="list presets")
+    args = ap.parse_args(argv)
+
+    if args.list or not args.spec:
+        print("\n".join(presets.names()))
+        return 0
+
+    if os.path.exists(args.spec):
+        with open(args.spec) as f:
+            spec = ExperimentSpec.from_json(f.read())
+    else:
+        spec = presets.get(args.spec)
+    if args.overrides:
+        spec = spec.override(*args.overrides)
+
+    result = run(spec, device=args.device)
+    print(f"[{spec.name or 'spec'}] device={result.device} "
+          f"steps={result.steps_run} wall={result.wall_time_s:.1f}s final="
+          + "  ".join(f"{k}={v:.4f}" for k, v in sorted(result.final.items())
+                      if isinstance(v, float)))
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(result.to_json())
+        print("result ->", args.out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,112 @@
+"""Model/loss plugins for the declarative experiment layer.
+
+Port of ``repro/api/models.py`` for the MLP.  A plugin is a factory
+``factory(spec, task) -> ModelBundle`` registered under a name.  Where the
+reference writes one node's functions and vmaps them, the port's work on
+the node-stacked layout directly:
+
+* ``init_fn(generator) -> (params, model_state)`` for ONE node, drawn on the
+  CPU from the ``torch.Generator`` (the trainer stacks it to ``[n, ...]``);
+* ``loss_fn(params, mstate, batch) -> (loss [n], (mstate, metrics))`` with
+  params ``[n, ...]`` and batch ``[n, B, ...]``;
+* ``eval_fn(params, mstate, batch) -> {metric_sums [n]..., 'count' [n]}``
+  with one batch ``[B, ...]`` shared by every node.
+
+``jax.random`` draws cannot be reproduced in torch, so standalone runs draw
+the init from a ``torch.Generator`` at the reference's scales, and parity
+runs inject the reference's init (``repro_torch.interop``).  The
+``resnet20`` and ``transformer`` plugins come with slices 4 and 6.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+__all__ = ["ModelBundle", "MODELS", "MODEL_DATASETS", "register_model"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelBundle:
+    init_fn: Callable
+    loss_fn: Callable
+    eval_fn: Optional[Callable] = None
+
+
+MODELS: dict[str, Callable[..., ModelBundle]] = {}
+
+#: datasets each built-in plugin can consume (spec.validate() cross-check)
+MODEL_DATASETS: dict[str, tuple[str, ...]] = {"mlp": ("classification",)}
+
+
+def register_model(name: str):
+    def deco(fn):
+        MODELS[name] = fn
+        return fn
+    return deco
+
+
+def _pop_kwargs(spec, allowed: dict) -> dict:
+    kw = dict(spec.model.kwargs)
+    out = {k: kw.pop(k, default) for k, default in allowed.items()}
+    if kw:
+        raise ValueError(
+            f"model {spec.model.name!r}: unknown kwargs {sorted(kw)}; "
+            f"valid: {sorted(allowed)}")
+    return out
+
+
+def _ce(logits, yb):
+    """Mean cross-entropy over the batch axis: logits [n, B, C], yb [n, B]
+    -> [n]."""
+    picked = torch.gather(logits, -1, yb.long()[..., None])[..., 0]
+    return torch.mean(torch.logsumexp(logits, -1) - picked, dim=-1)
+
+
+@register_model("mlp")
+def _mlp(spec, task) -> ModelBundle:
+    """One-hidden-layer ReLU MLP on flattened images.  ``init='lecun'``
+    (1/sqrt(fan-in)) or ``init='quickstart'`` (the quickstart's fixed
+    scales)."""
+    kw = _pop_kwargs(spec, {"width": 64, "init": "lecun"})
+    width, init = int(kw["width"]), kw["init"]
+    d_in, classes = task.d_in, task.n_classes
+    if init == "quickstart":
+        s1, s2 = 0.05, 0.1
+    elif init == "lecun":
+        s1, s2 = 1.0 / np.sqrt(d_in), 1.0 / np.sqrt(width)
+    else:
+        raise ValueError(f"mlp: unknown init {init!r}; 'lecun' | 'quickstart'")
+
+    def init_fn(generator):
+        return ({"w1": torch.randn(d_in, width, generator=generator) * s1,
+                 "b1": torch.zeros(width),
+                 "w2": torch.randn(width, classes, generator=generator) * s2,
+                 "b2": torch.zeros(classes)}, {})
+
+    def apply(p, xb):
+        """Images [..., hw, hw, c] (node-stacked or shared) -> logits
+        [n, B, classes]."""
+        h = torch.relu(torch.matmul(xb.flatten(-3), p["w1"])
+                       + p["b1"][:, None, :])
+        return torch.matmul(h, p["w2"]) + p["b2"][:, None, :]
+
+    def loss_fn(p, ms, batch):
+        xb, yb = batch
+        return _ce(apply(p, xb), yb), ({}, {})
+
+    def eval_fn(p, ms, batch):
+        xb, yb = batch
+        logits = apply(p, xb)
+        yi = yb.long().expand(logits.shape[:2])
+        nll = -torch.gather(torch.log_softmax(logits, -1), -1,
+                            yi[..., None])[..., 0]
+        n = logits.shape[0]
+        return {"acc": torch.sum(torch.argmax(logits, -1) == yi, dim=-1),
+                "eval_loss": torch.sum(nll, dim=-1),
+                "count": torch.full((n,), float(yb.shape[0]),
+                                    device=logits.device)}
+
+    return ModelBundle(init_fn, loss_fn, eval_fn)

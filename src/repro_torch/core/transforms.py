@@ -1,0 +1,450 @@
+"""Composable optimizer-transform algebra (the main-path stages).
+
+Port of ``repro/core/transforms.py``.  Every algorithm in ``core/optim.py``
+is a ``chain()`` of named stages; a stage is an ``(init, apply)`` pair
+
+    init(params)                -> stage state tree (or None if stateless)
+    apply(ctx, sv, states)      -> (sv', states')
+
+over node-stacked trees (dicts of ``[n_nodes, ...]`` tensors), where ``ctx``
+is the per-step :class:`StepCtx` (mixing matrix, lr, step counter, gossip
+hook), ``sv`` the :class:`StepVars` flowing down the chain and ``states``
+the ``{stage_name: state}`` mapping, updated in chain order.
+
+Ported here: ``weight_decay``, ``heavyball``, ``gossip_mix``, ``descent``
+and ``qg_buffer``, the chain runner, the fused dispatcher and the analytic
+bytes-moved model.  The other stages of the reference come with slice 2.
+
+``chain_apply(fused=...)`` routes the segments it recognises through the
+packed one-pass kernels: ``'kernel'`` always (CPU tensors then take the
+kernels' plain versions, see ``kernels/ops.py``), ``'off'`` never, and
+``'auto'`` iff the tensors lie on a CUDA device.  ``'pallas'`` is accepted
+as another name for ``'kernel'`` so the reference's spec JSON loads.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels import pack as _kp
+from repro_torch.tree import tree_leaves, tree_map, tree_paths
+
+Tree = Any
+MixFn = Callable[[torch.Tensor, Tree], Tree]
+
+__all__ = [
+    "Stage", "StepCtx", "StepVars", "chain", "chain_init", "chain_apply",
+    "chain_bytes_moved", "FUSED_MODES",
+    "weight_decay", "heavyball", "gossip_mix", "descent", "qg_buffer",
+]
+
+#: values of the ``fused`` knob ('pallas' = 'kernel', for reference JSON)
+FUSED_MODES = ("kernel", "pallas", "off", "auto")
+
+
+def _zeros_like(tree):
+    return tree_map(torch.zeros_like, tree)
+
+
+def _sub(a, b):
+    return tree_map(torch.subtract, a, b)
+
+
+def _scale(s, a):
+    return tree_map(lambda x: s * x, a)
+
+
+def _axpy(s, a, b):
+    """s*a + b"""
+    return tree_map(lambda x, y: s * x + y, a, b)
+
+
+def _lerp(mu, a, b):
+    """mu*a + (1-mu)*b"""
+    return tree_map(lambda x, y: mu * x + (1.0 - mu) * y, a, b)
+
+
+# ---------------------------------------------------------------------------
+# the algebra
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StepCtx:
+    """Per-step inputs every stage sees.  ``lr`` is a fp32 [1] tensor on the
+    params' device (the schedule value), ``t`` the 0-d int step counter
+    there too: neither is ever read back by the host."""
+
+    w: Any                      # mixing matrix for this round (None if local)
+    lr: Any                     # resolved learning rate eta_t
+    t: Any                      # step counter
+    mix_fn: MixFn               # the gossip hook
+
+
+@dataclasses.dataclass(frozen=True)
+class StepVars:
+    """The value flowing down a chain: the effective (weight-decayed)
+    gradient, the current update direction, the current params, and the
+    params on either side of the gossip round."""
+
+    grads: Tree
+    update: Tree
+    params: Tree
+    params_pre_mix: Tree
+    params_post_mix: Optional[Tree] = None
+
+    def replace(self, **kw) -> "StepVars":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage:
+    """A named (init, apply) transform stage.  ``meta`` is the fusion
+    descriptor (``{"kind": ..., <static coefficients>}``) the fused
+    executor pattern-matches on; stages without one always run unfused."""
+
+    name: str
+    init: Callable[[Tree], Optional[Tree]]
+    apply: Callable[[StepCtx, StepVars, dict], tuple[StepVars, dict]]
+    meta: Optional[dict] = None
+
+
+def chain(*stages: Stage) -> tuple[Stage, ...]:
+    """Validate and freeze a stage sequence (names must be unique)."""
+    names = [s.name for s in stages]
+    if len(set(names)) != len(names):
+        raise ValueError(f"duplicate stage names in chain: {names}")
+    return tuple(stages)
+
+
+def chain_init(stages: tuple[Stage, ...], params: Tree) -> dict:
+    """State dict for a chain; stateless stages contribute no entry."""
+    out = {}
+    for s in stages:
+        st = s.init(params)
+        if st is not None:
+            out[s.name] = st
+    return out
+
+
+def chain_apply(stages: tuple[Stage, ...], ctx: StepCtx, sv: StepVars,
+                states: dict, *, fused: str = "off") -> tuple[StepVars, dict]:
+    """Run the chain, through the fused kernels where ``fused`` resolves
+    on (see the module docstring).  Fusion never changes which stages run."""
+    if _fused_enabled(fused, tree_leaves(sv.params)[0].device):
+        return _chain_apply_fused(stages, ctx, sv, states)
+    states = dict(states)
+    for s in stages:
+        sv, states = s.apply(ctx, sv, states)
+    return sv, states
+
+
+def _fused_enabled(fused: str, device) -> bool:
+    if fused not in FUSED_MODES:
+        raise ValueError(
+            f"fused must be one of {', '.join(map(repr, FUSED_MODES))}; "
+            f"got {fused!r}")
+    if fused == "auto":
+        return torch.device(device).type == "cuda"
+    return fused != "off"
+
+
+def _stateless(name: str, fn, *, meta: Optional[dict] = None) -> Stage:
+    return Stage(name=name, init=lambda params: None, apply=fn, meta=meta)
+
+
+# ---------------------------------------------------------------------------
+# stages
+# ---------------------------------------------------------------------------
+
+def weight_decay(wd: float, *, name: str = "weight_decay") -> Stage:
+    """Coupled L2 added to the raw gradient before any momentum logic."""
+
+    def apply(ctx, sv, states):
+        if not wd:
+            return sv, states
+        g = tree_map(lambda g_, p: g_ + wd * p, sv.update, sv.params_pre_mix)
+        return sv.replace(update=g, grads=g), states
+
+    return _stateless(name, apply,
+                      meta={"kind": "weight_decay", "wd": float(wd)})
+
+
+def heavyball(beta: float, *, nesterov: bool = False,
+              seed_from: str | None = None,
+              name: str = "heavyball") -> Stage:
+    """HeavyBall / Nesterov momentum on the incoming update.  ``seed_from``
+    re-seeds the buffer each step from another stage's ``m_hat`` (the
+    quasi-global pattern, Alg. 1 line 5) instead of keeping local state."""
+
+    def init(params):
+        return None if seed_from else {"m": _zeros_like(params)}
+
+    def apply(ctx, sv, states):
+        m_prev = (states[seed_from]["m_hat"] if seed_from
+                  else states[name]["m"])
+        m = _axpy(beta, m_prev, sv.update)
+        upd = _axpy(beta, m, sv.update) if nesterov else m
+        sv = sv.replace(update=upd)
+        if seed_from:
+            return sv, states
+        return sv, {**states, name: {"m": m}}
+
+    return Stage(name=name, init=init, apply=apply,
+                 meta={"kind": "heavyball", "beta": float(beta),
+                       "nesterov": bool(nesterov), "seed_from": seed_from})
+
+
+def gossip_mix(*, name: str = "gossip_mix") -> Stage:
+    """The mix point: the local half step x - eta*u, then one gossip round
+    through ``ctx.mix_fn``.  Records ``params_post_mix``."""
+
+    def apply(ctx, sv, states):
+        half = _axpy(-ctx.lr, sv.update, sv.params)
+        mixed = ctx.mix_fn(ctx.w, half)
+        return sv.replace(params=mixed, params_post_mix=mixed), states
+
+    return _stateless(name, apply, meta={"kind": "gossip_mix"})
+
+
+def descent(*, name: str = "descent") -> Stage:
+    """Local step x - eta*u with no gossip round."""
+
+    def apply(ctx, sv, states):
+        new = _axpy(-ctx.lr, sv.update, sv.params)
+        return sv.replace(params=new, params_post_mix=new), states
+
+    return _stateless(name, apply)
+
+
+def _refresh_gate(t, tau: int) -> torch.Tensor:
+    """Alg. 3: the buffer refreshes on steps with (t+1) % tau == 0, as a
+    fp32 [1] tensor on ``t``'s device (1.0 every step for tau == 1)."""
+    if tau > 1:
+        return ((t + 1) % tau == 0).to(torch.float32).reshape(1)
+    return torch.ones(1, dtype=torch.float32, device=t.device)
+
+
+def qg_buffer(mu: float, *, tau: int = 1, name: str = "qg_buffer") -> Stage:
+    """Quasi-global momentum buffer (Alg. 1 lines 8-9):
+
+        d     = (x_pre - x_post) / eta
+        m_hat <- mu * m_hat + (1 - mu) * d
+
+    ``tau > 1`` refreshes only on steps with (t+1) % tau == 0 (Alg. 3).
+    Pair with ``heavyball(seed_from=<this name>)`` before the mix point.
+    """
+
+    def init(params):
+        return {"m_hat": _zeros_like(params)}
+
+    def apply(ctx, sv, states):
+        m_hat = states[name]["m_hat"]
+        d = _scale(torch.reciprocal(ctx.lr),
+                   _sub(sv.params_pre_mix, sv.params_post_mix))
+        new_m_hat = _lerp(mu, m_hat, d)
+        if tau > 1:
+            refresh = _refresh_gate(ctx.t, tau) != 0
+            new_m_hat = tree_map(
+                lambda new, old: torch.where(refresh, new, old),
+                new_m_hat, m_hat)
+        return sv, {**states, name: {"m_hat": new_m_hat}}
+
+    return Stage(name=name, init=init, apply=apply,
+                 meta={"kind": "qg_buffer", "mu": float(mu),
+                       "tau": int(tau)})
+
+
+# ---------------------------------------------------------------------------
+# fused execution (packed one-pass kernels)
+# ---------------------------------------------------------------------------
+#
+# The fusion boundary is the mix site: gossip needs the per-node tree, so a
+# fused segment covers what lies between mix sites, never across one:
+#
+#   pre-mix   [weight_decay?] heavyball gossip_mix   -> fused_halfstep
+#   post-mix  qg_buffer                              -> fused_qg_buffer
+#
+# Each packs the node-stacked trees into one contiguous fp32 buffer per role
+# and streams them once.  Segments that don't match run unfused: the same
+# stages, just more passes.  A matched segment that cannot take its kernel
+# (non-fp32 leaves, params rewritten by an earlier stage) runs unfused only
+# on CPU tensors; on a device it raises, so a kernel is never silently
+# replaced by its plain version.
+
+#: stage kinds that may follow a fused gossip_mix: they read only
+#: params_pre_mix/params_post_mix and their own state, never sv.update or
+#: sv.grads (which the fused pass leaves stale)
+_FUSED_TRAILING = ("qg_buffer",)
+
+
+def _meta_kind(s: Stage) -> Optional[str]:
+    return (s.meta or {}).get("kind")
+
+
+def _non_f32(**trees) -> Optional[str]:
+    """Why the named trees cannot be packed for a kernel (the first leaf
+    that is not fp32), or None."""
+    for role, t in trees.items():
+        for path, l in zip(tree_paths(t), tree_leaves(t)):
+            if l.dtype != torch.float32:
+                return f"{role} leaf {path!r} is {l.dtype}, not float32"
+    return None
+
+
+def _unfused_or_raise(stage: Stage, sv: StepVars, why: str) -> None:
+    """Allow the stage-by-stage fall-through for CPU tensors only."""
+    dev = tree_leaves(sv.params)[0].device
+    if dev.type != "cpu":
+        raise TypeError(f"fused chain on {dev}: stage {stage.name!r} "
+                        f"matches a kernel but cannot take it: {why}")
+
+
+def _match_halfstep(stages: tuple[Stage, ...], i: int):
+    """Match ``[weight_decay?] heavyball gossip_mix`` at ``stages[i:]`` with
+    only fusion-safe trailing stages.  Returns (wd, heavyball_stage,
+    n_consumed) or None."""
+    j, wd = i, 0.0
+    if j < len(stages) and _meta_kind(stages[j]) == "weight_decay":
+        wd = stages[j].meta["wd"]
+        j += 1
+    if j >= len(stages) or _meta_kind(stages[j]) != "heavyball":
+        return None
+    hb = stages[j]
+    j += 1
+    if j >= len(stages) or _meta_kind(stages[j]) != "gossip_mix":
+        return None
+    j += 1
+    if any(_meta_kind(s) not in _FUSED_TRAILING for s in stages[j:]):
+        return None
+    return wd, hb, j - i
+
+
+def _apply_fused_halfstep(ctx, sv, states, wd, hb, m_prev):
+    """weight_decay + heavyball + the gossip half step in one packed pass;
+    then the gossip exchange on the unpacked tree (views, no copy)."""
+    hbm = hb.meta
+    spec = _kp.plan_pack(sv.params)
+    x = _kp.pack(spec, sv.params)
+    m = _kp.pack(spec, m_prev)
+    g = _kp.pack(spec, sv.update)
+    emit_m = hbm["seed_from"] is None
+    out = ops.fused_halfstep(x, m, g, ctx.lr, beta=hbm["beta"], wd=wd,
+                             nesterov=hbm["nesterov"], emit_m=emit_m)
+    if emit_m:
+        half_buf, m_buf = out
+        states = {**states, hb.name: {"m": _kp.unpack(spec, m_buf)}}
+    else:
+        half_buf = out  # seeded momentum: the local buffer is discarded
+    mixed = ctx.mix_fn(ctx.w, _kp.unpack(spec, half_buf))
+    return sv.replace(params=mixed, params_post_mix=mixed), states
+
+
+def _apply_fused_qg_buffer(ctx, sv, states, stage):
+    spec = _kp.plan_pack(sv.params_pre_mix)
+    pre = _kp.pack(spec, sv.params_pre_mix)
+    post = _kp.pack(spec, sv.params_post_mix)
+    m = _kp.pack(spec, states[stage.name]["m_hat"])
+    new = ops.fused_qg_buffer(pre, post, m, ctx.lr,
+                              _refresh_gate(ctx.t, stage.meta["tau"]),
+                              mu=stage.meta["mu"])
+    return sv, {**states, stage.name: {"m_hat": _kp.unpack(spec, new)}}
+
+
+def _chain_apply_fused(stages, ctx, sv, states):
+    states = dict(states)
+    i = 0
+    while i < len(stages):
+        s = stages[i]
+        seg = _match_halfstep(stages, i)
+        if seg is not None:
+            wd, hb, consumed = seg
+            hbm = hb.meta
+            m_prev = (states[hbm["seed_from"]]["m_hat"]
+                      if hbm["seed_from"] else states[hb.name]["m"])
+            # an earlier stage rewriting params would desync the weight-decay
+            # read (params_pre_mix) from the half-step base (params): never
+            # fuse the wrong expression
+            why = ("params were rewritten by an earlier stage"
+                   if sv.params is not sv.params_pre_mix else
+                   _non_f32(params=sv.params, update=sv.update,
+                            momentum=m_prev))
+            if why is None:
+                sv, states = _apply_fused_halfstep(
+                    ctx, sv, states, wd, hb, m_prev)
+                i += consumed
+                continue
+            _unfused_or_raise(hb, sv, why)
+        elif _meta_kind(s) == "qg_buffer":
+            why = ("no gossip_mix or descent precedes it"
+                   if sv.params_post_mix is None else
+                   _non_f32(params_pre_mix=sv.params_pre_mix,
+                            params_post_mix=sv.params_post_mix,
+                            m_hat=states[s.name]["m_hat"]))
+            if why is None:
+                sv, states = _apply_fused_qg_buffer(ctx, sv, states, s)
+                i += 1
+                continue
+            _unfused_or_raise(s, sv, why)
+        sv, states = s.apply(ctx, sv, states)
+        i += 1
+    return sv, states
+
+
+# ---------------------------------------------------------------------------
+# analytic traffic model (bytes each optimizer step moves)
+# ---------------------------------------------------------------------------
+
+#: streaming passes (reads + writes of one n-element fp32 array) per
+#: unfused stage, by fusion kind.  The gossip exchange itself is excluded
+#: everywhere: it is identical fused or not.
+_PASSES_BY_KIND = {
+    "weight_decay": lambda m: 3 if m["wd"] else 0,
+    "heavyball": lambda m: 6 if m["nesterov"] else 3,
+    "gossip_mix": lambda m: 3,
+    "qg_buffer": lambda m: 8 + (3 if m["tau"] > 1 else 0),
+}
+
+
+def _stage_passes(s: Stage) -> int:
+    """Passes of one unfused stage; 3 (two reads, one write) for a stage
+    without a fusion kind, such as ``descent``."""
+    kind = _meta_kind(s)
+    if kind in _PASSES_BY_KIND:
+        return _PASSES_BY_KIND[kind](s.meta)
+    return 3
+
+
+def chain_bytes_moved(stages: tuple[Stage, ...], n_elems: int, *,
+                      fused: str = "off", device="cpu") -> int:
+    """Analytic device-memory bytes per optimizer step for an
+    ``n_elems``-parameter node-stacked model: each unfused stage re-reads
+    its operands and writes one output; each fused segment streams every
+    operand once.  Fused byte counts use the ``PACK_TILE``-padded length, as
+    the reference charges them, so the numbers equal the JAX package's.
+    ``device`` resolves ``fused='auto'``."""
+    if not _fused_enabled(fused, device):
+        return sum(_stage_passes(s) for s in stages) * n_elems * 4
+
+    padded = max(_kp.PACK_TILE, -(-n_elems // _kp.PACK_TILE) * _kp.PACK_TILE)
+    total = 0
+    i = 0
+    while i < len(stages):
+        seg = _match_halfstep(stages, i)
+        if seg is not None:
+            _, hb, consumed = seg
+            # 3 reads (x, m, g) + half write (+ m_new write if stateful)
+            total += (4 if hb.meta["seed_from"] else 5) * padded * 4
+            i += consumed
+            continue
+        s = stages[i]
+        if _meta_kind(s) == "qg_buffer":
+            # 3 reads (pre, post, m_hat) + 1 write
+            total += 4 * padded * 4
+            i += 1
+            continue
+        total += _stage_passes(s) * n_elems * 4
+        i += 1
+    return total

@@ -1,0 +1,34 @@
+"""Carry the reference's arrays into the port.
+
+``jax.random`` streams cannot be reproduced in torch, so a run that is to be
+held against the JAX package takes that package's init (or any state) as
+numpy and starts from it.  Both functions take nested dicts of numpy arrays
+with the JAX package's key names; the caller converts on the JAX side
+(``np.asarray``), so this module needs nothing of JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.train.trainer import TrainState
+from repro_torch.tree import tree_map
+
+__all__ = ["params_from_numpy", "train_state_from_numpy"]
+
+
+def params_from_numpy(tree, device):
+    """Nested dict of numpy arrays -> the same tree of tensors on
+    ``device`` (dtypes kept, data copied)."""
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+
+
+def train_state_from_numpy(params, opt_state, t, device) -> TrainState:
+    """A :class:`TrainState` on ``device`` from the reference's node-stacked
+    ``params``, its ``opt_state`` and step counter ``t`` (model state empty,
+    as for the MLP)."""
+    return TrainState(params=params_from_numpy(params, device),
+                      opt_state=params_from_numpy(opt_state, device),
+                      model_state={},
+                      t=torch.tensor(int(t), dtype=torch.int32,
+                                     device=device))

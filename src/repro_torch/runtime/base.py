@@ -1,0 +1,131 @@
+"""Execution-backend base: the one decentralized step, written once.
+
+Port of the synchronous path of ``repro/runtime/base.py``: per-node
+loss/grad (``_stage_compute``), then the transform-stage chain with the
+gossip round (``_stage_finish_mix``), composed by ``_step_math``;
+``_chunk_math`` runs k of those steps.  The node index is the stacked
+leading axis of every tensor.  The reference's overlap pipeline, scenario
+masks, compressed comm and telemetry come with later slices of the port;
+the trainer refuses them.
+
+A step reads nothing back to the host: the lr, the step counter and every
+metric stay on the device, and a chunk's metrics are fetched once, when the
+loop records them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core import gossip
+from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
+
+
+@dataclasses.dataclass
+class Runtime:
+    """Base execution backend over the owning
+    :class:`~repro_torch.train.trainer.DecentralizedTrainer`."""
+
+    trainer: Any
+    name: str = "base"
+
+    # -- the step pipeline ---------------------------------------------------
+    def _stage_compute(self, state, batch):
+        """Per-node loss and gradient on the node-stacked params.  The
+        summed per-node losses differentiate to exact per-node grads: node
+        i's loss depends on node i's params only."""
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(state.params)]
+        paths = tree_paths(state.params)
+        with torch.enable_grad():
+            loss, (new_ms, metrics) = self.trainer.loss_fn(
+                tree_unflatten(paths, leaves), state.model_state, batch)
+            grads = torch.autograd.grad(loss.sum(), leaves)
+        return loss.detach(), new_ms, metrics, tree_unflatten(paths,
+                                                              list(grads))
+
+    def _stage_finish_mix(self, state, grads, w, lr):
+        """The transform-stage chain: local update + gossip round."""
+        return self.trainer.optimizer.step(
+            state.params, grads, state.opt_state, w=w, lr=lr, t=state.t)
+
+    def _mixing_at(self, t):
+        """``mixing[t % T]`` without reading ``t`` on the host."""
+        mixing = self.trainer._mixing
+        if mixing.shape[0] == 1:
+            return mixing[0]
+        return mixing.index_select(0, (t % mixing.shape[0]).reshape(1))[0]
+
+    @torch.no_grad()
+    def _step_math(self, state, batch):
+        """One decentralized step; returns (new TrainState, metrics), the
+        metrics as 0-d device tensors."""
+        from repro_torch.train.trainer import TrainState
+
+        tr = self.trainer
+        n = tr.topology.n
+        lr = tr.lr_fn(state.t)
+        loss, new_ms, metrics, grads = self._stage_compute(state, batch)
+        new_params, new_opt = self._stage_finish_mix(
+            state, grads, self._mixing_at(state.t), lr)
+        out = {
+            "loss": torch.mean(loss),
+            "lr": lr.reshape(()),
+            "consensus": gossip.consensus_distance(new_params),
+            "grad_norm": torch.sqrt(sum(
+                torch.sum(g.to(torch.float32) ** 2)
+                for g in tree_leaves(grads)) / n),
+        }
+        for k, v in metrics.items():
+            out[k] = torch.mean(v)
+        return TrainState(new_params, new_opt, new_ms, state.t + 1), out
+
+    def _chunk_math(self, state, batches):
+        """``k`` steps over a batch tuple stacked ``[k, n, ...]``; the
+        metrics come back stacked ``[k]``."""
+        rows = []
+        for j in range(batches[0].shape[0]):
+            state, m = self._step_math(state, tuple(b[j] for b in batches))
+            rows.append(m)
+        return state, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+    # -- backend surface ------------------------------------------------------
+    def step(self, state, batch):
+        return self._step_math(state, batch)
+
+    def step_chunk(self, state, batches):
+        return self._chunk_math(state, batches)
+
+    def put_batch(self, batch):
+        """Host numpy batch -> tensors on the trainer's device, one copy per
+        array."""
+        dev = self.trainer.device
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in batch)
+
+    # -- evaluation -----------------------------------------------------------
+    def eval_batch(self, state, eval_fn, batch) -> dict:
+        """Per-node sums for one eval batch: dict of ``[n]`` tensors."""
+        with torch.no_grad():
+            return eval_fn(state.params, state.model_state,
+                           self.put_batch(batch))
+
+    def evaluate(self, state, eval_fn, batches) -> dict:
+        """Paper protocol: evaluate each node's model on the full eval set,
+        then report each metric's mean over nodes and, as
+        ``<metric>_std_over_nodes``, its spread."""
+        totals: dict[str, np.ndarray] = {}
+        for batch in batches:
+            for k, v in self.eval_batch(state, eval_fn, batch).items():
+                totals[k] = totals.get(k, 0) + v.cpu().numpy()
+        if not totals:
+            return {}
+        count = totals.pop("count")
+        out = {}
+        for k, v in totals.items():
+            out[k] = float(np.mean(v / count))
+            out[k + "_std_over_nodes"] = float(np.std(v / count))
+        return out

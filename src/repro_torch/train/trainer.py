@@ -1,0 +1,228 @@
+"""Decentralized training engine.
+
+Port of ``repro/train/trainer.py``: ``TrainState``, ``lr_schedule``,
+``DecentralizedTrainer`` (``init``/``step``/``step_chunk``/``evaluate``),
+``run_training`` and ``run_training_scanned``.  The step math lives in the
+execution backend (``repro_torch.runtime``):
+
+    grads = per-node grad(loss)
+    params, opt_state = opt.step(params, grads, w=W_t, lr=eta_t, t=t)
+
+Where the reference fuses a chunk of steps under ``lax.scan``, the port
+runs them as a Python loop over one host-to-device copy of the chunk's
+batches (a CUDA graph of the chunk is later work).  The reference's per-step
+rng is dropped: no ported model draws random numbers in its loss.
+
+Model state stays per node and is never gossiped.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.optim import DecentralizedOptimizer
+from repro_torch.core.topology import Topology
+from repro_torch.core.transforms import FUSED_MODES
+from repro_torch.device import resolve_device
+from repro_torch.tree import tree_map
+
+__all__ = ["TrainState", "lr_schedule", "DecentralizedTrainer",
+           "run_training", "run_training_scanned"]
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Any             # [n, ...] tensors
+    opt_state: Any
+    model_state: Any        # [n, ...], never gossiped
+    t: torch.Tensor         # 0-d int32 step counter, on the device
+
+
+def lr_schedule(base_lr: float, *, total_steps: int, warmup: int = 0,
+                decay_at: tuple[float, ...] = (), decay: float = 0.1,
+                warmup_from: float = 0.1):
+    """Paper recipe: linear warmup from ``warmup_from``, then stage-wise
+    decay at the given fractions of total steps.  ``fn(t)`` takes the device
+    step counter and returns the fp32 [1] lr on that device."""
+    decay_steps = tuple(int(f * total_steps) for f in decay_at)
+
+    def fn(t):
+        t = t.to(torch.float32)
+        lr = torch.full_like(t, base_lr)
+        if warmup:
+            frac = torch.clamp(t / warmup, 0.0, 1.0)
+            start = min(warmup_from, base_lr)
+            lr = start + (base_lr - start) * frac
+        for ds in decay_steps:
+            lr = torch.where(t >= ds, lr * decay, lr)
+        return lr.reshape(1)
+
+    return fn
+
+
+@dataclasses.dataclass
+class DecentralizedTrainer:
+    """``loss_fn(params, model_state, batch) -> (loss [n], (model_state,
+    metrics))`` over node-stacked params and batches, one loss per node.
+
+    ``comm``, ``mesh``, ``overlap``, ``scenario`` and ``telemetry`` are the
+    reference's options that later slices of the port bring; set to
+    anything but their defaults they raise ``NotImplementedError``."""
+
+    loss_fn: Callable
+    optimizer: DecentralizedOptimizer
+    topology: Topology
+    lr_fn: Optional[Callable] = None  # defaults to optimizer.lr constant
+    device: Any = "cuda"
+    runtime: str = "auto"
+    comm: Any = None
+    mesh: Any = None
+    overlap: str = "none"
+    scenario: Any = None
+    telemetry: Any = None
+
+    def __post_init__(self):
+        if getattr(self.optimizer, "fused", "off") not in FUSED_MODES:
+            raise ValueError(
+                f"optimizer.fused must be one of {FUSED_MODES}, got "
+                f"{self.optimizer.fused!r}")
+        for option, value, default, where in (
+                ("comm", self.comm, None, 3), ("mesh", self.mesh, None, 8),
+                ("overlap", self.overlap, "none", 8),
+                ("scenario", self.scenario, None, 8),
+                ("telemetry", self.telemetry, None, 5)):
+            if value != default:
+                raise NotImplementedError(
+                    f"trainer option {option}={value!r} is not ported yet: "
+                    f"it comes with slice {where} of the port")
+        self.device = resolve_device(self.device)
+        if self.lr_fn is None:
+            lr = torch.full((1,), self.optimizer.lr, dtype=torch.float32,
+                            device=self.device)
+            self.lr_fn = lambda t: lr
+        self._mixing = torch.as_tensor(self.topology.mixing,
+                                       dtype=torch.float32).to(self.device)
+        from repro_torch.runtime import make_runtime
+        self._runtime = make_runtime(self, self.runtime)
+
+    # -- init ---------------------------------------------------------------
+    def init(self, init_fn, generator: torch.Generator) -> TrainState:
+        """``init_fn(generator) -> (params, model_state)`` for one node; every
+        node starts from the same x^0 (the paper's setup)."""
+        params, mstate = init_fn(generator)
+        n = self.topology.n
+        stack = lambda tree: tree_map(
+            lambda x: x.to(self.device).expand(n, *x.shape).clone(), tree)
+        params_n = stack(params)
+        return TrainState(params=params_n,
+                          opt_state=self.optimizer.init(params_n),
+                          model_state=stack(mstate),
+                          t=torch.zeros((), dtype=torch.int32,
+                                        device=self.device))
+
+    # -- steps ---------------------------------------------------------------
+    def step(self, state: TrainState, batch):
+        """One decentralized step on device tensors (see :meth:`put_batch`);
+        returns (new state, metrics as 0-d device tensors)."""
+        return self._runtime.step(state, batch)
+
+    def step_chunk(self, state: TrainState, batches):
+        """``k`` steps over batches stacked ``[k, n, ...]``; metrics come
+        back stacked ``[k]``."""
+        return self._runtime.step_chunk(state, batches)
+
+    def put_batch(self, batch):
+        """One host batch (a tuple of numpy arrays) onto the device."""
+        return self._runtime.put_batch(batch)
+
+    def evaluate(self, state: TrainState, eval_fn, batches) -> dict:
+        """Each node's model on the full eval set: each metric's mean over
+        nodes and its ``_std_over_nodes``."""
+        return self._runtime.evaluate(state, eval_fn, batches)
+
+
+def _record_step(history, i, steps, log_every, log_fn, get_metrics):
+    """The logging cadence shared by both loops: print+append on log_every
+    boundaries and the final step, append silently on the final step
+    otherwise.  ``get_metrics`` is called only for a recorded step."""
+    if log_every and (i % log_every == 0 or i == steps - 1):
+        m = get_metrics()
+        history.append({"step": i, **m})
+        log_fn(f"step {i:5d}  " + "  ".join(
+            f"{k}={v:.4f}" for k, v in m.items()))
+    elif i == steps - 1:
+        history.append({"step": i, **get_metrics()})
+
+
+def run_training(trainer: DecentralizedTrainer, state: TrainState,
+                 batch_iter, steps: int, *, log_every: int = 0,
+                 log_fn=print, step_offset: int = 0
+                 ) -> tuple[TrainState, list[dict]]:
+    """Per-step Python loop, one host-to-device copy per step."""
+    history = []
+    total = step_offset + steps
+    for i, batch in zip(range(step_offset, total), batch_iter):
+        state, metrics = trainer.step(state, trainer.put_batch(batch))
+        _record_step(history, i, total, log_every, log_fn,
+                     lambda: {k: float(v) for k, v in metrics.items()})
+    return state, history
+
+
+def run_training_scanned(trainer: DecentralizedTrainer, state: TrainState,
+                         batch_iter, steps: int, *, chunk: int = 16,
+                         log_every: int = 0, log_fn=print,
+                         step_offset: int = 0
+                         ) -> tuple[TrainState, list[dict]]:
+    """``run_training`` in chunks of ``chunk`` steps: the chunk's batches
+    are stacked on the host and copied to the device once, and its metrics
+    come back at most once.  Same math and the same history as
+    ``run_training``.  If ``batch_iter`` runs dry, the loop stops, warns
+    through ``log_fn``, and the history covers the steps that ran."""
+    it = iter(batch_iter)
+    history = []
+    done = 0
+    exhausted = False
+    last_metrics = None   # () -> metrics of the last executed step
+    while done < steps and not exhausted:
+        k = min(chunk, steps - done)
+        batches = []
+        for _ in range(k):
+            try:
+                batches.append(next(it))
+            except StopIteration:
+                exhausted = True
+                break
+        if not batches:
+            break
+        k = len(batches)
+        total = done + k if exhausted else steps
+        stacked = trainer.put_batch(
+            tuple(np.stack(xs) for xs in zip(*batches)))
+        state, metrics = trainer.step_chunk(state, stacked)
+
+        host: dict = {}  # chunk metrics, fetched once and only if needed
+
+        def chunk_metrics(j, metrics=metrics, host=host):
+            if not host:
+                host.update({mk: mv.cpu().numpy()
+                             for mk, mv in metrics.items()})
+            return {mk: float(mv[j]) for mk, mv in host.items()}
+
+        for j in range(k):
+            _record_step(history, step_offset + done + j,
+                         step_offset + total, log_every, log_fn,
+                         lambda j=j: chunk_metrics(j))
+        last_metrics = lambda k=k, cm=chunk_metrics: cm(k - 1)
+        done += k
+    if done < steps:
+        log_fn(f"warning: batch_iter exhausted after {done} steps "
+               f"({steps} requested); history covers the {done} steps run")
+        if last_metrics is not None and (
+                not history
+                or history[-1]["step"] != step_offset + done - 1):
+            history.append({"step": step_offset + done - 1,
+                            **last_metrics()})
+    return state, history
