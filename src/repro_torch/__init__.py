@@ -5,11 +5,14 @@ reference) module for module: ``repro_torch/core/transforms.py`` stands
 against ``repro/core/transforms.py`` and so on.  It imports ``torch`` and
 ``numpy`` only, never ``jax`` nor anything of ``repro``.
 
-Ported so far (slice 1, the main path): the quickstart presets end to end
--- synthetic classification data with a Dirichlet split, the ring topology,
+Ported so far: slice 1, the main path -- the quickstart presets end to end:
+synthetic classification data with a Dirichlet split, the ring topology,
 dense gossip, the DSGD/DSGDm/QG-DSGDm chains with the fused optimizer
 passes as hand-written CUDA kernels (``kernels/csrc/qg_update.cu``), the
-MLP, the vmap trainer and the spec/preset/``run`` API.
+MLP, the vmap trainer and the spec/preset/``run`` API; and slice 3,
+compressed gossip (``comm/``: CHOCO and error feedback with top-k,
+random-k, sign+norm and QSGD), whose three passes are CUDA kernels too
+(``kernels/csrc/compress.cu``).
 
 Entry points (``api.build``, ``api.run``, ``python -m repro_torch.api``)
 run on the CUDA device unless the caller passes ``device="cpu"``; there the

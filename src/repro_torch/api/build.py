@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.comm import count_mix_sites, make_comm
 from repro_torch.core import topology as topo_lib
 from repro_torch.core.optim import make_optimizer
 from repro_torch.device import describe_device, resolve_device
@@ -85,8 +86,12 @@ def build(spec: ExperimentSpec, *, device="cuda") -> Experiment:
     o = spec.optim
     opt = make_optimizer(o.name, lr=o.lr, weight_decay=o.weight_decay,
                          fused=o.fused, **o.kwargs)
-    trainer = DecentralizedTrainer(bundle.loss_fn, opt, topo, lr_fn=lr_fn,
-                                   device=dev, runtime=spec.runtime)
+    c = spec.comm
+    comm = make_comm(c.compressor, gamma=c.gamma,
+                     error_feedback=c.error_feedback, backend=c.backend)
+    trainer = DecentralizedTrainer(
+        bundle.loss_fn, opt, topo, lr_fn=lr_fn, device=dev,
+        runtime=spec.runtime, comm=comm, rng_seed=lp.rng_seed or 0)
     gen = torch.Generator().manual_seed(spec.seed)
     state = trainer.init(bundle.init_fn, gen)
     return Experiment(spec=spec, trainer=trainer, state=state, task=task,
@@ -94,15 +99,27 @@ def build(spec: ExperimentSpec, *, device="cuda") -> Experiment:
 
 
 def wire_stats(trainer: DecentralizedTrainer, params) -> dict:
-    """Bits each node puts on the wire per step: the full 32-bit tree once
-    per mix site (dense gossip; compressed comm comes with slice 3)."""
+    """Bits each node puts on the wire per step (one whole-tree
+    transmission per mix site).  Dense baseline: the full 32-bit tree per
+    site.  Compressed comm replaces it with the compressor's bits; the
+    anchor gossip is dense ``W @ x`` on one device, which ships no extra
+    message, so its bits are 0 (the reference charges them only under a
+    ppermute schedule, which comes with slice 8)."""
     per_node = sum(l[0].numel() for l in tree_leaves(params))
-    sites = sum(1 for s in trainer.optimizer._stages()
-                if (s.meta or {}).get("kind") == "gossip_mix")
-    bits = 32.0 * per_node * sites
-    return {"mix_sites": int(sites), "params_per_node": int(per_node),
-            "dense_bits_per_node_per_step": bits,
-            "bits_per_node_per_step": bits, "ratio_vs_dense": 1.0}
+    sites = count_mix_sites(trainer.optimizer, params, trainer._mixing[0])
+    dense_bits = 32.0 * per_node * sites
+    out = {"mix_sites": int(sites), "params_per_node": int(per_node),
+           "dense_bits_per_node_per_step": dense_bits}
+    if trainer.comm is not None:
+        comp_bits = trainer.comm.wire_bits_per_site(params) * sites
+        out["compressed_bits_per_node_per_step"] = comp_bits
+        out["anchor_bits_per_node_per_step"] = 0.0
+        out["bits_per_node_per_step"] = comp_bits
+    else:
+        out["bits_per_node_per_step"] = dense_bits
+    out["ratio_vs_dense"] = dense_bits / max(out["bits_per_node_per_step"],
+                                             1e-9)
+    return out
 
 
 def run(spec: ExperimentSpec, *, device="cuda", log_fn=print,

@@ -1,11 +1,18 @@
 """Preset registry: the paper's scenarios as named, serializable specs.
 
-Port of ``repro/api/presets.py`` for the quickstart pair, the main path:
+Port of ``repro/api/presets.py`` for the quickstart pair (the main path)
+and its compressed-gossip variants:
 
 | preset                            | scenario                              |
 |-----------------------------------|---------------------------------------|
 | quickstart_ring16_alpha0.1_dsgdm  | quickstart grid: DSGDm-N baseline     |
 | quickstart_ring16_alpha0.1_qg     | quickstart grid: QG-DSGDm-N (Table 1) |
+| choco_topk0.01_ring16_qg          | QG-DSGDm-N + CHOCO top-1% gossip      |
+| ef_signnorm_ring16_qg             | QG-DSGDm-N + EF sign+norm gossip      |
+
+The compressed presets say ``comm.backend='jnp'``, as the reference's do,
+so they run the unfused path; ``--set comm.backend=auto`` puts them on the
+kernels.
 
 The reference's other presets raise ``NotImplementedError`` naming the
 slice of the port that brings them.
@@ -14,8 +21,8 @@ from __future__ import annotations
 
 from typing import Callable
 
-from .spec import (DataSpec, ExperimentSpec, LoopSpec, ModelSpec, OptimSpec,
-                   TopologySpec)
+from .spec import (CommSpec, DataSpec, ExperimentSpec, LoopSpec, ModelSpec,
+                   OptimSpec, TopologySpec)
 
 __all__ = ["PRESETS", "register_preset", "get", "names"]
 
@@ -23,7 +30,6 @@ PRESETS: dict[str, Callable[[], ExperimentSpec]] = {}
 
 #: the reference's other presets, by the port slice that brings each
 _LATER = {"social32_alpha0.1_qg": 2, "exp16_alpha0.1_qg": 2,
-          "choco_topk0.01_ring16_qg": 3, "ef_signnorm_ring16_qg": 3,
           "cifar_ring16_alpha0.1_qg": 4, "lm100m_ring8_alpha0.1_qg": 6,
           "n1024_ring": 8, "n1024_powerlaw": 8, "n1024_churn": 8}
 
@@ -50,7 +56,7 @@ def names() -> list[str]:
     return sorted(PRESETS)
 
 
-def _quickstart(method: str, name: str) -> ExperimentSpec:
+def _quickstart(method: str, name: str, **kw) -> ExperimentSpec:
     return ExperimentSpec(
         name=name, seed=0,
         data=DataSpec(dataset="classification", alpha=0.1, batch=16,
@@ -59,7 +65,8 @@ def _quickstart(method: str, name: str) -> ExperimentSpec:
         topology=TopologySpec(name="ring", n=16),
         optim=OptimSpec(name=method, lr=0.1, weight_decay=1e-4),
         loop=LoopSpec(steps=150, chunk=25, log_every=50),
-        model=ModelSpec(name="mlp", kwargs={"init": "quickstart"}))
+        model=ModelSpec(name="mlp", kwargs={"init": "quickstart"}),
+        **kw)
 
 
 @register_preset("quickstart_ring16_alpha0.1_dsgdm")
@@ -70,3 +77,18 @@ def _qs_dsgdm():
 @register_preset("quickstart_ring16_alpha0.1_qg")
 def _qs_qg():
     return _quickstart("qg_dsgdm_n", "quickstart_ring16_alpha0.1_qg")
+
+
+@register_preset("choco_topk0.01_ring16_qg")
+def _choco():
+    return _quickstart(
+        "qg_dsgdm_n", "choco_topk0.01_ring16_qg",
+        comm=CommSpec(compressor="topk:0.01"))
+
+
+@register_preset("ef_signnorm_ring16_qg")
+def _ef():
+    return _quickstart(
+        "qg_dsgdm_n", "ef_signnorm_ring16_qg",
+        comm=CommSpec(compressor="signnorm", gamma=0.3,
+                      error_feedback=True))

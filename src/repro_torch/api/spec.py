@@ -4,10 +4,10 @@ Port of ``repro/api/spec.py``.  The spec tree is the reference's, field for
 field, so the port loads the reference's JSON unchanged
 (``ExperimentSpec.from_json(reference_spec.to_json())``) and round-trips it
 losslessly.  ``validate()`` accepts the subset that the port runs today:
-the ring topology, the main-path optimizers, dense uncompressed gossip on
-the vmap runtime, the MLP on classification data.  Anything outside it
-raises ``NotImplementedError`` naming the slice of the port that brings it;
-malformed values raise ``ValueError`` as in the reference.
+the ring topology, the main-path optimizers, dense gossip (plain or
+compressed) on the vmap runtime, the MLP on classification data.  Anything
+outside it raises ``NotImplementedError`` naming the slice of the port that
+brings it; malformed values raise ``ValueError`` as in the reference.
 """
 from __future__ import annotations
 
@@ -76,13 +76,15 @@ class OptimSpec:
 
 @dataclasses.dataclass(frozen=True)
 class CommSpec:
-    """Compressed-gossip schedule.  The port runs ``compressor='dense'``
-    (no comm wrapping) only; compressors come with slice 3."""
+    """Compressed-gossip schedule (``comm/choco.py``).  ``backend`` keeps
+    the reference's meaning: 'jnp' is the unfused path of plain PyTorch
+    expressions, leaf by leaf; 'pallas' and 'auto' go through the kernels
+    (CUDA kernels on the card, their plain versions on the CPU)."""
 
     compressor: str = "dense"
     gamma: float | None = None        # None -> per-compressor default
     error_feedback: bool = False      # EF14 value exchange vs CHOCO replicas
-    backend: str = "jnp"              # the reference's compressor backend
+    backend: str = "jnp"              # 'jnp' | 'pallas' | 'auto'
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,7 +102,8 @@ class LoopSpec:
     """Training loop + lr schedule.  ``chunk=1`` runs the per-step loop;
     ``chunk>1`` copies that many steps' batches to the device at once
     (step-identical).  ``warmup==0 and decay_at==()`` keeps the optimizer's
-    constant lr.  ``rng_seed`` is the reference's loop rng, unused here."""
+    constant lr.  ``rng_seed`` (None = 0) seeds the compressors' random
+    draws; the reference seeds its loop rng with it."""
 
     steps: int = 150
     chunk: int = 1
@@ -224,6 +227,7 @@ class ExperimentSpec:
         ``NotImplementedError`` on a valid one the port does not run yet;
         return self so ``spec.validate()`` chains."""
         from repro_torch.api.models import MODEL_DATASETS, MODELS
+        from repro_torch.comm.compressors import BACKENDS, make_compressor
         from repro_torch.core import topology as topo_lib
         from repro_torch.core.optim import OPTIMIZERS, make_optimizer
         from repro_torch.core.transforms import FUSED_MODES
@@ -253,11 +257,16 @@ class ExperimentSpec:
         if self.optim.fused not in FUSED_MODES:
             err("optim.fused", f"must be one of {FUSED_MODES}, got "
                 f"{self.optim.fused!r}")
-        # comm, runtime, gossip schedule, overlap
-        if self.comm.compressor != "dense":
-            later("comm.compressor", f"compressor {self.comm.compressor!r}",
-                  3)
-        if self.comm.backend not in ("jnp", "pallas", "auto"):
+        # comm (make_compressor lists the valid forms), runtime, gossip
+        # schedule, overlap
+        try:
+            make_compressor(self.comm.compressor)
+        except ValueError as e:
+            err("comm.compressor", str(e))
+        if self.comm.gamma is not None and not 0.0 < self.comm.gamma <= 1.0:
+            err("comm.gamma", f"must be in (0, 1] or None, got "
+                f"{self.comm.gamma}")
+        if self.comm.backend not in BACKENDS:
             err("comm.backend", f"must be 'jnp', 'pallas' or 'auto', got "
                 f"{self.comm.backend!r}")
         if self.runtime not in RUNTIMES:

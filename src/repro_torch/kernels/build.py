@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels under ``csrc/``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
-into its own shared library, loaded with ``ctypes``.  Libraries land in
+into its own shared library, loaded with ``ctypes``; the headers beside the
+sources (``*.cuh``) are shared between them.  Libraries land in
 ``build/torch_kernels/`` at the root of the checkout (``.gitignore`` lists
 ``build/``), keyed by a hash of the sources and flags, so the first CUDA use
 in a fresh checkout builds them and later uses load them.  Nothing here runs
@@ -18,7 +19,10 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build", "load", "find_nvcc"]
+import torch
+
+__all__ = ["NVCC_FLAGS", "build", "load", "find_nvcc", "bind",
+           "check_operands", "launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -104,3 +108,54 @@ def load(name: str) -> ctypes.CDLL:
     checkout has not built these sources yet (callers keep the handle)."""
     build(name)
     return ctypes.CDLL(str(_library_path(name)))
+
+
+def bind(name: str, signatures: dict, error_fn: str) -> ctypes.CDLL:
+    """:func:`load` ``name`` and type each C function of ``signatures``
+    (``{fn: argtypes}``, all returning an int error code) and the library's
+    ``error_fn(int) -> const char*``."""
+    lib = load(name)
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    getattr(lib, error_fn).argtypes = [ctypes.c_int]
+    getattr(lib, error_fn).restype = ctypes.c_char_p
+    return lib
+
+
+def check_operands(kernel: str, streams: dict, scalars: dict | None = None,
+                   *, scalar_len: int = 1) -> torch.device:
+    """Raise unless every stream operand is a contiguous fp32 CUDA tensor of
+    one length on one device, and every scalar operand one of
+    ``scalar_len`` elements there too (an lr, or one value per row)."""
+    scalars = scalars or {}
+    first = next(iter(streams.values()))
+    dev, n = first.device, first.numel()
+    for arg, t in {**streams, **scalars}.items():
+        if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+            raise ValueError(f"{kernel}: {arg} must be a CUDA tensor (CPU "
+                             "tensors go through kernels.ops)")
+        if t.device != dev:
+            raise ValueError(f"{kernel}: {arg} is on {t.device}, not {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{kernel}: {arg} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {arg} must be contiguous")
+        want = scalar_len if arg in scalars else n
+        if t.numel() != want:
+            raise ValueError(f"{kernel}: {arg} has {t.numel()} elements, "
+                             f"want {want}")
+    return dev
+
+
+def launch(lib: ctypes.CDLL, error_fn: str, counts: dict, kernel: str,
+           fn: str, dev: torch.device, *args) -> None:
+    """Call ``lib.fn(*args, stream)`` on ``dev``'s current stream, raise on
+    a non-zero CUDA error code, and count one launch of ``kernel``."""
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed: "
+                           f"{getattr(lib, error_fn)(rc).decode()} ({rc})")
+    counts[kernel] += 1

@@ -22,10 +22,10 @@
 // per thread from device memory.
 //
 // Design (simple and right first; speed is later work):
-//   * a 1-D grid-stride loop with 64-bit indices; the ragged tail is
-//     masked, so no padding is needed whatever the packed length;
-//   * float4 loads and stores only when every pointer is 16-byte aligned,
-//     else the scalar loop;
+//   * launch3 of elementwise.cuh: a 1-D grid-stride loop with 64-bit
+//     indices and a masked ragged tail, so no padding is needed whatever
+//     the packed length; float4 loads and stores only when every pointer
+//     is 16-byte aligned, else the scalar loop;
 //   * lr and refresh are fp32 [1] device operands, never host values, so a
 //     step holds no host sync and stays capturable in a CUDA graph;
 //   * every product, sum and quotient is an explicit round-to-nearest
@@ -35,14 +35,9 @@
 //   * launched on the caller's stream; no sync and no allocation inside.
 //     Each launcher returns cudaGetLastError() for the wrapper to check.
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "elementwise.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;  // 8 x 256 threads = an SM's 2048
 
 struct Halfstep {
   const float* eta;  // fp32 [1] on the device
@@ -116,72 +111,6 @@ struct BufferUpdate {
   }
   __device__ __forceinline__ BufferUpdate bind() const { return *this; }
 };
-
-// One pass over three fp32 inputs into one output, or two when o1 is set.
-template <class Op, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-    stream3(const float* __restrict__ a, const float* __restrict__ b,
-            const float* __restrict__ c, float* __restrict__ o0,
-            float* __restrict__ o1, int64_t n, Op op) {
-  const auto f = op.bind();
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t tid =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  int64_t start = 0;
-  if (kVec) {
-    const int64_t nv = n >> 2;
-    const float4* a4 = reinterpret_cast<const float4*>(a);
-    const float4* b4 = reinterpret_cast<const float4*>(b);
-    const float4* c4 = reinterpret_cast<const float4*>(c);
-    float4* o04 = reinterpret_cast<float4*>(o0);
-    float4* o14 = reinterpret_cast<float4*>(o1);
-    for (int64_t v = tid; v < nv; v += stride) {
-      const float4 x = a4[v], y = b4[v], z = c4[v];
-      float4 r0, r1;
-      f(x.x, y.x, z.x, r0.x, r1.x);
-      f(x.y, y.y, z.y, r0.y, r1.y);
-      f(x.z, y.z, z.z, r0.z, r1.z);
-      f(x.w, y.w, z.w, r0.w, r1.w);
-      o04[v] = r0;
-      if (o1 != nullptr) o14[v] = r1;
-    }
-    start = nv << 2;
-  }
-  for (int64_t i = start + tid; i < n; i += stride) {  // masked ragged tail
-    float r0, r1;
-    f(a[i], b[i], c[i], r0, r1);
-    o0[i] = r0;
-    if (o1 != nullptr) o1[i] = r1;
-  }
-}
-
-bool aligned16(const void* p) {
-  return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
-
-template <class Op>
-int launch3(const float* a, const float* b, const float* c, float* o0,
-            float* o1, int64_t n, Op op, void* stream) {
-  if (n <= 0) return cudaSuccess;
-  const bool vec = aligned16(a) && aligned16(b) && aligned16(c) &&
-                   aligned16(o0) && aligned16(o1);
-  const int64_t work = vec ? (n + 3) / 4 : n;
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  const int64_t cap = static_cast<int64_t>(sms) * kBlocksPerSm;
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  if (blocks > cap) blocks = cap;
-  const dim3 grid(static_cast<unsigned>(blocks));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec)
-    stream3<Op, true><<<grid, kThreads, 0, s>>>(a, b, c, o0, o1, n, op);
-  else
-    stream3<Op, false><<<grid, kThreads, 0, s>>>(a, b, c, o0, o1, n, op);
-  return cudaGetLastError();
-}
 
 }  // namespace
 

@@ -1,20 +1,23 @@
 """Public kernel entry points: dispatch by the tensors' device.
 
-Port of ``repro/kernels/ops.py`` for the ``qg_update`` kernels.  Where the
-reference picks Pallas interpret mode off the TPU, the port picks by device:
-CPU tensors go to the plain PyTorch version (``kernels/ref.py``), CUDA
-tensors to the hand-written kernel (``kernels/qg_update.py``), which
-launches or raises.  There is no fallback from one to the other.
+Port of ``repro/kernels/ops.py`` for the ``qg_update`` and ``compress``
+kernels.  Where the reference picks Pallas interpret mode off the TPU, the
+port picks by device: CPU tensors go to the plain PyTorch version
+(``kernels/ref.py``), CUDA tensors to the hand-written kernel
+(``kernels/qg_update.py``, ``kernels/compress.py``), which launches or
+raises.  There is no fallback from one to the other.
 """
 from __future__ import annotations
 
 import torch
 
+from . import compress as _cmp
 from . import qg_update as _qg
 from . import ref
 
 __all__ = ["fused_halfstep", "fused_qg_buffer", "qg_local_step",
-           "qg_buffer_update", "launch_counts", "reset_launch_counts"]
+           "qg_buffer_update", "gamma_correct", "threshold_mask",
+           "quantize_dequantize", "launch_counts", "reset_launch_counts"]
 
 
 def _on_cpu(*args) -> bool:
@@ -59,11 +62,33 @@ def qg_buffer_update(x_old, x_new, m_hat, *, eta, mu):
     return _qg.qg_buffer_update(x_old, x_new, m_hat, eta=eta, mu=mu)
 
 
+def gamma_correct(x, mixed, anchor, *, gamma):
+    if _on_cpu(x, mixed, anchor):
+        return ref.gamma_correct(x, mixed, anchor, gamma=gamma)
+    return _cmp.gamma_correct(x, mixed, anchor, gamma=gamma)
+
+
+def threshold_mask(x2d, thr):
+    if _on_cpu(x2d, thr):
+        return ref.threshold_mask(x2d, thr)
+    return _cmp.threshold_mask(x2d, thr)
+
+
+def quantize_dequantize(x2d, scale, u, *, levels):
+    if _on_cpu(x2d, scale, u):
+        return ref.quantize_dequantize(x2d, scale, u, levels=levels)
+    return _cmp.quantize_dequantize(x2d, scale, u, levels=levels)
+
+
+_COUNTERS = (_qg.LAUNCHES, _cmp.LAUNCHES)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far in this process, by kernel name."""
-    return dict(_qg.LAUNCHES)
+    return {k: v for c in _COUNTERS for k, v in c.items()}
 
 
 def reset_launch_counts() -> None:
-    for k in _qg.LAUNCHES:
-        _qg.LAUNCHES[k] = 0
+    for c in _COUNTERS:
+        for k in c:
+            c[k] = 0

@@ -46,55 +46,19 @@ _SIGNATURES = {
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The typed library handle, built on the first CUDA launch."""
-    lib = _build.load("qg_update")
-    for fn, argtypes in _SIGNATURES.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    lib.qg_error_string.argtypes = [ctypes.c_int]
-    lib.qg_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check(name: str, streams: dict,
-           scalars: dict | None = None) -> torch.device:
-    """Raise unless every stream operand is a contiguous fp32 CUDA tensor of
-    one length on one device, and every scalar a fp32 [1] there too."""
-    scalars = scalars or {}
-    first = next(iter(streams.values()))
-    dev, n = first.device, first.numel()
-    for arg, t in {**streams, **scalars}.items():
-        if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
-            raise ValueError(f"{name}: {arg} must be a CUDA tensor (CPU "
-                             "tensors go through kernels.ops)")
-        if t.device != dev:
-            raise ValueError(f"{name}: {arg} is on {t.device}, not {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous")
-        want = 1 if arg in scalars else n
-        if t.numel() != want:
-            raise ValueError(f"{name}: {arg} has {t.numel()} elements, "
-                             f"want {want}")
-    return dev
+    return _build.bind("qg_update", _SIGNATURES, "qg_error_string")
 
 
 def _run(kernel: str, fn: str, dev: torch.device, *args) -> None:
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, fn)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{kernel}: CUDA launch failed: "
-                           f"{lib.qg_error_string(rc).decode()} ({rc})")
-    LAUNCHES[kernel] += 1
+    _build.launch(_lib(), "qg_error_string", LAUNCHES, kernel, fn, dev, *args)
 
 
 def fused_halfstep(x, m, g, eta, *, beta: float, wd: float = 0.0,
                    nesterov: bool = False, emit_m: bool = True):
     """``(half, m_new)`` with ``emit_m``, else ``half``; see the module
     docstring.  ``eta`` is a fp32 [1] CUDA tensor."""
-    dev = _check("fused_halfstep", {"x": x, "m": m, "g": g}, {"eta": eta})
+    dev = _build.check_operands("fused_halfstep", {"x": x, "m": m, "g": g},
+                                {"eta": eta})
     half = torch.empty_like(x)
     m_new = torch.empty_like(x) if emit_m else None
     if x.numel():
@@ -108,9 +72,9 @@ def fused_halfstep(x, m, g, eta, *, beta: float, wd: float = 0.0,
 def fused_qg_buffer(x_pre, x_post, m_hat, eta, refresh, *, mu: float):
     """``mu*m_hat + (1-mu)*(x_pre - x_post)/eta`` where ``refresh != 0``,
     else ``m_hat``.  ``eta`` and ``refresh`` are fp32 [1] CUDA tensors."""
-    dev = _check("fused_qg_buffer",
-                 {"x_pre": x_pre, "x_post": x_post, "m_hat": m_hat},
-                 {"eta": eta, "refresh": refresh})
+    dev = _build.check_operands(
+        "fused_qg_buffer", {"x_pre": x_pre, "x_post": x_post, "m_hat": m_hat},
+        {"eta": eta, "refresh": refresh})
     out = torch.empty_like(m_hat)
     if out.numel():
         _run("fused_qg_buffer", "qg_fused_qg_buffer", dev,
@@ -124,7 +88,8 @@ def qg_local_step(x, m_hat, g, *, eta: float, beta: float,
                   nesterov: bool = False):
     """``x - eta*(beta*m_hat + g)`` (Nesterov: ``x - eta*(g +
     beta*(beta*m_hat + g))``) with a static ``eta``."""
-    dev = _check("qg_local_step", {"x": x, "m_hat": m_hat, "g": g})
+    dev = _build.check_operands("qg_local_step",
+                                {"x": x, "m_hat": m_hat, "g": g})
     out = torch.empty_like(x)
     if out.numel():
         _run("qg_local_step", "qg_local_step", dev,
@@ -135,8 +100,8 @@ def qg_local_step(x, m_hat, g, *, eta: float, beta: float,
 
 def qg_buffer_update(x_old, x_new, m_hat, *, eta: float, mu: float):
     """``mu*m_hat + (1-mu)*(x_old - x_new)/eta`` with a static ``eta``."""
-    dev = _check("qg_buffer_update",
-                 {"x_old": x_old, "x_new": x_new, "m_hat": m_hat})
+    dev = _build.check_operands(
+        "qg_buffer_update", {"x_old": x_old, "x_new": x_new, "m_hat": m_hat})
     out = torch.empty_like(m_hat)
     if out.numel():
         _run("qg_buffer_update", "qg_buffer_update", dev,

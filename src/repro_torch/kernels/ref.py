@@ -1,10 +1,15 @@
-"""Plain PyTorch versions of the four ``qg_update`` kernels.
+"""Plain PyTorch versions of the ``qg_update`` and ``compress`` kernels.
 
-Port of ``repro/kernels/ref.py:16-52``.  Each function keeps the expression
-order of the Pallas body it stands for (``repro/kernels/qg_update.py``), so
-that on the same fp32 inputs it rounds exactly as the CUDA kernel in
-``csrc/qg_update.cu`` does: every product and sum is its own rounded
-operation, and the coefficients fold the way the reference folds them.
+Port of ``repro/kernels/ref.py:16-80``.  Each function keeps the expression
+order of the Pallas body it stands for (``repro/kernels/qg_update.py``,
+``repro/kernels/compress.py``), so that on the same fp32 inputs it rounds
+exactly as the CUDA kernel in ``csrc/qg_update.cu`` or ``csrc/compress.cu``
+does: every product, sum and quotient is its own rounded operation, and the
+coefficients fold the way the reference folds them.  A quotient is always a
+true division of two tensors on one device: PyTorch computes
+``scalar / tensor`` as ``tensor.reciprocal() * scalar``, and on CUDA
+``tensor / python_scalar`` as a product with the reciprocal, neither of which
+rounds as the reference's division does.
 They are the kernels' test oracle and serve CPU tensors in
 ``kernels/ops.py``; they run on any device.
 """
@@ -13,7 +18,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["qg_local_step", "qg_buffer_update", "fused_halfstep",
-           "fused_qg_buffer"]
+           "fused_qg_buffer", "gamma_correct", "threshold_mask",
+           "quantize_dequantize"]
 
 
 def _scalar(v, like: torch.Tensor) -> torch.Tensor:
@@ -58,3 +64,32 @@ def fused_qg_buffer(x_pre, x_post, m_hat, eta, refresh, *, mu: float):
     d = s * (x_pre - x_post)
     new = mu * m_hat + (1.0 - mu) * d
     return torch.where(_scalar(refresh, x_pre) != 0.0, new, m_hat)
+
+
+def gamma_correct(x, mixed, anchor, *, gamma: float) -> torch.Tensor:
+    """CHOCO/EF post-exchange correction ``x + gamma*(mixed - anchor)``;
+    ``gamma`` rounds to fp32 as the reference's weak-typed scalar does."""
+    return x + gamma * (mixed - anchor)
+
+
+def threshold_mask(x2d, thr):
+    """Magnitude-threshold sparsification with residual.  ``x2d`` [rows, f],
+    ``thr`` [rows]; keeps every entry with ``|x| >= thr`` of its row (ties at
+    the threshold included).  Returns ``(kept, residual)`` in fp32."""
+    x = x2d.to(torch.float32)
+    q = torch.where(x.abs() >= thr.to(torch.float32)[:, None], x, 0.0)
+    return q, x - q
+
+
+def quantize_dequantize(x2d, scale, u, *, levels: int):
+    """QSGD stochastic quantize->dequantize with residual.  ``x2d`` [rows, f],
+    ``scale`` [rows] (max ``|x|`` per row), ``u`` [rows, f] uniform in
+    [0, 1); ``q = sign(x) * min(floor(|x|*(L/s) + u), L) * (s/L)`` with
+    ``s = max(scale, 1e-12)``.  Returns ``(q, x - q)`` in fp32."""
+    x = x2d.to(torch.float32)
+    s = torch.clamp_min(scale.to(torch.float32), 1e-12)[:, None]
+    lv = torch.full_like(s, float(levels))
+    y = x.abs() * (lv / s)
+    xi = torch.clamp_max(torch.floor(y + u.to(torch.float32)), levels)
+    q = torch.sign(x) * xi * (s / lv)
+    return q, x - q

@@ -4,9 +4,10 @@ Port of the synchronous path of ``repro/runtime/base.py``: per-node
 loss/grad (``_stage_compute``), then the transform-stage chain with the
 gossip round (``_stage_finish_mix``), composed by ``_step_math``;
 ``_chunk_math`` runs k of those steps.  The node index is the stacked
-leading axis of every tensor.  The reference's overlap pipeline, scenario
-masks, compressed comm and telemetry come with later slices of the port;
-the trainer refuses them.
+leading axis of every tensor.  With compressed comm the gossip round is a
+CHOCO/EF round against the state's per-site ``comm_state``.  The
+reference's overlap pipeline, scenario masks and telemetry come with later
+slices of the port; the trainer refuses them.
 
 A step reads nothing back to the host: the lr, the step counter and every
 metric stay on the device, and a chunk's metrics are fetched once, when the
@@ -48,9 +49,21 @@ class Runtime:
                                                               list(grads))
 
     def _stage_finish_mix(self, state, grads, w, lr):
-        """The transform-stage chain: local update + gossip round."""
-        return self.trainer.optimizer.step(
+        """The transform-stage chain: local update + gossip round, with the
+        mix hook swapped for a compressed round when the trainer has comm
+        (one site per mix call).  Returns ``(new_params, new_opt,
+        new_comm)``."""
+        tr = self.trainer
+        opt = tr.optimizer
+        new_comm = state.comm_state
+        if tr.comm is not None and state.comm_state is not None:
+            sites_in = list(state.comm_state)
+            new_comm = list(sites_in)
+            opt = dataclasses.replace(opt, mix_fn=tr.comm.make_mix_fn(
+                sites_in, new_comm, tr._comm_gen, tr._comm_gamma))
+        new_params, new_opt = opt.step(
             state.params, grads, state.opt_state, w=w, lr=lr, t=state.t)
+        return new_params, new_opt, new_comm
 
     def _mixing_at(self, t):
         """``mixing[t % T]`` without reading ``t`` on the host."""
@@ -69,7 +82,7 @@ class Runtime:
         n = tr.topology.n
         lr = tr.lr_fn(state.t)
         loss, new_ms, metrics, grads = self._stage_compute(state, batch)
-        new_params, new_opt = self._stage_finish_mix(
+        new_params, new_opt, new_comm = self._stage_finish_mix(
             state, grads, self._mixing_at(state.t), lr)
         out = {
             "loss": torch.mean(loss),
@@ -79,9 +92,18 @@ class Runtime:
                 torch.sum(g.to(torch.float32) ** 2)
                 for g in tree_leaves(grads)) / n),
         }
+        if tr.comm is not None and state.comm_state is not None:
+            # constants: filled on the device, never copied from the host
+            out["comm_bits_per_node"] = torch.full(
+                (), tr._comm_bits * len(state.comm_state),
+                dtype=torch.float32, device=tr.device)
+            out["comm_ratio"] = torch.full(
+                (), tr._dense_bits / max(tr._comm_bits, 1e-9),
+                dtype=torch.float32, device=tr.device)
         for k, v in metrics.items():
             out[k] = torch.mean(v)
-        return TrainState(new_params, new_opt, new_ms, state.t + 1), out
+        return TrainState(new_params, new_opt, new_ms, state.t + 1,
+                          new_comm), out
 
     def _chunk_math(self, state, batches):
         """``k`` steps over a batch tuple stacked ``[k, n, ...]``; the

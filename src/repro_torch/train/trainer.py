@@ -11,7 +11,9 @@ execution backend (``repro_torch.runtime``):
 Where the reference fuses a chunk of steps under ``lax.scan``, the port
 runs them as a Python loop over one host-to-device copy of the chunk's
 batches (a CUDA graph of the chunk is later work).  The reference's per-step
-rng is dropped: no ported model draws random numbers in its loss.
+rng is dropped: no ported model draws random numbers in its loss.  The
+compressors that draw (random-k, QSGD) draw from the trainer's own
+``torch.Generator`` on its device, seeded with ``rng_seed``.
 
 Model state stays per node and is never gossiped.
 """
@@ -27,7 +29,7 @@ from repro_torch.core.optim import DecentralizedOptimizer
 from repro_torch.core.topology import Topology
 from repro_torch.core.transforms import FUSED_MODES
 from repro_torch.device import resolve_device
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["TrainState", "lr_schedule", "DecentralizedTrainer",
            "run_training", "run_training_scanned"]
@@ -39,6 +41,7 @@ class TrainState:
     opt_state: Any
     model_state: Any        # [n, ...], never gossiped
     t: torch.Tensor         # 0-d int32 step counter, on the device
+    comm_state: Any = None  # compressed-gossip sites: one dict per mix call
 
 
 def lr_schedule(base_lr: float, *, total_steps: int, warmup: int = 0,
@@ -68,7 +71,10 @@ class DecentralizedTrainer:
     """``loss_fn(params, model_state, batch) -> (loss [n], (model_state,
     metrics))`` over node-stacked params and batches, one loss per node.
 
-    ``comm``, ``mesh``, ``overlap``, ``scenario`` and ``telemetry`` are the
+    ``comm`` is a :class:`~repro_torch.comm.CompressedGossip` (or None for
+    dense gossip); its random draws come from a ``torch.Generator`` on
+    ``device`` seeded with ``rng_seed``, which advances from step to step.
+    ``mesh``, ``overlap``, ``scenario`` and ``telemetry`` are the
     reference's options that later slices of the port bring; set to
     anything but their defaults they raise ``NotImplementedError``."""
 
@@ -79,6 +85,7 @@ class DecentralizedTrainer:
     device: Any = "cuda"
     runtime: str = "auto"
     comm: Any = None
+    rng_seed: int = 0
     mesh: Any = None
     overlap: str = "none"
     scenario: Any = None
@@ -90,7 +97,7 @@ class DecentralizedTrainer:
                 f"optimizer.fused must be one of {FUSED_MODES}, got "
                 f"{self.optimizer.fused!r}")
         for option, value, default, where in (
-                ("comm", self.comm, None, 3), ("mesh", self.mesh, None, 8),
+                ("mesh", self.mesh, None, 8),
                 ("overlap", self.overlap, "none", 8),
                 ("scenario", self.scenario, None, 8),
                 ("telemetry", self.telemetry, None, 5)):
@@ -105,8 +112,22 @@ class DecentralizedTrainer:
             self.lr_fn = lambda t: lr
         self._mixing = torch.as_tensor(self.topology.mixing,
                                        dtype=torch.float32).to(self.device)
+        self._comm_gen = None
+        self._comm_gamma = None   # resolved on first sight of params
+        if self.comm is not None:
+            self._comm_gen = torch.Generator(
+                device=self.device).manual_seed(self.rng_seed)
         from repro_torch.runtime import make_runtime
         self._runtime = make_runtime(self, self.runtime)
+
+    def _comm_setup(self, params) -> None:
+        """Resolve gamma and the wire bits per site and node once."""
+        if self.comm is None or self._comm_gamma is not None:
+            return
+        self._comm_gamma = self.comm.resolved_gamma(params)
+        self._comm_bits = self.comm.wire_bits_per_site(params)
+        self._dense_bits = sum(32.0 * l.numel() / l.shape[0]
+                               for l in tree_leaves(params))
 
     # -- init ---------------------------------------------------------------
     def init(self, init_fn, generator: torch.Generator) -> TrainState:
@@ -117,21 +138,28 @@ class DecentralizedTrainer:
         stack = lambda tree: tree_map(
             lambda x: x.to(self.device).expand(n, *x.shape).clone(), tree)
         params_n = stack(params)
+        comm_state = None
+        if self.comm is not None:
+            comm_state = self.comm.init_state(self.optimizer, params_n,
+                                              self._mixing[0])
         return TrainState(params=params_n,
                           opt_state=self.optimizer.init(params_n),
                           model_state=stack(mstate),
                           t=torch.zeros((), dtype=torch.int32,
-                                        device=self.device))
+                                        device=self.device),
+                          comm_state=comm_state)
 
     # -- steps ---------------------------------------------------------------
     def step(self, state: TrainState, batch):
         """One decentralized step on device tensors (see :meth:`put_batch`);
         returns (new state, metrics as 0-d device tensors)."""
+        self._comm_setup(state.params)
         return self._runtime.step(state, batch)
 
     def step_chunk(self, state: TrainState, batches):
         """``k`` steps over batches stacked ``[k, n, ...]``; metrics come
         back stacked ``[k]``."""
+        self._comm_setup(state.params)
         return self._runtime.step_chunk(state, batches)
 
     def put_batch(self, batch):

@@ -1,7 +1,8 @@
 """The port's kernel modules on the CPU: the plain versions of the four
-``qg_update`` kernels against the JAX package's Pallas kernels (interpret
-mode) and its ``kernels/ref.py``; ``pack``/``unpack``; the bytes-moved
-model; and the device dispatch of ``kernels/ops.py``.
+``qg_update`` and the three ``compress`` kernels against the JAX package's
+Pallas kernels (interpret mode) and its ``kernels/ref.py``;
+``pack``/``unpack``; the bytes-moved model; and the device dispatch of
+``kernels/ops.py``.
 
 Tolerances: against the reference's eager ``ref.py`` the plain versions are
 exact -- the same fp32 operations in the same order, each rounded once --
@@ -18,11 +19,13 @@ import torch
 
 from repro.core import optim as joptim
 from repro.core import transforms as jT
+from repro.kernels import compress as jcmp
 from repro.kernels import ops as jops
 from repro.kernels import pack as jpack
 from repro.kernels import ref as jref
 from repro_torch.core import optim as toptim
 from repro_torch.core import transforms as tT
+from repro_torch.kernels import compress as tC
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pack as tpack
 from repro_torch.kernels import qg_update as tK
@@ -121,6 +124,97 @@ def test_qg_buffer_update_plain_matches_reference(shape, mu):
     np.testing.assert_allclose(out.numpy(), np.asarray(want_ref), atol=1e-5)
     np.testing.assert_allclose(out.numpy(), np.asarray(want_pal), rtol=1e-6,
                                atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# compress kernels
+# ---------------------------------------------------------------------------
+
+def _bits_equal(got, want):
+    """Equal to the bit, except that +0 and -0 count as equal (the sign of a
+    zero from sign(x)*xi is not part of the contract)."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)   # -0 == +0 here
+    same = (got.view(np.int32) == want.view(np.int32)) | (got == 0)
+    assert same.all()
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("gamma", [0.3, 0.0123])
+def test_gamma_correct_plain_matches_reference(shape, gamma):
+    x, mx, h = _inputs(shape, seed=6)
+    out = tops.gamma_correct(_t(x), _t(mx), _t(h), gamma=gamma)
+    want_ref = jref.gamma_correct_ref(jnp.asarray(x), jnp.asarray(mx),
+                                      jnp.asarray(h), gamma=gamma)
+    want_pal = jops.gamma_correct(jnp.asarray(x).reshape(-1),
+                                  jnp.asarray(mx).reshape(-1),
+                                  jnp.asarray(h).reshape(-1), gamma=gamma,
+                                  interpret=True)
+    assert tuple(out.shape) == shape and out.dtype == torch.float32
+    _bits_equal(out.numpy(), want_ref)
+    np.testing.assert_allclose(out.numpy().reshape(-1), np.asarray(want_pal),
+                               **PALLAS_TOL)
+
+
+#: the reference's parity shapes (tests/test_comm.py), the quickstart MLP's
+#: four node-stacked leaves, and odd ones
+ROW_SHAPES = [(1, 1), (1, 64), (3, 517), (5, 2048), (2, 130001), (16, 20),
+              (16, 64), (16, 1280), (16, 12288)]
+
+
+def _rows(shape, seed):
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", ROW_SHAPES)
+def test_threshold_mask_plain_matches_reference(shape):
+    x = _rows(shape, 7)
+    # ties at the threshold: the row's first entry repeats its k-th
+    # magnitude with the other sign, and both must be kept
+    k = max(1, shape[1] // 10)
+    thr = -np.sort(-np.abs(x), axis=1)[:, k - 1].astype(np.float32)
+    if shape[1] > 1:
+        x[:, 0] = -thr
+    q, r = tops.threshold_mask(_t(x), _t(thr))
+    qr, rr = jref.threshold_mask_ref(jnp.asarray(x), jnp.asarray(thr))
+    qp, rp = jcmp.threshold_mask(jnp.asarray(x), jnp.asarray(thr),
+                                 interpret=True)
+    for got, want_ref, want_pal in ((q, qr, qp), (r, rr, rp)):
+        _bits_equal(got.numpy(), want_ref)
+        _bits_equal(got.numpy(), want_pal)
+    assert ((q.numpy() != 0) == (np.abs(x) >= thr[:, None])).all()
+    np.testing.assert_array_equal(q.numpy()[:, 0], x[:, 0])  # the tie kept
+    np.testing.assert_array_equal((q + r).numpy(), x)
+
+
+@pytest.mark.parametrize("shape", ROW_SHAPES)
+@pytest.mark.parametrize("levels", [1, 3, 15])
+def test_quantize_dequantize_plain_matches_reference(shape, levels):
+    rng = np.random.default_rng(8)
+    x = _rows(shape, 9)
+    u = rng.random(size=shape, dtype=np.float32)
+    u[:, ::3] = np.float32(1) - np.float32(2 ** -24)  # u just under 1
+    scale = np.abs(x).max(axis=1)
+    if shape[0] > 1:                  # a zero row: scale clamps to 1e-12
+        x[-1] = 0.0
+        scale[-1] = 0.0
+    q, r = tops.quantize_dequantize(_t(x), _t(scale), _t(u), levels=levels)
+    qr, rr = jref.quantize_dequantize_ref(jnp.asarray(x), jnp.asarray(scale),
+                                          jnp.asarray(u), levels=levels)
+    qp, rp = jcmp.quantize_dequantize(jnp.asarray(x), jnp.asarray(scale),
+                                      jnp.asarray(u), levels=levels,
+                                      interpret=True)
+    for got, want_ref, want_pal in ((q, qr, qp), (r, rr, rp)):
+        assert np.isfinite(got.numpy()).all()
+        _bits_equal(got.numpy(), want_ref)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want_pal),
+                                   **PALLAS_TOL)
+    # no level past L: |q| <= scale, and the zero row stays zero
+    assert (np.abs(q.numpy()) <= scale[:, None] * (1 + 1e-6)).all()
+    if shape[0] > 1:
+        assert not q.numpy()[-1].any()
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +319,17 @@ def test_cpu_dispatch_leaves_launch_counters_at_zero():
     params = {"w": torch.randn(4, 6, 5), "b": torch.randn(4, 5)}
     w = torch.full((4, 4), 0.25)
     opt.step(params, params, opt.init(params), w=w, t=0)
-    assert tops.launch_counts() == {k: 0 for k in tops.launch_counts()}
+    x2d = x.reshape(4, 25)
+    tops.gamma_correct(x, m, g, gamma=0.3)
+    tops.threshold_mask(x2d, x2d.abs().amax(dim=1))
+    tops.quantize_dequantize(x2d, x2d.abs().amax(dim=1), torch.rand(4, 25),
+                             levels=15)
+    counts = tops.launch_counts()
+    assert set(counts) == {"fused_halfstep", "fused_qg_buffer",
+                           "qg_local_step", "qg_buffer_update",
+                           "gamma_correct", "threshold_mask",
+                           "quantize_dequantize"}
+    assert counts == {k: 0 for k in counts}
 
 
 def test_dispatch_refuses_mixed_or_other_devices():
@@ -248,3 +352,18 @@ def test_kernel_wrappers_refuse_cpu_tensors_before_building():
         tK.qg_local_step(x, x, x, eta=0.1, beta=0.9)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tK.qg_buffer_update(x, x, x, eta=0.1, mu=0.9)
+    x2d = x.reshape(2, 4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tC.gamma_correct(x, x, x, gamma=0.3)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tC.threshold_mask(x2d, x2d[:, 0].contiguous())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tC.quantize_dequantize(x2d, x2d[:, 0].contiguous(), x2d, levels=15)
+
+
+def test_rowwise_wrappers_check_shapes_before_building():
+    x2d = torch.randn(2, 4)
+    with pytest.raises(ValueError, match=r"\[rows, f\]"):
+        tC.threshold_mask(x2d.reshape(-1), x2d[:, 0])
+    with pytest.raises(ValueError, match="u has shape"):
+        tC.quantize_dequantize(x2d, x2d[:, 0], x2d.reshape(4, 2), levels=3)

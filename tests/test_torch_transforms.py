@@ -186,7 +186,8 @@ def test_chain_validation():
                  ttopo.ring(N), device="cpu")
 
 
-@pytest.mark.parametrize("option,value", [("comm", object()),
+@pytest.mark.parametrize("option,value", [("telemetry", object()),
+                                          ("scenario", object()),
                                           ("overlap", "delayed_1"),
                                           ("runtime", "sharded")])
 def test_trainer_refuses_unported_options(option, value):
