@@ -7,8 +7,8 @@ Needs one CUDA device and the CUDA toolkit; run from the root of a
 checkout.  Phases, each of which fails the run (non-zero exit, no result
 line) if anything goes wrong:
 
-1. build    compile every CUDA kernel of the main path from ``csrc/``
-            (``qg_update`` and ``compress``, one ``nvcc`` each, together);
+1. build    compile every CUDA kernel from ``csrc/`` (``qg_update``,
+            ``compress`` and ``attention``, one ``nvcc`` each, together);
 2. kernels  hold each kernel against its plain PyTorch version on the card:
             the streaming kernels over lengths 0-d .. 2**27+5, every flag
             combination and an unaligned view; the row-wise compress kernels
@@ -17,7 +17,14 @@ line) if anything goes wrong:
             just under 1.  Time kernel and plain version (CUDA graphs
             replayed between CUDA events, so device time without host
             dispatch; eager dispatch timed apart) at the main path's sizes
-            and at ~2**27 elements;
+            and at ~2**27 elements.  The two attention kernels against
+            their plain versions in fp32 and bf16 (tolerance ATT_TOL): flash
+            at the reference's ATTN_CASES, TinyLlama's [2,1024,32/4,64]
+            prefill, a Gemma-2 local layer (D 128, window 4096, softcap 50)
+            at 4608 tokens, S = 1 and 1000; paged decode at the reference's
+            four cases, the engine's shape with inactive slots (which must
+            give 0) and 8 slots x 4096 tokens; each timed beside its bound,
+            its plain version and one ``scaled_dot_product_attention`` call;
 3. main     run the two quickstart presets and the three compressed-gossip
             runs (CHOCO top-k, EF sign+norm, CHOCO QSGD, each with
             ``comm.backend=auto``) for their full 150 steps through
@@ -27,7 +34,17 @@ line) if anything goes wrong:
             ``comm.backend=jnp``, and QG and top-k on the CPU, and hold the
             histories against each other;
 4. profile  the QG and the top-k training loops under ``torch.profiler``:
-            device time by kernel, host time by op.
+            device time by kernel, host time by op;
+5. serve    slice 7's main path: ``python -m repro_torch.serve --arch
+            tinyllama-1.1b --full --use-pallas --requests 16`` in code (a
+            seeded init at the published widths and 22 layers), with
+            ``paged_decode_attention`` launched exactly 22 times per decode
+            step, tokens equal to the ``use_pallas=False`` engine's and to
+            ``sequential_generate``'s (or parting only at a reported
+            near-tie); tokens/s, decode p50/p95, peak cache bytes; then
+            ``prefill`` of [2, 1024] tokens through 22 ``flash_attention``
+            launches against the chunked path (logits and every layer's
+            K/V), and the serving run under ``torch.profiler``.
 
 Imports nothing of JAX nor of the JAX package.  The second-to-last lines
 are the card's name and power limit and a JSON ``kernels`` line; the last
@@ -644,6 +661,470 @@ def phase_profile(dev, label: str, spec) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the attention kernels (slice 7) against their plain versions
+# ---------------------------------------------------------------------------
+
+#: kernel vs plain version, max abs error at N(0,1) inputs.  Both compute in
+#: fp32 but sum in other orders (the kernels online over 64-key tiles or one
+#: page at a time, the plain versions one softmax over the whole row), so
+#: they agree to rounding, not to the bit: 2e-5 in fp32, where outputs are
+#: weighted means of N(0,1) values of order 1 (the reference's own bound
+#: for its flash kernel, tests/test_kernels.py:182); in bf16 both round the
+#: same fp32 value to bf16 except within rounding of a bf16 boundary, where
+#: they differ by one bf16 ulp, 2**-6 = 0.0156 for |out| in [2, 4): 2e-2
+ATT_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+#: (B, S, T, H, K, D, kwargs): the reference's ATTN_CASES
+#: (tests/test_kernels.py:162), TinyLlama-1.1B's prefill (the main path's
+#: shape), a Gemma-2 27B local layer past its window, one query, S = 1000
+FLASH_CASES = [
+    (1, 128, 128, 4, 4, 32, {}), (2, 256, 256, 8, 2, 64, {}),
+    (1, 200, 200, 4, 2, 32, {}), (1, 256, 256, 4, 4, 32, {"window": 64}),
+    (1, 256, 256, 4, 4, 32, {"softcap": 30.0}),
+    (1, 128, 192, 4, 4, 32, {"causal": False}),
+    (2, 1024, 1024, 32, 4, 64, {}),
+    (1, 4608, 4608, 32, 16, 128, {"window": 4096, "softcap": 50.0}),
+    (1, 1, 1, 32, 4, 64, {}), (1, 1000, 1000, 32, 4, 64, {}),
+]
+FLASH_MAIN, FLASH_LONG = FLASH_CASES[6], FLASH_CASES[7]
+
+#: (B, H, K, D, ps, P, NP, window, softcap, lengths): the reference's four
+#: cases (tests/test_serve.py:234, lengths drawn in [1, P*ps]), the
+#: engine's shape at the serving CLI's defaults with two inactive slots
+#: (length 0, block-table rows all -1), and 8 slots x 4096 tokens
+PAGED_CASES = [
+    (3, 8, 2, 32, 16, 8, 6, 0, 0.0, None),
+    (2, 4, 4, 64, 8, 4, 8, 0, 30.0, None),
+    (4, 8, 2, 32, 16, 8, 6, 20, 50.0, None),
+    (1, 4, 2, 16, 1, 16, 16, 0, 0.0, None),
+    (8, 32, 4, 64, 16, 16, 128, 0, 0.0, (0, 24, 33, 48, 16, 0, 40, 31)),
+    (8, 32, 4, 64, 16, 256, 2048, 0, 0.0, (4096,) * 8),
+]
+PAGED_MAIN, PAGED_LONG = PAGED_CASES[4], PAGED_CASES[5]
+
+
+def _flash_inputs(case, dtype, dev, seed):
+    import torch
+    b, s, t, h, kh, d, kw = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((b, s, h, d), (b, t, kh, d), (b, t, kh, d)))
+    return q, k, v, kw
+
+
+def _paged_inputs(case, dtype, dev, seed):
+    import numpy as np
+    import torch
+    b, h, kh, d, ps, p_max, n_p, window, softcap, lengths = case
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(dtype)
+    kp, vp = (torch.randn((n_p, ps, kh, d), generator=gen,
+                          device=dev).to(dtype) for _ in range(2))
+    if lengths is None:
+        lengths = rng.integers(1, min(p_max, n_p) * ps + 1, size=b)
+    lengths = np.asarray(lengths, np.int32)
+    need = -(-lengths // ps)
+    perm = rng.permutation(n_p)
+    bt = np.full((b, p_max), -1, np.int32)
+    if need.sum() <= n_p:      # every slot's pages distinct
+        starts = np.concatenate([[0], np.cumsum(need)])
+        for i in range(b):
+            bt[i, :need[i]] = perm[starts[i]:starts[i + 1]]
+    else:                      # the reference's draw: distinct per slot
+        for i in range(b):
+            bt[i, :need[i]] = rng.choice(n_p, size=need[i], replace=False)
+    return (q, kp, vp, torch.from_numpy(bt).to(dev),
+            torch.from_numpy(lengths).to(dev),
+            {"window": window, "softcap": softcap})
+
+
+def phase_attention_kernels(dev) -> dict:
+    """Both attention kernels against their plain versions at every listed
+    shape, in fp32 and bf16; an inactive paged slot must give exactly 0
+    from both.  Returns the worst fp32 and bf16 error per kernel."""
+    import torch
+    from repro_torch.kernels import attention as A
+    from repro_torch.kernels import ref
+
+    worst = {"flash_attention": {}, "paged_decode_attention": {}}
+
+    def check(name, label, dtype, got, want):
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{name} {label}: {got.shape} {got.dtype} "
+                                 f"vs plain {want.shape} {want.dtype}")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name} {label}: non-finite output")
+        err = float((got.float() - want.float()).abs().max())
+        key = str(dtype).replace("torch.", "")
+        worst[name][key] = max(worst[name].get(key, 0.0), err)
+        if err > ATT_TOL[key]:
+            raise AssertionError(f"{name} {label}: max abs err {err:.3e} vs "
+                                 f"its plain version; allowed {ATT_TOL[key]}")
+        return err
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, case in enumerate(FLASH_CASES):
+            q, k, v, kw = _flash_inputs(case, dtype, dev, 10 + i)
+            err = check("flash_attention", f"{case[:6]} {kw} {dtype}", dtype,
+                        A.flash_attention(q, k, v, **kw),
+                        ref.flash_attention(q, k, v, **kw))
+            log(f"kernel flash_attention {dtype} B,S,T,H,K,D={case[:6]} "
+                f"{kw}: max abs err {err:.3e}")
+            del q, k, v
+        for i, case in enumerate(PAGED_CASES):
+            q, kp, vp, bt, ln, kw = _paged_inputs(case, dtype, dev, 20 + i)
+            got = A.paged_decode_attention(q, kp, vp, bt, ln, **kw)
+            want = ref.paged_decode_attention(q, kp, vp, bt, ln, **kw)
+            err = check("paged_decode_attention", f"{case[:9]} {dtype}",
+                        dtype, got, want)
+            dead = (ln == 0).nonzero().flatten()
+            if len(dead) and (bool(got[dead].any())
+                              or bool(want[dead].any())):
+                raise AssertionError(f"paged_decode_attention {case[:9]}: "
+                                     f"an inactive slot is not 0")
+            log(f"kernel paged_decode_attention {dtype} "
+                f"B,H,K,D,ps,P,NP={case[:7]} window={kw['window']} "
+                f"softcap={kw['softcap']} lengths="
+                f"{ln.tolist() if len(ln) <= 8 else '...'}: max abs err "
+                f"{err:.3e}, {len(dead)} inactive slot(s) 0 in both")
+            del q, kp, vp
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    return worst
+
+
+def _band_pairs(s, t, causal, window) -> int:
+    """(query, key) pairs inside the mask of one (batch, head)."""
+    import numpy as np
+    i = np.arange(s)
+    hi = np.minimum(i + 1, t) if causal else np.full(s, t)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(s, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _bound(nbytes, flops):
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def phase_attention_timing(dev) -> dict:
+    """Kernel, plain and library ms (CUDA graphs of the calls) and the
+    bound of each attention kernel at the main path's shape and at a long
+    shape, fp32.  The library yardstick is one
+    ``F.scaled_dot_product_attention`` call (GQA by ``enable_gqa``); for
+    paged decode it runs on a cache gathered beforehand, so it leaves the
+    gather out.  The port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention as A
+    from repro_torch.kernels import ref
+
+    timed = {}
+    for label, case, iters in (("main", FLASH_MAIN, 10),
+                               ("long", FLASH_LONG, 2)):
+        q, k, v, kw = _flash_inputs(case, torch.float32, dev, 30)
+        b, s, t, h, kh, d, _ = case
+        causal, window = kw.get("causal", True), kw.get("window", 0)
+        pairs = _band_pairs(s, t, causal, window) * b * h
+        nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+        bound, by = _bound(nbytes, 4 * d * pairs)
+        lib_ms = None
+        if not kw.get("softcap") and not window:
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), iters)
+            del qt, kt, vt
+        row = {"shape": case[:6], "kw": kw,
+               "ms": _time_ms(lambda: A.flash_attention(q, k, v, **kw),
+                              iters),
+               "plain_ms": _time_ms(lambda: ref.flash_attention(q, k, v,
+                                                                **kw), iters),
+               "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+               "flops": 4 * d * pairs, "bytes": nbytes}
+        timed[("flash_attention", label)] = row
+        log(f"time flash_attention {label} B,S,T,H,K,D={case[:6]} {kw} fp32: "
+            f"kernel {row['ms']:.6f} ms, plain {row['plain_ms']:.6f} ms, "
+            f"library {lib_ms if lib_ms is None else f'{lib_ms:.6f}'} ms "
+            f"(CUDA graphs of {iters} calls), bound {bound:.6f} ms ({by}: "
+            f"{4 * d * pairs} flop, {nbytes} B), "
+            f"{4 * d * pairs / row['ms'] / 1e9:.2f} TFLOP/s")
+        del q, k, v
+        torch.cuda.empty_cache()
+    for label, case, iters in (("main", PAGED_MAIN, 20),
+                               ("long", PAGED_LONG, 10)):
+        q, kp, vp, bt, ln, kw = _paged_inputs(case, torch.float32, dev, 40)
+        b, h, kh, d, ps = case[:5]
+        rows = int(ln.sum())     # visible rows (no window on these shapes)
+        nbytes = 4 * (2 * q.numel() + bt.numel() + ln.numel()
+                      + 2 * rows * kh * d)
+        bound, by = _bound(nbytes, 4 * d * h * rows)
+        t_idx = torch.arange(bt.shape[1] * ps, device=dev)
+        gidx = torch.clamp(bt.long()[:, t_idx // ps] * ps + t_idx % ps, 0,
+                           kp.shape[0] * ps - 1)
+        kd, vd = (p.reshape(-1, kh, d)[gidx].transpose(1, 2).contiguous()
+                  for p in (kp, vp))
+        mask = (t_idx[None, :] < ln[:, None])[:, None, None, :]
+        qt = q.transpose(1, 2).contiguous()
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kd, vd, attn_mask=mask, enable_gqa=True), iters)
+        row = {"shape": case[:7], "lengths": ln.tolist(),
+               "ms": _time_ms(lambda: A.paged_decode_attention(
+                   q, kp, vp, bt, ln, **kw), iters),
+               "plain_ms": _time_ms(lambda: ref.paged_decode_attention(
+                   q, kp, vp, bt, ln, **kw), iters),
+               "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+               "bytes": nbytes}
+        timed[("paged_decode_attention", label)] = row
+        log(f"time paged_decode_attention {label} B,H,K,D,ps,P,NP="
+            f"{case[:7]} fp32, {rows} visible rows: kernel "
+            f"{row['ms']:.6f} ms, plain {row['plain_ms']:.6f} ms, library "
+            f"(SDPA on a pre-gathered cache, gather not counted) "
+            f"{lib_ms:.6f} ms (CUDA graphs of {iters} calls), bound "
+            f"{bound:.6f} ms ({by}: {nbytes} B), "
+            f"{nbytes / row['ms'] / 1e6:.1f} GB/s")
+        del q, kp, vp, kd, vd
+        torch.cuda.empty_cache()
+    return timed
+
+
+# ---------------------------------------------------------------------------
+# the serving path (slice 7's main path) and the full-width prefill
+# ---------------------------------------------------------------------------
+
+#: the serving main path, as ``python -m repro_torch.serve --arch
+#: tinyllama-1.1b --full --use-pallas --requests 16`` runs it: a fresh
+#: seeded init at the published widths and depth, the CLI's defaults
+SERVE_ARCH, SERVE_REDUCED = "tinyllama-1.1b", False
+SERVE_KW = {"n_slots": 8, "page_size": 16, "max_len": 256,
+            "prefill_chunk": 32}
+SERVE_REQUESTS, SERVE_MAX_NEW, SERVE_SEED = 16, 16, 0
+PREFILL_SHAPE = (2, 1024)
+
+#: tokens of two serving paths may part only at a near-tie: where the top-2
+#: logit gap at the first divergence is below this, the step and gap are
+#: reported and the tokens compared up to it.  1e-3 is ten times the
+#: largest logit difference allowed between two fp32 forward paths below
+LOGIT_TOL = 1e-3
+
+#: full-width prefill, flash kernel vs the chunked path: last-position
+#: logits and every layer's K/V cache, max abs difference.  Two fp32 sums
+#: in other orders per layer, carried through 22 layers: 1e-4
+PREFILL_TOL = 1e-4
+
+
+def _serve_setup(dev):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.__main__ import make_requests
+
+    cfg = get_config(SERVE_ARCH, reduced=SERVE_REDUCED)
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    params = tf.init_lm(gen, cfg)
+    reqs = make_requests(SERVE_REQUESTS, cfg.vocab_size, seed=SERVE_SEED,
+                         max_new=SERVE_MAX_NEW)
+    return cfg, params, reqs
+
+
+def _compare_tokens(what, params, cfg, reqs, got, want, dev) -> list:
+    """Request by request, ``got`` equals ``want``, or they part at a
+    near-tie (top-2 gap of the dense prefill's logits there below
+    LOGIT_TOL), reported and compared up to that step."""
+    import torch
+    from repro_torch.models import transformer as tf
+
+    ties = []
+    for r, g, w in zip(reqs, got, want):
+        if g == w:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(g, w)) if a != b)
+        prefix = torch.tensor([list(r.prompt) + list(g[:i])], device=dev)
+        logits, _ = tf.prefill(params, prefix, cfg)
+        top = logits[0].float().topk(2).values
+        gap = float(top[0] - top[1])
+        if gap >= LOGIT_TOL:
+            raise AssertionError(f"{what}: request {r.id} parts at token {i} "
+                                 f"({g[i]} vs {w[i]}) with top-2 gap "
+                                 f"{gap:.3e} >= {LOGIT_TOL}")
+        ties.append((r.id, i, gap))
+        log(f"serve {what}: request {r.id} parts at token {i} at a near-tie "
+            f"(top-2 gap {gap:.3e} < {LOGIT_TOL}); equal before it")
+    return ties
+
+
+def phase_serve(dev, cfg, params, reqs) -> dict:
+    """The engine through the paged-decode kernel with exact launch counts,
+    held against the engine without the kernels and against
+    ``sequential_generate``, request by request."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeEngine, sequential_generate
+
+    # warm-up (allocator, cuBLAS handles); its launches are not the path's
+    ServeEngine(params, cfg, use_pallas=True, **SERVE_KW).run(reqs[:2])
+    eng = ServeEngine(params, cfg, use_pallas=True, **SERVE_KW)
+    torch.cuda.synchronize(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = eng.run(reqs)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    steps = eng.timers["decode"].total_laps
+    _expect_launches("serve", counts,
+                     {"paged_decode_attention": steps * cfg.n_layers})
+    n_tok = sum(len(o.tokens) for o in outs)
+    st = eng.stats()
+    dec = st["phases"]["decode"]
+    log(f"main serve {cfg.name} ({cfg.n_params()} params, "
+        f"{len(reqs)} requests, {SERVE_KW}): {n_tok} tokens in {wall:.4f} s "
+        f"= {n_tok / wall:.2f} tokens/s; {steps} decode steps, p50 "
+        f"{dec['p50_s'] * 1e3:.4f} ms, p95 {dec['p95_s'] * 1e3:.4f} ms, "
+        f"mean {dec['mean_s'] * 1e3:.4f} ms; "
+        f"{st['phases']['prefill'].get('count', 0)} prefill chunks, p50 "
+        f"{st['phases']['prefill']['p50_s'] * 1e3:.4f} ms; peak cache "
+        f"{st['peak_cache_bytes']} B of a {st['pool_bytes']} B pool; "
+        f"launches {counts}")
+    if n_tok != len(reqs) * SERVE_MAX_NEW:
+        raise AssertionError(f"serve: {n_tok} tokens")
+
+    ops.reset_launch_counts()
+    plain = ServeEngine(params, cfg, use_pallas=False, **SERVE_KW).run(reqs)
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"use_pallas=False launched "
+                             f"{ops.launch_counts()}")
+    got = [o.tokens for o in outs]
+    ties = _compare_tokens("kernel engine vs use_pallas=False engine",
+                           params, cfg, reqs, got,
+                           [o.tokens for o in plain], dev)
+    seq = []
+    for r in reqs:
+        prompt = torch.tensor([r.prompt], dtype=torch.int32, device=dev)
+        toks = sequential_generate(params, cfg, prompt, gen_len=r.max_new,
+                                   cache_len=len(r.prompt) + r.max_new)
+        seq.append(tuple(toks[0, len(r.prompt):].tolist()))
+    ties += _compare_tokens("kernel engine vs sequential_generate", params,
+                            cfg, reqs, got, seq, dev)
+    log(f"main serve tokens: kernel engine == use_pallas=False engine == "
+        f"sequential_generate for {len(reqs)} requests"
+        + (f" up to {len(ties)} near-tie(s)" if ties else " (all equal)"))
+    return {"launches": counts, "tokens_per_s": n_tok / wall, "steps": steps,
+            "stats": st, "wall_s": wall, "ties": ties}
+
+
+def phase_prefill(dev, cfg, params) -> dict:
+    """``prefill(tokens [2, 1024], use_pallas=True)`` at full width: 22
+    flash launches, logits and every layer's K/V within PREFILL_TOL of the
+    chunked path."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+
+    rng = np.random.default_rng(SERVE_SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           size=PREFILL_SHAPE)).to(dev)
+    tf.prefill(params, tokens, cfg, use_pallas=True)        # warm-up
+    torch.cuda.synchronize(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = tf.prefill(params, tokens, cfg, use_pallas=True)
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    _expect_launches("prefill", counts, {"flash_attention": cfg.n_layers})
+    t0 = time.perf_counter()
+    want, want_cache = tf.prefill(params, tokens, cfg, use_pallas=False)
+    torch.cuda.synchronize(dev)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    errs = {"logits": float((logits - want).abs().max())}
+    for j, (c, w) in enumerate(zip(cache["blocks"], want_cache["blocks"])):
+        for key in ("k", "v"):
+            errs[f"blocks[{j}].{key}"] = float((c[key] - w[key]).abs().max())
+        if not torch.equal(c["slot_pos"], w["slot_pos"]):
+            raise AssertionError("prefill: slot_pos differs")
+    worst = max(errs.values())
+    if not torch.isfinite(logits).all() or worst > PREFILL_TOL:
+        raise AssertionError(f"prefill: flash vs chunked {errs}; allowed "
+                             f"{PREFILL_TOL}")
+    log(f"main prefill {cfg.name} tokens {list(PREFILL_SHAPE)}: flash "
+        f"{ms:.4f} ms, chunked {plain_ms:.4f} ms (host clock, one call "
+        f"each); max abs diff logits {errs['logits']:.3e}, K/V "
+        f"{max(v for k, v in errs.items() if k != 'logits'):.3e} (allowed "
+        f"{PREFILL_TOL}); launches {counts}")
+    return {"launches": counts, "errs": errs, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_serve_profile(dev, cfg, params, reqs) -> dict:
+    """The kernel engine's run under ``torch.profiler``: device busy share,
+    device time by kernel, and the decode step beside its weight-read
+    bound (every batched step reads all fp32 weights once)."""
+    import torch
+    from repro_torch.serve import ServeEngine
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = ServeEngine(params, cfg, use_pallas=True, **SERVE_KW)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, host_rows = [], []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dt = (getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0))
+            if dt:
+                rows.append((e.key, dt / 1e3, e.count))
+        elif e.self_cpu_time_total:
+            host_rows.append((e.key, e.self_cpu_time_total / 1e3, e.count))
+    host_rows.sort(key=lambda r: -r[1])
+    weight_ms = 4 * cfg.n_params() / PEAK_BYTES_S * 1e3
+    dec = eng.stats()["phases"]["decode"]
+    out = {"wall_ms": wall_ms, "weight_bound_ms": weight_ms,
+           "decode_p50_ms": dec["p50_s"] * 1e3}
+    if not rows:
+        log("profile serve: the profiler recorded no device time")
+        return out
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    ours = [r for r in rows if "paged_decode" in r[0]]
+    out.update(device_ms=busy, busy=busy / wall_ms,
+               paged_ms=sum(r[1] for r in ours))
+    log(f"profile serve {cfg.name} engine run, {len(reqs)} requests "
+        f"(profiler on): wall {wall_ms:.3f} ms, device kernel time "
+        f"{busy:.3f} ms ({100 * busy / wall_ms:.2f}% busy); decode step p50 "
+        f"{dec['p50_s'] * 1e3:.4f} ms beside its weight-read bound "
+        f"{weight_ms:.4f} ms ({4 * cfg.n_params()} B at 3.35 TB/s); "
+        f"paged_decode_attention {out['paged_ms']:.4f} ms "
+        f"({100 * out['paged_ms'] / busy:.2f}% of device time)")
+    steps = eng.timers["decode"].total_laps + eng.timers["prefill"].total_laps
+    log(f"profile serve: {sum(r[2] for r in rows)} device activities, "
+        f"{sum(r[2] for r in rows) / steps:.1f} per engine step ({steps} "
+        f"decode and prefill steps)")
+    for key, ms, count in rows[:12] + [r for r in ours if r not in rows[:12]]:
+        log(f"profile serve device {ms:10.4f} ms {count:6d}x "
+            f"{ms / count * 1e3:9.3f} us each  {key[:80]}")
+    syncs = [r for r in host_rows if "Synchronize" in r[0]
+             or r[0] in ("aten::item", "aten::_local_scalar_dense")]
+    for key, ms, count in host_rows[:12] + [r for r in syncs
+                                            if r not in host_rows[:12]]:
+        log(f"profile serve host   {ms:10.4f} ms {count:6d}x "
+            f"{ms / count * 1e3:9.3f} us each  {key[:80]}")
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "profile_serve.json").write_text(json.dumps(
+        {"wall_ms": wall_ms, "device_ms": busy,
+         "device": [{"name": k, "ms": m, "count": c} for k, m, c in rows],
+         "host": [{"name": k, "ms": m, "count": c}
+                  for k, m, c in host_rows]}, indent=1))
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -664,7 +1145,7 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
 
     # 1. build: one nvcc per source, started together
-    libs = ("qg_update", "compress")
+    libs = build.LIBRARIES
     secs = build.build(*libs)
     for lib in libs:
         log(f"build {lib}: {secs[lib]:.3f} s")
@@ -675,7 +1156,9 @@ def main() -> int:
 
     # 2. kernels against their plain versions, then their times
     worst = phase_kernels(dev)
+    att_worst = phase_attention_kernels(dev)
     timed = phase_timing(dev)
+    att_timed = phase_attention_timing(dev)
 
     # 3. the main path: the quickstart pair, then the compressed runs
     main_out = phase_main(dev)
@@ -686,6 +1169,16 @@ def main() -> int:
     phase_profile(dev, "qg", api.presets.get("quickstart_ring16_alpha0.1_qg"))
     phase_profile(dev, "topk", api.presets.get(
         "choco_topk0.01_ring16_qg").override("comm.backend=auto"))
+
+    # 5. slice 7's main path: TinyLlama-1.1B served through the
+    # paged-decode kernel, its full-width prefill through the flash kernel,
+    # and the serving run under the profiler
+    cfg, params, reqs = _serve_setup(dev)
+    serve_out = phase_serve(dev, cfg, params, reqs)
+    prefill_out = phase_prefill(dev, cfg, params)
+    phase_serve_profile(dev, cfg, params, reqs)
+    del params
+    torch.cuda.empty_cache()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -719,6 +1212,20 @@ def main() -> int:
             "max_abs_err": worst[name]["abs"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
+    att_sources = {  # name: (TPU kernel it replaces, main-path launches)
+        "flash_attention": ("src/repro/kernels/flash_attention.py:81",
+                            prefill_out["launches"]["flash_attention"]),
+        "paged_decode_attention": (
+            "src/repro/kernels/flash_attention.py:194",
+            serve_out["launches"]["paged_decode_attention"])}
+    for name, (replaces, launches) in att_sources.items():
+        t = att_timed[(name, "main")]
+        kernels.append({
+            "name": name, "route": "cuda", "source": csrc + "attention.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": att_worst[name]["float32"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,9 +12,13 @@ passes as hand-written CUDA kernels (``kernels/csrc/qg_update.cu``), the
 MLP, the vmap trainer and the spec/preset/``run`` API; and slice 3,
 compressed gossip (``comm/``: CHOCO and error feedback with top-k,
 random-k, sign+norm and QSGD), whose three passes are CUDA kernels too
-(``kernels/csrc/compress.cu``).
+(``kernels/csrc/compress.cu``); and slice 7, continuous-batching serving
+(``serve/``, ``launch/serve.py``) over the attention-only decoder LM
+(``configs/``, ``models/``), whose flash and paged-decode attention are
+CUDA kernels (``kernels/csrc/attention.cu``).
 
-Entry points (``api.build``, ``api.run``, ``python -m repro_torch.api``)
-run on the CUDA device unless the caller passes ``device="cpu"``; there the
-kernels' plain PyTorch versions serve the CPU tensors.
+Entry points (``api.build``, ``api.run``, ``python -m repro_torch.api``,
+``python -m repro_torch.serve``) run on the CUDA device unless the caller
+passes ``device="cpu"``; there the kernels' plain PyTorch versions serve
+the CPU tensors.
 """

@@ -2,9 +2,10 @@
 
 ``jax.random`` streams cannot be reproduced in torch, so a run that is to be
 held against the JAX package takes that package's init (or any state) as
-numpy and starts from it.  Both functions take nested dicts of numpy arrays
-with the JAX package's key names; the caller converts on the JAX side
-(``np.asarray``), so this module needs nothing of JAX.
+numpy and starts from it.  The functions take nested dicts of numpy arrays
+with the JAX package's key names (and, for the LM, the tuples it keeps per
+period position); the caller converts on the JAX side (``np.asarray``), so
+this module needs nothing of JAX.
 """
 from __future__ import annotations
 
@@ -12,9 +13,10 @@ import numpy as np
 import torch
 
 from repro_torch.train.trainer import TrainState
-from repro_torch.tree import tree_map
+from repro_torch.tree import nest_map, tree_map
 
-__all__ = ["params_from_numpy", "train_state_from_numpy"]
+__all__ = ["params_from_numpy", "train_state_from_numpy",
+           "lm_params_from_numpy"]
 
 
 def params_from_numpy(tree, device):
@@ -37,3 +39,11 @@ def train_state_from_numpy(params, opt_state, t, device,
                       t=torch.tensor(int(t), dtype=torch.int32,
                                      device=device),
                       comm_state=comm_state)
+
+
+def lm_params_from_numpy(tree, device):
+    """A language model's params (``init_lm``'s structure: dicts, and
+    tuples for ``blocks``/``tail``) of numpy arrays -> the same structure
+    of tensors on ``device``, the port's ``init_lm`` layout (dtypes kept,
+    data copied)."""
+    return nest_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)

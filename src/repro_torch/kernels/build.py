@@ -21,11 +21,15 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "build", "load", "find_nvcc", "bind",
+__all__ = ["NVCC_FLAGS", "LIBRARIES", "build", "load", "find_nvcc", "bind",
            "check_operands", "launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+
+#: every library of ``csrc/``: the optimizer passes, the compressed-gossip
+#: passes, and the flash and paged-decode attention kernels
+LIBRARIES = ("qg_update", "compress", "attention")
 
 #: sm_90a keeps Hopper's wgmma/setmaxnreg available to later kernels;
 #: -fmad=false keeps nvcc from contracting a*b + c into an FMA, so the

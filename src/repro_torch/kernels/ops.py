@@ -1,23 +1,26 @@
 """Public kernel entry points: dispatch by the tensors' device.
 
-Port of ``repro/kernels/ops.py`` for the ``qg_update`` and ``compress``
-kernels.  Where the reference picks Pallas interpret mode off the TPU, the
-port picks by device: CPU tensors go to the plain PyTorch version
+Port of ``repro/kernels/ops.py`` for the ``qg_update``, ``compress`` and
+attention kernels.  Where the reference picks Pallas interpret mode off the
+TPU, the port picks by device: CPU tensors go to the plain PyTorch version
 (``kernels/ref.py``), CUDA tensors to the hand-written kernel
-(``kernels/qg_update.py``, ``kernels/compress.py``), which launches or
-raises.  There is no fallback from one to the other.
+(``kernels/qg_update.py``, ``kernels/compress.py``,
+``kernels/attention.py``), which launches or raises.  There is no fallback
+from one to the other.
 """
 from __future__ import annotations
 
 import torch
 
+from . import attention as _att
 from . import compress as _cmp
 from . import qg_update as _qg
 from . import ref
 
 __all__ = ["fused_halfstep", "fused_qg_buffer", "qg_local_step",
            "qg_buffer_update", "gamma_correct", "threshold_mask",
-           "quantize_dequantize", "launch_counts", "reset_launch_counts"]
+           "quantize_dequantize", "flash_attention", "paged_decode_attention",
+           "launch_counts", "reset_launch_counts"]
 
 
 def _on_cpu(*args) -> bool:
@@ -80,7 +83,26 @@ def quantize_dequantize(x2d, scale, u, *, levels):
     return _cmp.quantize_dequantize(x2d, scale, u, levels=levels)
 
 
-_COUNTERS = (_qg.LAUNCHES, _cmp.LAUNCHES)
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
+    if _on_cpu(q, k, v):
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
+    return _att.flash_attention(q, k, v, causal=causal, window=window,
+                                softcap=softcap)
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
+                           window=0, softcap=0.0):
+    if _on_cpu(q, k_pages, v_pages, block_tables, lengths):
+        return ref.paged_decode_attention(q, k_pages, v_pages, block_tables,
+                                          lengths, window=window,
+                                          softcap=softcap)
+    return _att.paged_decode_attention(q, k_pages, v_pages, block_tables,
+                                       lengths, window=window,
+                                       softcap=softcap)
+
+
+_COUNTERS = (_qg.LAUNCHES, _cmp.LAUNCHES, _att.LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the ``qg_update`` and ``compress`` kernels.
+"""Plain PyTorch versions of the ``qg_update``, ``compress`` and
+``attention`` kernels.
 
-Port of ``repro/kernels/ref.py:16-80``.  Each function keeps the expression
-order of the Pallas body it stands for (``repro/kernels/qg_update.py``,
-``repro/kernels/compress.py``), so that on the same fp32 inputs it rounds
-exactly as the CUDA kernel in ``csrc/qg_update.cu`` or ``csrc/compress.cu``
-does: every product, sum and quotient is its own rounded operation, and the
+Port of ``repro/kernels/ref.py:16-80`` (the streaming kernels) and
+``:87``/``:115`` (the two attention kernels, below).  Each streaming
+function keeps the expression order of the Pallas body it stands for
+(``repro/kernels/qg_update.py``, ``repro/kernels/compress.py``), so that on
+the same fp32 inputs it rounds exactly as the CUDA kernel in
+``csrc/qg_update.cu`` or ``csrc/compress.cu`` does: every product, sum and quotient is its own rounded operation, and the
 coefficients fold the way the reference folds them.  A quotient is always a
 true division of two tensors on one device: PyTorch computes
 ``scalar / tensor`` as ``tensor.reciprocal() * scalar``, and on CUDA
@@ -12,14 +14,36 @@ true division of two tensors on one device: PyTorch computes
 rounds as the reference's division does.
 They are the kernels' test oracle and serve CPU tensors in
 ``kernels/ops.py``; they run on any device.
+
+The attention versions are the reference's quadratic masked softmax, in
+fp32, written in the online-softmax kernels' form: ``p = exp(s - m)`` where
+the mask holds and 0 elsewhere, ``out = sum(p v) / max(sum(p), 1e-30)``.
+On every row with at least one unmasked key that is the softmax of
+``ref.py``; on a row with none (a paged slot of length 0, an inactive
+serving slot) it is 0, as the Pallas and the CUDA kernels give, where
+``ref.py``'s dense-gather oracle gives the mean of the gathered values.
+Their sums run in another order than the kernels', so they agree to
+rounding, not to the bit.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __all__ = ["qg_local_step", "qg_buffer_update", "fused_halfstep",
            "fused_qg_buffer", "gamma_correct", "threshold_mask",
-           "quantize_dequantize"]
+           "quantize_dequantize", "attn_scale", "flash_attention",
+           "paged_decode_attention"]
+
+NEG_INF = -2.0e38
+
+
+def attn_scale(d: int) -> float:
+    """``1/sqrt(d)`` rounded to fp32, as the reference computes it
+    (``1 / jnp.sqrt(jnp.asarray(d, jnp.float32))``), as a Python float: a
+    product with it rounds once in fp32, and it needs no device tensor (a
+    host-to-device copy would sync, and cannot be captured in a graph)."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(d)))
 
 
 def _scalar(v, like: torch.Tensor) -> torch.Tensor:
@@ -93,3 +117,66 @@ def quantize_dequantize(x2d, scale, u, *, levels: int):
     xi = torch.clamp_max(torch.floor(y + u.to(torch.float32)), levels)
     q = torch.sign(x) * xi * (s / lv)
     return q, x - q
+
+
+def _masked_softmax_av(sc, mask, v):
+    """``sum_t p v / max(sum_t p, 1e-30)`` with ``p = exp(sc - max sc)``
+    where ``mask`` holds and 0 elsewhere; ``sc`` [..., T], ``v`` matches
+    the einsum ``bskgt,btkd->bskgd``."""
+    sc = torch.where(mask, sc, NEG_INF)
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(sc - m), 0.0)
+    acc = torch.einsum("bskgt,btkd->bskgd", p, v)
+    return acc / torch.clamp_min(p.sum(dim=-1)[..., None], 1e-30)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0):
+    """Masked softmax attention, GQA by head groups.  q [B,S,H,D]; k/v
+    [B,T,K,D] -> [B,S,H,D] in q's dtype.  Query ``i`` sees key ``j`` when
+    ``i >= j`` (causal) and ``i - j < window`` (window > 0); the softcap
+    ``cap*tanh(s/cap)`` applies to the scaled scores before the mask."""
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    qf = q.reshape(b, s, kh, g, d).float() * attn_scale(d)
+    sc = torch.einsum("bskgd,btkd->bskgt", qf, k.float())
+    if softcap:
+        sc = softcap * torch.tanh(sc / softcap)
+    q_pos = torch.arange(s, device=q.device)[:, None]
+    k_pos = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones(s, t, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window:
+        mask &= q_pos - k_pos < window
+    out = _masked_softmax_av(sc, mask[None, :, None, None, :], v.float())
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
+                           window: int = 0, softcap: float = 0.0):
+    """One-token decode over a paged KV pool, by dense gather.  q [B,1,H,D];
+    k/v_pages [NP,ps,K,D]; ``block_tables`` [B,P] page ids (-1 =
+    unallocated); ``lengths`` [B] tokens written per slot, the current one
+    included.  Slot ``b`` sees its logical positions ``t < lengths[b]``
+    whose page is allocated (and ``t > lengths[b] - 1 - window``); a slot
+    that sees none (length 0) gives 0."""
+    b, _, h, d = q.shape
+    n_p, ps, kh, _ = k_pages.shape
+    g = h // kh
+    t_idx = torch.arange(block_tables.shape[1] * ps, device=q.device)
+    pages = block_tables.long()[:, t_idx // ps]                   # [B, T]
+    rows = torch.clamp(pages * ps + t_idx % ps, 0, n_p * ps - 1)
+    ks = k_pages.reshape(n_p * ps, kh, d)[rows].float()           # [B,T,K,D]
+    vs = v_pages.reshape(n_p * ps, kh, d)[rows].float()
+    qf = q.reshape(b, 1, kh, g, d).float() * attn_scale(d)
+    sc = torch.einsum("bskgd,btkd->bskgt", qf, ks)
+    if softcap:
+        sc = softcap * torch.tanh(sc / softcap)
+    lengths = lengths.long()
+    mask = (t_idx[None, :] < lengths[:, None]) & (pages >= 0)
+    if window:
+        mask &= t_idx[None, :] > (lengths - 1)[:, None] - window
+    out = _masked_softmax_av(sc, mask[:, None, None, None, :], vs)
+    return out.reshape(b, 1, h, d).to(q.dtype)

@@ -1,0 +1,106 @@
+"""Shared neural-net building blocks (plain dict params, no ``nn.Module``).
+
+Port of ``repro/models/layers.py``.  Parameters are nested dicts of
+tensors; homogeneous layer groups are stacked on a leading axis, as the
+reference stacks them for ``lax.scan`` (the port loops over that axis).
+Norms, activations and rotary embeddings compute in fp32 and cast back to
+the input's dtype, as the reference does.  The init helpers draw from a
+``torch.Generator`` on the target device (the reference's ``jax.random``
+streams cannot be reproduced; tests carry the reference's arrays across
+through ``repro_torch.interop``).  ``device="meta"`` builds the shapes
+only, with no draw.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..tree import nest_map
+
+__all__ = ["dense_init", "embed_init", "stack_layers", "rms_norm", "softcap",
+           "swiglu", "init_mlp", "rope_frequencies", "apply_rope"]
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+def _normal(shape, gen, device, dtype, scale: float) -> torch.Tensor:
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    if t.device.type != "meta":
+        t.normal_(generator=gen).mul_(scale)
+    return t.to(dtype)
+
+
+def dense_init(gen, d_in: int, d_out: int, *, device,
+               dtype=torch.float32) -> torch.Tensor:
+    return _normal((d_in, d_out), gen, device, dtype, 1.0 / math.sqrt(d_in))
+
+
+def embed_init(gen, vocab: int, d: int, *, device,
+               dtype=torch.float32) -> torch.Tensor:
+    return _normal((vocab, d), gen, device, dtype, 0.02)
+
+
+def stack_layers(n: int, init_fn):
+    """``init_fn() -> dict`` called ``n`` times; each leaf stacked on a
+    leading axis of length ``n``."""
+    trees = [init_fn() for _ in range(n)]
+    return nest_map(lambda *leaves: torch.stack(leaves), *trees)
+
+
+# ---------------------------------------------------------------------------
+# norms / activations
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + weight.float())).to(dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma-2 logit soft-capping: cap * tanh(x / cap)."""
+    if not cap:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
+    g = x @ w_gate
+    u = x @ w_up
+    return (torch.nn.functional.silu(g) * u) @ w_down
+
+
+def init_mlp(gen, d_model: int, d_ff: int, *, device,
+             dtype=torch.float32) -> dict:
+    return {"gate": dense_init(gen, d_model, d_ff, device=device, dtype=dtype),
+            "up": dense_init(gen, d_model, d_ff, device=device, dtype=dtype),
+            "down": dense_init(gen, d_ff, d_model, device=device, dtype=dtype)}
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0,
+                     device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: [..., S, H, D]; positions: [..., S] int."""
+    freqs = rope_frequencies(x.shape[-1], theta, device=x.device)  # [D/2]
+    ang = positions[..., None].float() * freqs            # [..., S, D/2]
+    cos = torch.cos(ang)[..., None, :]                    # [..., S, 1, D/2]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

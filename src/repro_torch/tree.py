@@ -9,7 +9,8 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-__all__ = ["tree_leaves", "tree_paths", "tree_map", "tree_unflatten"]
+__all__ = ["tree_leaves", "tree_paths", "tree_map", "tree_unflatten",
+           "nest_map", "nest_leaves"]
 
 Tree = Any
 
@@ -55,3 +56,26 @@ def tree_unflatten(paths: list[tuple], leaves: list) -> Tree:
             node = node.setdefault(k, {})
         node[path[-1]] = leaf
     return out
+
+
+def nest_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
+    """``fn`` over corresponding leaves of trees of dicts *and tuples* (the
+    LM's params, caches and page pools keep a tuple per period position,
+    as the reference's do); the structure is kept, tuples as tuples."""
+    if isinstance(tree, dict):
+        return {k: nest_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    if isinstance(tree, tuple):
+        return tuple(nest_map(fn, *items) for items in zip(tree, *rest,
+                                                            strict=True))
+    return fn(tree, *rest)
+
+
+def nest_leaves(tree: Tree) -> list:
+    """Leaves of a tree of dicts and tuples, dict keys in sorted order and
+    tuple entries in order: the order ``jax.tree.leaves`` gives."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in nest_leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in nest_leaves(v)]
+    return [tree]

@@ -1,6 +1,6 @@
 """The port's kernel modules on the CPU: the plain versions of the four
-``qg_update`` and the three ``compress`` kernels against the JAX package's
-Pallas kernels (interpret mode) and its ``kernels/ref.py``;
+``qg_update``, the three ``compress`` and the two attention kernels against
+the JAX package's Pallas kernels (interpret mode) and its ``kernels/ref.py``;
 ``pack``/``unpack``; the bytes-moved model; and the device dispatch of
 ``kernels/ops.py``.
 
@@ -10,7 +10,17 @@ except ``qg_buffer_update``, whose reference divides by eta where the
 kernel multiplies by a folded 1/eta (a few ulps, 1e-5 of values of order
 10).  Against the interpret-mode Pallas kernels, whose jit may contract
 a*b + c into one FMA, they agree to about one ulp (1e-6 for values of
-order 1, the bound tests/test_kernels.py uses)."""
+order 1, the bound tests/test_kernels.py uses).
+
+The attention versions sum in another order than the reference's (one
+softmax over the row, against its online blocks or its dense softmax), so
+they are held at the reference's own bounds for its flash kernel
+(tests/test_kernels.py:182): 2e-5 abs in fp32 on outputs of order 1, and
+2e-2 in bf16, one bf16 ulp at |x| in [2, 4) where both round the same fp32
+value on either side of a rounding boundary.  On a paged slot of length 0
+the plain version gives 0, as the Pallas kernel does, where ``ref.py``'s
+dense-gather oracle gives the mean of the gathered values; it is held to
+the kernel there and to ``ref.py`` on the other rows."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,10 +35,12 @@ from repro.kernels import pack as jpack
 from repro.kernels import ref as jref
 from repro_torch.core import optim as toptim
 from repro_torch.core import transforms as tT
+from repro_torch.kernels import attention as tA
 from repro_torch.kernels import compress as tC
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pack as tpack
 from repro_torch.kernels import qg_update as tK
+from repro_torch.kernels.ref import attn_scale as tref_attn_scale
 
 SHAPES = [(), (1,), (7,), (8191,), (8193,), (13, 17), (3, 5, 11)]
 PALLAS_TOL = dict(rtol=1e-6, atol=1e-6)
@@ -324,11 +336,18 @@ def test_cpu_dispatch_leaves_launch_counters_at_zero():
     tops.threshold_mask(x2d, x2d.abs().amax(dim=1))
     tops.quantize_dequantize(x2d, x2d.abs().amax(dim=1), torch.rand(4, 25),
                              levels=15)
+    q = torch.randn(1, 8, 4, 32)
+    tops.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    tops.paged_decode_attention(q[:, :1], q.reshape(2, 4, 4, 32)[:, :, :2],
+                                q.reshape(2, 4, 4, 32)[:, :, :2],
+                                torch.tensor([[1, -1]], dtype=torch.int32),
+                                torch.tensor([3], dtype=torch.int32))
     counts = tops.launch_counts()
     assert set(counts) == {"fused_halfstep", "fused_qg_buffer",
                            "qg_local_step", "qg_buffer_update",
                            "gamma_correct", "threshold_mask",
-                           "quantize_dequantize"}
+                           "quantize_dequantize", "flash_attention",
+                           "paged_decode_attention"}
     assert counts == {k: 0 for k in counts}
 
 
@@ -359,6 +378,13 @@ def test_kernel_wrappers_refuse_cpu_tensors_before_building():
         tC.threshold_mask(x2d, x2d[:, 0].contiguous())
     with pytest.raises(ValueError, match="CUDA tensor"):
         tC.quantize_dequantize(x2d, x2d[:, 0].contiguous(), x2d, levels=15)
+    q = torch.randn(1, 4, 4, 32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tA.flash_attention(q, q, q)
+    bt, ln = (torch.zeros(1, 1, dtype=torch.int32),
+              torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tA.paged_decode_attention(q[:, :1], q, q, bt, ln)
 
 
 def test_rowwise_wrappers_check_shapes_before_building():
@@ -367,3 +393,160 @@ def test_rowwise_wrappers_check_shapes_before_building():
         tC.threshold_mask(x2d.reshape(-1), x2d[:, 0])
     with pytest.raises(ValueError, match="u has shape"):
         tC.quantize_dequantize(x2d, x2d[:, 0], x2d.reshape(4, 2), levels=3)
+
+
+# ---------------------------------------------------------------------------
+# attention: flash and paged decode
+# ---------------------------------------------------------------------------
+
+#: the reference's ATTN_CASES (tests/test_kernels.py:162):
+#: (B, S, T, H, KH, D, kwargs)
+ATTN_CASES = [
+    (1, 128, 128, 4, 4, 32, {}), (2, 256, 256, 8, 2, 64, {}),
+    (1, 200, 200, 4, 2, 32, {}), (1, 256, 256, 4, 4, 32, {"window": 64}),
+    (1, 256, 256, 4, 4, 32, {"softcap": 30.0}),
+    (1, 128, 192, 4, 4, 32, {"causal": False}),
+]
+ATT_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _attn_inputs(shapes, dtype, seed):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.normal(size=s).astype(np.float32) for s in shapes]
+    if dtype == "bfloat16":  # both packages start from the same bf16 values
+        arrs = [np.asarray(jnp.asarray(a, jnp.bfloat16)) for a in arrs]
+    return arrs
+
+
+def _to_torch(a):
+    if a.dtype == np.float32 or a.dtype.kind in "iu":
+        return torch.from_numpy(np.array(a))
+    return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_reference(case, dtype):
+    b, s, t, h, kh, d, kw = case
+    q, k, v = _attn_inputs([(b, s, h, d), (b, t, kh, d), (b, t, kh, d)],
+                           dtype, seed=sum(case[:6]))
+    got = tops.flash_attention(_to_torch(q), _to_torch(k), _to_torch(v),
+                               **kw)
+    assert got.dtype == (torch.float32 if dtype == "float32"
+                         else torch.bfloat16)
+    assert got.shape == (b, s, h, d)
+    got = got.float().numpy()
+    pallas = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), block_q=64, block_k=128,
+                                  interpret=True, **kw)
+    want = jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), **kw)
+    for exp in (pallas, want):
+        np.testing.assert_allclose(got, np.asarray(exp, np.float32),
+                                   atol=ATT_TOL[dtype], rtol=0)
+
+
+def test_flash_attention_plain_matches_model_chunked_path():
+    from repro_torch.models import attention as tAtt
+    q, k, v = (_to_torch(a) for a in _attn_inputs(
+        [(2, 256, 8, 64), (2, 256, 4, 64), (2, 256, 4, 64)], "float32", 5))
+    a = tops.flash_attention(q, k, v, causal=True, window=64)
+    b = tAtt.chunked_attention(q, k, v, causal=True, window=64, chunk=128)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), atol=3e-5, rtol=0)
+
+
+#: the reference's paged cases (tests/test_serve.py:234):
+#: (b, h, kh, d, ps, pmax, np_, window, softcap)
+PAGED_CASES = [
+    (3, 8, 2, 32, 16, 8, 6, 0, 0.0),
+    (2, 4, 4, 64, 8, 4, 8, 0, 30.0),
+    (4, 8, 2, 32, 16, 8, 6, 20, 50.0),
+    (1, 4, 2, 16, 1, 16, 16, 0, 0.0),
+]
+
+
+def _paged_inputs(case, seed, *, dead_slot: bool):
+    b, h, kh, d, ps, pmax, np_, _, _ = case
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, 1, h, d)).astype(np.float32)
+    kp = rng.normal(size=(np_, ps, kh, d)).astype(np.float32)
+    vp = rng.normal(size=(np_, ps, kh, d)).astype(np.float32)
+    lengths = rng.integers(1, min(pmax, np_) * ps + 1, size=b).astype(
+        np.int32)
+    if dead_slot:
+        lengths[-1] = 0
+    bt = np.full((b, pmax), -1, np.int32)
+    for i in range(b):
+        need = -(-int(lengths[i]) // ps)
+        bt[i, :need] = rng.choice(np_, size=need, replace=False)
+    return q, kp, vp, bt, lengths
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
+@pytest.mark.parametrize("dead_slot", [False, True])
+def test_paged_decode_plain_matches_reference(case, dead_slot):
+    """The plain version equals the reference's Pallas kernel (interpret
+    mode) on every row, length-0 slots included (0 from both), and its
+    dense-gather oracle on every row that sees a key."""
+    window, softcap = case[7], case[8]
+    arrs = _paged_inputs(case, seed=case[0] * 100 + case[4],
+                         dead_slot=dead_slot)
+    got = tops.paged_decode_attention(*(_to_torch(a) for a in arrs),
+                                      window=window, softcap=softcap)
+    got = got.numpy()
+    jarrs = [jnp.asarray(a) for a in arrs]
+    pallas = np.asarray(jops.paged_decode_attention(
+        *jarrs, window=window, softcap=softcap, interpret=True))
+    want = np.asarray(jref.paged_decode_attention_ref(
+        *jarrs, window=window, softcap=softcap))
+    np.testing.assert_allclose(got, pallas, atol=1e-5, rtol=1e-5)
+    live = arrs[-1] > 0
+    np.testing.assert_allclose(got[live], want[live], atol=1e-5, rtol=1e-5)
+    if dead_slot:
+        assert not got[~live].any() and not pallas[~live].any()
+        # where the dense-gather oracle averages the gathered values
+        assert np.abs(want[~live]).max() > 0
+
+
+def test_paged_decode_plain_matches_reference_in_bf16():
+    case = PAGED_CASES[0]
+    q, kp, vp, bt, ln = _paged_inputs(case, seed=3, dead_slot=True)
+    q, kp, vp = (np.asarray(jnp.asarray(a, jnp.bfloat16)) for a in (q, kp, vp))
+    got = tops.paged_decode_attention(*(_to_torch(a) for a in
+                                        (q, kp, vp, bt, ln)))
+    assert got.dtype == torch.bfloat16
+    pallas = jops.paged_decode_attention(*(jnp.asarray(a) for a in
+                                           (q, kp, vp, bt, ln)),
+                                         interpret=True)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(pallas, np.float32),
+                               atol=ATT_TOL["bfloat16"], rtol=0)
+
+
+def test_attention_wrappers_check_dtype_and_shapes_before_building():
+    """No fallback: a dtype or a head_dim the kernels do not take is
+    refused, never sent to the plain path."""
+    q16 = torch.randn(1, 4, 4, 32, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tA.flash_attention(q16, q16, q16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tA.paged_decode_attention(q16[:, :1], q16, q16,
+                                  torch.zeros(1, 1, dtype=torch.int32),
+                                  torch.ones(1, dtype=torch.int32))
+    q48 = torch.randn(1, 4, 4, 48)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        tA.flash_attention(q48, q48, q48)
+    q = torch.randn(1, 4, 4, 32)
+    with pytest.raises(ValueError, match="do not fit"):
+        tA.flash_attention(q, q[:, :, :3], q[:, :, :3])
+    with pytest.raises(ValueError, match=r"block_tables \[B,P\]"):
+        tA.paged_decode_attention(q[:, :1], q, q,
+                                  torch.zeros(2, 1, dtype=torch.int32),
+                                  torch.ones(1, dtype=torch.int32))
+    assert tA.FLASH_HEAD_DIMS == (32, 64, 128)
+
+
+def test_attention_scale_matches_reference():
+    for d in (16, 32, 64, 112, 128):
+        assert tref_attn_scale(d) == float(
+            1.0 / jnp.sqrt(jnp.asarray(d, jnp.float32)))

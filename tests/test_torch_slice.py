@@ -292,8 +292,19 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(k for k in sys.modules
              if k in ("jax", "repro") or k.startswith(("jax.", "repro.")))
+print(" ".join(names))
 print(len(names), "modules;", "leaked:", bad)
 """
+
+#: one module of each subpackage, the serving stack's included: the walk
+#: must import every one of them without JAX
+_SUBPACKAGES = ["repro_torch.api.build", "repro_torch.comm.choco",
+                "repro_torch.configs.base", "repro_torch.core.optim",
+                "repro_torch.data.partition", "repro_torch.kernels.attention",
+                "repro_torch.launch.serve", "repro_torch.models.transformer",
+                "repro_torch.runtime.vmap", "repro_torch.serve.engine",
+                "repro_torch.serve.export", "repro_torch.serve.__main__",
+                "repro_torch.telemetry.trace", "repro_torch.train.trainer"]
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -302,7 +313,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                          cwd=ROOT, env={**os.environ, "PYTHONPATH": "src"})
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip().endswith("leaked: []"), res.stdout
-    assert int(res.stdout.split()[0]) >= 20
+    names, summary = res.stdout.strip().splitlines()[-2:]
+    assert int(summary.split()[0]) >= 40
+    assert set(_SUBPACKAGES) <= set(names.split()), names
 
 
 def test_cli_runs_a_preset_on_the_cpu(tmp_path):
