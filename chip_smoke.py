@@ -8,7 +8,8 @@ checkout.  Phases, each of which fails the run (non-zero exit, no result
 line) if anything goes wrong:
 
 1. build    compile every CUDA kernel from ``csrc/`` (``qg_update``,
-            ``compress`` and ``attention``, one ``nvcc`` each, together);
+            ``compress``, ``attention`` and ``ssd_scan``, one ``nvcc`` each,
+            together);
 2. kernels  hold each kernel against its plain PyTorch version on the card:
             the streaming kernels over lengths 0-d .. 2**27+5, every flag
             combination and an unaligned view; the row-wise compress kernels
@@ -44,7 +45,20 @@ line) if anything goes wrong:
             near-tie); tokens/s, decode p50/p95, peak cache bytes; then
             ``prefill`` of [2, 1024] tokens through 22 ``flash_attention``
             launches against the chunked path (logits and every layer's
-            K/V), and the serving run under ``torch.profiler``.
+            K/V), and the serving run under ``torch.profiler``;
+6. mamba    the SSD scan kernel against its plain version in fp32 and bf16
+            at the reference's SSD_CASES, S = 1 and 17, chunk 64 vs 256, dt
+            x 1e-2 and the main shape (every P-tile), timed at the main
+            shape and at [8, 4096]; then slice 6b-i's main path on
+            mamba2-130m at its published widths and depth: ``prefill`` of
+            [2, 2048] tokens through exactly 24 ``ssd_scan`` launches
+            against the plain path (logits, conv and SSM states), 32 greedy
+            decode steps from the kernel prefill's state (no launch)
+            against ``sequential_generate``, a train-mode forward of [1,
+            512] through 24 launches, ``python -m repro_torch.serve --arch
+            mamba2-130m --full --baseline --requests 16`` in code (with and
+            without ``--use-pallas``), the engine's refusal, and the
+            prefill under ``torch.profiler``.
 
 Imports nothing of JAX nor of the JAX package.  The second-to-last lines
 are the card's name and power limit and a JSON ``kernels`` line; the last
@@ -1015,10 +1029,25 @@ def phase_serve(dev, cfg, params, reqs) -> dict:
             "stats": st, "wall_s": wall, "ties": ties}
 
 
+def _allocator(dev) -> str:
+    """The caching allocator's state: what it holds, what the device has
+    free, and how often it called cudaMalloc and cudaFree and how often a
+    cudaMalloc failed so that it freed its cache and tried again."""
+    import torch
+    st = torch.cuda.memory_stats(dev)
+    free, total = torch.cuda.mem_get_info(dev)
+    return (f"allocated {st['allocated_bytes.all.current']} B, reserved "
+            f"{st['reserved_bytes.all.current']} B, device free {free} of "
+            f"{total} B, {st['num_device_alloc']} cudaMalloc, "
+            f"{st['num_device_free']} cudaFree, {st['num_alloc_retries']} "
+            f"retries")
+
+
 def phase_prefill(dev, cfg, params) -> dict:
     """``prefill(tokens [2, 1024], use_pallas=True)`` at full width: 22
     flash launches, logits and every layer's K/V within PREFILL_TOL of the
-    chunked path."""
+    chunked path, which is timed on its first call and again (the
+    allocator's state logged around the first)."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -1036,10 +1065,17 @@ def phase_prefill(dev, cfg, params) -> dict:
     ms = (time.perf_counter() - t0) * 1e3
     counts = ops.launch_counts()
     _expect_launches("prefill", counts, {"flash_attention": cfg.n_layers})
-    t0 = time.perf_counter()
-    want, want_cache = tf.prefill(params, tokens, cfg, use_pallas=False)
-    torch.cuda.synchronize(dev)
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    log(f"main prefill allocator before the chunked path: "
+        f"{_allocator(dev)}")
+    plain_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        want, want_cache = tf.prefill(params, tokens, cfg, use_pallas=False)
+        torch.cuda.synchronize(dev)
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+        if len(plain_ms) == 1:
+            log(f"main prefill allocator after its first call: "
+                f"{_allocator(dev)}")
     errs = {"logits": float((logits - want).abs().max())}
     for j, (c, w) in enumerate(zip(cache["blocks"], want_cache["blocks"])):
         for key in ("k", "v"):
@@ -1051,8 +1087,9 @@ def phase_prefill(dev, cfg, params) -> dict:
         raise AssertionError(f"prefill: flash vs chunked {errs}; allowed "
                              f"{PREFILL_TOL}")
     log(f"main prefill {cfg.name} tokens {list(PREFILL_SHAPE)}: flash "
-        f"{ms:.4f} ms, chunked {plain_ms:.4f} ms (host clock, one call "
-        f"each); max abs diff logits {errs['logits']:.3e}, K/V "
+        f"{ms:.4f} ms (after a warm-up), chunked {plain_ms[0]:.4f} ms first "
+        f"call, {plain_ms[1]:.4f} ms second (host clock); max abs diff "
+        f"logits {errs['logits']:.3e}, K/V "
         f"{max(v for k, v in errs.items() if k != 'logits'):.3e} (allowed "
         f"{PREFILL_TOL}); launches {counts}")
     return {"launches": counts, "errs": errs, "ms": ms, "plain_ms": plain_ms}
@@ -1125,6 +1162,352 @@ def phase_serve_profile(dev, cfg, params, reqs) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the Mamba-2 SSD scan (slice 6b-i) against its plain version, and the
+# Mamba path at full width
+# ---------------------------------------------------------------------------
+
+#: kernel vs plain version: y within atol + rtol * |y_plain| and the final
+#: state likewise.  fp32: the reference's own bound between its kernel and
+#: its sequential oracle (tests/test_kernels.py:221); the kernel sums each
+#: chunk as three products where the plain version steps token by token.
+#: bf16: both compute in fp32 and round y once to bf16, so they differ by
+#: at most one bf16 ulp where the two fp32 values straddle a rounding
+#: boundary (2**-7 relative): 2e-2
+SSD_TOL = {"float32": (5e-4, 1e-3), "bfloat16": (2e-2, 2e-2)}
+
+#: (B, S, H, P, N, chunk, dt scale): the reference's SSD_CASES
+#: (tests/test_kernels.py:199), one token and 17 tokens (chunk = S), P 48
+#: (three blocks of 16 columns; P 32 and 64 take blocks of 32, P 16 one of
+#: 16), chunk 64 and 256 on the same inputs, dt x 1e-2 (exp(a dt) near 1:
+#: the state carries across every chunk), and the main path's shape
+#: (mamba2-130m at [2, 2048]) at both dt scales
+SSD_CASES = [
+    (1, 128, 2, 32, 16, 64, 1.0), (2, 256, 3, 64, 32, 64, 1.0),
+    (1, 256, 1, 16, 128, 128, 1.0), (2, 512, 4, 32, 64, 256, 1.0),
+    (1, 1, 2, 32, 16, 128, 1.0), (1, 17, 2, 32, 16, 128, 1.0),
+    (2, 256, 3, 48, 64, 128, 1.0),
+    (1, 256, 2, 32, 16, 64, 1e-2), (1, 256, 2, 32, 16, 256, 1e-2),
+    (2, 512, 4, 32, 64, 256, 1e-2),
+    (2, 2048, 24, 64, 128, 128, 1.0), (2, 2048, 24, 64, 128, 128, 1e-2),
+]
+SSD_MAIN = SSD_CASES[-1]
+SSD_LARGE = (8, 4096, 24, 64, 128, 128, 1e-2)
+
+#: the Mamba path: mamba2-130m (configs/mamba2_130m.py) at its published
+#: widths and depth, a seeded init, fp32 with TF32 off
+MAMBA_ARCH, MAMBA_SEED = "mamba2-130m", 0
+MAMBA_PREFILL, MAMBA_TRAIN, MAMBA_DECODE = (2, 2048), (1, 512), 32
+
+#: kernel path vs plain path of a whole forward: max |diff| / max |plain|
+#: of the last logits and of every layer's conv and SSM state.  Both are
+#: fp32; the scan sums in other orders (1e-6 relative per layer seen on
+#: reduced configs), carried through 24 layers: 1e-4
+MAMBA_TOL = 1e-4
+
+
+def _ssd_inputs(case, dtype, dev, seed):
+    """x, dt, a, b, c, d_skip at the reference test's scales (x 0.5, b and
+    c 0.3, dt = softplus(N(0, 1)) times the case's scale, a = -exp(0.3 N))."""
+    import torch
+    b, s, h, p, n, _, dt_scale = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    x = (rnd(b, s, h, p) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(b, s, h)) * dt_scale
+    a = -torch.exp(rnd(h) * 0.3)
+    bm, cm = ((rnd(b, s, n) * 0.3).to(dtype) for _ in range(2))
+    d = 1.0 + 0.5 * rnd(h)
+    return x, dt, a, bm, cm, d
+
+
+def phase_ssd_kernels(dev) -> dict:
+    """The SSD scan against its plain version at every case in fp32 and
+    bf16 (y and the final state); returns the worst max abs error per
+    dtype."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as K
+
+    worst = {}
+
+    def check(label, dtype, got, want):
+        atol, rtol = SSD_TOL[str(dtype).replace("torch.", "")]
+        errs = []
+        for g, w, what in zip(got, want, ("y", "state")):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"ssd_scan {label}: {what} {g.shape} "
+                                     f"{g.dtype} vs plain {w.shape} {w.dtype}")
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"ssd_scan {label}: non-finite {what}")
+            d = (g.float() - w.float()).abs()
+            excess = float((d - rtol * w.float().abs()).max())
+            if excess > atol:
+                raise AssertionError(
+                    f"ssd_scan {label}: {what} off its plain version by "
+                    f"{excess:.3e} beyond rtol {rtol} (max abs "
+                    f"{float(d.max()):.3e}); allowed atol {atol}")
+            errs.append(float(d.max()))
+        key = str(dtype).replace("torch.", "")
+        worst[key] = max(worst.get(key, 0.0), *errs)
+        return errs
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, case in enumerate(SSD_CASES):
+            x, dt, a, bm, cm, d = _ssd_inputs(case, dtype, dev, 50 + i)
+            got = K.ssd_scan(x, dt, a, bm, cm, d, chunk=case[5])
+            want = ref.ssd_scan(x, dt, a, bm, cm, d)
+            ey, es = check(f"{case} {dtype}", dtype, got, want)
+            log(f"kernel ssd_scan {dtype} B,S,H,P,N,chunk={case[:6]} dt x "
+                f"{case[6]}: max abs err y {ey:.3e}, state {es:.3e} (max "
+                f"|state| {float(want[1].abs().max()):.3e})")
+            del x, bm, cm, got, want
+    # chunk 64 against chunk 256 on the same inputs (cases 7 and 8 share
+    # shapes; draw once)
+    x, dt, a, bm, cm, d = _ssd_inputs(SSD_CASES[7], torch.float32, dev, 70)
+    y64, f64 = K.ssd_scan(x, dt, a, bm, cm, d, chunk=64)
+    y256, f256 = K.ssd_scan(x, dt, a, bm, cm, d, chunk=256)
+    ey, es = check("chunk 64 vs 256", torch.float32, (y64, f64), (y256, f256))
+    log(f"kernel ssd_scan chunk 64 vs chunk 256 on the same inputs: max abs "
+        f"diff y {ey:.3e}, state {es:.3e}")
+    del x, bm, cm, y64, f64, y256, f256
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    log(f"kernel ssd_scan: every case within its tolerance {SSD_TOL}; worst "
+        f"max abs err fp32 {worst['float32']:.3e}, bf16 "
+        f"{worst['bfloat16']:.3e}")
+    return worst
+
+
+def _ssd_cost(case):
+    """(flops, bytes) of one scan.  Flops: the least the function needs,
+    the recurrence's own per token and head -- N*P for the state's decay,
+    2*N*P + P for dt B x^T, 2*N*P for C h, 2*P for the D-skip, 2 for a*dt
+    and its exp; a chunked form does more (C.B^T and the intra-chunk
+    combine).  Bytes: fp32 x and y, b and c read once, dt, a, d_skip and
+    the final state."""
+    b, s, h, p, n, _, _ = case
+    flops = b * s * h * (5 * n * p + 3 * p + 2)
+    nbytes = 4 * (2 * b * s * h * p + 2 * b * s * n + b * s * h + 2 * h
+                  + b * h * n * p)
+    return flops, nbytes
+
+
+def phase_ssd_timing(dev) -> dict:
+    """Kernel and plain ms (CUDA graphs) and bound of the SSD scan at the
+    main shape and at [8, 4096] with the same widths, fp32.  No single
+    PyTorch call computes the scan: the library column is none."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as K
+
+    timed = {}
+    for label, case, iters in (("main", SSD_MAIN, 10),
+                               ("large", SSD_LARGE, 4)):
+        x, dt, a, bm, cm, d = _ssd_inputs(case, torch.float32, dev, 80)
+        flops, nbytes = _ssd_cost(case)
+        bound, by = _bound(nbytes, flops)
+        row = {"shape": case[:6],
+               "ms": _time_ms(lambda: K.ssd_scan(x, dt, a, bm, cm, d),
+                              iters),
+               "plain_ms": _time_ms(lambda: ref.ssd_scan(x, dt, a, bm, cm,
+                                                         d), 1, reps=3),
+               "bound_ms": bound, "bound_by": by, "library_ms": None,
+               "flops": flops, "bytes": nbytes,
+               "dispatch_ms": _dispatch_ms(lambda: K.ssd_scan(
+                   x, dt, a, bm, cm, d))}
+        timed[label] = row
+        log(f"time ssd_scan {label} B,S,H,P,N,chunk={case[:6]} fp32: kernel "
+            f"{row['ms']:.6f} ms (CUDA graph of {iters} calls), plain "
+            f"{row['plain_ms']:.6f} ms (sequential over S, CUDA graph of 1 "
+            f"call), library: none, bound {bound:.6f} ms ({by}: "
+            f"{flops} flop, {nbytes} B), {flops / row['ms'] / 1e9:.2f} "
+            f"TFLOP/s; kernel with eager dispatch {row['dispatch_ms']:.6f} "
+            f"ms")
+        del x, dt, a, bm, cm, d
+        torch.cuda.empty_cache()
+    return timed
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| / max |want| (0 for two zero tensors)."""
+    scale = float(want.float().abs().max())
+    diff = float((got.float() - want.float()).abs().max())
+    return diff / scale if scale else diff
+
+
+def phase_mamba(dev) -> dict:
+    """Slice 6b-i's main path at the published widths and depth: prefill
+    [2, 2048] through exactly 24 ``ssd_scan`` launches against the plain
+    path, 32 greedy decode steps from the kernel prefill's state (no
+    launch) against ``sequential_generate``, a train-mode forward through
+    24 launches, the ``--baseline`` serving CLI, and the engine's refusal."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import ServeEngine, sequential_generate
+    from repro_torch.serve.__main__ import main as serve_main
+
+    cfg = get_config(MAMBA_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(MAMBA_SEED)
+    params = tf.init_lm(gen, cfg)
+    rng = np.random.default_rng(MAMBA_SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           size=MAMBA_PREFILL)).to(dev)
+    tf.prefill(params, tokens[:, :256], cfg, use_pallas=True)   # warm-up
+    tf.prefill(params, tokens[:, :256], cfg, use_pallas=False)
+    torch.cuda.synchronize(dev)
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = tf.prefill(params, tokens, cfg, use_pallas=True)
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    _expect_launches("mamba prefill", counts, {"ssd_scan": cfg.n_layers})
+    t0 = time.perf_counter()
+    want, want_cache = tf.prefill(params, tokens, cfg, use_pallas=False)
+    torch.cuda.synchronize(dev)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    errs = {"logits": _rel_err(logits, want)}
+    for key in ("conv", "ssm"):
+        errs[key] = _rel_err(cache["blocks"][0][key],
+                             want_cache["blocks"][0][key])
+    if not torch.isfinite(logits).all() or max(errs.values()) > MAMBA_TOL:
+        raise AssertionError(f"mamba prefill: kernel vs plain path {errs} "
+                             f"(max |diff| / max |plain|); allowed "
+                             f"{MAMBA_TOL}")
+    log(f"main mamba prefill {cfg.name} ({cfg.n_params()} params) tokens "
+        f"{list(MAMBA_PREFILL)}: kernel path {ms:.4f} ms, plain path "
+        f"{plain_ms:.4f} ms (host clock, one call each); relative error "
+        f"logits {errs['logits']:.3e}, conv state {errs['conv']:.3e}, ssm "
+        f"state {errs['ssm']:.3e} (allowed {MAMBA_TOL}); launches {counts}")
+
+    # greedy decode from the kernel prefill's state: no launch
+    ops.reset_launch_counts()
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    out, step_logits = [tok], [logits]
+    s = MAMBA_PREFILL[1]
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for i in range(MAMBA_DECODE):
+        lg, cache = tf.decode_step(params, tok, s + i, cache, cfg)
+        tok = torch.argmax(lg, dim=-1)[:, None]
+        out.append(tok)
+        step_logits.append(lg)
+    torch.cuda.synchronize(dev)
+    dec_ms = (time.perf_counter() - t0) * 1e3 / MAMBA_DECODE
+    _expect_launches("mamba decode", ops.launch_counts(), {})
+    got = torch.cat(out, dim=1)
+    seq = sequential_generate(params, cfg, tokens, gen_len=MAMBA_DECODE + 1,
+                              cache_len=s + MAMBA_DECODE + 1)[:, s:]
+    ties = []
+    for r in range(got.shape[0]):
+        diff = (got[r] != seq[r]).nonzero().flatten()
+        if not len(diff):
+            continue
+        i = int(diff[0])
+        top = step_logits[i][r].float().topk(2).values
+        gap = float(top[0] - top[1])
+        if gap >= LOGIT_TOL:
+            raise AssertionError(f"mamba decode: row {r} parts from "
+                                 f"sequential_generate at token {i} with "
+                                 f"top-2 gap {gap:.3e} >= {LOGIT_TOL}")
+        ties.append((r, i, gap))
+        log(f"main mamba decode: row {r} parts at token {i} at a near-tie "
+            f"(top-2 gap {gap:.3e} < {LOGIT_TOL}); equal before it")
+    log(f"main mamba decode: {MAMBA_DECODE} greedy steps from the kernel "
+        f"prefill's state, {dec_ms:.4f} ms a step (host clock), 0 launches; "
+        f"tokens == sequential_generate's (chunked prefill)"
+        + (f" up to {len(ties)} near-tie(s)" if ties else " (all equal)"))
+
+    # a train-mode forward through the kernel
+    train_toks = tokens[:MAMBA_TRAIN[0], :MAMBA_TRAIN[1]]
+    ops.reset_launch_counts()
+    tl, _, _ = tf.forward(params, train_toks, cfg, mode="train",
+                          use_pallas=True)
+    torch.cuda.synchronize(dev)
+    train_counts = ops.launch_counts()
+    _expect_launches("mamba train forward", train_counts,
+                     {"ssd_scan": cfg.n_layers})
+    tw, _, _ = tf.forward(params, train_toks, cfg, mode="train")
+    terr = _rel_err(tl, tw)
+    if not torch.isfinite(tl).all() or terr > MAMBA_TOL:
+        raise AssertionError(f"mamba train forward: relative error {terr} "
+                             f"> {MAMBA_TOL}")
+    log(f"main mamba train forward tokens {list(MAMBA_TRAIN)}: logits "
+        f"{tuple(tl.shape)}, relative error {terr:.3e} vs the plain path; "
+        f"launches {train_counts}")
+    del tl, tw
+
+    # the serving CLI's baseline, in process, without and with the kernel
+    rows = {}
+    for extra, want_n in (((), 0), (("--use-pallas",), 16 * cfg.n_layers)):
+        ops.reset_launch_counts()
+        rows[extra] = serve_main(["--arch", MAMBA_ARCH, "--full",
+                                  "--baseline", "--requests", "16", *extra])
+        _expect_launches(f"serve --baseline {' '.join(extra)}",
+                         ops.launch_counts(),
+                         {"ssd_scan": want_n} if want_n else {})
+        log(f"main mamba serve --full --baseline {' '.join(extra)}: "
+            f"{rows[extra]['tokens_per_s']:.2f} tokens/s, "
+            f"{rows[extra]['wall_s']:.4f} s; launches {ops.launch_counts()}")
+    try:
+        ServeEngine(params, cfg)
+    except NotImplementedError as e:
+        log(f"main mamba engine: refused as the reference's is ({e})")
+    else:
+        raise AssertionError("mamba: the paged engine accepted mamba2")
+    return {"launches": counts, "train_launches": train_counts,
+            "errs": errs, "train_err": terr, "ties": ties, "ms": ms,
+            "plain_ms": plain_ms, "decode_ms": dec_ms, "serve": rows,
+            "cfg": cfg, "params": params, "tokens": tokens}
+
+
+def phase_mamba_profile(dev, cfg, params, tokens) -> None:
+    """The full-width kernel prefill under ``torch.profiler``: device busy
+    share, device time by kernel, and the scan's share of device time."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tf.prefill(params, tokens, cfg, use_pallas=True)
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dt = (getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0))
+            if dt:
+                rows.append((e.key, dt / 1e3, e.count))
+    if not rows:
+        log("profile mamba: the profiler recorded no device time")
+        return
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    ours = [r for r in rows if "ssd_fwd" in r[0]]
+    ssd_ms = sum(r[1] for r in ours)
+    log(f"profile mamba prefill {cfg.name} tokens {list(tokens.shape)} "
+        f"(profiler on): wall {wall_ms:.3f} ms, device kernel time "
+        f"{busy:.3f} ms ({100 * busy / wall_ms:.2f}% busy), "
+        f"{sum(r[2] for r in rows)} device activities; ssd_scan "
+        f"{ssd_ms:.4f} ms ({100 * ssd_ms / busy:.2f}% of device time)")
+    for key, ms, count in rows[:12] + [r for r in ours if r not in rows[:12]]:
+        log(f"profile mamba device {ms:10.4f} ms {count:6d}x "
+            f"{ms / count * 1e3:9.3f} us each  {key[:80]}")
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "profile_mamba.json").write_text(json.dumps(
+        {"wall_ms": wall_ms, "device_ms": busy,
+         "device": [{"name": k, "ms": m, "count": c} for k, m, c in rows]},
+        indent=1))
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1157,8 +1540,11 @@ def main() -> int:
     # 2. kernels against their plain versions, then their times
     worst = phase_kernels(dev)
     att_worst = phase_attention_kernels(dev)
+    ssd_worst = phase_ssd_kernels(dev)
     timed = phase_timing(dev)
     att_timed = phase_attention_timing(dev)
+    ssd_timed = phase_ssd_timing(dev)
+    log(f"allocator after the kernel timings: {_allocator(dev)}")
 
     # 3. the main path: the quickstart pair, then the compressed runs
     main_out = phase_main(dev)
@@ -1178,6 +1564,13 @@ def main() -> int:
     prefill_out = phase_prefill(dev, cfg, params)
     phase_serve_profile(dev, cfg, params, reqs)
     del params
+    torch.cuda.empty_cache()
+
+    # 6. slice 6b-i's main path: mamba2-130m prefilled through the SSD scan
+    # kernel, decoded from the state it leaves, and profiled
+    mamba_out = phase_mamba(dev)
+    phase_mamba_profile(dev, mamba_out.pop("cfg"), mamba_out.pop("params"),
+                        mamba_out.pop("tokens"))
     torch.cuda.empty_cache()
 
     smi = subprocess.run(
@@ -1226,11 +1619,19 @@ def main() -> int:
             "max_abs_err": att_worst[name]["float32"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    t = ssd_timed["main"]
+    kernels.append({
+        "name": "ssd_scan", "route": "cuda", "source": csrc + "ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:77",
+        "launches": mamba_out["launches"]["ssd_scan"],
+        "max_abs_err": ssd_worst["float32"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))  # the one device this run drives
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

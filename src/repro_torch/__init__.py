@@ -15,7 +15,9 @@ random-k, sign+norm and QSGD), whose three passes are CUDA kernels too
 (``kernels/csrc/compress.cu``); and slice 7, continuous-batching serving
 (``serve/``, ``launch/serve.py``) over the attention-only decoder LM
 (``configs/``, ``models/``), whose flash and paged-decode attention are
-CUDA kernels (``kernels/csrc/attention.cu``).
+CUDA kernels (``kernels/csrc/attention.cu``); and slice 6b-i, the Mamba-2
+mixer (``models/ssm.py``) with its prefill through the SSD scan as a CUDA
+kernel (``kernels/csrc/ssd_scan.cu``) and its O(1)-state decode.
 
 Entry points (``api.build``, ``api.run``, ``python -m repro_torch.api``,
 ``python -m repro_torch.serve``) run on the CUDA device unless the caller

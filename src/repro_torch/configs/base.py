@@ -7,8 +7,8 @@ Port of ``repro/configs/base.py``.  Every assigned architecture is a
 MoE/SSM/VLM features) while shrinking widths.
 
 The reference defines ``MoEConfig`` in ``models/moe.py`` and ``SSMConfig``
-in ``models/ssm.py``; the port keeps the two dataclasses here, with the same
-fields, until the moe and Mamba-2 layers themselves are ported.
+in ``models/ssm.py``; the port keeps both dataclasses here, with the same
+fields, and its ``models/ssm.py`` imports ``SSMConfig`` from this module.
 """
 from __future__ import annotations
 

@@ -28,8 +28,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 
 #: every library of ``csrc/``: the optimizer passes, the compressed-gossip
-#: passes, and the flash and paged-decode attention kernels
-LIBRARIES = ("qg_update", "compress", "attention")
+#: passes, the flash and paged-decode attention kernels, and the Mamba-2 SSD
+#: scan
+LIBRARIES = ("qg_update", "compress", "attention", "ssd_scan")
 
 #: sm_90a keeps Hopper's wgmma/setmaxnreg available to later kernels;
 #: -fmad=false keeps nvcc from contracting a*b + c into an FMA, so the

@@ -1,11 +1,12 @@
 """Public kernel entry points: dispatch by the tensors' device.
 
-Port of ``repro/kernels/ops.py`` for the ``qg_update``, ``compress`` and
-attention kernels.  Where the reference picks Pallas interpret mode off the
-TPU, the port picks by device: CPU tensors go to the plain PyTorch version
-(``kernels/ref.py``), CUDA tensors to the hand-written kernel
-(``kernels/qg_update.py``, ``kernels/compress.py``,
-``kernels/attention.py``), which launches or raises.  There is no fallback
+Port of ``repro/kernels/ops.py`` for the ``qg_update``, ``compress``,
+attention and SSD scan kernels.  Where the reference picks Pallas interpret
+mode off the TPU, the port picks by device: CPU tensors go to the plain
+PyTorch version (``kernels/ref.py``), CUDA tensors to the hand-written
+kernel (``kernels/qg_update.py``, ``kernels/compress.py``,
+``kernels/attention.py``, ``kernels/ssd_scan.py``), which launches or
+raises.  There is no fallback
 from one to the other.
 """
 from __future__ import annotations
@@ -16,11 +17,12 @@ from . import attention as _att
 from . import compress as _cmp
 from . import qg_update as _qg
 from . import ref
+from . import ssd_scan as _ssd
 
 __all__ = ["fused_halfstep", "fused_qg_buffer", "qg_local_step",
            "qg_buffer_update", "gamma_correct", "threshold_mask",
            "quantize_dequantize", "flash_attention", "paged_decode_attention",
-           "launch_counts", "reset_launch_counts"]
+           "ssd_scan", "launch_counts", "reset_launch_counts"]
 
 
 def _on_cpu(*args) -> bool:
@@ -102,7 +104,19 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
                                        softcap=softcap)
 
 
-_COUNTERS = (_qg.LAUNCHES, _cmp.LAUNCHES, _att.LAUNCHES)
+def ssd_scan(x, dt, a, b, c, d_skip, *, chunk=128):
+    """Model-layout entry, as the reference's: x [B,S,H,P], dt [B,S,H],
+    a [H], b/c [B,S,N], d_skip [H] -> ``(y [B,S,H,P], final_state
+    [B,H,N,P])``, the D-skip term included.  ``S % min(chunk, S)`` must be
+    0 on either device."""
+    if _on_cpu(x, dt, a, b, c, d_skip):
+        ref.ssd_chunk_len(x.shape[1], chunk)
+        return ref.ssd_scan(x, dt, a, b, c, d_skip)
+    return _ssd.ssd_scan(x, dt.float(), a.float(), b, c, d_skip.float(),
+                         chunk=chunk)
+
+
+_COUNTERS = (_qg.LAUNCHES, _cmp.LAUNCHES, _att.LAUNCHES, _ssd.LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:

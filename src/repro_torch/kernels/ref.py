@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the ``qg_update``, ``compress`` and
-``attention`` kernels.
+"""Plain PyTorch versions of the ``qg_update``, ``compress``, ``attention``
+and ``ssd_scan`` kernels.
 
 Port of ``repro/kernels/ref.py:16-80`` (the streaming kernels) and
 ``:87``/``:115`` (the two attention kernels, below).  Each streaming
@@ -24,6 +24,10 @@ serving slot) it is 0, as the Pallas and the CUDA kernels give, where
 ``ref.py``'s dense-gather oracle gives the mean of the gathered values.
 Their sums run in another order than the kernels', so they agree to
 rounding, not to the bit.
+
+The SSD scan's version is the reference's sequential oracle
+(``repro/kernels/ref.py:152``), one state update per token, with the D-skip
+term that ``repro/kernels/ops.py:84`` adds outside its kernel.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ import torch
 __all__ = ["qg_local_step", "qg_buffer_update", "fused_halfstep",
            "fused_qg_buffer", "gamma_correct", "threshold_mask",
            "quantize_dequantize", "attn_scale", "flash_attention",
-           "paged_decode_attention"]
+           "paged_decode_attention", "ssd_chunk_len", "ssd_scan"]
 
 NEG_INF = -2.0e38
 
@@ -180,3 +184,46 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
         mask &= t_idx[None, :] > (lengths - 1)[:, None] - window
     out = _masked_softmax_av(sc, mask[:, None, None, None, :], vs)
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def ssd_chunk_len(s: int, chunk: int) -> int:
+    """The SSD chunk for a sequence of ``s`` tokens, ``min(chunk, s)``, as
+    the reference takes it; raises unless it divides ``s`` (the reference
+    asserts the same and does not pad)."""
+    if s < 1 or chunk < 1:
+        raise ValueError(f"ssd_scan: need S >= 1 and chunk >= 1, got S = {s}, "
+                         f"chunk = {chunk}")
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"ssd_scan: S = {s} is not a multiple of the chunk "
+                         f"{chunk} (the reference keeps this limit and does "
+                         f"not pad)")
+    return chunk
+
+
+def ssd_scan(x, dt, a, b, c, d_skip, *, initial_state=None):
+    """Mamba-2 SSD recurrence, one token at a time.  x [B,S,H,P]; dt
+    [B,S,H]; a [H] (negative); b/c [B,S,N]; d_skip [H]; ``initial_state``
+    [B,H,N,P] or None (zeros).  Per token
+    ``h = exp(a dt) h + dt B x^T`` and ``y = C h + D x``, in fp32.  Returns
+    ``(y [B,S,H,P] in x's dtype, final state [B,H,N,P] fp32)``; the D-skip
+    is added in fp32 before the one rounding to x's dtype."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    xf, dtf, bf, cf = x.float(), dt.float(), b.float(), c.float()
+    af = a.float()
+    hstate = (torch.zeros((bsz, h, n, p), dtype=torch.float32,
+                          device=x.device) if initial_state is None
+              else initial_state.float())
+    ys = []
+    for t in range(s):
+        dtt = dtf[:, t]                                       # [B,H]
+        decay = torch.exp(af * dtt)[..., None, None]          # [B,H,1,1]
+        inject = (dtt[..., None, None] * bf[:, t, None, :, None]
+                  * xf[:, t, :, None, :])                     # [B,H,N,P]
+        hstate = decay * hstate + inject
+        ys.append(torch.einsum("bhnp,bn->bhp", hstate, cf[:, t]))
+    y = (torch.stack(ys, dim=1) if ys else
+         torch.zeros((bsz, 0, h, p), dtype=torch.float32, device=x.device))
+    y = y + xf * d_skip.float()[None, None, :, None]
+    return y.to(x.dtype), hstate

@@ -1,2 +1,3 @@
-"""Model code of the port: the shared layers, attention and the
-attention-only decoder LM (``transformer.py``)."""
+"""Model code of the port: the shared layers, attention, the Mamba-2
+mixer (``ssm.py``) and the decoder LM of the ported block kinds
+(``transformer.py``)."""

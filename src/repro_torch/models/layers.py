@@ -18,8 +18,9 @@ import torch
 
 from ..tree import nest_map
 
-__all__ = ["dense_init", "embed_init", "stack_layers", "rms_norm", "softcap",
-           "swiglu", "init_mlp", "rope_frequencies", "apply_rope"]
+__all__ = ["normal_init", "dense_init", "embed_init", "stack_layers",
+           "rms_norm", "softcap", "swiglu", "init_mlp", "rope_frequencies",
+           "apply_rope"]
 
 
 # ---------------------------------------------------------------------------
@@ -31,6 +32,12 @@ def _normal(shape, gen, device, dtype, scale: float) -> torch.Tensor:
     if t.device.type != "meta":
         t.normal_(generator=gen).mul_(scale)
     return t.to(dtype)
+
+
+def normal_init(gen, shape, scale: float, *, device,
+                dtype=torch.float32) -> torch.Tensor:
+    """``scale`` times a standard normal draw, in fp32, cast to ``dtype``."""
+    return _normal(shape, gen, device, dtype, scale)
 
 
 def dense_init(gen, d_in: int, d_out: int, *, device,

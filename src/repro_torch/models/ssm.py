@@ -1,0 +1,238 @@
+"""Mamba-2 (SSD, state-space duality -- arXiv:2405.21060) mixer.
+
+Port of ``repro/models/ssm.py``.  Scalar-identity per-head decay
+``a = -exp(a_log)``, discretized with a per-token, per-head step ``dt``:
+
+    h_t = exp(a * dt_t) h_{t-1} + dt_t * B_t x_t^T      h in R^{N x P}
+    y_t = C_t h_t + D x_t
+
+Three implementations with the same semantics:
+  * ``ssd_reference``  -- sequential over time (the oracle);
+  * ``ssd_chunked``    -- chunked SSD (intra-chunk attention-like products
+    and an inter-chunk state recurrence, a Python loop over the chunks where
+    the reference scans), the model's plain path;
+  * ``kernels.ops.ssd_scan`` -- the CUDA kernel of ``csrc/ssd_scan.cu`` on
+    CUDA tensors, the plain sequential version on CPU ones (``use_pallas``).
+
+The decode path carries (conv_state, ssm_state) and costs O(1) per token.
+Where the reference returns a new state, :func:`mamba_decode` writes the
+given one in place and returns it, as the port's KV caches are written.
+``SSMConfig`` lives in ``configs/base.py``.  The reference's ``unroll`` (a
+TPU scan control) is not ported.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import SSMConfig
+from ..kernels import ops as kops
+from ..kernels import ref as kref
+from . import layers
+
+__all__ = ["SSMConfig", "init_mamba", "ssd_reference", "ssd_chunked",
+           "ssd_decode_step", "mamba_mixer", "mamba_prefill", "mamba_decode",
+           "init_mamba_state"]
+
+
+def init_mamba(gen, d_model: int, cfg: SSMConfig, *, device,
+               dtype=torch.float32) -> dict:
+    """The mixer's params, drawn from the ``torch.Generator`` ``gen``
+    (``device="meta"`` builds the shapes only); ``a_log``, ``d_skip`` and
+    ``dt_bias`` are fp32 whatever ``dtype``, as in the reference."""
+    di = cfg.d_inner(d_model)
+    nh = cfg.n_heads(d_model)
+    d_bc = 2 * cfg.d_state
+    kw = dict(device=device, dtype=dtype)
+    f32 = dict(device=device, dtype=torch.float32)
+    # in_proj packs [z (gate), x, B, C, dt]
+    return {
+        "in_proj": layers.dense_init(gen, d_model, 2 * di + d_bc + nh, **kw),
+        "conv_w": layers.normal_init(gen, (cfg.d_conv, di + d_bc), 0.1, **kw),
+        "a_log": torch.zeros(nh, **f32),       # a = -exp(a_log) = -1
+        "d_skip": torch.ones(nh, **f32),
+        "dt_bias": torch.zeros(nh, **f32),
+        "out_proj": layers.dense_init(gen, di, d_model, **kw),
+    }
+
+
+def _split_proj(proj: torch.Tensor, di: int, n: int, nh: int):
+    z = proj[..., :di]
+    xbc = proj[..., di:di + di + 2 * n]
+    dt = proj[..., di + di + 2 * n:]
+    return z, xbc, dt  # dt: [..., nh]
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d; xbc [B,S,C], w [K,C]."""
+    k, s = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    out = sum(pad[:, i:i + s, :] * w[i] for i in range(k))
+    return F.silu(out)
+
+
+# ---------------------------------------------------------------------------
+# SSD cores
+# ---------------------------------------------------------------------------
+
+def ssd_reference(x, dt, a, b, c, d_skip):
+    """Sequential oracle.  x [B,S,H,P], dt [B,S,H], a [H] (negative), b/c
+    [B,S,N], d_skip [H].  Returns y [B,S,H,P] (x's dtype) and the final
+    state [B,H,N,P] (fp32): the scan kernel's plain version."""
+    return kref.ssd_scan(x, dt, a, b, c, d_skip)
+
+
+def ssd_chunked(x, dt, a, b, c, d_skip, *, chunk: int = 128,
+                initial_state=None):
+    """Chunked SSD: ``S / chunk`` sequential steps of attention-like
+    products.  ``chunk`` is ``min(chunk, S)`` and must divide S."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    chunk = kref.ssd_chunk_len(s, chunk)
+    nc = s // chunk
+
+    xf = x.float().reshape(bsz, nc, chunk, h, p)
+    dtf = dt.float().reshape(bsz, nc, chunk, h)
+    bf = b.float().reshape(bsz, nc, chunk, n)
+    cf = c.float().reshape(bsz, nc, chunk, n)
+
+    adt = a[None, None, None, :] * dtf                     # [B,nc,L,H] (<=0)
+    cum = torch.cumsum(adt, dim=2)                         # s_t within chunk
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=x.device))[None, :, :, None]
+
+    hstate = (torch.zeros((bsz, h, n, p), dtype=torch.float32,
+                          device=x.device) if initial_state is None
+              else initial_state.float())
+    ys = []
+    for k in range(nc):
+        xk, dtk, bk, ck, cumk = (xf[:, k], dtf[:, k], bf[:, k], cf[:, k],
+                                 cum[:, k])
+        # intra-chunk: M[t,s] = (C_t.B_s) exp(s_t - s_s) dt_s  (causal)
+        gram = torch.einsum("btn,bsn->bts", ck, bk)        # [B,L,L]
+        dec = cumk[:, :, None, :] - cumk[:, None, :, :]    # [B,L,L,H]
+        m = gram[..., None] * torch.exp(torch.where(causal, dec,
+                                                    -torch.inf))
+        m = m * dtk[:, None, :, :]                         # weight by dt_s
+        y_intra = torch.einsum("btsh,bshp->bthp", m, xk)
+        # state to pass on: sum_s exp(s_L - s_s) dt_s B_s x_s
+        w_out = torch.exp(cumk[:, -1:, :] - cumk) * dtk    # [B,L,H]
+        state_out = torch.einsum("bsh,bsn,bshp->bhnp", w_out, bk, xk)
+        # inter-chunk contribution: C_t exp(s_t) h_in
+        w_in = torch.exp(cumk)                             # [B,L,H]
+        y_inter = torch.einsum("btn,bhnp,bth->bthp", ck, hstate, w_in)
+        tot = torch.exp(cumk[:, -1, :])                    # [B,H]
+        hstate = tot[:, :, None, None] * hstate + state_out
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(bsz, s, h, p)
+    y = y + x.float() * d_skip[None, None, :, None]
+    return y.to(x.dtype), hstate
+
+
+def ssd_decode_step(hstate, xt, dtt, a, bt, ct, d_skip):
+    """One-token state update; hstate [B,H,N,P]."""
+    decay = torch.exp(a * dtt)[..., None, None]
+    inject = dtt[..., None, None] * bt[:, None, :, None] * xt[:, :, None, :]
+    h_new = decay * hstate.float() + inject
+    yt = (torch.einsum("bhnp,bn->bhp", h_new, ct)
+          + xt * d_skip[None, :, None])
+    return h_new, yt
+
+
+# ---------------------------------------------------------------------------
+# full mixer
+# ---------------------------------------------------------------------------
+
+def _scan_inputs(params: dict, x: torch.Tensor, cfg: SSMConfig):
+    """``(z, raw conv input [B,S,C], (x [B,S,H,P], dt, a, b, c,
+    d_skip))`` of the train/prefill mixer: the scan's operands, x, b and c
+    as views of the conv output, which the kernel reads in place."""
+    bsz, s, d_model = x.shape
+    di = cfg.d_inner(d_model)
+    nh = cfg.n_heads(d_model)
+    n = cfg.d_state
+    proj = x @ params["in_proj"]
+    z, xbc_raw, dt = _split_proj(proj, di, n, nh)
+    xbc = _causal_conv(xbc_raw, params["conv_w"])
+    xi = xbc[..., :di].reshape(bsz, s, nh, cfg.head_dim)
+    dt = F.softplus(dt.float() + params["dt_bias"])
+    a = -torch.exp(params["a_log"])
+    return z, xbc_raw, (xi, dt, a, xbc[..., di:di + n], xbc[..., di + n:],
+                        params["d_skip"])
+
+
+def _conv_state(xbc_raw: torch.Tensor, k: int) -> torch.Tensor:
+    """The decode conv state a prefill leaves: the last K-1 raw conv
+    inputs, copied (a view would keep the whole projection alive)."""
+    return xbc_raw[:, xbc_raw.shape[1] - (k - 1):, :].clone()
+
+
+def _mixer(params: dict, x: torch.Tensor, cfg: SSMConfig, chunk: int,
+           use_pallas: bool):
+    """``(out [B,S,d], final ssm state [B,H,N,P], raw conv input
+    [B,S,C])`` of the train/prefill mixer."""
+    bsz, s, _ = x.shape
+    z, xbc_raw, scan_args = _scan_inputs(params, x, cfg)
+    scan = kops.ssd_scan if use_pallas else ssd_chunked
+    y, fin = scan(*scan_args, chunk=chunk)
+    y = y.reshape(bsz, s, -1) * F.silu(z)
+    return y @ params["out_proj"], fin, xbc_raw
+
+
+def mamba_mixer(params: dict, x: torch.Tensor, cfg: SSMConfig, *,
+                chunk: int = 128, use_pallas: bool = False) -> torch.Tensor:
+    """Train/prefill path.  x: [B,S,d] -> [B,S,d]."""
+    return _mixer(params, x, cfg, chunk, use_pallas)[0]
+
+
+def mamba_prefill(params: dict, x: torch.Tensor, cfg: SSMConfig, *,
+                  chunk: int = 128, use_pallas: bool = False):
+    """The prefill mixer and the state it leaves, in one pass: ``(out
+    [B,S,d], {"conv": [B,K-1,C], "ssm": [B,H,N,P]})``.  The SSM state is
+    the scan's own final state (the kernel's output under ``use_pallas``)
+    and the conv state the last K-1 rows of the raw conv input, where the
+    reference recomputes both through a second jnp pass
+    (``repro/models/transformer.py:379`` ``_mamba_prefill_state``)."""
+    out, fin, xbc_raw = _mixer(params, x, cfg, chunk, use_pallas)
+    return out, {"conv": _conv_state(xbc_raw, params["conv_w"].shape[0]),
+                 "ssm": fin}
+
+
+def mamba_decode(params: dict, x: torch.Tensor, state: dict,
+                 cfg: SSMConfig):
+    """Decode path.  x: [B,1,d]; state: {conv: [B,K-1,C], ssm: [B,H,N,P]},
+    written in place and returned with the output."""
+    bsz, _, d_model = x.shape
+    di = cfg.d_inner(d_model)
+    nh = cfg.n_heads(d_model)
+    n = cfg.d_state
+    proj = (x @ params["in_proj"])[:, 0]
+    z, xbc, dt = _split_proj(proj, di, n, nh)
+    # rolling conv state
+    conv_in = torch.cat([state["conv"], xbc[:, None, :]], dim=1)
+    xbc = F.silu(torch.einsum("bkc,kc->bc", conv_in, params["conv_w"]))
+    xi = xbc[..., :di].reshape(bsz, nh, cfg.head_dim)
+    b = xbc[..., di:di + n]
+    c = xbc[..., di + n:]
+    dtv = F.softplus(dt.float() + params["dt_bias"])
+    a = -torch.exp(params["a_log"])
+    h_new, yt = ssd_decode_step(state["ssm"], xi.float(), dtv, a, b.float(),
+                                c.float(), params["d_skip"])
+    y = yt.reshape(bsz, di).to(x.dtype) * F.silu(z)
+    out = (y @ params["out_proj"])[:, None, :]
+    state["conv"].copy_(conv_in[:, 1:, :])
+    state["ssm"].copy_(h_new)
+    return out, state
+
+
+def init_mamba_state(bsz: int, d_model: int, cfg: SSMConfig,
+                     dtype=torch.float32, *, device="cuda", lead=()) -> dict:
+    """Zero decode state; ``lead`` prepends axes (the stacked periods)."""
+    di = cfg.d_inner(d_model)
+    nh = cfg.n_heads(d_model)
+    return {
+        "conv": torch.zeros((*lead, bsz, cfg.d_conv - 1, di + 2 * cfg.d_state),
+                            dtype=dtype, device=device),
+        "ssm": torch.zeros((*lead, bsz, nh, cfg.d_state, cfg.head_dim),
+                           dtype=torch.float32, device=device),
+    }

@@ -1,31 +1,38 @@
-"""Decoder LM: the attention-only forward stack and the paged serving step.
+"""Decoder LM: the forward stack of the ported block kinds and the paged
+serving step.
 
 Port of ``repro/models/transformer.py`` for the block kinds
 
     dense   self-attention (full causal) + SwiGLU MLP
     local   self-attention with sliding window
     global  full self-attention (alias of dense; used in alternating patterns)
+    mamba   Mamba-2 SSD mixer (no MLP; ``models/ssm.py``)
 
 A model is a repeating *period* of block kinds (``configs.base.ModelConfig``);
 parameters and caches keep the reference's layout -- one entry of
 ``params["blocks"]`` per period position, each leaf stacked over the periods
 -- and the port loops over the periods where the reference scans.  Four
 modes: ``train`` (tokens -> logits at every position), ``prefill`` (tokens
--> last logits + KV caches), ``decode`` (one token + caches -> logits) and
-``paged`` (a chunk of tokens per serving slot against the paged KV pool, the
-continuous-batching serving path: every slot carries its own absolute
-position, K/V are written into fixed-size pages addressed by a per-slot
-block table, and attention reads the slot's pages back).
+-> last logits + KV caches / Mamba states), ``decode`` (one token + caches
+-> logits) and ``paged`` (a chunk of tokens per serving slot against the
+paged KV pool, the continuous-batching serving path: every slot carries its
+own absolute position, K/V are written into fixed-size pages addressed by a
+per-slot block table, and attention reads the slot's pages back; attention
+stacks only, as in the reference).
 
 Where the reference returns new caches (its arrays are immutable; the
-engine donates the pools), the port writes the decode caches and the page
-pools in place and returns the same tensors.
+engine donates the pools), the port writes the decode caches, the Mamba
+decode states and the page pools in place and returns the same tensors.
+A ``prefill`` takes each Mamba layer's SSM state from the scan's own
+final-state output (the kernel's under ``use_pallas``) and its conv state
+from the raw conv input, where the reference recomputes both through a
+second jnp pass (its ``_mamba_prefill_state``).
 
-Not yet ported: the ``moe``, ``mamba`` and ``cross`` kinds and the zamba2
-shared block (they raise ``NotImplementedError`` naming their slice),
-``train_loss``, and the TPU mesh and scan controls (``cache_constraint``,
-``act_spec``, ``head_spec``, ``moe_expert_spec``, ``repeat_kv``, ``remat``,
-``unroll``, ``skip_masked_chunks``, ``decode_lowp``).
+Not yet ported: the ``moe`` and ``cross`` kinds and the zamba2 shared block
+(they raise ``NotImplementedError`` naming their slice), ``train_loss``,
+and the TPU mesh and scan controls (``cache_constraint``, ``act_spec``,
+``head_spec``, ``moe_expert_spec``, ``repeat_kv``, ``remat``, ``unroll``,
+``skip_masked_chunks``, ``decode_lowp``).
 """
 from __future__ import annotations
 
@@ -37,7 +44,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
 from ..tree import nest_map
-from . import attention, layers
+from . import attention, layers, ssm
 
 __all__ = ["ATTN_KINDS", "RunCtx", "PageInfo", "init_lm", "init_cache",
            "init_paged_cache", "supports_paged", "apply_block", "forward",
@@ -48,8 +55,6 @@ ATTN_KINDS = ("dense", "local", "global", "moe")
 #: what the port cannot run yet, and the slice that brings it
 _LATER = {
     "moe": "block kind 'moe' (the MoE layer) comes with the rest of slice 6",
-    "mamba": "block kind 'mamba' (the Mamba-2 mixer and its ssd_scan "
-             "kernel) comes with the next slice, at mamba2-130m",
     "cross": "block kind 'cross' (VLM cross-attention) comes with the rest "
              "of slice 6",
     "shared_attn": "the zamba2 shared attention block comes with the rest "
@@ -67,6 +72,7 @@ class RunCtx:
     mode: str                       # train | prefill | decode | paged
     pos: Any = None                 # decode: 0-d int tensor, current position
     chunk: int = 1024               # attention KV-chunk size
+    ssd_chunk: int = 128            # Mamba-2 SSD chunk size
     cache_len: int = 0              # prefill: total KV capacity (>= seq len)
     use_pallas: bool = False
     pages: Any = None               # paged mode: PageInfo
@@ -111,10 +117,13 @@ class PageInfo:
 # ---------------------------------------------------------------------------
 
 def _init_block(gen, kind: str, cfg: ModelConfig, device, dtype) -> dict:
-    if kind not in ("dense", "local", "global"):
-        raise _not_ported(kind)
     d, hd = cfg.d_model, cfg.resolved_head_dim
     kw = dict(device=device, dtype=dtype)
+    if kind == "mamba":
+        return {"ln": torch.zeros(d, **kw),
+                "mixer": ssm.init_mamba(gen, d, cfg.ssm, **kw)}
+    if kind not in ("dense", "local", "global"):
+        raise _not_ported(kind)
     return {"ln1": torch.zeros(d, **kw),
             "attn": attention.init_attention(
                 gen, d, cfg.n_heads, cfg.n_kv_heads, hd,
@@ -161,6 +170,9 @@ def _attn_cache_len(kind: str, cfg: ModelConfig, cache_len: int) -> int:
 
 
 def _empty_block_cache(kind, cfg, lead, batch, cache_len, dtype, device):
+    if kind == "mamba":
+        return ssm.init_mamba_state(batch, cfg.d_model, cfg.ssm, dtype,
+                                    device=device, lead=lead)
     if kind not in ("dense", "local", "global"):
         raise _not_ported(kind)
     hd = cfg.resolved_head_dim
@@ -174,9 +186,9 @@ def _empty_block_cache(kind, cfg, lead, batch, cache_len, dtype, device):
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype=torch.float32, *, device="cuda") -> dict:
-    """Dense per-batch KV caches for :func:`decode_step`, in
-    :func:`prefill`'s structure (each period position stacked over
-    ``n_periods``)."""
+    """Dense per-batch KV caches (zero Mamba states for mamba layers) for
+    :func:`decode_step`, in :func:`prefill`'s structure (each period
+    position stacked over ``n_periods``)."""
     if cfg.shared_attn_every:
         raise _not_ported("shared_attn")
     return {"blocks": tuple(
@@ -318,6 +330,23 @@ def apply_block(kind: str, p, x, ctx: RunCtx, cache):
     No ported kind has an auxiliary loss (the MoE balance loss comes with
     the MoE layer), so ``aux_loss`` is 0.0."""
     cfg = ctx.cfg
+    if ctx.mode == "paged" and kind not in ATTN_KINDS:
+        raise NotImplementedError(
+            f"paged serving supports attention-only stacks; block kind "
+            f"{kind!r} (mamba/cross state caches are per-slot, not paged)")
+    if kind == "mamba":
+        h = layers.rms_norm(x, p["ln"], cfg.norm_eps)
+        if ctx.mode == "decode":
+            out, new_cache = ssm.mamba_decode(p["mixer"], h, cache, cfg.ssm)
+        elif ctx.mode == "prefill":
+            out, new_cache = ssm.mamba_prefill(p["mixer"], h, cfg.ssm,
+                                               chunk=ctx.ssd_chunk,
+                                               use_pallas=ctx.use_pallas)
+        else:
+            out = ssm.mamba_mixer(p["mixer"], h, cfg.ssm, chunk=ctx.ssd_chunk,
+                                  use_pallas=ctx.use_pallas)
+            new_cache = cache
+        return x + out, 0.0, new_cache
     if kind not in ("dense", "local", "global"):
         raise _not_ported(kind)
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -343,8 +372,8 @@ def _logits(params, x, cfg: ModelConfig):
 
 
 def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
-            cache=None, pos=None, chunk: int = 1024, cache_len: int = 0,
-            use_pallas: bool = False, pages=None):
+            cache=None, pos=None, chunk: int = 1024, ssd_chunk: int = 128,
+            cache_len: int = 0, use_pallas: bool = False, pages=None):
     """The shared forward pass.  Returns ``(logits, aux_loss, new_cache)``.
 
     train:   tokens [B,S] -> logits [B,S,Vp], aux, None
@@ -360,7 +389,8 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
     if mode not in ("train", "prefill", "decode", "paged"):
         raise ValueError(f"unknown forward mode {mode!r}")
     ctx = RunCtx(cfg=cfg, mode=mode, pos=pos, chunk=chunk,
-                 cache_len=cache_len, use_pallas=use_pallas, pages=pages)
+                 ssd_chunk=ssd_chunk, cache_len=cache_len,
+                 use_pallas=use_pallas, pages=pages)
     x = _embed(params, tokens, cfg)
     reads_cache = mode in ("decode", "paged")
     made = [[] for _ in cfg.period]

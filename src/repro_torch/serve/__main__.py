@@ -13,6 +13,11 @@
     # sequential dense-cache baseline for the same request set
     PYTHONPATH=src python -m repro_torch.serve --baseline
 
+    # Mamba-2 (no paged engine: O(1)-state decode through the baseline),
+    # its prefill through the SSD scan kernel
+    PYTHONPATH=src python -m repro_torch.serve --arch mamba2-130m --full \
+        --baseline --use-pallas
+
 Port of ``python -m repro.serve``, with the same flags plus ``--device``
 (default ``cuda``).  Requests are synthetic mixed-length prompts drawn with
 numpy from ``--seed``, the reference's own; a fresh init draws from a
@@ -71,8 +76,10 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--prefill-chunk", type=int, default=32)
     ap.add_argument("--use-pallas", action="store_true",
-                    help="the attention kernels (on CUDA tensors; CPU "
-                         "tensors take their plain versions)")
+                    help="the attention kernels, and with --baseline the "
+                         "prefill kernels (flash attention, the SSD scan); "
+                         "on CUDA tensors (CPU tensors take their plain "
+                         "versions)")
     ap.add_argument("--baseline", action="store_true",
                     help="sequential dense-cache generate instead of the "
                          "engine")
@@ -98,7 +105,8 @@ def main(argv=None):
         for r in reqs:
             prompt = torch.tensor([r.prompt], dtype=torch.int32, device=dev)
             sequential_generate(params, cfg, prompt, gen_len=r.max_new,
-                                cache_len=len(r.prompt) + r.max_new)
+                                cache_len=len(r.prompt) + r.max_new,
+                                use_pallas=args.use_pallas)
         _sync(dev)
         wall = time.time() - t0
         row.update(mode="sequential", wall_s=wall,

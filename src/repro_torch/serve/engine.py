@@ -241,10 +241,14 @@ class ServeEngine:
 
 def sequential_generate(params, cfg: ModelConfig, prompts, *, gen_len: int,
                         cache_len: int, img=None, temperature: float = 0.0,
-                        seed: int = 0, chunk: int = 256):
+                        seed: int = 0, chunk: int = 256,
+                        use_pallas: bool = False):
     """prompts [B, S] -> tokens [B, S + gen_len] through the dense per-batch
-    KV cache (prefill + decode_step).  Greedy at temperature 0, the
-    engine's parity baseline.  At temperature > 0 it samples from
+    KV cache, or a Mamba stack's O(1) state (prefill + decode_step).  Greedy
+    at temperature 0, the engine's parity baseline.  ``use_pallas`` runs the
+    prefill through the kernels (flash attention, the SSD scan), as the
+    reference's ``prefill`` takes it; the reference's baseline never
+    does.  At temperature > 0 it samples from
     ``softmax(logits / temperature)`` with a ``torch.Generator`` seeded with
     ``seed`` on the prompts' device: the same distribution as the
     reference's ``jax.random.categorical``, not its draws."""
@@ -262,7 +266,8 @@ def sequential_generate(params, cfg: ModelConfig, prompts, *, gen_len: int,
         return torch.argmax(logits, dim=-1)[:, None]
 
     logits, cache = tf.prefill(params, prompts, cfg, img=img,
-                               cache_len=cache_len, chunk=chunk)
+                               cache_len=cache_len, chunk=chunk,
+                               use_pallas=use_pallas)
     out = [prompts]
     tok = sample(logits)
     for i in range(gen_len - 1):

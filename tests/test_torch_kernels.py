@@ -342,12 +342,14 @@ def test_cpu_dispatch_leaves_launch_counters_at_zero():
                                 q.reshape(2, 4, 4, 32)[:, :, :2],
                                 torch.tensor([[1, -1]], dtype=torch.int32),
                                 torch.tensor([3], dtype=torch.int32))
+    tops.ssd_scan(q, torch.rand(1, 8, 4), -torch.ones(4), q[:, :, 0, :16],
+                  q[:, :, 1, :16], torch.ones(4), chunk=4)
     counts = tops.launch_counts()
     assert set(counts) == {"fused_halfstep", "fused_qg_buffer",
                            "qg_local_step", "qg_buffer_update",
                            "gamma_correct", "threshold_mask",
                            "quantize_dequantize", "flash_attention",
-                           "paged_decode_attention"}
+                           "paged_decode_attention", "ssd_scan"}
     assert counts == {k: 0 for k in counts}
 
 

@@ -383,8 +383,8 @@ def test_paged_step_with_no_kept_row_leaves_the_pool_unchanged():
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("granite-moe-3b-a800m", "moe"), ("mamba2-130m", "mamba"),
-    ("llama-3.2-vision-11b", "cross"), ("zamba2-7b", "shared attention"),
+    ("granite-moe-3b-a800m", "moe"), ("llama-3.2-vision-11b", "cross"),
+    ("zamba2-7b", "shared attention"),
 ])
 def test_unported_kinds_raise_naming_their_slice(arch, what):
     cfg = get_config(arch, reduced=True)
@@ -392,3 +392,27 @@ def test_unported_kinds_raise_naming_their_slice(arch, what):
         ttf.init_lm(torch.Generator().manual_seed(0), cfg)
     assert ttf.supports_paged(cfg) == jtf.supports_paged(
         jget_config(arch, reduced=True))
+
+
+#: configs whose block kinds the port does not run yet, and the kind named
+_UNPORTED = {"granite-moe-3b-a800m": "moe", "arctic-480b": "moe",
+             "llama-3.2-vision-11b": "cross", "zamba2-7b": "shared attention"}
+
+
+@pytest.mark.parametrize("arch", sorted(JARCHS))
+def test_supports_paged_and_init_lm_match_reference(arch):
+    """Every config: ``supports_paged`` as the reference's, and the reduced
+    ``init_lm`` either the reference's shapes and dtypes or a
+    ``NotImplementedError`` naming the kind still to port."""
+    cfg, jcfg = get_config(arch, reduced=True), jget_config(arch,
+                                                            reduced=True)
+    assert ttf.supports_paged(cfg) == jtf.supports_paged(jcfg)
+    if arch in _UNPORTED:
+        with pytest.raises(NotImplementedError, match=_UNPORTED[arch]):
+            ttf.init_lm(None, cfg, device="meta")
+        return
+    want = jax.eval_shape(lambda: jtf.init_lm(jax.random.PRNGKey(0), jcfg))
+    got = ttf.init_lm(None, cfg, device="meta")
+    assert [(tuple(x.shape), str(x.dtype).split(".")[1])
+            for x in nest_leaves(got)] == \
+        [(tuple(x.shape), str(x.dtype)) for x in jax.tree.leaves(want)]
