@@ -9,7 +9,8 @@ line) if anything goes wrong:
 
 1. build    compile every CUDA kernel from ``csrc/`` (``qg_update``,
             ``compress``, ``attention`` and ``ssd_scan``, one ``nvcc`` each,
-            together);
+            together), and fail unless ``cuobjdump -sass`` finds tensor-core
+            products (HMMA) in every flash kernel instance;
 2. kernels  hold each kernel against its plain PyTorch version on the card:
             the streaming kernels over lengths 0-d .. 2**27+5, every flag
             combination and an unaligned view; the row-wise compress kernels
@@ -24,8 +25,12 @@ line) if anything goes wrong:
             prefill, a Gemma-2 local layer (D 128, window 4096, softcap 50)
             at 4608 tokens, S = 1 and 1000; paged decode at the reference's
             four cases, the engine's shape with inactive slots (which must
-            give 0) and 8 slots x 4096 tokens; each timed beside its bound,
-            its plain version and one ``scaled_dot_product_attention`` call;
+            give 0), 8 slots x 4096 tokens, the same with ragged lengths
+            and a length-0 slot, and with window 1000 (the last three split
+            over pages and merge: one merge launch per call, checked); each
+            timed beside its bound, its plain version and one
+            ``scaled_dot_product_attention`` call, paged decode's split and
+            merge passes apart under the profiler;
 3. main     run the two quickstart presets and the three compressed-gossip
             runs (CHOCO top-k, EF sign+norm, CHOCO QSGD, each with
             ``comm.backend=auto``) for their full 150 steps through
@@ -45,7 +50,8 @@ line) if anything goes wrong:
             near-tie); tokens/s, decode p50/p95, peak cache bytes; then
             ``prefill`` of [2, 1024] tokens through 22 ``flash_attention``
             launches against the chunked path (logits and every layer's
-            K/V), and the serving run under ``torch.profiler``;
+            K/V) and once under ``torch.profiler`` (wall beside device
+            time), and the serving run under the profiler (0 merges);
 6. mamba    the SSD scan kernel against its plain version in fp32 and bf16
             at the reference's SSD_CASES, S = 1 and 17, chunk 64 vs 256, dt
             x 1e-2 and the main shape (every P-tile), timed at the main
@@ -67,6 +73,7 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -134,6 +141,10 @@ ACC_ATOL = 0.03
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 non-tensor flop/s
 PEAK_BYTES_S, PEAK_F32_FLOPS = 3.35e12, 67e12
+#: fp32-accurate products on the tensor cores: 495 TFLOP/s TF32, three TF32
+#: products per fp32 product (3xTF32), the flash kernel's yardstick whatever
+#: implements it
+PEAK_3XTF32_FLOPS = 495e12 / 3
 
 
 def log(*a):
@@ -705,7 +716,10 @@ FLASH_MAIN, FLASH_LONG = FLASH_CASES[6], FLASH_CASES[7]
 #: (B, H, K, D, ps, P, NP, window, softcap, lengths): the reference's four
 #: cases (tests/test_serve.py:234, lengths drawn in [1, P*ps]), the
 #: engine's shape at the serving CLI's defaults with two inactive slots
-#: (length 0, block-table rows all -1), and 8 slots x 4096 tokens
+#: (length 0, block-table rows all -1), 8 slots x 4096 tokens, the same
+#: with ragged lengths (splits past a slot's length, a length-0 slot) and
+#: with window 1000 (splits wholly outside the window): the last three
+#: split over pages and merge
 PAGED_CASES = [
     (3, 8, 2, 32, 16, 8, 6, 0, 0.0, None),
     (2, 4, 4, 64, 8, 4, 8, 0, 30.0, None),
@@ -713,6 +727,9 @@ PAGED_CASES = [
     (1, 4, 2, 16, 1, 16, 16, 0, 0.0, None),
     (8, 32, 4, 64, 16, 16, 128, 0, 0.0, (0, 24, 33, 48, 16, 0, 40, 31)),
     (8, 32, 4, 64, 16, 256, 2048, 0, 0.0, (4096,) * 8),
+    (8, 32, 4, 64, 16, 256, 2048, 0, 0.0,
+     (1, 17, 300, 4096, 0, 2048, 4095, 16)),
+    (8, 32, 4, 64, 16, 256, 2048, 1000, 0.0, (4096,) * 8),
 ]
 PAGED_MAIN, PAGED_LONG = PAGED_CASES[4], PAGED_CASES[5]
 
@@ -788,7 +805,14 @@ def phase_attention_kernels(dev) -> dict:
             del q, k, v
         for i, case in enumerate(PAGED_CASES):
             q, kp, vp, bt, ln, kw = _paged_inputs(case, dtype, dev, 20 + i)
+            merges = A.LAUNCHES["paged_decode_merge"]
             got = A.paged_decode_attention(q, kp, vp, bt, ln, **kw)
+            merges = A.LAUNCHES["paged_decode_merge"] - merges
+            splits = A.paged_splits(case[0], case[2], case[5], case[4])
+            if merges != (splits[0] > 1):
+                raise AssertionError(f"paged_decode_attention {case[:9]}: "
+                                     f"{merges} merge launches with "
+                                     f"(splits, pages per split) {splits}")
             want = ref.paged_decode_attention(q, kp, vp, bt, ln, **kw)
             err = check("paged_decode_attention", f"{case[:9]} {dtype}",
                         dtype, got, want)
@@ -800,8 +824,9 @@ def phase_attention_kernels(dev) -> dict:
             log(f"kernel paged_decode_attention {dtype} "
                 f"B,H,K,D,ps,P,NP={case[:7]} window={kw['window']} "
                 f"softcap={kw['softcap']} lengths="
-                f"{ln.tolist() if len(ln) <= 8 else '...'}: max abs err "
-                f"{err:.3e}, {len(dead)} inactive slot(s) 0 in both")
+                f"{ln.tolist() if len(ln) <= 8 else '...'}: (splits, pages "
+                f"per split) {splits}, {merges} merge launch(es); max abs "
+                f"err {err:.3e}, {len(dead)} inactive slot(s) 0 in both")
             del q, kp, vp
         torch.cuda.empty_cache()
     torch.cuda.synchronize(dev)
@@ -817,11 +842,40 @@ def _band_pairs(s, t, causal, window) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, peak=PEAK_F32_FLOPS):
+    """The larger of ``nbytes`` over the memory rate and ``flops`` over
+    ``peak``, the rate of the kernel's operations on this card, in ms."""
     bytes_ms = nbytes / PEAK_BYTES_S * 1e3
-    ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    ops_ms = flops / peak * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
+
+
+def _profile_kernels(dev, fn, reps: int = 20) -> tuple[float, dict]:
+    """One warm-up call of ``fn``, then ``reps`` eager calls under
+    ``torch.profiler``: (wall ms per call on the host clock, device ms per
+    call of each kernel launched, by its short name)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dt = (getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0))
+            if dt:
+                hit = re.search(r"::(\w+<[^>]*>)", e.key)
+                name = hit.group(1) if hit else e.key[:60]
+                out[name] = out.get(name, 0.0) + dt / 1e3 / reps
+    return wall, out
 
 
 def phase_attention_timing(dev) -> dict:
@@ -844,7 +898,7 @@ def phase_attention_timing(dev) -> dict:
         causal, window = kw.get("causal", True), kw.get("window", 0)
         pairs = _band_pairs(s, t, causal, window) * b * h
         nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-        bound, by = _bound(nbytes, 4 * d * pairs)
+        bound, by = _bound(nbytes, 4 * d * pairs, PEAK_3XTF32_FLOPS)
         lib_ms = None
         if not kw.get("softcap") and not window:
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -859,12 +913,19 @@ def phase_attention_timing(dev) -> dict:
                "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
                "flops": 4 * d * pairs, "bytes": nbytes}
         timed[("flash_attention", label)] = row
+        if label == "main":   # the bf16 instance: one product for Q K^T
+            qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+            row["bf16_ms"] = _time_ms(
+                lambda: A.flash_attention(qb, kb, vb, **kw), iters)
+            del qb, kb, vb
         log(f"time flash_attention {label} B,S,T,H,K,D={case[:6]} {kw} fp32: "
             f"kernel {row['ms']:.6f} ms, plain {row['plain_ms']:.6f} ms, "
             f"library {lib_ms if lib_ms is None else f'{lib_ms:.6f}'} ms "
             f"(CUDA graphs of {iters} calls), bound {bound:.6f} ms ({by}: "
-            f"{4 * d * pairs} flop, {nbytes} B), "
-            f"{4 * d * pairs / row['ms'] / 1e9:.2f} TFLOP/s")
+            f"{4 * d * pairs} flop at 165 TFLOP/s, {nbytes} B), "
+            f"{4 * d * pairs / row['ms'] / 1e9:.2f} TFLOP/s"
+            + (f"; bf16 kernel {row['bf16_ms']:.6f} ms" if "bf16_ms" in row
+               else ""))
         del q, k, v
         torch.cuda.empty_cache()
     for label, case, iters in (("main", PAGED_MAIN, 20),
@@ -884,7 +945,14 @@ def phase_attention_timing(dev) -> dict:
         qt = q.transpose(1, 2).contiguous()
         lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
             qt, kd, vd, attn_mask=mask, enable_gqa=True), iters)
+        before = dict(A.LAUNCHES)
+        A.paged_decode_attention(q, kp, vp, bt, ln, **kw)
+        per_call = {k: A.LAUNCHES[k] - before[k] for k in before}
+        _, parts = _profile_kernels(dev, lambda: A.paged_decode_attention(
+            q, kp, vp, bt, ln, **kw))
+        splits = A.paged_splits(b, kh, case[5], ps)
         row = {"shape": case[:7], "lengths": ln.tolist(),
+               "splits": splits, "launches_per_call": per_call,
                "ms": _time_ms(lambda: A.paged_decode_attention(
                    q, kp, vp, bt, ln, **kw), iters),
                "plain_ms": _time_ms(lambda: ref.paged_decode_attention(
@@ -898,7 +966,10 @@ def phase_attention_timing(dev) -> dict:
             f"(SDPA on a pre-gathered cache, gather not counted) "
             f"{lib_ms:.6f} ms (CUDA graphs of {iters} calls), bound "
             f"{bound:.6f} ms ({by}: {nbytes} B), "
-            f"{nbytes / row['ms'] / 1e6:.1f} GB/s")
+            f"{nbytes / row['ms'] / 1e6:.1f} GB/s; (splits, pages per "
+            f"split) {splits}, launches per call {per_call}; by kernel "
+            f"(profiler, eager) "
+            + ", ".join(f"{k} {v:.6f} ms" for k, v in parts.items()))
         del q, kp, vp, kd, vd
         torch.cuda.empty_cache()
     return timed
@@ -1047,7 +1118,8 @@ def phase_prefill(dev, cfg, params) -> dict:
     """``prefill(tokens [2, 1024], use_pallas=True)`` at full width: 22
     flash launches, logits and every layer's K/V within PREFILL_TOL of the
     chunked path, which is timed on its first call and again (the
-    allocator's state logged around the first)."""
+    allocator's state logged around the first); then one kernel-path call
+    under the profiler: its wall time beside its device time."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -1092,7 +1164,17 @@ def phase_prefill(dev, cfg, params) -> dict:
         f"logits {errs['logits']:.3e}, K/V "
         f"{max(v for k, v in errs.items() if k != 'logits'):.3e} (allowed "
         f"{PREFILL_TOL}); launches {counts}")
-    return {"launches": counts, "errs": errs, "ms": ms, "plain_ms": plain_ms}
+    del want, want_cache, cache
+    wall, parts = _profile_kernels(
+        dev, lambda: tf.prefill(params, tokens, cfg, use_pallas=True), 1)
+    busy = sum(parts.values())
+    flash = sum(v for k, v in parts.items() if k.startswith("flash_tc"))
+    log(f"main prefill {cfg.name} tokens {list(PREFILL_SHAPE)} under the "
+        f"profiler: wall {wall:.4f} ms, device kernel time {busy:.4f} ms "
+        f"({100 * busy / wall:.2f}% busy), flash_attention {flash:.4f} ms "
+        f"({100 * flash / max(busy, 1e-9):.2f}% of device time)")
+    return {"launches": counts, "errs": errs, "ms": ms, "plain_ms": plain_ms,
+            "profiled_wall_ms": wall, "device_ms": busy, "flash_ms": flash}
 
 
 def phase_serve_profile(dev, cfg, params, reqs) -> dict:
@@ -1507,6 +1589,38 @@ def phase_mamba_profile(dev, cfg, params, tokens) -> None:
         indent=1))
 
 
+def sass_mma_counts(lib: Path) -> dict:
+    """``(HMMA, all)`` instructions per kernel in ``lib``'s SASS (HMMA: the
+    tensor-core products), by ``cuobjdump -sass`` from the toolkit that
+    built it."""
+    from repro_torch.kernels import build
+    tool = Path(build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = [0, 0]
+        elif fn and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            counts[fn][1] += 1
+            counts[fn][0] += "HMMA" in line
+    return {k: tuple(v) for k, v in counts.items()}
+
+
+def check_flash_on_tensor_cores() -> None:
+    """Fail unless every flash kernel instance in the attention library
+    issues tensor-core products (and log the count of each)."""
+    from repro_torch.kernels import build
+    counts = sass_mma_counts(build._library_path("attention"))
+    flash = {k: v[0] for k, v in counts.items() if "flash_tc" in k}
+    for fn, (n, total) in sorted(counts.items()):
+        log(f"build   attention SASS: {n:5d} HMMA of {total:6d} "
+            f"instructions in {fn}")
+    if not flash or not all(flash.values()):
+        raise AssertionError(f"flash kernel without HMMA: {flash}")
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -1536,6 +1650,7 @@ def main() -> int:
                 ".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"build   {lib}: {line.strip()}")
+    check_flash_on_tensor_cores()
 
     # 2. kernels against their plain versions, then their times
     worst = phase_kernels(dev)
@@ -1631,7 +1746,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

@@ -23,7 +23,10 @@ On every row with at least one unmasked key that is the softmax of
 serving slot) it is 0, as the Pallas and the CUDA kernels give, where
 ``ref.py``'s dense-gather oracle gives the mean of the gathered values.
 Their sums run in another order than the kernels', so they agree to
-rounding, not to the bit.
+rounding, not to the bit.  ``paged_decode_partials`` and
+``paged_decode_merge`` are the paged kernel's two passes written plainly
+(per split of the pages: running max, sum and unnormalised accumulator;
+then the rescaled sum over splits): the CPU oracle of the split-KV design.
 
 The SSD scan's version is the reference's sequential oracle
 (``repro/kernels/ref.py:152``), one state update per token, with the D-skip
@@ -37,7 +40,8 @@ import torch
 __all__ = ["qg_local_step", "qg_buffer_update", "fused_halfstep",
            "fused_qg_buffer", "gamma_correct", "threshold_mask",
            "quantize_dequantize", "attn_scale", "flash_attention",
-           "paged_decode_attention", "ssd_chunk_len", "ssd_scan"]
+           "paged_decode_attention", "paged_decode_partials",
+           "paged_decode_merge", "ssd_chunk_len", "ssd_scan"]
 
 NEG_INF = -2.0e38
 
@@ -158,6 +162,29 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return out.reshape(b, s, h, d).to(q.dtype)
 
 
+def _paged_scores(q, k_pages, v_pages, tables, lengths, window, softcap):
+    """Each slot's query against the rows its block table names, by dense
+    gather: the scaled (and softcapped) scores [B,K,G,T] in fp32, the
+    visibility mask [B,T] and the gathered values [B,T,K,D] in fp32, for
+    T = tables.shape[1] * ps logical positions."""
+    b, _, h, d = q.shape
+    n_p, ps, kh, _ = k_pages.shape
+    t_idx = torch.arange(tables.shape[1] * ps, device=q.device)
+    pages = tables.long()[:, t_idx // ps]                         # [B, T]
+    rows = torch.clamp(pages * ps + t_idx % ps, 0, n_p * ps - 1)
+    ks = k_pages.reshape(n_p * ps, kh, d)[rows].float()           # [B,T,K,D]
+    vs = v_pages.reshape(n_p * ps, kh, d)[rows].float()
+    qf = q.reshape(b, kh, h // kh, d).float() * attn_scale(d)
+    sc = torch.einsum("bkgd,btkd->bkgt", qf, ks)
+    if softcap:
+        sc = softcap * torch.tanh(sc / softcap)
+    lengths = lengths.long()
+    mask = (t_idx[None, :] < lengths[:, None]) & (pages >= 0)
+    if window:
+        mask &= t_idx[None, :] > (lengths - 1)[:, None] - window
+    return sc, mask, vs
+
+
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
                            window: int = 0, softcap: float = 0.0):
     """One-token decode over a paged KV pool, by dense gather.  q [B,1,H,D];
@@ -167,23 +194,51 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     whose page is allocated (and ``t > lengths[b] - 1 - window``); a slot
     that sees none (length 0) gives 0."""
     b, _, h, d = q.shape
-    n_p, ps, kh, _ = k_pages.shape
-    g = h // kh
-    t_idx = torch.arange(block_tables.shape[1] * ps, device=q.device)
-    pages = block_tables.long()[:, t_idx // ps]                   # [B, T]
-    rows = torch.clamp(pages * ps + t_idx % ps, 0, n_p * ps - 1)
-    ks = k_pages.reshape(n_p * ps, kh, d)[rows].float()           # [B,T,K,D]
-    vs = v_pages.reshape(n_p * ps, kh, d)[rows].float()
-    qf = q.reshape(b, 1, kh, g, d).float() * attn_scale(d)
-    sc = torch.einsum("bskgd,btkd->bskgt", qf, ks)
-    if softcap:
-        sc = softcap * torch.tanh(sc / softcap)
-    lengths = lengths.long()
-    mask = (t_idx[None, :] < lengths[:, None]) & (pages >= 0)
-    if window:
-        mask &= t_idx[None, :] > (lengths - 1)[:, None] - window
-    out = _masked_softmax_av(sc, mask[:, None, None, None, :], vs)
+    sc, mask, vs = _paged_scores(q, k_pages, v_pages, block_tables, lengths,
+                                 window, softcap)
+    out = _masked_softmax_av(sc[:, None], mask[:, None, None, None, :], vs)
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def paged_decode_partials(q, k_pages, v_pages, block_tables, lengths, *,
+                          pages_per_split: int, window: int = 0,
+                          softcap: float = 0.0):
+    """The split pass of the paged-decode kernel: the slot's pages cut into
+    splits of ``pages_per_split`` pages, and per (slot, KV head, split) the
+    max ``m`` [B,K,S,G] of the visible scores, ``l = sum p`` [B,K,S,G] and
+    ``acc = sum p v`` [B,K,S,G,D] with ``p = exp(s - m)``, all fp32.  A
+    split with no visible key has ``m = NEG_INF``, ``l = 0``, ``acc = 0``.
+    Visibility is :func:`paged_decode_attention`'s."""
+    b, _, h, d = q.shape
+    kh, ps = k_pages.shape[2], k_pages.shape[1]
+    p = block_tables.shape[1]
+    n_split = max(1, -(-p // pages_per_split))
+    tables = torch.nn.functional.pad(
+        block_tables, (0, n_split * pages_per_split - p), value=-1)
+    sc, mask, vs = _paged_scores(q, k_pages, v_pages, tables, lengths,
+                                 window, softcap)
+    shape = (b, kh, h // kh, n_split, pages_per_split * ps)
+    sc = sc.reshape(shape)
+    mask = mask[:, None, None, :].expand(b, kh, h // kh, -1).reshape(shape)
+    m = torch.where(mask, sc, NEG_INF).amax(dim=-1)                # [B,K,G,S]
+    pr = torch.where(mask, torch.exp(sc - m[..., None]), 0.0)
+    acc = torch.einsum("bkgst,bstkd->bkgsd", pr,
+                       vs.reshape(b, n_split, pages_per_split * ps, kh, d))
+    return (m.transpose(2, 3).contiguous(),
+            pr.sum(dim=-1).transpose(2, 3).contiguous(),
+            acc.transpose(2, 3).contiguous())
+
+
+def paged_decode_merge(m, l, acc, dtype=torch.float32):
+    """The merge pass: ``sum_s acc_s w_s / max(sum_s l_s w_s, 1e-30)``
+    with ``w_s = exp(m_s - max_s m_s)``, over the splits of m/l
+    [B,K,S,G] and acc [B,K,S,G,D] -> [B,1,K*G,D] in ``dtype``.  A slot
+    whose splits are all empty gives 0."""
+    b, kh, _, g, d = acc.shape
+    w = torch.exp(m - m.amax(dim=2, keepdim=True))
+    den = torch.clamp_min((l * w).sum(dim=2), 1e-30)               # [B,K,G]
+    out = (acc * w[..., None]).sum(dim=2) / den[..., None]
+    return out.reshape(b, 1, kh * g, d).to(dtype)
 
 
 def ssd_chunk_len(s: int, chunk: int) -> int:

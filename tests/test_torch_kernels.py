@@ -40,6 +40,7 @@ from repro_torch.kernels import compress as tC
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pack as tpack
 from repro_torch.kernels import qg_update as tK
+from repro_torch.kernels import ref as tref
 from repro_torch.kernels.ref import attn_scale as tref_attn_scale
 
 SHAPES = [(), (1,), (7,), (8191,), (8193,), (13, 17), (3, 5, 11)]
@@ -349,7 +350,8 @@ def test_cpu_dispatch_leaves_launch_counters_at_zero():
                            "qg_local_step", "qg_buffer_update",
                            "gamma_correct", "threshold_mask",
                            "quantize_dequantize", "flash_attention",
-                           "paged_decode_attention", "ssd_scan"}
+                           "paged_decode_attention", "paged_decode_merge",
+                           "ssd_scan"}
     assert counts == {k: 0 for k in counts}
 
 
@@ -525,6 +527,184 @@ def test_paged_decode_plain_matches_reference_in_bf16():
                                atol=ATT_TOL["bfloat16"], rtol=0)
 
 
+@pytest.mark.parametrize("case", PAGED_CASES)
+@pytest.mark.parametrize("pps", [1, 2, 3, "P"])
+@pytest.mark.parametrize("dead_slot", [False, True])
+def test_paged_split_merge_matches_reference(case, pps, dead_slot):
+    """The paged kernel's two passes written plainly (split over pages,
+    then merged) equal the one-pass plain version and the reference's
+    Pallas kernel (interpret mode), length-0 slots 0 from all three."""
+    window, softcap = case[7], case[8]
+    arrs = _paged_inputs(case, seed=case[0] * 100 + case[4],
+                         dead_slot=dead_slot)
+    ta = [_to_torch(a) for a in arrs]
+    pps = case[5] if pps == "P" else pps
+    m, l, acc = tref.paged_decode_partials(*ta, pages_per_split=pps,
+                                           window=window, softcap=softcap)
+    n_split = -(-case[5] // pps)
+    assert m.shape == l.shape == (case[0], case[2], n_split,
+                                  case[1] // case[2])
+    assert acc.shape == m.shape + (case[3],)
+    got = tref.paged_decode_merge(m, l, acc).numpy()
+    plain = tops.paged_decode_attention(*ta, window=window,
+                                        softcap=softcap).numpy()
+    pallas = np.asarray(jops.paged_decode_attention(
+        *(jnp.asarray(a) for a in arrs), window=window, softcap=softcap,
+        interpret=True))
+    for want in (plain, pallas):
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    if dead_slot:
+        assert not got[-1].any()
+        assert (m[-1] == tref.NEG_INF).all() and not l[-1].any()
+
+
+def test_paged_split_merge_window_empties_splits():
+    """A window that leaves whole splits outside it: those splits are
+    empty partials (m = NEG_INF, l = 0, acc = 0) and the merge still equals
+    the plain version and the reference's Pallas kernel."""
+    b, h, kh, d, ps, pmax, np_ = 2, 8, 2, 32, 4, 16, 40
+    rng = np.random.default_rng(11)
+    q = rng.normal(size=(b, 1, h, d)).astype(np.float32)
+    kp, vp = (rng.normal(size=(np_, ps, kh, d)).astype(np.float32)
+              for _ in range(2))
+    lengths = np.array([61, 30], np.int32)
+    bt = np.full((b, pmax), -1, np.int32)
+    perm = rng.permutation(np_)
+    bt[0, :16], bt[1, :8] = perm[:16], perm[16:24]
+    arrs = (q, kp, vp, bt, lengths)
+    m, l, acc = tref.paged_decode_partials(*(_to_torch(a) for a in arrs),
+                                           pages_per_split=2, window=9)
+    # slot 0 sees tokens 52..60 (split 6 and 7), slot 1 tokens 21..29
+    # (splits 2 and 3): every other split is empty
+    live = (l > 0).any(dim=(1, 3))
+    assert live.tolist() == [[i in (6, 7) for i in range(8)],
+                             [i in (2, 3) for i in range(8)]]
+    dead = ~live[:, None, :, None]
+    assert (m[dead.expand_as(m)] == tref.NEG_INF).all()
+    assert not l[dead.expand_as(l)].any()
+    assert not acc[dead[..., None].expand_as(acc)].any()
+    got = tref.paged_decode_merge(m, l, acc).numpy()
+    plain = tops.paged_decode_attention(*(_to_torch(a) for a in arrs),
+                                        window=9).numpy()
+    pallas = np.asarray(jops.paged_decode_attention(
+        *(jnp.asarray(a) for a in arrs), window=9, interpret=True))
+    for want in (plain, pallas):
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((8, 4, 16, 16), (1, 16)),       # the serving engine's: no merge
+    ((8, 4, 256, 16), None),         # 8 slots x 4096 tokens
+    ((1, 1, 1000, 1), None), ((3, 2, 8, 16), (1, 8)),
+    ((64, 8, 512, 16), None), ((2, 16, 20, 16), None)])
+def test_paged_splits_rule(shape, want):
+    b, kh, p, ps = shape
+    splits, pps = tA.paged_splits(b, kh, p, ps)
+    if want is not None:
+        assert (splits, pps) == want
+    # the splits cover the pages exactly once, in order
+    assert splits * pps >= p > (splits - 1) * pps
+    if p * ps > tA.SPLIT_MIN_TOKENS:
+        assert pps * ps >= tA.SPLIT_MIN_ROWS or splits == 1
+        assert b * kh * splits >= tA.SPLIT_BLOCKS or pps * ps < 2 * \
+            tA.SPLIT_MIN_ROWS or splits * 2 > p
+    if shape == (8, 4, 256, 16):
+        assert b * kh * splits >= 264
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 mantissa bits), nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32``: add half of the dropped 13 bits' unit to
+    the magnitude bits, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _matmul_3xtf32(a, b, eq, *, exact_a=False, exact_b=False):
+    """einsum ``eq`` of fp32 a and b as the flash kernel forms it: each
+    operand split hi = tf32(x), lo = tf32(x - hi) unless exact in TF32,
+    and the product a_lo b_hi + a_hi b_lo + a_hi b_hi (products of TF32
+    values are exact in fp32; sums in fp32)."""
+    def split(x, exact):
+        if exact:
+            return x, torch.zeros_like(x)
+        hi = _tf32_rna(x)
+        return hi, _tf32_rna(x - hi)
+    (ah, al), (bh, bl) = split(a, exact_a), split(b, exact_b)
+    out = torch.einsum(eq, ah, bh)
+    for x, y in ((al, bh), (ah, bl)):
+        if x.any() and y.any():
+            out = torch.einsum(eq, x, y) + out
+    return out
+
+
+def _flash_3xtf32(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """The flash kernel's numerics on the CPU: scores and P V from TF32
+    products (three per fp32 product; Q K^T one and P V two for bf16
+    inputs, which TF32 holds exactly), softmax and the rest in fp32."""
+    exact = q.dtype == torch.bfloat16
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = tref_attn_scale(d)
+    qf = q.reshape(b, s, kh, g, d).float()
+    if not exact:
+        qf = qf * scale
+    sc = _matmul_3xtf32(qf, k.float(), "bskgd,btkd->bskgt", exact_a=exact,
+                        exact_b=exact)
+    if exact:
+        sc = sc * scale
+    if softcap:
+        sc = softcap * torch.tanh(sc / softcap)
+    q_pos = torch.arange(s)[:, None]
+    k_pos = torch.arange(t)[None, :]
+    mask = torch.ones(s, t, dtype=torch.bool)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window:
+        mask &= q_pos - k_pos < window
+    mask = mask[None, :, None, None, :]
+    sc = torch.where(mask, sc, tref.NEG_INF)
+    p = torch.where(mask, torch.exp(sc - sc.amax(dim=-1, keepdim=True)), 0.0)
+    acc = _matmul_3xtf32(p, v.float(), "bskgt,btkd->bskgd", exact_b=exact)
+    out = acc / torch.clamp_min(p.sum(dim=-1)[..., None], 1e-30)
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10             # a TF32 value
+    half = 2.0 ** -11                  # half of TF32's unit at 1
+    x = torch.tensor([1.0 + half, -(1.0 + half), one + half,
+                      1.0 + half - 2.0 ** -23, 3.0, 0.0],
+                     dtype=torch.float32)
+    got = _tf32_rna(x).tolist()
+    assert got == [one, -one, one + 2.0 ** -10, 1.0, 3.0, 0.0]
+    y = torch.randn(1000)
+    hi = _tf32_rna(y)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert ((y - hi).abs() <= hi.abs() * 2.0 ** -11).all()
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_3xtf32_emulation_holds_att_tol(case, dtype):
+    """The tensor-core flash kernel's numeric design holds ATT_TOL against
+    the plain fp32 version (and plain TF32 would not, in fp32)."""
+    b, s, t, h, kh, d, kw = case
+    q, k, v = (_to_torch(a) for a in _attn_inputs(
+        [(b, s, h, d), (b, t, kh, d), (b, t, kh, d)], dtype,
+        seed=sum(case[:6])))
+    got = _flash_3xtf32(q, k, v, **kw)
+    want = tref.flash_attention(q, k, v, **kw)
+    assert got.dtype == want.dtype
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= ATT_TOL[dtype], err
+    if dtype == "float32":  # one TF32 product per fp32 product is too coarse
+        qt, kt, vt = (_tf32_rna(x) for x in (q, k, v))
+        coarse = tref.flash_attention(qt, kt, vt, **kw)
+        assert float((coarse - want).abs().max()) > ATT_TOL[dtype]
+
+
 def test_attention_wrappers_check_dtype_and_shapes_before_building():
     """No fallback: a dtype or a head_dim the kernels do not take is
     refused, never sent to the plain path."""
@@ -538,6 +718,10 @@ def test_attention_wrappers_check_dtype_and_shapes_before_building():
     q48 = torch.randn(1, 4, 4, 48)
     with pytest.raises(ValueError, match="head_dim 48"):
         tA.flash_attention(q48, q48, q48)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        tA.paged_decode_attention(q48[:, :1], q48, q48,
+                                  torch.zeros(1, 1, dtype=torch.int32),
+                                  torch.ones(1, dtype=torch.int32))
     q = torch.randn(1, 4, 4, 32)
     with pytest.raises(ValueError, match="do not fit"):
         tA.flash_attention(q, q[:, :, :3], q[:, :, :3])
@@ -546,6 +730,7 @@ def test_attention_wrappers_check_dtype_and_shapes_before_building():
                                   torch.zeros(2, 1, dtype=torch.int32),
                                   torch.ones(1, dtype=torch.int32))
     assert tA.FLASH_HEAD_DIMS == (32, 64, 128)
+    assert tA.PAGED_HEAD_DIMS == (16, 32, 64, 128)
 
 
 def test_attention_scale_matches_reference():
