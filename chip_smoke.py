@@ -10,7 +10,8 @@ line) if anything goes wrong:
 1. build    compile every CUDA kernel from ``csrc/`` (``qg_update``,
             ``compress``, ``attention`` and ``ssd_scan``, one ``nvcc`` each,
             together), and fail unless ``cuobjdump -sass`` finds tensor-core
-            products (HMMA) in every flash kernel instance;
+            products (HMMA) in every flash kernel instance and in every
+            instance of the scan's two product passes;
 2. kernels  hold each kernel against its plain PyTorch version on the card:
             the streaming kernels over lengths 0-d .. 2**27+5, every flag
             combination and an unaligned view; the row-wise compress kernels
@@ -52,18 +53,22 @@ line) if anything goes wrong:
             launches against the chunked path (logits and every layer's
             K/V) and once under ``torch.profiler`` (wall beside device
             time), and the serving run under the profiler (0 merges);
-6. mamba    the SSD scan kernel against its plain version in fp32 and bf16
-            at the reference's SSD_CASES, S = 1 and 17, chunk 64 vs 256, dt
-            x 1e-2 and the main shape (every P-tile), timed at the main
-            shape and at [8, 4096]; then slice 6b-i's main path on
+6. mamba    the SSD scan kernels (chunk pass, state pass, output pass)
+            against the sequential plain version in fp32 and bf16 at the
+            reference's SSD_CASES, S = 1 and 17, chunk 64 vs 256, dt x 1e-2,
+            P 48 and the main shape, and at SSD_PATH_CASES (P in several
+            column tiles, N padded, unaligned rows), and each pass against
+            its plain pass at the path cases and the main shape; timed at the main shape and at [8, 4096], each
+            pass apart under the profiler; then slice 6b-i's main path on
             mamba2-130m at its published widths and depth: ``prefill`` of
-            [2, 2048] tokens through exactly 24 ``ssd_scan`` launches
-            against the plain path (logits, conv and SSM states), 32 greedy
-            decode steps from the kernel prefill's state (no launch)
-            against ``sequential_generate``, a train-mode forward of [1,
-            512] through 24 launches, ``python -m repro_torch.serve --arch
-            mamba2-130m --full --baseline --requests 16`` in code (with and
-            without ``--use-pallas``), the engine's refusal, and the
+            [2, 2048] tokens through exactly 24 launches of each scan
+            kernel against the plain path (logits, conv and SSM states),
+            32 greedy decode steps from the kernel prefill's state (no
+            launch) against ``sequential_generate``, a train-mode forward
+            of [1, 512] through 24 launches of each, ``python -m
+            repro_torch.serve --arch mamba2-130m --full --baseline
+            --requests 16`` in code (with and without ``--use-pallas``),
+            the engine's refusal, and the
             prefill under ``torch.profiler``.
 
 Imports nothing of JAX nor of the JAX package.  The second-to-last lines
@@ -1275,6 +1280,21 @@ SSD_CASES = [
 SSD_MAIN = SSD_CASES[-1]
 SSD_LARGE = (8, 4096, 24, 64, 128, 128, 1e-2)
 
+#: (case, views, P tiles, N padded): shapes that reach the kernels'
+#: indexing paths which SSD_CASES do not -- P in several column tiles with
+#: a partial last one (128 = 64 + 64, 80 = 48 + 32, 96 = 64 + 32), N
+#: padded to a multiple of 16 (20 -> 32, 12 -> 16) with a short last
+#: chunk, and x, b and c as views of one buffer one element into it, with
+#: an odd token stride, so rows are not 16-byte aligned and the kernels
+#: stage them element by element (views False: contiguous, staged by
+#: 16-byte cp.async / 8-byte loads)
+SSD_PATH_CASES = [
+    ((1, 256, 2, 128, 64, 128, 1.0), False, (64, 64), 64),
+    ((2, 256, 3, 80, 64, 128, 1.0), False, (48, 32), 64),
+    ((1, 136, 3, 32, 20, 8, 1.0), False, (32,), 32),
+    ((2, 192, 3, 96, 12, 64, 1.0), True, (64, 32), 16),
+]
+
 #: the Mamba path: mamba2-130m (configs/mamba2_130m.py) at its published
 #: widths and depth, a seeded init, fp32 with TF32 off
 MAMBA_ARCH, MAMBA_SEED = "mamba2-130m", 0
@@ -1285,6 +1305,19 @@ MAMBA_PREFILL, MAMBA_TRAIN, MAMBA_DECODE = (2, 2048), (1, 512), 32
 #: fp32; the scan sums in other orders (1e-6 relative per layer seen on
 #: reduced configs), carried through 24 layers: 1e-4
 MAMBA_TOL = 1e-4
+
+#: the scan's kernels, each launched once per ``ssd_scan`` call: the chunk
+#: pass (counted under the scan's own name), the state pass and the output
+#: pass; the two that carry products must issue HMMA
+SSD_KERNELS = ("ssd_scan", "ssd_scan_passing", "ssd_scan_outputs")
+SSD_PRODUCT_KERNELS = ("ssd_chunk_states", "ssd_chunk_outputs")
+SSD_DEVICE_NAMES = ("ssd_chunk_states", "ssd_state_pass",
+                    "ssd_chunk_outputs")
+
+
+def _ssd_launches(calls: int) -> dict:
+    """The launch counts of ``calls`` scans."""
+    return {k: calls for k in SSD_KERNELS} if calls else {}
 
 
 def _ssd_inputs(case, dtype, dev, seed):
@@ -1302,6 +1335,23 @@ def _ssd_inputs(case, dtype, dev, seed):
     return x, dt, a, bm, cm, d
 
 
+def _unaligned_views(x, bm, cm):
+    """x [B,S,H,P], b and c [B,S,N] copied into one [B,S,1+H*P+2N] buffer
+    from its second element on, and returned as views of it: an odd token
+    stride and rows not 16-byte aligned, as slices of a conv output can
+    be."""
+    import torch
+    bsz, s, h, p = x.shape
+    n = bm.shape[-1]
+    buf = torch.zeros((bsz, s, 1 + h * p + 2 * n), dtype=x.dtype,
+                      device=x.device)
+    buf[..., 1:1 + h * p] = x.reshape(bsz, s, h * p)
+    buf[..., 1 + h * p:1 + h * p + n] = bm
+    buf[..., 1 + h * p + n:] = cm
+    return (buf[..., 1:1 + h * p].unflatten(-1, (h, p)),
+            buf[..., 1 + h * p:1 + h * p + n], buf[..., 1 + h * p + n:])
+
+
 def phase_ssd_kernels(dev) -> dict:
     """The SSD scan against its plain version at every case in fp32 and
     bf16 (y and the final state); returns the worst max abs error per
@@ -1312,10 +1362,10 @@ def phase_ssd_kernels(dev) -> dict:
 
     worst = {}
 
-    def check(label, dtype, got, want):
+    def check(label, dtype, got, want, names=("y", "state")):
         atol, rtol = SSD_TOL[str(dtype).replace("torch.", "")]
         errs = []
-        for g, w, what in zip(got, want, ("y", "state")):
+        for g, w, what in zip(got, want, names):
             if g.shape != w.shape or g.dtype != w.dtype:
                 raise AssertionError(f"ssd_scan {label}: {what} {g.shape} "
                                      f"{g.dtype} vs plain {w.shape} {w.dtype}")
@@ -1333,6 +1383,26 @@ def phase_ssd_kernels(dev) -> dict:
         worst[key] = max(worst.get(key, 0.0), *errs)
         return errs
 
+    def check_passes(label, dtype, x, dt, a, bm, cm, d):
+        """Each pass's kernel against its plain pass, on the plain pass's
+        own inputs."""
+        ds, dec = ref.ssd_chunk_states(x, dt, a, bm)
+        s_in, fin = ref.ssd_state_passing(ds, dec)
+        got = K.chunk_states(x, dt, a, bm)
+        e1 = check(f"chunk pass {label} {dtype}", dtype, got, (ds, dec),
+                   ("dS", "decay"))
+        got = K.state_passing(ds.clone(), dec)
+        e2 = check(f"state pass {label} {dtype}", dtype, got, (s_in, fin),
+                   ("S_in", "state"))
+        y = ref.ssd_chunk_outputs(x, dt, a, bm, cm, d, s_in)
+        got = K.chunk_outputs(x, dt, a, bm, cm, d, s_in)
+        e3 = check(f"output pass {label} {dtype}", dtype, (got, fin),
+                   (y, fin))
+        log(f"kernel ssd_scan passes {dtype} {label} against their plain "
+            f"passes: chunk pass max abs err dS {e1[0]:.3e}, decay "
+            f"{e1[1]:.3e}; state pass S_in {e2[0]:.3e}, final {e2[1]:.3e}; "
+            f"output pass y {e3[0]:.3e}")
+
     for dtype in (torch.float32, torch.bfloat16):
         for i, case in enumerate(SSD_CASES):
             x, dt, a, bm, cm, d = _ssd_inputs(case, dtype, dev, 50 + i)
@@ -1343,6 +1413,29 @@ def phase_ssd_kernels(dev) -> dict:
                 f"{case[6]}: max abs err y {ey:.3e}, state {es:.3e} (max "
                 f"|state| {float(want[1].abs().max()):.3e})")
             del x, bm, cm, got, want
+        # the indexing paths: P tiles, N padding, rows staged one by one;
+        # the wrapper's geometry says each case reaches its path
+        for i, (case, views, tiles, npad) in enumerate(SSD_PATH_CASES):
+            x, dt, a, bm, cm, d = _ssd_inputs(case, dtype, dev, 90 + i)
+            if views:
+                x, bm, cm = _unaligned_views(x, bm, cm)
+            p, n = case[3], case[4]
+            pw = min(p, 64 if p % 32 == 0 else 48)
+            geom = K._check(x, dt, a, bm, cm, d, case[5])
+            if (tuple(min(pw, p - p0) for p0 in range(0, p, pw)) != tiles
+                    or -(-n // 16) * 16 != npad or geom["vec"] != (not views)):
+                raise AssertionError(
+                    f"ssd_scan path case {case}: P tiles, padded N or row "
+                    f"staging ({geom['vec']}) not the path it was chosen for")
+            label = (f"B,S,H,P,N,chunk={case[:6]} P tiles {tiles}, N padded "
+                     f"to {npad}, rows {'unaligned views' if views else 'aligned'}")
+            got = K.ssd_scan(x, dt, a, bm, cm, d, chunk=case[5])
+            want = ref.ssd_scan(x, dt, a, bm, cm, d)
+            ey, es = check(f"path {case} {dtype}", dtype, got, want)
+            log(f"kernel ssd_scan {dtype} {label}: max abs err y {ey:.3e}, "
+                f"state {es:.3e}")
+            check_passes(label, dtype, x, dt, a, bm, cm, d)
+            del x, bm, cm, got, want
     # chunk 64 against chunk 256 on the same inputs (cases 7 and 8 share
     # shapes; draw once)
     x, dt, a, bm, cm, d = _ssd_inputs(SSD_CASES[7], torch.float32, dev, 70)
@@ -1352,6 +1445,11 @@ def phase_ssd_kernels(dev) -> dict:
     log(f"kernel ssd_scan chunk 64 vs chunk 256 on the same inputs: max abs "
         f"diff y {ey:.3e}, state {es:.3e}")
     del x, bm, cm, y64, f64, y256, f256
+    # each pass's kernel against its plain pass at the main shape
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dt, a, bm, cm, d = _ssd_inputs(SSD_MAIN, dtype, dev, 71)
+        check_passes(f"B,S,H,P,N={SSD_MAIN[:5]}", dtype, x, dt, a, bm, cm, d)
+        del x, bm, cm
     torch.cuda.empty_cache()
     torch.cuda.synchronize(dev)
     log(f"kernel ssd_scan: every case within its tolerance {SSD_TOL}; worst "
@@ -1365,8 +1463,9 @@ def _ssd_cost(case):
     the recurrence's own per token and head -- N*P for the state's decay,
     2*N*P + P for dt B x^T, 2*N*P for C h, 2*P for the D-skip, 2 for a*dt
     and its exp; a chunked form does more (C.B^T and the intra-chunk
-    combine).  Bytes: fp32 x and y, b and c read once, dt, a, d_skip and
-    the final state."""
+    combine).  Their rate is that of fp32-accurate products on the tensor
+    cores, ``PEAK_3XTF32_FLOPS``, as for flash.  Bytes: fp32 x and y, b and
+    c read once, dt, a, d_skip and the final state."""
     b, s, h, p, n, _, _ = case
     flops = b * s * h * (5 * n * p + 3 * p + 2)
     nbytes = 4 * (2 * b * s * h * p + 2 * b * s * n + b * s * h + 2 * h
@@ -1376,8 +1475,9 @@ def _ssd_cost(case):
 
 def phase_ssd_timing(dev) -> dict:
     """Kernel and plain ms (CUDA graphs) and bound of the SSD scan at the
-    main shape and at [8, 4096] with the same widths, fp32.  No single
-    PyTorch call computes the scan: the library column is none."""
+    main shape and at [8, 4096] with the same widths, fp32, and each pass's
+    device time under the profiler.  No single PyTorch call computes the
+    scan: the library column is none."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as K
@@ -1387,7 +1487,7 @@ def phase_ssd_timing(dev) -> dict:
                                ("large", SSD_LARGE, 4)):
         x, dt, a, bm, cm, d = _ssd_inputs(case, torch.float32, dev, 80)
         flops, nbytes = _ssd_cost(case)
-        bound, by = _bound(nbytes, flops)
+        bound, by = _bound(nbytes, flops, PEAK_3XTF32_FLOPS)
         row = {"shape": case[:6],
                "ms": _time_ms(lambda: K.ssd_scan(x, dt, a, bm, cm, d),
                               iters),
@@ -1397,14 +1497,23 @@ def phase_ssd_timing(dev) -> dict:
                "flops": flops, "bytes": nbytes,
                "dispatch_ms": _dispatch_ms(lambda: K.ssd_scan(
                    x, dt, a, bm, cm, d))}
+        before = dict(K.LAUNCHES)
+        K.ssd_scan(x, dt, a, bm, cm, d)
+        row["launches_per_call"] = {k: K.LAUNCHES[k] - before[k]
+                                    for k in before}
+        _, row["passes"] = _profile_kernels(
+            dev, lambda: K.ssd_scan(x, dt, a, bm, cm, d), reps=5)
         timed[label] = row
         log(f"time ssd_scan {label} B,S,H,P,N,chunk={case[:6]} fp32: kernel "
             f"{row['ms']:.6f} ms (CUDA graph of {iters} calls), plain "
             f"{row['plain_ms']:.6f} ms (sequential over S, CUDA graph of 1 "
             f"call), library: none, bound {bound:.6f} ms ({by}: "
-            f"{flops} flop, {nbytes} B), {flops / row['ms'] / 1e9:.2f} "
+            f"{flops} flop at 165 TFLOP/s, {nbytes} B), "
+            f"{flops / row['ms'] / 1e9:.2f} "
             f"TFLOP/s; kernel with eager dispatch {row['dispatch_ms']:.6f} "
-            f"ms")
+            f"ms; launches per call {row['launches_per_call']}; by pass "
+            f"(profiler, eager) "
+            + ", ".join(f"{k} {v:.6f} ms" for k, v in row["passes"].items()))
         del x, dt, a, bm, cm, d
         torch.cuda.empty_cache()
     return timed
@@ -1447,7 +1556,7 @@ def phase_mamba(dev) -> dict:
     torch.cuda.synchronize(dev)
     ms = (time.perf_counter() - t0) * 1e3
     counts = ops.launch_counts()
-    _expect_launches("mamba prefill", counts, {"ssd_scan": cfg.n_layers})
+    _expect_launches("mamba prefill", counts, _ssd_launches(cfg.n_layers))
     t0 = time.perf_counter()
     want, want_cache = tf.prefill(params, tokens, cfg, use_pallas=False)
     torch.cuda.synchronize(dev)
@@ -1512,7 +1621,7 @@ def phase_mamba(dev) -> dict:
     torch.cuda.synchronize(dev)
     train_counts = ops.launch_counts()
     _expect_launches("mamba train forward", train_counts,
-                     {"ssd_scan": cfg.n_layers})
+                     _ssd_launches(cfg.n_layers))
     tw, _, _ = tf.forward(params, train_toks, cfg, mode="train")
     terr = _rel_err(tl, tw)
     if not torch.isfinite(tl).all() or terr > MAMBA_TOL:
@@ -1530,8 +1639,7 @@ def phase_mamba(dev) -> dict:
         rows[extra] = serve_main(["--arch", MAMBA_ARCH, "--full",
                                   "--baseline", "--requests", "16", *extra])
         _expect_launches(f"serve --baseline {' '.join(extra)}",
-                         ops.launch_counts(),
-                         {"ssd_scan": want_n} if want_n else {})
+                         ops.launch_counts(), _ssd_launches(want_n))
         log(f"main mamba serve --full --baseline {' '.join(extra)}: "
             f"{rows[extra]['tokens_per_s']:.2f} tokens/s, "
             f"{rows[extra]['wall_s']:.4f} s; launches {ops.launch_counts()}")
@@ -1572,13 +1680,14 @@ def phase_mamba_profile(dev, cfg, params, tokens) -> None:
         return
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    ours = [r for r in rows if "ssd_fwd" in r[0]]
+    ours = [r for r in rows if any(k in r[0] for k in SSD_DEVICE_NAMES)]
     ssd_ms = sum(r[1] for r in ours)
     log(f"profile mamba prefill {cfg.name} tokens {list(tokens.shape)} "
         f"(profiler on): wall {wall_ms:.3f} ms, device kernel time "
         f"{busy:.3f} ms ({100 * busy / wall_ms:.2f}% busy), "
-        f"{sum(r[2] for r in rows)} device activities; ssd_scan "
-        f"{ssd_ms:.4f} ms ({100 * ssd_ms / busy:.2f}% of device time)")
+        f"{sum(r[2] for r in rows)} device activities; ssd_scan (all "
+        f"three kernels) {ssd_ms:.4f} ms ({100 * ssd_ms / busy:.2f}% of "
+        f"device time)")
     for key, ms, count in rows[:12] + [r for r in ours if r not in rows[:12]]:
         log(f"profile mamba device {ms:10.4f} ms {count:6d}x "
             f"{ms / count * 1e3:9.3f} us each  {key[:80]}")
@@ -1608,17 +1717,22 @@ def sass_mma_counts(lib: Path) -> dict:
     return {k: tuple(v) for k, v in counts.items()}
 
 
-def check_flash_on_tensor_cores() -> None:
-    """Fail unless every flash kernel instance in the attention library
-    issues tensor-core products (and log the count of each)."""
+def check_on_tensor_cores(lib: str, kernels: tuple,
+                          want: int | None = None) -> None:
+    """Fail unless every instance in ``lib`` of the kernels named in
+    ``kernels`` (``want`` of them, where given; at least one) issues
+    tensor-core products, and log the count of every kernel's."""
     from repro_torch.kernels import build
-    counts = sass_mma_counts(build._library_path("attention"))
-    flash = {k: v[0] for k, v in counts.items() if "flash_tc" in k}
+    counts = sass_mma_counts(build._library_path(lib))
+    ours = {k: v[0] for k, v in counts.items()
+            if any(name in k for name in kernels)}
     for fn, (n, total) in sorted(counts.items()):
-        log(f"build   attention SASS: {n:5d} HMMA of {total:6d} "
+        log(f"build   {lib} SASS: {n:5d} HMMA of {total:6d} "
             f"instructions in {fn}")
-    if not flash or not all(flash.values()):
-        raise AssertionError(f"flash kernel without HMMA: {flash}")
+    if not ours or (want is not None and len(ours) != want) \
+            or not all(ours.values()):
+        raise AssertionError(f"{lib}: want {want} instances of {kernels}, "
+                             f"each with HMMA: {ours}")
 
 
 # ---------------------------------------------------------------------------
@@ -1650,7 +1764,9 @@ def main() -> int:
                 ".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"build   {lib}: {line.strip()}")
-    check_flash_on_tensor_cores()
+    # the scan's chunk and output passes: fp32/bf16 x 16/32 columns a warp
+    check_on_tensor_cores("attention", ("flash_tc",))
+    check_on_tensor_cores("ssd_scan", SSD_PRODUCT_KERNELS, 8)
 
     # 2. kernels against their plain versions, then their times
     worst = phase_kernels(dev)
@@ -1739,6 +1855,7 @@ def main() -> int:
         "name": "ssd_scan", "route": "cuda", "source": csrc + "ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:77",
         "launches": mamba_out["launches"]["ssd_scan"],
+        "pass_launches": {k: mamba_out["launches"][k] for k in SSD_KERNELS},
         "max_abs_err": ssd_worst["float32"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None})

@@ -31,6 +31,10 @@ then the rescaled sum over splits): the CPU oracle of the split-KV design.
 The SSD scan's version is the reference's sequential oracle
 (``repro/kernels/ref.py:152``), one state update per token, with the D-skip
 term that ``repro/kernels/ops.py:84`` adds outside its kernel.
+``ssd_chunk_states``, ``ssd_state_passing`` and ``ssd_chunk_outputs`` are
+the scan kernel's three passes written plainly, over chunks of
+``SSD_BLOCK`` tokens (the SSD paper's chunk-parallel form, arXiv:2405.21060
+sections 6-7); ``ssd_scan_passes`` composes them into the same function.
 """
 from __future__ import annotations
 
@@ -41,7 +45,9 @@ __all__ = ["qg_local_step", "qg_buffer_update", "fused_halfstep",
            "fused_qg_buffer", "gamma_correct", "threshold_mask",
            "quantize_dequantize", "attn_scale", "flash_attention",
            "paged_decode_attention", "paged_decode_partials",
-           "paged_decode_merge", "ssd_chunk_len", "ssd_scan"]
+           "paged_decode_merge", "ssd_chunk_len", "ssd_scan", "SSD_BLOCK",
+           "ssd_chunk_states", "ssd_state_passing", "ssd_chunk_outputs",
+           "ssd_scan_passes"]
 
 NEG_INF = -2.0e38
 
@@ -282,3 +288,78 @@ def ssd_scan(x, dt, a, b, c, d_skip, *, initial_state=None):
          torch.zeros((bsz, 0, h, p), dtype=torch.float32, device=x.device))
     y = y + xf * d_skip.float()[None, None, :, None]
     return y.to(x.dtype), hstate
+
+
+#: tokens per chunk of the scan kernel's passes (independent of the
+#: caller's ``chunk``, which only has to divide S)
+SSD_BLOCK = 64
+
+
+def _ssd_blocks(x, dt, a, b):
+    """x, dt, b in fp32, padded with zero tokens to whole blocks of
+    ``SSD_BLOCK`` and cut into them ([B,nc,L,H,P], [B,nc,L,H], [B,nc,L,N]),
+    and ``cum``, the running sum of ``a dt`` inside each block [B,nc,L,H].
+    Zero tokens (dt 0, B 0, x 0) add no decay and no input."""
+    bsz, s, h, p = x.shape
+    block = SSD_BLOCK
+    nc = -(-s // block)
+    pad = nc * block - s
+    xf = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
+    dtf = torch.nn.functional.pad(dt.float(), (0, 0, 0, pad))
+    bf = torch.nn.functional.pad(b.float(), (0, 0, 0, pad))
+    xf = xf.reshape(bsz, nc, block, h, p)
+    dtf = dtf.reshape(bsz, nc, block, h)
+    bf = bf.reshape(bsz, nc, block, -1)
+    cum = torch.cumsum(a.float() * dtf, dim=2)
+    return xf, dtf, bf, cum
+
+
+def ssd_chunk_states(x, dt, a, b):
+    """The chunk pass: per block of ``SSD_BLOCK`` tokens and head, the state the
+    block alone leaves, ``dS = sum_s B_s^T (exp(cum_L - cum_s) dt_s x_s)``
+    [B,nc,H,N,P], and its decay ``exp(cum_L)`` [B,nc,H], both fp32."""
+    xf, dtf, bf, cum = _ssd_blocks(x, dt, a, b)
+    w_out = torch.exp(cum[:, :, -1:] - cum) * dtf              # [B,nc,L,H]
+    dstate = torch.einsum("bcsn,bcshp->bchnp", bf, w_out[..., None] * xf)
+    return dstate.contiguous(), torch.exp(cum[:, :, -1])
+
+
+def ssd_state_passing(dstate, decay):
+    """The state pass: ``S_in[0] = 0``, ``S_in[c] = decay[c-1] S_in[c-1] +
+    dS[c-1]`` -> ``(S_in [B,nc,H,N,P], final state [B,H,N,P])``, fp32; the
+    final state is ``decay[nc-1] S_in[nc-1] + dS[nc-1]``."""
+    state = torch.zeros_like(dstate[:, 0])
+    s_in = []
+    for c in range(dstate.shape[1]):
+        s_in.append(state)
+        state = decay[:, c, :, None, None] * state + dstate[:, c]
+    return torch.stack(s_in, dim=1), state
+
+
+def ssd_chunk_outputs(x, dt, a, b, c, d_skip, s_in):
+    """The output pass: per block and head ``y = diag(exp(cum)) C S_in +
+    (G o mask) x + D x`` with ``G = C B^T`` and mask ``exp(cum_t - cum_s)
+    dt_s`` for s <= t (0 above the diagonal, by a select: exp overflows
+    there), in fp32, rounded once to x's dtype -> y [B,S,H,P]."""
+    bsz, s, h, p = x.shape
+    block = SSD_BLOCK
+    xf, dtf, bf, cum = _ssd_blocks(x, dt, a, b)
+    cf = _ssd_blocks(x, dt, a, c)[2]
+    gram = torch.einsum("bctn,bcsn->bcts", cf, bf)             # [B,nc,L,L]
+    causal = torch.tril(torch.ones((block, block), dtype=torch.bool,
+                                   device=x.device))[:, :, None]
+    dec = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # [..,t,s,H]
+    m = gram[..., None] * torch.exp(torch.where(causal, dec, -torch.inf))
+    m = m * dtf[:, :, None, :, :]
+    y = torch.einsum("bctn,bchnp->bcthp", cf, s_in) * torch.exp(cum)[..., None]
+    y = y + torch.einsum("bctsh,bcshp->bcthp", m, xf)
+    y = y + xf * d_skip.float()[None, None, None, :, None]
+    return y.reshape(bsz, -1, h, p)[:, :s].to(x.dtype)
+
+
+def ssd_scan_passes(x, dt, a, b, c, d_skip):
+    """The three passes composed: the chunk-parallel form of
+    :func:`ssd_scan` -> ``(y [B,S,H,P] in x's dtype, final state [B,H,N,P]
+    fp32)``."""
+    s_in, final = ssd_state_passing(*ssd_chunk_states(x, dt, a, b))
+    return ssd_chunk_outputs(x, dt, a, b, c, d_skip, s_in), final

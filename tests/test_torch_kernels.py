@@ -20,7 +20,13 @@ they are held at the reference's own bounds for its flash kernel
 value on either side of a rounding boundary.  On a paged slot of length 0
 the plain version gives 0, as the Pallas kernel does, where ``ref.py``'s
 dense-gather oracle gives the mean of the gathered values; it is held to
-the kernel there and to ``ref.py`` on the other rows."""
+the kernel there and to ``ref.py`` on the other rows.
+
+The tensor-core kernels' numerics (flash, the SSD scan's chunk passes) are
+emulated on the CPU, TF32 rounding bit for bit, and held to the fp32
+tolerance of their plain versions: 2e-5 for flash, atol 5e-4 / rtol 1e-3
+for the scan (the reference's own kernel-vs-oracle bound,
+tests/test_kernels.py:221)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -351,7 +357,8 @@ def test_cpu_dispatch_leaves_launch_counters_at_zero():
                            "gamma_correct", "threshold_mask",
                            "quantize_dequantize", "flash_attention",
                            "paged_decode_attention", "paged_decode_merge",
-                           "ssd_scan"}
+                           "ssd_scan", "ssd_scan_passing",
+                           "ssd_scan_outputs"}
     assert counts == {k: 0 for k in counts}
 
 
@@ -703,6 +710,98 @@ def test_flash_3xtf32_emulation_holds_att_tol(case, dtype):
         qt, kt, vt = (_tf32_rna(x) for x in (q, k, v))
         coarse = tref.flash_attention(qt, kt, vt, **kw)
         assert float((coarse - want).abs().max()) > ATT_TOL[dtype]
+
+
+def _matmul_tf32(a, b, eq, **_):
+    """einsum ``eq`` with one TF32 product per fp32 product (both operands
+    rounded to TF32, no lo terms)."""
+    return torch.einsum(eq, _tf32_rna(a), _tf32_rna(b))
+
+
+def _ssd_tf32(x, dt, a, b, c, d_skip, matmul=_matmul_3xtf32):
+    """The SSD scan kernel's numerics on the CPU: its three passes over
+    64-token chunks (``ref.ssd_chunk_states`` / ``_state_passing`` /
+    ``_chunk_outputs``) with every product formed as the kernel forms it
+    -- B^T (w x), C B^T, C S_in and (G o mask) x from TF32 products (bf16
+    b, c and x exact in TF32, every weighted operand split) -- and the rest
+    in fp32."""
+    exact = x.dtype == torch.bfloat16
+    bsz, s, h, p = x.shape
+    xf, dtf, bf, cum = tref._ssd_blocks(x, dt, a, b)
+    cf = tref._ssd_blocks(x, dt, a, c)[2]
+    w_out = torch.exp(cum[:, :, -1:] - cum) * dtf
+    ds = matmul(bf, w_out[..., None] * xf, "bcsn,bcshp->bchnp",
+                exact_a=exact)
+    s_in, fin = tref.ssd_state_passing(ds, torch.exp(cum[:, :, -1]))
+    gram = matmul(cf, bf, "bctn,bcsn->bcts", exact_a=exact, exact_b=exact)
+    causal = torch.tril(torch.ones(tref.SSD_BLOCK, tref.SSD_BLOCK,
+                                   dtype=torch.bool))[:, :, None]
+    dec = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    m = (gram[..., None] * torch.exp(torch.where(causal, dec, -torch.inf))
+         * dtf[:, :, None])
+    y = (matmul(cf, s_in, "bctn,bchnp->bcthp", exact_a=exact)
+         * torch.exp(cum)[..., None])
+    y = y + matmul(m, xf, "bctsh,bcshp->bcthp", exact_b=exact)
+    y = y + xf * d_skip[None, None, None, :, None]
+    return y.reshape(bsz, -1, h, p)[:, :s].to(x.dtype), fin
+
+
+#: (B, S, H, P, N, dt scale, whether one TF32 product per fp32 product
+#: would hold the fp32 tolerance): the reference's SSD_CASES
+#: (tests/test_kernels.py:199) with S = 1 and 17, dt x 1e-2 and P 48; then
+#: the widths of chip_smoke's SSD_PATH_CASES (P 128, 80 and 96 in several
+#: column tiles, N 20 and 12 padded, a short last chunk)
+SSD_EMU_CASES = [(1, 128, 2, 32, 16, 1.0, False), (2, 256, 3, 64, 32, 1.0,
+                                                    False),
+                 (1, 256, 1, 16, 128, 1.0, False),
+                 (2, 512, 4, 32, 64, 1.0, False),
+                 (1, 1, 2, 32, 16, 1.0, True), (1, 17, 2, 32, 16, 1.0, True),
+                 (2, 512, 4, 32, 64, 1e-2, True),
+                 (1, 256, 2, 48, 64, 1e-2, True),
+                 (1, 256, 2, 128, 64, 1.0, False),
+                 (2, 256, 3, 80, 64, 1.0, False),
+                 (1, 136, 3, 32, 20, 1.0, False),
+                 (2, 192, 3, 96, 12, 1.0, False)]
+#: the scan kernel's tolerance against the sequential plain version: the
+#: reference's own between its kernel and its oracle (tests/
+#: test_kernels.py:221) in fp32; one bf16 ulp at |y| in [2, 4) in bf16
+SSD_TOL = {"float32": (5e-4, 1e-3), "bfloat16": (2e-2, 2e-2)}
+
+
+def _ssd_excess(got, want, dtype):
+    """max(|got - want| - rtol |want|) - atol over y and the final state
+    (<= 0 holds the tolerance)."""
+    atol, rtol = SSD_TOL[dtype]
+    return max(float(((g.float() - w.float()).abs()
+                      - rtol * w.float().abs()).max()) - atol
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("case", SSD_EMU_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_3xtf32_emulation_holds_scan_tol(case, dtype):
+    """The tensor-core scan kernel's numeric design (3xTF32 products inside
+    the chunk passes) holds the scan tolerance against the sequential plain
+    version, in y and the final state; and whether plain TF32 would (it
+    breaks the fp32 tolerance wherever a chunk sums 64 tokens at dt of
+    order 1)."""
+    b, s, h, p, n, dt_scale, tf32_holds = case
+    rng = np.random.default_rng(sum(case[:5]))
+    f32 = lambda v: torch.from_numpy(np.asarray(v, np.float32))
+    x = f32(rng.normal(size=(b, s, h, p)) * 0.5)
+    dt = f32(np.logaddexp(rng.normal(size=(b, s, h)), 0.0) * dt_scale)
+    a = f32(-np.exp(rng.normal(size=h) * 0.3))
+    bm, cm = (f32(rng.normal(size=(b, s, n)) * 0.3) for _ in range(2))
+    d = f32(1.0 + 0.5 * rng.normal(size=h))
+    cast = getattr(torch, dtype)
+    x, bm, cm = (t.to(cast) for t in (x, bm, cm))
+    want = tref.ssd_scan(x, dt, a, bm, cm, d)
+    got = _ssd_tf32(x, dt, a, bm, cm, d)
+    assert got[0].dtype == want[0].dtype and got[0].shape == want[0].shape
+    assert _ssd_excess(got, want, dtype) <= 0
+    if dtype == "float32":
+        coarse = _ssd_tf32(x, dt, a, bm, cm, d, matmul=_matmul_tf32)
+        assert (_ssd_excess(coarse, want, dtype) <= 0) == tf32_holds
 
 
 def test_attention_wrappers_check_dtype_and_shapes_before_building():

@@ -11,8 +11,9 @@ Tolerances, each with its reason:
 * the sequential oracle against the reference's: 1e-5 abs on values of
   order 1 (the same fp32 recurrence, per-step products rounded by two
   libraries);
-* the port's SSD scan against the reference's kernel: atol 5e-4, rtol 1e-3,
-  the reference's own bound between its kernel and its oracle
+* the port's SSD scan, and the composition of the scan kernels' plain
+  passes, against the reference's kernel: atol 5e-4, rtol 1e-3, the
+  reference's own bound between its kernel and its oracle
   (tests/test_kernels.py:221); the chunked path at two chunk sizes: 1e-4,
   the reference's chunk-invariance bound (tests/test_kernels.py:240);
 * mixer functions: 1e-5 abs (a few fp32 ulps through two BLAS libraries);
@@ -150,8 +151,10 @@ def test_s_not_a_multiple_of_the_chunk_raises_in_both_packages():
 
 
 def test_kernel_wrapper_checks_before_launching():
-    """What the CUDA wrapper refuses, checked on CPU tensors before any
-    device is touched: dtypes, shapes, P and N, then the device itself."""
+    """What the CUDA wrappers refuse, checked on CPU tensors before any
+    device is touched: dtypes, shapes, P and N, the shared memory a block
+    needs, the alignment of the scratch states, then the device itself --
+    for the whole scan and for each of its passes."""
     x, dt, a, bb, cc, d = map(_t, _ssd_inputs(1, 32, 2, 16, 8, 6))
     with pytest.raises(TypeError, match="one dtype"):
         kssd.ssd_scan(x.double(), dt, a, bb, cc, d)
@@ -161,8 +164,90 @@ def test_kernel_wrapper_checks_before_launching():
         kssd.ssd_scan(x, dt[:, :, :1], a, bb, cc, d)
     with pytest.raises(ValueError, match="P % 16"):
         kssd.ssd_scan(x[..., :8], dt, a, bb, cc, d)
+    with pytest.raises(ValueError, match="N % 4"):
+        kssd.ssd_scan(x, dt, a, bb[..., :6], cc[..., :6], d)
+    wide = torch.zeros(1, 32, 400)
+    with pytest.raises(ValueError, match="shared memory"):
+        kssd.ssd_scan(x, dt, a, wide, wide, d)
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         kssd.ssd_scan(x, dt, a, bb, cc, d)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        kssd.chunk_states(x, dt, a, bb)
+    with pytest.raises(ValueError, match="shared memory"):
+        kssd.chunk_states(x, dt, a, wide)
+    states = torch.zeros(1, 1, 2, 8, 16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kssd.state_passing(states, torch.zeros(1, 1, 2))
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        kssd.chunk_outputs(x, dt, a, bb, cc, d, states)
+    with pytest.raises(TypeError, match="d_skip must be float32"):
+        kssd.chunk_outputs(x, dt, a, bb, cc, d.double(), states)
+    # a contiguous view 4 bytes into its storage: the kernels read the
+    # states by float4 and 16-byte cp.async
+    shifted = torch.zeros(1 + states.numel())[1:].view(states.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kssd.state_passing(shifted, torch.zeros(1, 1, 2))
+
+
+@pytest.mark.parametrize("n,p,ok", [(128, 64, True), (306, 64, True),
+                                    (336, 64, True), (340, 64, False),
+                                    (344, 48, True), (344, 80, True),
+                                    (16, 16, True), (400, 16, False)])
+def test_kernel_shared_memory_covers_the_shapes_it_took(n, p, ok):
+    """The passes hold a block's tiles in shared memory (at most 232,448
+    bytes on the H100): every (N, P) that the sequential kernel took before
+    the chunk-parallel one (N up to 306 where 32 divides P, else 344) still
+    fits; mamba2-130m's N 128, P 64 takes 72 KB and 110 KB."""
+    assert (max(kssd.smem_bytes(n, p)) <= 232448) == ok
+    if (n, p) == (128, 64):
+        assert kssd.smem_bytes(n, p) == (73728, 112640)
+
+
+@pytest.mark.parametrize("shape,want", [((2, 32, 24), 6), ((8, 64, 24), 8),
+                                        ((1, 1, 2), 1), ((1, 4, 1), 1),
+                                        ((2, 1, 3), 1)])
+def test_kernel_head_group_rule(shape, want):
+    """Heads a block of the chunk and output passes: at mamba2-130m's
+    prefill [2, 2048] (32 chunks, 24 heads) six, one wave of 256 blocks on
+    132 SMs at two an SM; small shapes take one head a block."""
+    bsz, nc, h = shape
+    hg = kssd.head_group(bsz, nc, h, 132)
+    assert hg == want and 1 <= hg <= min(8, h)
+
+
+@pytest.mark.parametrize("oracle", ["reference_kernel", "sequential"])
+@pytest.mark.parametrize("case,dt_scale", [(c, 1.0) for c in SSD_CASES]
+                         + [(SSD_CASES[3], 1e-2)])
+def test_ssd_passes_compose_to_the_scan(case, dt_scale, oracle):
+    """The plain versions of the scan kernel's three passes
+    (``ref.ssd_chunk_states``, ``ssd_state_passing``, ``ssd_chunk_outputs``
+    over 64-token chunks, composed by ``ref.ssd_scan_passes``) against the
+    reference's ``ops.ssd_scan`` (its Pallas kernel in interpret mode) and
+    against the port's sequential oracle, y and the final state; S = 1 and
+    17 pad one short chunk."""
+    b, s, h, p, n, chunk = case
+    args = _ssd_inputs(b, s, h, p, n, 3, dt_scale,
+                       d_skip=np.linspace(0.5, 1.5, h))
+    y, fin = ref.ssd_scan_passes(*map(_t, args))
+    if oracle == "sequential":
+        wy, wfin = ref.ssd_scan(*map(_t, args))
+    else:
+        wy, wfin = jops.ssd_scan(*map(jnp.asarray, args), chunk=chunk)
+    assert tuple(y.shape) == (b, s, h, p) and tuple(fin.shape) == (b, h, n, p)
+    np.testing.assert_allclose(y.numpy(), np.asarray(wy), **SCAN_TOL)
+    np.testing.assert_allclose(fin.numpy(), np.asarray(wfin), **SCAN_TOL)
+    # each pass's shapes, and the state pass's recurrence over the chunks
+    ds, decay = ref.ssd_chunk_states(*map(_t, args[:4]))
+    nc = -(-s // ref.SSD_BLOCK)
+    assert tuple(ds.shape) == (b, nc, h, n, p)
+    assert tuple(decay.shape) == (b, nc, h)
+    s_in, fin2 = ref.ssd_state_passing(ds, decay)
+    assert not s_in[:, 0].any()
+    torch.testing.assert_close(fin2, fin, rtol=0, atol=0)
+    if nc > 1:
+        torch.testing.assert_close(
+            s_in[:, 1], decay[:, 0, :, None, None] * s_in[:, 0] + ds[:, 0],
+            rtol=0, atol=0)
 
 
 def test_kernel_reads_rows_of_the_conv_output_in_place():
