@@ -17,11 +17,18 @@ line) if anything goes wrong:
             combination and an unaligned view; the row-wise compress kernels
             at the quickstart MLP's four leaf shapes, odd shapes and
             [16, 2**23+5], QSGD at L = 1 and 15 with a zero-scale row and u
-            just under 1.  Time kernel and plain version (CUDA graphs
-            replayed between CUDA events, so device time without host
-            dispatch; eager dispatch timed apart) at the main path's sizes
-            and at ~2**27 elements.  The two attention kernels against
-            their plain versions in fp32 and bf16 (tolerance ATT_TOL): flash
+            just under 1, alone and as grouped calls (the four leaves, all
+            ROW_SHAPES, views offset by 1-4 and 20 elements; heads peeled
+            to 128 bytes and to 16), with the float4 or scalar path of
+            every leaf checked.  Time kernel and plain
+            version (CUDA graphs replayed between CUDA events, so device
+            time without host dispatch; eager dispatch timed apart) at the
+            main path's sizes and at ~2**27 elements; the row-wise kernels
+            at each quickstart leaf, the four-leaf grouped call beside four
+            single launches, and [16, 2**23+5] beside [16, 2**23+8], each
+            with heads peeled to 128 bytes and to 16.  The
+            two attention kernels against their plain versions in fp32 and
+            bf16 (tolerance ATT_TOL): flash
             at the reference's ATTN_CASES, TinyLlama's [2,1024,32/4,64]
             prefill, a Gemma-2 local layer (D 128, window 4096, softcap 50)
             at 4608 tokens, S = 1 and 1000; paged decode at the reference's
@@ -37,7 +44,8 @@ line) if anything goes wrong:
             ``comm.backend=auto``) for their full 150 steps through
             ``repro_torch.api.run(spec, device="cuda")``, with the kernel
             launch counters zeroed just before and read just after each
-            run; rerun QG with ``fused="off"``, top-k and EF with
+            run (one row-wise launch a step: a message's leaves go in one
+            grouped call); rerun QG with ``fused="off"``, top-k and EF with
             ``comm.backend=jnp``, and QG and top-k on the CPU, and hold the
             histories against each other;
 4. profile  the QG and the top-k training loops under ``torch.profiler``:
@@ -135,6 +143,11 @@ COMPRESSED = {
 #: row-wise compress kernels see on the main path
 LEAF_SHAPES = [(16, 64), (16, 20), (16, 12288), (16, 1280)]
 ROW_SHAPES = LEAF_SHAPES + [(1, 1), (3, 517), (5, 8193), (16, 2 ** 23 + 5)]
+#: leaves held as views into a larger buffer: rows that begin off a line,
+#: odd widths, a row shorter than its head
+VIEW_SHAPES = [(3, 517), (16, 1280), (5, 8193), (4, 2)]
+#: [16, 2**23+8], every row aligned, beside ROW_SHAPES[-1]: the peel's cost
+ALIGNED_LARGE = (16, 2 ** 23 + 8)
 #: the largest u below 1 in fp32: floor(y + u) must still stop at L
 U_MAX = 1.0 - 2.0 ** -24
 
@@ -279,34 +292,103 @@ def _topk_threshold(x2d):
     return TopK(frac=0.01)._threshold(x2d)
 
 
+def _rowwise_inputs(shape, gen, dev, offset=0):
+    """x, u (u just under 1 in every third column), thr (top-1%) and scale
+    of one row-wise leaf; x and u views ``offset`` elements into larger
+    buffers, where given; the last row of x zero where rows > 1 (a
+    zero-scale row)."""
+    import torch
+    n = shape[0] * shape[1]
+    x = torch.randn(n + offset, generator=gen, device=dev)[offset:]
+    u = torch.rand(n + offset, generator=gen, device=dev)[offset:]
+    x, u = x.view(shape), u.view(shape)
+    u[:, ::3] = U_MAX
+    if shape[0] > 1:
+        x[-1] = 0.0
+    return x, u, _topk_threshold(x), x.abs().amax(dim=1)
+
+
+def _expect_paths(what, before, vector, scalar) -> None:
+    """The row-wise kernels ran ``vector`` leaves on their float4 path and
+    ``scalar`` on their scalar loop since ``before``."""
+    from repro_torch.kernels import compress as C
+    got = {k: C.ROW_PATHS[k] - before[k] for k in before}
+    if got != {"vector": vector, "scalar": scalar}:
+        raise AssertionError(f"{what}: leaves by path {got}, want "
+                             f"vector {vector}, scalar {scalar}")
+
+
 def _rowwise_checks(dev, gen, worst) -> None:
     """``threshold_mask`` and ``quantize_dequantize`` against their plain
     versions at every row shape, QSGD at L = 1 and 15 with a zero-scale row
-    and u just under 1 in every third column."""
+    and u just under 1 in every third column; then the grouped calls
+    against the plain groups over the quickstart's four leaves and over
+    ROW_SHAPES, and with views 4 and 20 elements into a buffer (16-byte
+    aligned, off a 128-byte line: the float4 path with a peeled head) and
+    1-3 elements (the scalar loop: the outputs are fresh, so aligned).
+    The groups run with heads peeled to 128 bytes and to 16.  Every leaf's
+    path is checked: every row of an aligned leaf, odd widths too, runs on
+    float4."""
     import torch
     from repro_torch.kernels import compress as C
     from repro_torch.kernels import ref
 
-    for shape in ROW_SHAPES:
-        x = torch.randn(shape, generator=gen, device=dev)
-        thr = _topk_threshold(x)
-        _compare("threshold_mask", f"shape={shape}", C.threshold_mask(x, thr),
-                 ref.threshold_mask(x, thr), worst)
-        u = torch.rand(shape, generator=gen, device=dev)
-        u[:, ::3] = U_MAX
-        scale = x.abs().amax(dim=1)
-        if shape[0] > 1:
-            x[-1] = 0.0
-            scale[-1] = 0.0
+    def check(label, xs, us, thrs, scales, vector, scalar, peel=C.PEELS[0]):
+        label = f"{label}, peel {peel}"
+        before = dict(C.ROW_PATHS)
+        _compare_groups("threshold_mask", label,
+                        C.threshold_mask_group(xs, thrs, peel=peel),
+                        ref.threshold_mask_group(xs, thrs), worst)
         for levels in (1, 15):
-            got = C.quantize_dequantize(x, scale, u, levels=levels)
-            _compare("quantize_dequantize", f"L={levels} shape={shape}", got,
-                     ref.quantize_dequantize(x, scale, u, levels=levels),
-                     worst)
-            if shape[0] > 1 and bool(got[0][-1].any()):
-                raise AssertionError("quantize_dequantize: a zero-scale row "
-                                     "did not quantize to zero")
+            got = C.quantize_dequantize_group(xs, scales, us, levels=levels,
+                                              peel=peel)
+            _compare_groups(
+                "quantize_dequantize", f"L={levels} {label}", got,
+                ref.quantize_dequantize_group(xs, scales, us, levels=levels),
+                worst)
+            for x, (q, _) in zip(xs, got):
+                if x.shape[0] > 1 and bool(q[-1].any()):
+                    raise AssertionError("quantize_dequantize: a zero-scale "
+                                         f"row did not quantize to zero "
+                                         f"({label})")
+        _expect_paths(label, before, 3 * vector, 3 * scalar)
+
+    for shape in ROW_SHAPES:  # one leaf a call
+        x, u, thr, scale = _rowwise_inputs(shape, gen, dev)
+        check(f"shape={shape}", [x], [u], [thr], [scale], 1, 0)
         del x, u, thr, scale
+    for peel in C.PEELS:
+        for label, shapes in (("quickstart group", LEAF_SHAPES),
+                              ("ROW_SHAPES group", ROW_SHAPES)):
+            cols = list(zip(*(_rowwise_inputs(s, gen, dev) for s in shapes)))
+            check(label, *cols, len(shapes), 0, peel)
+            del cols
+        for offset in (4, 20):  # unaligned views in a group, on float4
+            leaves = [_rowwise_inputs(s, gen, dev) for s in LEAF_SHAPES]
+            views = [_rowwise_inputs(s, gen, dev, offset)
+                     for s in VIEW_SHAPES]
+            for x, *_ in views:  # each starts off a 128-byte line
+                if C.row_split(x.data_ptr(), x.shape[1])[0] == 0:
+                    raise AssertionError(f"a view at offset {offset} starts "
+                                         "on a 128-byte line")
+            check(f"group with views at offset {offset} (float4, peeled "
+                  "head)", *zip(*(leaves + views)),
+                  len(LEAF_SHAPES) + len(VIEW_SHAPES), 0, peel)
+            del leaves, views
+    for offset in (1, 2, 3):
+        leaves = [_rowwise_inputs(s, gen, dev, offset) for s in VIEW_SHAPES]
+        check(f"views at offset {offset} (scalar loop)", *zip(*leaves), 0,
+              len(VIEW_SHAPES))
+        del leaves
+    torch.cuda.empty_cache()
+
+
+def _compare_groups(name, case, got, want, worst) -> None:
+    if len(got) != len(want):
+        raise AssertionError(f"{name} {case}: {len(got)} leaves out, plain "
+                             f"{len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        _compare(name, f"{case} leaf {i}", g, w, worst)
 
 
 def _time_ms(fn, iters: int, reps: int = 7) -> float:
@@ -387,11 +469,30 @@ def _time_row(name, size, kfn, pfn, nbytes, n_elems, iters) -> dict:
     return row
 
 
+def _time_rowwise(timed, key, xs, us, thrs, scales, iters) -> None:
+    """Kernel, plain and bound ms of both row-wise kernels over the leaves
+    ``xs`` in one (grouped) call, QSGD at L = 15, into ``timed``."""
+    from repro_torch.kernels import compress as C
+    from repro_torch.kernels import ref
+
+    n = sum(x.numel() for x in xs)
+    rows = sum(x.shape[0] for x in xs)
+    timed[("threshold_mask", key)] = _time_row(
+        "threshold_mask", key, lambda: C.threshold_mask_group(xs, thrs),
+        lambda: ref.threshold_mask_group(xs, thrs), 12 * n + 4 * rows, n,
+        iters)
+    timed[("quantize_dequantize", key)] = _time_row(
+        "quantize_dequantize", key,
+        lambda: C.quantize_dequantize_group(xs, scales, us, levels=15),
+        lambda: ref.quantize_dequantize_group(xs, scales, us, levels=15),
+        16 * n + 4 * rows, n, iters)
+
+
 def phase_timing(dev) -> dict:
     """Kernel, plain and bound ms of each kernel at the main path's size
-    (the quickstart's packed length; the MLP's largest leaf for the
-    row-wise kernels) and at about 2**27 elements, in the configuration
-    the main path uses."""
+    (the quickstart's packed length; for the row-wise kernels each of the
+    MLP's four leaves and the four as one grouped call) and at about 2**27
+    elements, in the configuration the main path uses."""
     import torch
     from repro_torch.kernels import compress as C
     from repro_torch.kernels import qg_update as K
@@ -440,23 +541,50 @@ def phase_timing(dev) -> dict:
                 iters)
         del a, b, c
         torch.cuda.empty_cache()
-    for shape in (LEAF_SHAPES[2], ROW_SHAPES[-1]):
-        gen = torch.Generator(device=dev).manual_seed(2)
-        x = torch.randn(shape, generator=gen, device=dev)
-        u = torch.rand(shape, generator=gen, device=dev)
-        thr, scale = _topk_threshold(x), x.abs().amax(dim=1)
-        n, rows = x.numel(), shape[0]
-        iters = 20 if shape == LEAF_SHAPES[2] else 4
-        timed[("threshold_mask", shape)] = _time_row(
-            "threshold_mask", shape, lambda: C.threshold_mask(x, thr),
-            lambda: ref.threshold_mask(x, thr), 12 * n + 4 * rows, n, iters)
-        timed[("quantize_dequantize", shape)] = _time_row(
-            "quantize_dequantize", shape,
-            lambda: C.quantize_dequantize(x, scale, u, levels=15),
-            lambda: ref.quantize_dequantize(x, scale, u, levels=15),
-            16 * n + 4 * rows, n, iters)
+    # the row-wise kernels: each quickstart leaf alone; the four as one
+    # grouped call (the main path's message) beside four single launches;
+    # [16, 2**23+5] (rows peeled) beside [16, 2**23+8] (rows 32 bytes
+    # apart), each with heads peeled to 128 bytes (the wrapper's) and to 16
+    gen = torch.Generator(device=dev).manual_seed(2)
+    leaves = [_rowwise_inputs(s, gen, dev) for s in LEAF_SHAPES]
+    for shape, leaf in zip(LEAF_SHAPES, leaves):
+        _time_rowwise(timed, shape, *([t] for t in leaf), 20)
+    xs, us, thrs, scales = (list(c) for c in zip(*leaves))
+    _time_rowwise(timed, "group", xs, us, thrs, scales, 20)
+    singles = {
+        "threshold_mask": lambda: [C.threshold_mask(x, t)
+                                   for x, t in zip(xs, thrs)],
+        "quantize_dequantize": lambda: [
+            C.quantize_dequantize(x, s, u, levels=15)
+            for x, s, u in zip(xs, scales, us)]}
+    for name, fn in singles.items():
+        row = timed[(name, "group")]
+        row["singles_sum_ms"] = sum(timed[(name, s)]["ms"]
+                                    for s in LEAF_SHAPES)
+        row["singles_seq_ms"] = _time_ms(fn, 20)
+        log(f"time {name} quickstart message: one grouped launch "
+            f"{row['ms']:.6f} ms; the four leaves alone sum to "
+            f"{row['singles_sum_ms']:.6f} ms, four single launches in a row "
+            f"{row['singles_seq_ms']:.6f} ms (CUDA graph of 20); bound "
+            f"{row['bound_ms']:.6f} ms")
+    del leaves, xs, us, thrs, scales
+    for shape in (ROW_SHAPES[-1], ALIGNED_LARGE):
+        x, u, thr, scale = _rowwise_inputs(shape, gen, dev)
+        _time_rowwise(timed, shape, [x], [u], [thr], [scale], 4)
+        timed[("threshold_mask", shape)]["peel16_ms"] = _time_ms(
+            lambda: C.threshold_mask_group([x], [thr], peel=16), 4)
+        timed[("quantize_dequantize", shape)]["peel16_ms"] = _time_ms(
+            lambda: C.quantize_dequantize_group([x], [scale], [u], levels=15,
+                                                peel=16), 4)
         del x, u, thr, scale
         torch.cuda.empty_cache()
+    for name in ("threshold_mask", "quantize_dequantize"):
+        for shape in (ROW_SHAPES[-1], ALIGNED_LARGE):
+            t = timed[(name, shape)]
+            log(f"time {name} peel {shape}: to 128 bytes {t['ms']:.6f} ms "
+                f"({t['ms'] / t['bound_ms']:.3f}x bound), to 16 bytes "
+                f"{t['peel16_ms']:.6f} ms "
+                f"({t['peel16_ms'] / t['bound_ms']:.3f}x bound)")
     return timed
 
 
@@ -572,9 +700,9 @@ def phase_compressed(dev) -> dict:
     api.run(api.presets.get("choco_topk0.01_ring16_qg").override(
         "loop.steps=25", "comm.backend=auto"), device=dev, log_fn=quiet)
     per_step = {  # launches per step of each run, by kernel
-        "topk": {"threshold_mask": 4, "gamma_correct": 1},
+        "topk": {"threshold_mask": 1, "gamma_correct": 1},
         "ef_signnorm": {"gamma_correct": 1},
-        "qsgd": {"quantize_dequantize": 4, "gamma_correct": 1}}
+        "qsgd": {"quantize_dequantize": 1, "gamma_correct": 1}}
     specs, results, launches = {}, {}, {}
     for label, (preset, overrides, ref_acc, ref_cons, ref_ratio) in \
             COMPRESSED.items():
@@ -1822,9 +1950,9 @@ def main() -> int:
         "gamma_correct": ("src/repro/kernels/compress.py:115",
                           "compress.cu", QUICKSTART_LEN),
         "threshold_mask": ("src/repro/kernels/compress.py:93",
-                           "compress.cu", LEAF_SHAPES[2]),
+                           "compress.cu", "group"),
         "quantize_dequantize": ("src/repro/kernels/compress.py:101",
-                                "compress.cu", LEAF_SHAPES[2])}
+                                "compress.cu", "group")}
     runs = {**main_out["launches"], **comp_out["launches"]}
     main_launches = {k: sum(c[k] for c in runs.values()) for k in sources}
     kernels = []
@@ -1836,6 +1964,13 @@ def main() -> int:
             "max_abs_err": worst[name]["abs"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
+    for row in kernels:  # one message a step: the top-k and QSGD runs
+        run = {"threshold_mask": "topk", "quantize_dequantize": "qsgd"}.get(
+            row["name"])
+        if run:
+            row["launches_per_message"] = \
+                comp_out["launches"][run][row["name"]] / \
+                comp_out["results"][run].steps_run
     att_sources = {  # name: (TPU kernel it replaces, main-path launches)
         "flash_attention": ("src/repro/kernels/flash_attention.py:81",
                             prefill_out["launches"]["flash_attention"]),

@@ -32,9 +32,9 @@ reference's own draws.
 PyTorch expressions of ``kernels/ref.py``, leaf by leaf, on whatever device.
 ``'pallas'`` (and ``'auto'``, which ``make_compressor`` resolves to it) goes
 through ``kernels/ops.py``: top-k's mask+residual and QSGD's
-quantize/dequantize+residual each run as one pass of a CUDA kernel on CUDA
-tensors, and as the plain version on CPU tensors.  The two paths agree to
-the bit.
+quantize/dequantize+residual of every leaf of a tree run as one grouped
+launch of a CUDA kernel on CUDA tensors, and as the plain version on CPU
+tensors.  The two paths agree to the bit.
 """
 from __future__ import annotations
 
@@ -126,28 +126,38 @@ class Compressor:
         return min(1.0, self.delta(d))
 
     # -- tree API -------------------------------------------------------------
-    def _draw(self, gen, x2d, noise):
-        return self.noise_2d(gen, x2d) if noise is None else noise
+    def _compress_leaves(self, x2ds: list, noises: list) -> list:
+        """``[(C(x), x - C(x)), ...]`` for the [n, d] message matrices of
+        one tree, always with the residuals (``compress`` drops them).
+        Leaf by leaf here; top-k and QSGD override it to compress the whole
+        message in one group call."""
+        return [self.compress_2d_with_residual(x, nz)
+                for x, nz in zip(x2ds, noises)]
+
+    def _leaves(self, gen, tree: Tree, noise):
+        """The tree's leaves and ``_compress_leaves`` of them, every noise
+        draw made first, leaf after leaf."""
+        leaves = tree_leaves(tree)
+        x2ds = [_as_2d(leaf) for leaf in leaves]
+        noises = [self.noise_2d(gen, x) if nz is None else nz
+                  for x, nz in zip(x2ds, _per_leaf(tree, noise))]
+        return leaves, self._compress_leaves(x2ds, noises)
 
     def compress(self, gen, tree: Tree, *, noise=None) -> Tree:
-        """Dense simulation of one encode->decode round, leaf by leaf."""
-        out = []
-        for leaf, nz in zip(tree_leaves(tree), _per_leaf(tree, noise)):
-            x2d = _as_2d(leaf)
-            q = self.compress_2d(x2d, self._draw(gen, x2d, nz))
-            out.append(q.reshape(leaf.shape).to(leaf.dtype))
-        return tree_unflatten(tree_paths(tree), out)
+        """Dense simulation of one encode->decode round."""
+        leaves, out = self._leaves(gen, tree, noise)
+        return tree_unflatten(tree_paths(tree), [
+            q.reshape(leaf.shape).to(leaf.dtype)
+            for leaf, (q, _) in zip(leaves, out)])
 
     def compress_with_residual(self, gen, tree: Tree, *,
                                noise=None) -> tuple[Tree, Tree]:
         """(C(tree), tree - C(tree)) in one pass: the EF14 hot path."""
-        qs, rs = [], []
-        for leaf, nz in zip(tree_leaves(tree), _per_leaf(tree, noise)):
-            x2d = _as_2d(leaf)
-            q2d, r2d = self.compress_2d_with_residual(
-                x2d, self._draw(gen, x2d, nz))
-            qs.append(q2d.reshape(leaf.shape).to(leaf.dtype))
-            rs.append(r2d.reshape(leaf.shape).to(leaf.dtype))
+        leaves, out = self._leaves(gen, tree, noise)
+        qs = [q.reshape(leaf.shape).to(leaf.dtype)
+              for leaf, (q, _) in zip(leaves, out)]
+        rs = [r.reshape(leaf.shape).to(leaf.dtype)
+              for leaf, (_, r) in zip(leaves, out)]
         paths = tree_paths(tree)
         return tree_unflatten(paths, qs), tree_unflatten(paths, rs)
 
@@ -212,10 +222,13 @@ class TopK(Compressor):
         return self.compress_2d_with_residual(x2d)[0]
 
     def compress_2d_with_residual(self, x2d, noise=None):
-        thr = self._threshold(x2d)
+        return self._compress_leaves([x2d], [noise])[0]
+
+    def _compress_leaves(self, x2ds, noises):
+        thrs = [self._threshold(x) for x in x2ds]
         if self.backend == "pallas":
-            return ops.threshold_mask(x2d, thr)
-        return ref.threshold_mask(x2d, thr)
+            return ops.threshold_mask_group(x2ds, thrs)
+        return ref.threshold_mask_group(x2ds, thrs)
 
     def delta(self, d):
         return self._k(d) / d
@@ -314,12 +327,16 @@ class QSGD(Compressor):
         return self.compress_2d_with_residual(x2d, noise)[0]
 
     def compress_2d_with_residual(self, x2d, noise=None):
-        xf = x2d.to(torch.float32)
-        scale = xf.abs().amax(dim=1)  # [n]
+        return self._compress_leaves([x2d], [noise])[0]
+
+    def _compress_leaves(self, x2ds, noises):
+        xfs = [x.to(torch.float32) for x in x2ds]
+        scales = [x.abs().amax(dim=1) for x in xfs]  # [n] each
         if self.backend == "pallas":
-            return ops.quantize_dequantize(xf, scale, noise,
-                                           levels=self.levels)
-        return ref.quantize_dequantize(xf, scale, noise, levels=self.levels)
+            return ops.quantize_dequantize_group(xfs, scales, noises,
+                                                 levels=self.levels)
+        return ref.quantize_dequantize_group(xfs, scales, noises,
+                                             levels=self.levels)
 
     def omega(self, d):
         s = self.levels

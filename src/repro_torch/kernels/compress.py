@@ -12,10 +12,20 @@ The kernels live in ``csrc/compress.cu`` (built and bound by
   * ``quantize_dequantize``  QSGD's stochastic quantize -> dequantize and
     residual on ``[rows, f]``, with the uniform noise ``u`` an operand.
 
+The two row-wise kernels take a whole message at once:
+``threshold_mask_group`` and ``quantize_dequantize_group`` launch one
+kernel for up to ``MAX_LEAVES`` leaves (more take ``ceil(n / MAX_LEAVES)``
+launches); ``threshold_mask`` and ``quantize_dequantize`` are the one-leaf
+case.  The launch geometry is laid out here (``group_plan``, ``row_split``)
+and passed to the kernel in its leaf table; the kernel's own copy of the
+tile sizes is checked against this one when the library is bound.
+
 Every wrapper takes CUDA tensors only, checks them (device, fp32,
 contiguity, shapes), allocates its outputs with ``torch.empty`` and launches
 on the current stream; ``kernels/ops.py`` routes CPU tensors to the plain
-versions instead.  ``LAUNCHES`` counts the launches of each kernel.
+versions instead.  ``LAUNCHES`` counts the launches of each kernel;
+``ROW_PATHS`` counts the leaves the row-wise kernels ran on their float4
+path and on their scalar loop.
 """
 from __future__ import annotations
 
@@ -27,24 +37,54 @@ import torch
 from . import build as _build
 
 __all__ = ["gamma_correct", "threshold_mask", "quantize_dequantize",
-           "LAUNCHES"]
+           "threshold_mask_group", "quantize_dequantize_group",
+           "group_plan", "row_split", "tiles_per_row", "MAX_LEAVES",
+           "TILE_VECS", "TILE", "PEELS", "LAUNCHES", "ROW_PATHS"]
 
 #: launches of each kernel in this process (bumped once per kernel launch)
 LAUNCHES = {"gamma_correct": 0, "threshold_mask": 0,
             "quantize_dequantize": 0}
+#: leaves launched by the row-wise kernels, by path: ``vector`` (head,
+#: float4 body, tail) or ``scalar`` (the scalar loop)
+ROW_PATHS = {"vector": 0, "scalar": 0}
 
-_P, _N, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+#: leaves a row-wise launch takes (``kMaxLeaves`` of
+#: ``csrc/elementwise.cuh``: the leaf table, a kernel parameter, stays
+#: within 4 KB)
+MAX_LEAVES = 48
+#: float4 of a row's body a tile covers (256 threads x 2), and elements a
+#: tile of the scalar loop covers (``kTileVecs``, ``kTile``)
+TILE_VECS = 256 * 2
+TILE = 4 * TILE_VECS
+#: int64 fields of a leaf in the table (``kLeafFields``)
+LEAF_FIELDS = 9
+#: the boundaries, in bytes, a vector row's head may be peeled to: 128 (the
+#: default: whole 128-byte lines for the body) or 16 (the least float4
+#: needs), kept to time the two against each other
+PEELS = (128, 16)
+
+_P, _N, _F, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, \
+    ctypes.c_int
 _SIGNATURES = {
     "cmp_gamma_correct": [_P, _P, _P, _P, _N, _F, _P],
-    "cmp_threshold_mask": [_P, _P, _P, _P, _N, _N, _P],
-    "cmp_quantize_dequantize": [_P, _P, _P, _P, _P, _N, _N, _F, _P],
+    "cmp_threshold_mask_group": [_P, _I, _N, _P],
+    "cmp_quantize_dequantize_group": [_P, _I, _N, _F, _P],
+    "cmp_rowwise_geometry": [_P],
 }
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    """The typed library handle, built on the first CUDA launch."""
-    return _build.bind("compress", _SIGNATURES, "cmp_error_string")
+    """The typed library handle, built on the first CUDA launch; raises
+    if the kernel's tile sizes are not the ones ``group_plan`` lays out."""
+    lib = _build.bind("compress", _SIGNATURES, "cmp_error_string")
+    geometry = (ctypes.c_int64 * 4)()
+    lib.cmp_rowwise_geometry(geometry)
+    want = (TILE_VECS, TILE, MAX_LEAVES, LEAF_FIELDS)
+    if tuple(geometry) != want:
+        raise RuntimeError(f"compress: the kernel's row-wise geometry "
+                           f"{tuple(geometry)} is not the wrapper's {want}")
+    return lib
 
 
 def _run(kernel: str, fn: str, dev: torch.device, *args) -> None:
@@ -64,6 +104,53 @@ def gamma_correct(x, mixed, anchor, *, gamma: float):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the row-wise kernels: launch geometry
+# ---------------------------------------------------------------------------
+
+def row_split(addr: int, f: int,
+              peel: int = PEELS[0]) -> tuple[int, int, int]:
+    """``(head, body, tail)`` of a row of ``f`` fp32 elements at byte
+    address ``addr`` on the float4 path: ``head`` scalar elements up to the
+    first ``peel``-byte boundary (0-31 at 128, 0-3 at 16), ``body`` float4,
+    then ``tail`` (0-3) scalar elements.  The kernel splits each row so."""
+    head = min((peel - addr % peel) % peel // 4, f)
+    body = (f - head) // 4
+    return head, body, f - head - 4 * body
+
+
+def tiles_per_row(f: int, vec: bool) -> int:
+    """Tiles a row of ``f`` elements takes: ``TILE_VECS`` float4 of its body
+    a tile (at least one tile, which also does the head and tail), or
+    ``TILE`` elements a tile on the scalar loop."""
+    if vec:
+        return max(1, -(-(f // 4) // TILE_VECS))
+    return -(-f // TILE)
+
+
+def group_plan(leaves) -> list[tuple[list[tuple[int, int, int]], int]]:
+    """The launches of a grouped call over ``leaves``, a list of ``(rows,
+    f, vec)`` (none empty): ``[(entries, tiles), ...]``, one per
+    ``MAX_LEAVES`` leaves, where ``entries`` lists ``(leaf index, first
+    tile, tiles a row)`` and ``tiles`` counts the launch's tiles.  A block
+    of the kernel finds its leaf by the first tiles, its row and chunk by
+    the tiles a row."""
+    launches = []
+    for start in range(0, len(leaves), MAX_LEAVES):
+        entries, tiles = [], 0
+        for i in range(start, min(start + MAX_LEAVES, len(leaves))):
+            rows, f, vec = leaves[i]
+            chunks = tiles_per_row(f, vec)
+            entries.append((i, tiles, chunks))
+            tiles += rows * chunks
+        launches.append((entries, tiles))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the row-wise kernels: wrappers
+# ---------------------------------------------------------------------------
+
 def _rowwise_check(kernel: str, x2d, extra: dict, row: dict):
     if x2d.dim() != 2:
         raise ValueError(f"{kernel}: x2d must be [rows, f], got shape "
@@ -76,25 +163,72 @@ def _rowwise_check(kernel: str, x2d, extra: dict, row: dict):
                                  scalar_len=x2d.shape[0])
 
 
+def _group(kernel: str, fn: str, x2ds, scalar: str, scalars, us, peel,
+           *extra):
+    """Check every leaf, allocate its outputs and launch ``fn`` over the
+    table of each ``MAX_LEAVES`` non-empty leaves; ``[(q, r), ...]``."""
+    n = len(x2ds)
+    if len(scalars) != n or (us is not None and len(us) != n):
+        raise ValueError(f"{kernel}: {n} leaves, {len(scalars)} {scalar}"
+                         + ("" if us is None else f", {len(us)} u"))
+    if peel not in PEELS:
+        raise ValueError(f"{kernel}: peel must be one of {PEELS}, got "
+                         f"{peel!r}")
+    dev, outs, leaves, table = None, [], [], []
+    for i, x2d in enumerate(x2ds):
+        u = None if us is None else us[i]
+        d = _rowwise_check(kernel, x2d, {} if u is None else {"u": u},
+                           {scalar: scalars[i]})
+        if dev is not None and d != dev:
+            raise ValueError(f"{kernel}: leaf {i} is on {d}, leaf 0 on {dev}")
+        dev = d
+        q, r = torch.empty_like(x2d), torch.empty_like(x2d)
+        outs.append((q, r))
+        if not x2d.numel():
+            continue
+        streams = [x2d.data_ptr(), 0 if u is None else u.data_ptr(),
+                   q.data_ptr(), r.data_ptr()]
+        # the float4 path needs every stream at one address modulo 16
+        vec = len({p % 16 for p in streams if p}) == 1
+        leaves.append((*x2d.shape, vec))
+        table.append(streams[:2] + [scalars[i].data_ptr()] + streams[2:])
+    for entries, tiles in group_plan(leaves):
+        fields = []
+        for i, tile0, chunks in entries:
+            _, f, vec = leaves[i]
+            fields += [*table[i], f, tile0, chunks, peel if vec else 0]
+            ROW_PATHS["vector" if vec else "scalar"] += 1
+        _run(kernel, fn, dev, (ctypes.c_int64 * len(fields))(*fields),
+             len(entries), tiles, *extra)
+    return outs
+
+
+def threshold_mask_group(x2ds, thrs, *, peel: int = PEELS[0]):
+    """``[(q, r), ...]``, for each leaf ``x2d`` [rows, f] with ``thr``
+    [rows], ``q = x*[|x| >= thr[row]]`` and ``r = x - q``: one launch for
+    every ``MAX_LEAVES`` leaves, vector rows peeled to ``peel`` bytes."""
+    return _group("threshold_mask", "cmp_threshold_mask_group", x2ds, "thr",
+                  thrs, None, peel)
+
+
+def quantize_dequantize_group(x2ds, scales, us, *, levels: int,
+                              peel: int = PEELS[0]):
+    """QSGD ``[(q, r), ...]`` for each leaf ``x2d`` [rows, f] with its
+    ``scale`` [rows] and uniform noise ``u`` [rows, f]; ``levels`` =
+    2^bits - 1.  One launch for every ``MAX_LEAVES`` leaves, vector rows
+    peeled to ``peel`` bytes."""
+    return _group("quantize_dequantize", "cmp_quantize_dequantize_group",
+                  x2ds, "scale", scales, us, peel, float(levels))
+
+
 def threshold_mask(x2d, thr):
     """``(q, r)`` with ``q = x*[|x| >= thr[row]]`` and ``r = x - q``;
-    ``x2d`` [rows, f], ``thr`` [rows]."""
-    dev = _rowwise_check("threshold_mask", x2d, {}, {"thr": thr})
-    q, r = torch.empty_like(x2d), torch.empty_like(x2d)
-    if q.numel():
-        _run("threshold_mask", "cmp_threshold_mask", dev, x2d.data_ptr(),
-             thr.data_ptr(), q.data_ptr(), r.data_ptr(), *x2d.shape)
-    return q, r
+    ``x2d`` [rows, f], ``thr`` [rows]: the one-leaf group."""
+    return threshold_mask_group([x2d], [thr])[0]
 
 
 def quantize_dequantize(x2d, scale, u, *, levels: int):
     """QSGD ``(q, r)`` on ``x2d`` [rows, f] with ``scale`` [rows] and the
-    uniform noise ``u`` [rows, f]; ``levels`` = 2^bits - 1."""
-    dev = _rowwise_check("quantize_dequantize", x2d, {"u": u},
-                         {"scale": scale})
-    q, r = torch.empty_like(x2d), torch.empty_like(x2d)
-    if q.numel():
-        _run("quantize_dequantize", "cmp_quantize_dequantize", dev,
-             x2d.data_ptr(), scale.data_ptr(), u.data_ptr(), q.data_ptr(),
-             r.data_ptr(), *x2d.shape, float(levels))
-    return q, r
+    uniform noise ``u`` [rows, f]; ``levels`` = 2^bits - 1: the one-leaf
+    group."""
+    return quantize_dequantize_group([x2d], [scale], [u], levels=levels)[0]

@@ -8,14 +8,16 @@
 //                           out = x + gamma*(mixed - anchor) over the packed
 //                           tree; reads 3 and writes 1 fp32 per element,
 //                           16 bytes
-//   cmp_threshold_mask      threshold_mask (_threshold_mask_kernel): top-k's
-//                           mask and residual on [rows, f],
-//                           q = x*[|x| >= thr_row], r = x - q; reads 1 and
-//                           writes 2, 12 bytes per element
-//   cmp_quantize_dequantize quantize_dequantize (_qdq_kernel): QSGD's
+//   cmp_threshold_mask_group
+//                           threshold_mask (_threshold_mask_kernel): top-k's
+//                           mask and residual on each [rows, f] leaf of a
+//                           message, q = x*[|x| >= thr_row], r = x - q;
+//                           reads 1 and writes 2, 12 bytes per element
+//   cmp_quantize_dequantize_group
+//                           quantize_dequantize (_qdq_kernel): QSGD's
 //                           stochastic quantize -> dequantize and residual on
-//                           [rows, f] with uniform noise u; reads 2 and
-//                           writes 2, 16 bytes per element
+//                           each [rows, f] leaf with uniform noise u; reads 2
+//                           and writes 2, 16 bytes per element
 //
 // Bound on this card: device-memory bandwidth.  Each does a handful of
 // fp32 operations per element (gamma_correct 3, threshold_mask 3,
@@ -23,14 +25,21 @@
 // operations per byte at which the card's fp32 rate would bind.  What the
 // design does about it: one pass, each input read once and each output
 // written once; the per-row scalar (threshold or scale) is read once per
-// block and row, gamma rides as a launch argument.
+// tile of a row, gamma rides as a launch argument.
 //
-// Design (simple and right first; speed is later work):
+// Design:
 //   * gamma_correct is launch3 of elementwise.cuh (1-D grid-stride, masked
 //     tail, float4 iff every pointer is 16-byte aligned);
-//   * the two row-wise kernels are launch_rowwise (2-D grid of column
-//     blocks by rows, masked column tail, float4 iff f % 4 == 0 and every
-//     pointer is aligned): nothing is padded to the reference's TILE;
+//   * the two row-wise kernels are launch_rowwise_group: one launch takes
+//     every leaf of a message (up to kMaxLeaves, the leaf table passed by
+//     value), since most leaves of a model are too small to be more than a
+//     launch's fixed cost; every row of a leaf whose streams share their
+//     address modulo 16 bytes (any contiguous leaf from an aligned base)
+//     runs on float4 between a head peeled to a 128-byte (or, to compare,
+//     16-byte) boundary and a masked tail whatever its width, each thread
+//     with two float4 of each input in flight, issued before the row's
+//     scalar is bound; the grid fills the card over the whole group.
+//     Nothing is padded to the reference's TILE;
 //   * every product, sum and quotient is an explicit round-to-nearest
 //     intrinsic in the Pallas body's order, and levels/s and s/levels are
 //     true divisions (__fdiv_rn), as the plain PyTorch versions in
@@ -98,19 +107,29 @@ int cmp_gamma_correct(const float* x, const float* mixed, const float* anchor,
                  stream);
 }
 
-// q = |x| >= thr[row] ? x : 0, r = x - q on x [rows, f].
-int cmp_threshold_mask(const float* x, const float* thr, float* q, float* r,
-                       int64_t rows, int64_t f, void* stream) {
-  return launch_rowwise(x, nullptr, thr, q, r, rows, f, ThresholdMask{},
-                        stream);
+// q = |x| >= thr[row] ? x : 0, r = x - q on each leaf x [rows, f] of a
+// table of n leaves (launch_rowwise_group's layout; u is null).
+int cmp_threshold_mask_group(const int64_t* table, int n, int64_t tiles,
+                             void* stream) {
+  return launch_rowwise_group(table, n, tiles, ThresholdMask{}, stream);
 }
 
-// QSGD on x, u [rows, f] with scale [rows]; q the dequantized value, r = x-q.
-int cmp_quantize_dequantize(const float* x, const float* scale,
-                            const float* u, float* q, float* r, int64_t rows,
-                            int64_t f, float levels, void* stream) {
-  return launch_rowwise(x, u, scale, q, r, rows, f,
-                        QuantizeDequantize{levels}, stream);
+// QSGD on each leaf x, u [rows, f] with its scale [rows]; q the dequantized
+// value, r = x - q.
+int cmp_quantize_dequantize_group(const int64_t* table, int n, int64_t tiles,
+                                  float levels, void* stream) {
+  return launch_rowwise_group(table, n, tiles, QuantizeDequantize{levels},
+                              stream);
+}
+
+// The row-wise launch geometry, for the wrapper to hold its own copy of it
+// against: out = {kTileVecs, kTile, kMaxLeaves, kLeafFields}.
+int cmp_rowwise_geometry(int64_t* out) {
+  out[0] = kTileVecs;
+  out[1] = kTile;
+  out[2] = kMaxLeaves;
+  out[3] = kLeafFields;
+  return 0;
 }
 
 const char* cmp_error_string(int err) {

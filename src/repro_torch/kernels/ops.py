@@ -21,8 +21,10 @@ from . import ssd_scan as _ssd
 
 __all__ = ["fused_halfstep", "fused_qg_buffer", "qg_local_step",
            "qg_buffer_update", "gamma_correct", "threshold_mask",
-           "quantize_dequantize", "flash_attention", "paged_decode_attention",
-           "ssd_scan", "launch_counts", "reset_launch_counts"]
+           "quantize_dequantize", "threshold_mask_group",
+           "quantize_dequantize_group", "flash_attention",
+           "paged_decode_attention", "ssd_scan", "launch_counts",
+           "reset_launch_counts"]
 
 
 def _on_cpu(*args) -> bool:
@@ -83,6 +85,26 @@ def quantize_dequantize(x2d, scale, u, *, levels):
     if _on_cpu(x2d, scale, u):
         return ref.quantize_dequantize(x2d, scale, u, levels=levels)
     return _cmp.quantize_dequantize(x2d, scale, u, levels=levels)
+
+
+def threshold_mask_group(x2ds, thrs):
+    """``threshold_mask`` of every leaf of a message; on CUDA tensors one
+    launch (per ``compress.MAX_LEAVES`` leaves)."""
+    if not x2ds:
+        return []
+    if _on_cpu(*x2ds, *thrs):
+        return ref.threshold_mask_group(x2ds, thrs)
+    return _cmp.threshold_mask_group(x2ds, thrs)
+
+
+def quantize_dequantize_group(x2ds, scales, us, *, levels):
+    """``quantize_dequantize`` of every leaf of a message; on CUDA tensors
+    one launch (per ``compress.MAX_LEAVES`` leaves)."""
+    if not x2ds:
+        return []
+    if _on_cpu(*x2ds, *scales, *us):
+        return ref.quantize_dequantize_group(x2ds, scales, us, levels=levels)
+    return _cmp.quantize_dequantize_group(x2ds, scales, us, levels=levels)
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):

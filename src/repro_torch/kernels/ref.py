@@ -43,7 +43,8 @@ import torch
 
 __all__ = ["qg_local_step", "qg_buffer_update", "fused_halfstep",
            "fused_qg_buffer", "gamma_correct", "threshold_mask",
-           "quantize_dequantize", "attn_scale", "flash_attention",
+           "quantize_dequantize", "threshold_mask_group",
+           "quantize_dequantize_group", "attn_scale", "flash_attention",
            "paged_decode_attention", "paged_decode_partials",
            "paged_decode_merge", "ssd_chunk_len", "ssd_scan", "SSD_BLOCK",
            "ssd_chunk_states", "ssd_state_passing", "ssd_chunk_outputs",
@@ -131,6 +132,18 @@ def quantize_dequantize(x2d, scale, u, *, levels: int):
     xi = torch.clamp_max(torch.floor(y + u.to(torch.float32)), levels)
     q = torch.sign(x) * xi * (s / lv)
     return q, x - q
+
+
+def threshold_mask_group(x2ds, thrs):
+    """``threshold_mask`` of each leaf of a message: ``[(q, r), ...]``."""
+    return [threshold_mask(x, t) for x, t in zip(x2ds, thrs, strict=True)]
+
+
+def quantize_dequantize_group(x2ds, scales, us, *, levels: int):
+    """``quantize_dequantize`` of each leaf of a message:
+    ``[(q, r), ...]``."""
+    return [quantize_dequantize(x, s, u, levels=levels)
+            for x, s, u in zip(x2ds, scales, us, strict=True)]
 
 
 def _masked_softmax_av(sc, mask, v):

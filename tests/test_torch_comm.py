@@ -138,6 +138,78 @@ def test_compressors_draw_from_the_generator_and_stay_unbiased():
         assert err < 0.15, (spec, float(err))
 
 
+def _quickstart_tree(seed=1):
+    """Node-stacked leaves of the quickstart MLP's shapes (16 nodes)."""
+    rng = np.random.default_rng(seed)
+    return {"b1": rng.normal(size=(16, 64)).astype(np.float32),
+            "b2": rng.normal(size=(16, 20)).astype(np.float32),
+            "w1": rng.normal(size=(16, 192, 64)).astype(np.float32),
+            "w2": rng.normal(size=(16, 64, 20)).astype(np.float32)}
+
+
+KERNEL_SPECS = ["topk:0.05", "topk:0.5", "topk:0.01", "qsgd:4", "qsgd:1"]
+
+
+@pytest.mark.parametrize("spec", KERNEL_SPECS)
+@pytest.mark.parametrize("method", ["compress", "compress_with_residual",
+                                    "contractive_compress"])
+@pytest.mark.parametrize("source", ["generator", "noise"])
+@pytest.mark.parametrize("tree_fn", [_tree, _quickstart_tree],
+                         ids=["small", "quickstart"])
+def test_kernel_backend_trees_equal_jnp_backend(spec, method, source,
+                                                tree_fn):
+    """backend='pallas' compresses the whole tree in one grouped call;
+    its trees equal the leaf-by-leaf jnp backend's bit for bit, from a
+    seeded generator (the same draws, in leaf order) and from injected
+    noise."""
+    tree = _t(tree_fn())
+    jc = jcomp.make_compressor(spec)
+    noise = _ref_noise(jc, KEY, _j(tree_fn())) if source == "noise" \
+        else None
+    out = {}
+    for backend in ("jnp", "pallas"):
+        comp = tcomp.make_compressor(spec, backend=backend)
+        gen = torch.Generator().manual_seed(7)
+        out[backend] = getattr(comp, method)(gen, tree, noise=noise)
+    if method == "compress_with_residual":
+        for a, b in zip(out["pallas"], out["jnp"]):
+            _close(a, b, EXACT)
+    else:
+        _close(out["pallas"], out["jnp"], EXACT)
+
+
+@pytest.mark.parametrize("spec,group", [("topk:0.05", "threshold_mask_group"),
+                                        ("qsgd:4",
+                                         "quantize_dequantize_group")])
+def test_kernel_backend_makes_one_group_call_per_message(spec, group,
+                                                         monkeypatch):
+    """Each tree method of the kernel-backed compressors hands every leaf
+    of the message to one group call, and never to the one-leaf call; a
+    single message matrix is a group of one."""
+    from repro_torch.kernels import ops
+    calls = []
+    real = getattr(ops, group)
+
+    def spy(x2ds, *args, **kw):
+        calls.append(len(x2ds))
+        return real(x2ds, *args, **kw)
+
+    def refuse(*args, **kw):
+        raise AssertionError("a one-leaf call on the tree path")
+
+    monkeypatch.setattr(ops, group, spy)
+    monkeypatch.setattr(ops, group.replace("_group", ""), refuse)
+    comp = tcomp.make_compressor(spec, backend="pallas")
+    tree = _t(_tree())
+    gen = torch.Generator().manual_seed(0)
+    comp.compress(gen, tree)
+    comp.compress_with_residual(gen, tree)
+    comp.contractive_compress(gen, tree)
+    x2d = tree["w1"].reshape(tree["w1"].shape[0], -1)
+    comp.compress_2d_with_residual(x2d, comp.noise_2d(gen, x2d))
+    assert calls == [4, 4, 4, 1]
+
+
 def test_noise_must_cover_every_leaf():
     with pytest.raises(ValueError, match="noise has 1 entries for 4 leaves"):
         tcomp.make_compressor("qsgd:4").compress(

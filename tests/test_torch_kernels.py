@@ -237,6 +237,262 @@ def test_quantize_dequantize_plain_matches_reference(shape, levels):
 
 
 # ---------------------------------------------------------------------------
+# the grouped row-wise calls: one launch per message
+# ---------------------------------------------------------------------------
+
+#: the quickstart MLP's four node-stacked leaves (b1, b2, w1, w2)
+QUICKSTART_LEAVES = [(16, 64), (16, 20), (16, 12288), (16, 1280)]
+#: groups of leaves: the quickstart message, odd widths, and both with a
+#: leaf that is a view offset by 1-3 elements into a larger buffer
+GROUPS = {"quickstart": (QUICKSTART_LEAVES, 0),
+          "odd": ([(1, 1), (3, 517), (5, 8193)], 0),
+          "quickstart+view1": (QUICKSTART_LEAVES + [(3, 517)], 1),
+          "odd+view2": ([(1, 1), (5, 8193), (4, 38)], 2),
+          "view3": ([(2, 11)], 3)}
+
+
+def _group_leaves(name, seed):
+    """numpy leaves of group ``name`` and the torch tensors the port gets:
+    the last leaf of a group with an offset is a view that many elements
+    into a buffer."""
+    shapes, offset = GROUPS[name]
+    rng = np.random.default_rng(seed)
+    xs = [rng.normal(size=s).astype(np.float32) for s in shapes]
+    ts = [_t(x) for x in xs]
+    if offset:
+        n = xs[-1].size
+        buf = torch.zeros(n + offset)
+        buf[offset:] = ts[-1].reshape(-1)
+        ts[-1] = buf[offset:].view(shapes[-1])
+        assert ts[-1].storage_offset() == offset
+    return xs, ts
+
+
+@pytest.mark.parametrize("group", list(GROUPS))
+def test_threshold_mask_group_plain_matches_reference(group):
+    """The plain group equals, bit for bit, the per-leaf plain version, the
+    reference's ``threshold_mask_ref`` and its Pallas kernel (interpret
+    mode) on every leaf; ties at the threshold are kept."""
+    xs, ts = _group_leaves(group, 11)
+    thrs = []
+    for x, t in zip(xs, ts):
+        k = max(1, x.shape[1] // 10)
+        thr = -np.sort(-np.abs(x), axis=1)[:, k - 1].astype(np.float32)
+        if x.shape[1] > 1:
+            x[:, 0] = -thr
+            t[:, 0] = _t(-thr)
+        thrs.append(thr)
+    got = tops.threshold_mask_group(ts, [_t(t) for t in thrs])
+    assert len(got) == len(xs)
+    for (q, r), x, t, thr in zip(got, xs, ts, thrs):
+        single = tops.threshold_mask(t, _t(thr))
+        want_ref = jref.threshold_mask_ref(jnp.asarray(x), jnp.asarray(thr))
+        want_pal = jcmp.threshold_mask(jnp.asarray(x), jnp.asarray(thr),
+                                       interpret=True)
+        for j, out in enumerate((q, r)):
+            assert tuple(out.shape) == x.shape
+            _bits_equal(out.numpy(), single[j].numpy())
+            _bits_equal(out.numpy(), want_ref[j])
+            _bits_equal(out.numpy(), want_pal[j])
+
+
+@pytest.mark.parametrize("group", list(GROUPS))
+@pytest.mark.parametrize("levels", [1, 15])
+def test_quantize_dequantize_group_plain_matches_reference(group, levels):
+    """The plain QSGD group equals the per-leaf plain version and the
+    reference's ``quantize_dequantize_ref`` bit for bit, and its Pallas
+    kernel to PALLAS_TOL, with a zero-scale row and u = 1 - 2**-24 in
+    every third column."""
+    xs, ts = _group_leaves(group, 12)
+    rng = np.random.default_rng(13)
+    us, scales = [], []
+    for x, t in zip(xs, ts):
+        u = rng.random(size=x.shape, dtype=np.float32)
+        u[:, ::3] = np.float32(1) - np.float32(2 ** -24)
+        if x.shape[0] > 1:
+            x[-1] = 0.0
+            t[-1] = 0.0
+        us.append(u)
+        scales.append(np.abs(x).max(axis=1))
+    got = tops.quantize_dequantize_group(ts, [_t(s) for s in scales],
+                                         [_t(u) for u in us], levels=levels)
+    for (q, r), x, t, u, scale in zip(got, xs, ts, us, scales):
+        single = tops.quantize_dequantize(t, _t(scale), _t(u), levels=levels)
+        want_ref = jref.quantize_dequantize_ref(
+            jnp.asarray(x), jnp.asarray(scale), jnp.asarray(u), levels=levels)
+        want_pal = jcmp.quantize_dequantize(
+            jnp.asarray(x), jnp.asarray(scale), jnp.asarray(u),
+            levels=levels, interpret=True)
+        for j, out in enumerate((q, r)):
+            assert np.isfinite(out.numpy()).all()
+            _bits_equal(out.numpy(), single[j].numpy())
+            _bits_equal(out.numpy(), want_ref[j])
+            np.testing.assert_allclose(out.numpy(), np.asarray(want_pal[j]),
+                                       **PALLAS_TOL)
+        if x.shape[0] > 1:
+            assert not q.numpy()[-1].any()
+
+
+def _tile_cover(leaves, addrs, peel=tC.PEELS[0]):
+    """Run the kernel's index arithmetic over every tile of
+    ``compress.group_plan(leaves)``, with leaf i's x at byte address
+    ``addrs[i]`` and vector rows peeled to ``peel`` bytes: how often each
+    element of each leaf is written, and the byte address of every float4
+    of the body."""
+    hits = [np.zeros(rows * f, dtype=np.int64) for rows, f, _ in leaves]
+    vec_addrs = []
+    for entries, tiles in tC.group_plan(leaves):
+        assert len(entries) <= tC.MAX_LEAVES
+        first = [tile0 for _, tile0, _ in entries]
+        assert first[0] == 0
+        for tile in range(tiles):
+            # the kernel's binary search: the last leaf whose first tile
+            # is <= tile
+            i, tile0, chunks = entries[int(np.searchsorted(first, tile,
+                                                           "right")) - 1]
+            rows, f, vec = leaves[i]
+            row, chunk = divmod(tile - tile0, chunks)
+            assert row < rows
+            base = row * f
+            if not vec:
+                lo = chunk * tC.TILE
+                hits[i][base + lo:base + min(lo + tC.TILE, f)] += 1
+                continue
+            head, body, tail = tC.row_split(addrs[i] + 4 * base, f, peel)
+            if head < f:  # the body starts on a peel-byte boundary
+                assert (addrs[i] + 4 * (base + head)) % peel == 0
+            for j in range(chunk * tC.TILE_VECS,
+                           min((chunk + 1) * tC.TILE_VECS, body)):
+                start = base + head + 4 * j
+                hits[i][start:start + 4] += 1
+                vec_addrs.append(addrs[i] + 4 * start)
+            if chunk == 0:
+                hits[i][base:base + head] += 1
+                hits[i][base + f - tail:base + f] += 1
+    return hits, vec_addrs
+
+
+PLAN_CASES = {
+    "quickstart": ([(r, f, True) for r, f in QUICKSTART_LEAVES], 0),
+    "odd": ([(1, 1, True), (3, 517, True), (5, 8193, True), (2, 3, True),
+             (7, 4097, True)], 0),
+    "large": ([(2, 2 ** 16 + 5, True), (3, 4096 * 3, True)], 0),
+    "view4": ([(3, 517, True), (1, 2, True), (2, 4101, True)], 4),
+    "view8": ([(3, 517, True), (2, 6, True)], 8),
+    "view12": ([(4, 1027, True), (1, 1, True)], 12),
+    "view68": ([(3, 517, True), (2, 40, True), (5, 30, True)], 68),
+    # 16-byte aligned views off a 128-byte line: with fresh outputs, the
+    # unaligned views that the wrapper runs on float4
+    "view16": ([(3, 517, True), (16, 1280, True), (4, 2, True)], 16),
+    "view80": ([(5, 8193, True), (16, 20, True)], 80),
+    "scalar": ([(3, 517, False), (2, 9000, False), (16, 64, True)], 4),
+}
+
+
+@pytest.mark.parametrize("peel", tC.PEELS)
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_group_plan_covers_every_element_once(case, peel):
+    """Every element of every leaf is written by exactly one tile, and
+    every float4 of a row's body starts on a 16-byte boundary (the body on a
+    ``peel``-byte one), with each leaf's streams at a 16-byte-aligned
+    address plus the case's offset (the unaligned views of the ``view*``
+    cases)."""
+    leaves, offset = PLAN_CASES[case]
+    addrs = [(1 << 24) * (i + 1) + offset for i in range(len(leaves))]
+    hits, vec_addrs = _tile_cover(leaves, addrs, peel)
+    for i, h in enumerate(hits):
+        assert (h == 1).all(), (leaves[i], np.unique(h))
+    assert all(a % 16 == 0 for a in vec_addrs)
+    if any(vec for _, f, vec in leaves if f >= 8):
+        assert vec_addrs, "no row reached the float4 body"
+
+
+def test_row_split_peels_to_the_first_128_byte_boundary():
+    assert tC.row_split(128, 517) == (0, 129, 1)
+    assert tC.row_split(132, 517) == (31, 121, 2)
+    assert tC.row_split(136, 517) == (30, 121, 3)
+    assert tC.row_split(140, 517) == (29, 122, 0)
+    assert tC.row_split(192, 517) == (16, 125, 1)
+    assert tC.row_split(132, 2) == (2, 0, 0)      # all head
+    assert tC.row_split(132, 33) == (31, 0, 2)    # no body
+    assert tC.row_split(128, 3) == (0, 0, 3)      # all tail
+    assert tC.TILE_VECS == 512 and tC.TILE == 2048
+    assert tC.tiles_per_row(2048, True) == 1
+    assert tC.tiles_per_row(2052, True) == 2
+    assert tC.tiles_per_row(3, True) == 1
+    assert tC.tiles_per_row(2049, False) == 2
+
+
+def test_row_split_peels_to_16_bytes_on_request():
+    assert tC.row_split(128, 517, 16) == (0, 129, 1)
+    assert tC.row_split(132, 517, 16) == (3, 128, 2)
+    assert tC.row_split(136, 517, 16) == (2, 128, 3)
+    assert tC.row_split(140, 517, 16) == (1, 129, 0)
+    assert tC.row_split(144, 517, 16) == (0, 129, 1)   # off a 128-byte line
+    assert tC.row_split(132, 2, 16) == (2, 0, 0)       # all head
+    assert tC.row_split(132, 6, 16) == (3, 0, 3)       # no body
+
+
+@pytest.mark.parametrize("n_leaves", [1, tC.MAX_LEAVES, tC.MAX_LEAVES + 1,
+                                      2 * tC.MAX_LEAVES + 5])
+def test_group_longer_than_the_leaf_cap_splits(n_leaves):
+    """ceil(n / MAX_LEAVES) launches, each of at most MAX_LEAVES leaves in
+    order, with its own tile numbering from 0, covering each leaf once."""
+    leaves = [(1 + i % 3, 5 + 7 * i, i % 4 != 0) for i in range(n_leaves)]
+    plan = tC.group_plan(leaves)
+    assert len(plan) == -(-n_leaves // tC.MAX_LEAVES)
+    assert [i for entries, _ in plan for i, _, _ in entries] == \
+        list(range(n_leaves))
+    for entries, tiles in plan:
+        want = 0
+        for i, tile0, chunks in entries:
+            assert tile0 == want
+            want += leaves[i][0] * chunks
+        assert tiles == want
+    hits, _ = _tile_cover(leaves, [(1 << 24) * (i + 1) + 4 * (i % 4)
+                                   for i in range(n_leaves)])
+    assert all((h == 1).all() for h in hits)
+
+
+def test_group_wrappers_refuse_before_building():
+    """The CUDA group wrappers take CUDA tensors only, as many scalars (and
+    noises) as leaves, and each leaf's shapes; all checked before any
+    build (this machine has no nvcc)."""
+    x2d = torch.randn(2, 4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tC.threshold_mask_group([x2d], [x2d[:, 0].contiguous()])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tC.quantize_dequantize_group([x2d], [x2d[:, 0].contiguous()], [x2d],
+                                     levels=15)
+    with pytest.raises(ValueError, match="2 leaves, 1 thr"):
+        tC.threshold_mask_group([x2d, x2d], [x2d[:, 0]])
+    with pytest.raises(ValueError, match="1 leaves, 1 scale, 2 u"):
+        tC.quantize_dequantize_group([x2d], [x2d[:, 0]], [x2d, x2d],
+                                     levels=15)
+    with pytest.raises(ValueError, match="u has shape"):
+        tC.quantize_dequantize_group([x2d], [x2d[:, 0]], [x2d.reshape(4, 2)],
+                                     levels=3)
+    with pytest.raises(ValueError, match="peel must be one of"):
+        tC.threshold_mask_group([x2d], [x2d[:, 0]], peel=32)
+    assert tC.threshold_mask_group([], []) == []
+
+
+def test_cpu_group_dispatch_launches_nothing():
+    tops.reset_launch_counts()
+    paths = dict(tC.ROW_PATHS)
+    xs = [torch.randn(4, 25), torch.randn(4, 3)]
+    got = tops.threshold_mask_group(xs, [x.abs().amax(dim=1) for x in xs])
+    assert len(got) == 2
+    tops.quantize_dequantize_group(xs, [x.abs().amax(dim=1) for x in xs],
+                                   [torch.rand(x.shape) for x in xs],
+                                   levels=15)
+    assert tops.threshold_mask_group([], []) == []
+    assert tops.launch_counts()["threshold_mask"] == 0
+    assert tops.launch_counts()["quantize_dequantize"] == 0
+    assert tC.ROW_PATHS == paths
+
+
+# ---------------------------------------------------------------------------
 # packed layout
 # ---------------------------------------------------------------------------
 
