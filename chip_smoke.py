@@ -20,13 +20,23 @@ line) if anything goes wrong:
             just under 1, alone and as grouped calls (the four leaves, all
             ROW_SHAPES, views offset by 1-4 and 20 elements; heads peeled
             to 128 bytes and to 16), with the float4 or scalar path of
-            every leaf checked.  Time kernel and plain
+            every leaf checked; ``qg_step`` (the dense-gossip step in one
+            launch) against ``ref.qg_step`` (tolerance STEP_ULP) and bit
+            for bit against the same composition with the mix summed in
+            node order, both forms, every flag, 16 and 32 nodes, over the
+            quickstart's leaves, a leaf of 1001 columns, views 1-4
+            elements in, 49 leaves and two leaves of more tiles than the
+            card holds blocks, with its launches and paths checked.  Time kernel and plain
             version (CUDA graphs replayed between CUDA events, so device
             time without host dispatch; eager dispatch timed apart) at the
             main path's sizes and at ~2**27 elements; the row-wise kernels
             at each quickstart leaf, the four-leaf grouped call beside four
             single launches, and [16, 2**23+5] beside [16, 2**23+8], each
-            with heads peeled to 128 bytes and to 16.  The
+            with heads peeled to 128 bytes and to 16; ``qg_step`` at the
+            quickstart's tree and at STEP_LARGE beside ``ref.qg_step`` and
+            the sequence it replaces (pack, ``fused_halfstep``, the
+            products, pack, ``fused_qg_buffer``), with the device
+            activities of each.  The
             two attention kernels against their plain versions in fp32 and
             bf16 (tolerance ATT_TOL): flash
             at the reference's ATTN_CASES, TinyLlama's [2,1024,32/4,64]
@@ -44,8 +54,11 @@ line) if anything goes wrong:
             ``comm.backend=auto``) for their full 150 steps through
             ``repro_torch.api.run(spec, device="cuda")``, with the kernel
             launch counters zeroed just before and read just after each
-            run (one row-wise launch a step: a message's leaves go in one
-            grouped call); rerun QG with ``fused="off"``, top-k and EF with
+            run (the quickstart pair: one ``qg_step`` launch a step; the
+            compressed runs: ``fused_halfstep`` and ``fused_qg_buffer``
+            around their own mix, and one row-wise launch a step: a
+            message's leaves go in one grouped call); rerun QG with
+            ``fused="off"``, top-k and EF with
             ``comm.backend=jnp``, and QG and top-k on the CPU, and hold the
             histories against each other;
 4. profile  the QG and the top-k training loops under ``torch.profiler``:
@@ -150,6 +163,24 @@ VIEW_SHAPES = [(3, 517), (16, 1280), (5, 8193), (4, 2)]
 ALIGNED_LARGE = (16, 2 ** 23 + 8)
 #: the largest u below 1 in fp32: floor(y + u) must still stop at L
 U_MAX = 1.0 - 2.0 ** -24
+
+#: qg_step against ref.qg_step, whose mix is the library's product (summed
+#: in another order than the kernel's node order, with FMAs): x_new within
+#: STEP_ULP ulp, the ulp taken at sum_k |W[i,k]| |half[k,j]| (the scale of a
+#: dot product's rounding; x_new's own ulp where the terms share a sign);
+#: DSGDm's m_new bit-equal (no mix in it); QG's m_hat within (1-mu)/eta
+#: times that x bound (the refresh's factor on an error of x_new) plus 2 ulp
+#: at mu|m_hat| + (1-mu)|d|, d = (x - x_new)/eta (its own roundings of a
+#: different d, at the scale of its terms as for x).  Against the same
+#: composition with the mix summed in node order (_node_order_step) every
+#: output is bit-equal.
+STEP_ULP = 4
+#: node counts of the qg_step checks: the presets' 16 and the reference's
+#: social32 preset's 32
+STEP_NODES = (16, 32)
+#: qg_step's one-leaf timing shapes: odd rows (the scalar loop) at 16 and
+#: 32 nodes, and rows on 16 bytes (float4) beside them
+STEP_LARGE = [(16, 2 ** 23 + 5), (32, 2 ** 22 + 5), (16, 2 ** 23 + 8)]
 
 #: reference accuracies (JAX package, CPU) and the port's band around them:
 #: the port's init is a torch draw at the same scales, not the reference's
@@ -282,7 +313,165 @@ def phase_kernels(dev) -> dict:
     for name, w in worst.items():
         log(f"kernel {name}: {w['cases']} outputs match the plain version, "
             f"max {w['ulp']} ulp (+0 == -0), max abs err {w['abs']:.3e}")
+    worst["qg_step"] = _qg_step_checks(dev, gen)
     return worst
+
+
+# ---------------------------------------------------------------------------
+# qg_step: the dense-gossip step in one launch
+# ---------------------------------------------------------------------------
+
+def _step_mixing(n, dev):
+    """A ring's mixing matrix (the presets' topology) at ``n`` nodes."""
+    import torch
+    from repro_torch.core import topology
+    return torch.as_tensor(topology.ring(n).mixing[0],
+                           dtype=torch.float32).to(dev)
+
+
+def _node_order_step(xs, ms, gs, w, eta, refresh, *, beta, wd, nesterov,
+                     mu):
+    """``ref.qg_step`` with the mix summed as the kernel sums it: in node
+    order k = 0..n-1, one rounded product and one rounded sum a term."""
+    from repro_torch.kernels import ref
+    x_new, m_out = [], []
+    for x, m, g in zip(xs, ms, gs):
+        half, mn = ref.fused_halfstep(x, m, g, eta, beta=beta, wd=wd,
+                                      nesterov=nesterov)
+        h = half.reshape(half.shape[0], -1)
+        acc = w[:, :1] * h[:1]
+        for k in range(1, h.shape[0]):
+            acc = acc + w[:, k:k + 1] * h[k:k + 1]
+        xn = acc.reshape(x.shape)
+        x_new.append(xn)
+        m_out.append(mn if mu is None else
+                     ref.fused_qg_buffer(x, xn, m, eta, refresh, mu=mu))
+    return x_new, m_out
+
+
+def _ulp_at(v):
+    """The fp32 spacing at |v|, elementwise."""
+    import torch
+    a = v.abs()
+    return torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+
+
+def _step_trees(n, gen, dev):
+    """(label, xs, ms, gs, (launches, vector, scalar)) of the qg_step
+    checks at ``n`` nodes, with the launches and the leaves on each path
+    they must take: the quickstart MLP's four leaves and a leaf of 1001
+    columns (scalar loop); leaves viewed 1, 2, 3 and 4 elements into
+    larger buffers; 49 leaves (two launches); a leaf of 70001 columns and
+    one of 65540, 2119 tiles (each block takes several)."""
+    import torch
+
+    def draw(shape):
+        return [torch.randn(shape, generator=gen, device=dev)
+                for _ in range(3)]
+
+    qs = [draw((n, f)) for _, f in LEAF_SHAPES] + [draw((n, 1001))]
+    yield ("quickstart + f=1001", *map(list, zip(*qs)), (1, 4, 1))
+    views = []
+    for off, f in zip((1, 2, 3, 4), (517, 64, 1280, 20)):
+        bufs = draw(n * f + off)
+        views.append([b[off:].view(n, f) for b in bufs])
+    yield ("views 1-4 elements in", *map(list, zip(*views)), (1, 1, 3))
+    widths = [4 * (1 + i % 7) + (i % 3 == 0) for i in range(49)]
+    many = [draw((n, f)) for f in widths]
+    vec = sum(f % 4 == 0 for f in widths)
+    yield ("49 leaves", *map(list, zip(*many)), (2, vec, 49 - vec))
+    big = [draw((n, 70001)), draw((n, 65540))]
+    yield ("2119 tiles", *map(list, zip(*big)), (1, 1, 1))
+
+
+def _qg_step_checks(dev, gen) -> dict:
+    """``qg_step`` against ``ref.qg_step`` (tolerance STEP_ULP, above) and
+    bit for bit against ``_node_order_step``: both forms, wd 0 and 1e-4,
+    Nesterov on and off, refresh 0 and 1, at STEP_NODES nodes over
+    ``_step_trees``; each tree's launches and float4/scalar leaves
+    checked.  Returns the worst errors."""
+    import torch
+    from repro_torch.kernels import qg_update as K
+    from repro_torch.kernels import ref
+
+    eta = _full(0.1, torch.empty(0, device=dev))
+    worst = {"ulp": 0.0, "abs": 0.0, "m_abs": 0.0, "cases": 0}
+    for n in STEP_NODES:
+        w = _step_mixing(n, dev)
+        for label, xs, ms, gs, want in _step_trees(n, gen, dev):
+            for mu, rf in ((None, 1.0), (0.9, 0.0), (0.9, 1.0)):
+                for wd in (0.0, 1e-4):
+                    for nest in (False, True):
+                        case = (f"n={n} {label} mu={mu} refresh={rf} wd={wd} "
+                                f"nesterov={nest}")
+                        kw = dict(beta=0.9, wd=wd, nesterov=nest, mu=mu)
+                        refresh = _full(rf, eta)
+                        before = (K.LAUNCHES["qg_step"],
+                                  *K.STEP_PATHS.values())
+                        got = K.qg_step(xs, ms, gs, w, eta, refresh, **kw)
+                        after = (K.LAUNCHES["qg_step"],
+                                 *K.STEP_PATHS.values())
+                        ran = tuple(a - b for a, b in zip(after, before))
+                        if ran != want:
+                            raise AssertionError(
+                                f"qg_step {case}: (launches, vector, "
+                                f"scalar) {ran}, want {want}")
+                        _step_compare(case, got, ref.qg_step(
+                            xs, ms, gs, w, eta, refresh, **kw),
+                            _node_order_step(xs, ms, gs, w, eta, refresh,
+                                             **kw),
+                            (xs, ms, gs, w, eta, kw), worst)
+    torch.cuda.synchronize(dev)
+    log(f"kernel qg_step: {worst['cases']} leaves x 2 outputs bit-equal to "
+        f"the node-order composition; against ref.qg_step x_new within "
+        f"{worst['ulp']:.2f} ulp at sum|W||half| (allowed {STEP_ULP}), max "
+        f"abs err {worst['abs']:.3e}, m_out max abs err "
+        f"{worst['m_abs']:.3e}")
+    return worst
+
+
+def _step_compare(case, got, plain, node_order, inputs, worst) -> None:
+    import torch
+    from repro_torch.kernels import ref
+    xs, ms, gs, w, eta, kw = inputs
+    mu = kw["mu"]
+    for i, (gx, gm, px, pm, nx, nm) in enumerate(zip(*got, *plain,
+                                                    *node_order)):
+        what = f"qg_step {case} leaf {i}"
+        for g, p in ((gx, px), (gm, pm)):
+            if g.shape != p.shape or not torch.isfinite(g).all():
+                raise AssertionError(f"{what}: shape {tuple(g.shape)} vs "
+                                     f"{tuple(p.shape)} or non-finite")
+        for name, g, p in (("x_new", gx, nx), ("m_out", gm, nm)):
+            ulp = _ulp_diff(g, p)
+            if ulp:
+                raise AssertionError(f"{what}: {name} differs from the "
+                                     f"node-order composition by {ulp} ulp")
+        half, _ = ref.fused_halfstep(xs[i], ms[i], gs[i], eta, beta=0.9,
+                                     wd=kw["wd"], nesterov=kw["nesterov"])
+        n = half.shape[0]
+        scale = (w.abs() @ half.reshape(n, -1).abs()).reshape(half.shape)
+        x_tol = STEP_ULP * _ulp_at(scale)
+        dx = (gx - px).abs()
+        if (dx > x_tol).any():
+            raise AssertionError(f"{what}: x_new off the plain version by "
+                                 f"{float((dx / x_tol).max()) * STEP_ULP:.2f}"
+                                 f" ulp at sum|W||half| (allowed {STEP_ULP})")
+        dm = (gm - pm).abs()
+        m_tol = torch.zeros_like(dm)
+        if mu is not None:
+            terms = mu * ms[i].abs() + (1.0 - mu) * (xs[i] - px).abs() / eta
+            m_tol = (1.0 - mu) / eta * x_tol + 2 * _ulp_at(terms)
+        if (dm > m_tol).any():
+            raise AssertionError(f"{what}: m_out off the plain version by "
+                                 f"{float(dm.max()):.3e} (allowed "
+                                 f"{'0' if mu is None else 'the x bound'})")
+        if gx.numel():
+            worst["ulp"] = max(worst["ulp"],
+                               float((dx / x_tol).max()) * STEP_ULP)
+            worst["abs"] = max(worst["abs"], float(dx.max()))
+            worst["m_abs"] = max(worst["m_abs"], float(dm.max()))
+        worst["cases"] += 1
 
 
 def _topk_threshold(x2d):
@@ -585,7 +774,107 @@ def phase_timing(dev) -> dict:
                 f"({t['ms'] / t['bound_ms']:.3f}x bound), to 16 bytes "
                 f"{t['peel16_ms']:.6f} ms "
                 f"({t['peel16_ms'] / t['bound_ms']:.3f}x bound)")
+    _time_step(dev, timed)
     return timed
+
+
+def _device_activities(dev, fn, reps: int = 10) -> float:
+    """Device activities (kernels, copies, fills) per eager call of ``fn``,
+    counted by ``torch.profiler`` over ``reps`` calls after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(dev)
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / reps
+
+
+def _replaced_sequence(stages, x, m, g, w, eta):
+    """The segment ``qg_step`` replaces, as the chain ran it before: pack
+    x, m, g, ``fused_halfstep``, ``mix_dense`` (one product a leaf), pack
+    x, x_new, m_hat, ``fused_qg_buffer`` (QG form)."""
+    import torch
+    from repro_torch.core import gossip
+    from repro_torch.core import transforms as T
+
+    wd, hb = stages[0].meta["wd"], stages[1]
+    qg = stages[3] if len(stages) > 3 else None
+    ctx = T.StepCtx(w=w, lr=eta, t=torch.zeros((), dtype=torch.int32,
+                                                device=eta.device),
+                    mix_fn=gossip.mix_dense)
+    sv = T.StepVars(grads=g, update=g, params=x, params_pre_mix=x)
+    states = {qg.name: {"m_hat": m}} if qg else {hb.name: {"m": m}}
+
+    def run():
+        sv2, st2 = T._apply_fused_halfstep(ctx, sv, states, wd, hb, m)
+        if qg is not None:
+            T._apply_fused_qg_buffer(ctx, sv2, st2, qg)
+    return run
+
+
+def _time_step(dev, timed) -> None:
+    """``qg_step`` beside ``ref.qg_step``, the sequence it replaces (one
+    CUDA graph each) and its bound (5 streams over the memory rate), QG
+    (QG-DSGDm-N) and DSGDm (DSGDm-N) forms, wd 1e-4, at the quickstart's
+    tree and at STEP_LARGE; the device activities of one eager call of
+    each at the quickstart's tree."""
+    import torch
+    from repro_torch.core import optim
+    from repro_torch.kernels import qg_update as K
+    from repro_torch.kernels import ref
+
+    eta = _full(0.1, torch.empty(0, device=dev))
+    one = _full(1.0, eta)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    stages = {"qg": optim.make_optimizer("qg_dsgdm_n",
+                                         weight_decay=1e-4)._stages(),
+              "dsgdm": optim.make_optimizer("dsgdm_n",
+                                            weight_decay=1e-4)._stages()}
+    trees = [("quickstart", LEAF_SHAPES, 20)] + [
+        (shape, [shape], 4) for shape in STEP_LARGE]
+    for key, shapes, iters in trees:
+        n = shapes[0][0]
+        w = _step_mixing(n, dev)
+        roles = [{f"l{i}": torch.randn(s, generator=gen, device=dev)
+                  for i, s in enumerate(shapes)} for _ in range(3)]
+        x, m, g = roles
+        xs, ms, gs = (list(r.values()) for r in roles)
+        elems = sum(t.numel() for t in xs)
+        for form, mu in (("qg", 0.9), ("dsgdm", None)):
+            kw = dict(beta=0.9, wd=1e-4, nesterov=True, mu=mu)
+            kfn = lambda: K.qg_step(xs, ms, gs, w, eta, one, **kw)
+            pfn = lambda: ref.qg_step(xs, ms, gs, w, eta, one, **kw)
+            seq = _replaced_sequence(stages[form], x, m, g, w, eta)
+            kms, pms = _time_ms(kfn, iters), _time_ms(pfn, iters)
+            sms = _time_ms(seq, iters)
+            # x, m, g in; x_new and m_out out; W and the scalars once
+            nbytes = 5 * elems * 4 + 4 * n * n + 8
+            flops = (8 + 2 * n - 1 + (5 if mu else 0)) * elems
+            bound, by = _bound(nbytes, flops)
+            row = {"size": key, "ms": kms, "plain_ms": pms,
+                   "replaced_ms": sms, "bound_ms": bound, "bound_by": by,
+                   "bytes": nbytes, "dispatch_ms": _dispatch_ms(kfn)}
+            if key == "quickstart":
+                row["activities"] = _device_activities(dev, kfn)
+                row["replaced_activities"] = _device_activities(dev, seq)
+                row["replaced_dispatch_ms"] = _dispatch_ms(seq)
+            timed[(f"qg_step[{form}]", key)] = row
+            log(f"time qg_step {form} size={key}: kernel {kms:.6f} ms "
+                f"({kms / bound:.3f}x bound), plain {pms:.6f} ms, replaced "
+                f"sequence {sms:.6f} ms (CUDA graphs of {iters} calls), "
+                f"bound {bound:.6f} ms ({by}, {nbytes} B), "
+                f"{nbytes / kms / 1e6:.1f} GB/s, library: none; eager "
+                f"dispatch {row['dispatch_ms']:.6f} ms"
+                + (f" vs {row['replaced_dispatch_ms']:.6f} ms replaced; "
+                   f"device activities a call {row['activities']:.1f} vs "
+                   f"{row['replaced_activities']:.1f} replaced"
+                   if key == "quickstart" else ""))
+        del x, m, g, xs, ms, gs, roles
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -631,9 +920,8 @@ def phase_main(dev) -> dict:
         res = api.run(spec, device=dev, log_fn=quiet)
         counts = ops.launch_counts()
         results[preset], launches[preset] = res, counts
-        _expect_launches(preset, counts, {
-            "fused_halfstep": 150,
-            "fused_qg_buffer": 150 if preset.endswith("_qg") else 0})
+        # the dense-gossip step: one qg_step launch a step, in both forms
+        _expect_launches(preset, counts, {"qg_step": 150})
         losses = [r["loss"] for r in res.history]
         if res.steps_run != 150 or not np.all(np.isfinite(losses)):
             raise AssertionError(f"{preset}: {res.steps_run} steps, finite "
@@ -801,7 +1089,8 @@ def phase_profile(dev, label: str, spec) -> None:
         f"({100 * busy / wall_ms:.2f}% busy), {launches} device "
         f"activities ({launches / 150:.1f} per step)")
     # the kernels of csrc/ (templates of csrc/elementwise.cuh)
-    ours = [r for r in dev_rows if "stream3" in r[0] or "rowwise" in r[0]]
+    ours = [r for r in dev_rows
+            if any(k in r[0] for k in ("stream3", "rowwise", "qg_step"))]
     for key, ms, count in dev_rows[:10] + [r for r in ours
                                            if r not in dev_rows[:10]]:
         log(f"profile {label} device {ms:10.4f} ms {count:6d}x "
@@ -1954,7 +2243,8 @@ def main() -> int:
         "quantize_dequantize": ("src/repro/kernels/compress.py:101",
                                 "compress.cu", "group")}
     runs = {**main_out["launches"], **comp_out["launches"]}
-    main_launches = {k: sum(c[k] for c in runs.values()) for k in sources}
+    main_launches = {k: sum(c[k] for c in runs.values())
+                     for k in (*sources, "qg_step")}
     kernels = []
     for name, (replaces, src, size) in sources.items():
         t = timed[(name, size)]
@@ -1964,6 +2254,16 @@ def main() -> int:
             "max_abs_err": worst[name]["abs"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
+    t = timed[("qg_step[qg]", "quickstart")]
+    kernels.append({
+        "name": "qg_step", "route": "cuda", "source": csrc + "qg_update.cu",
+        "replaces": "src/repro/kernels/qg_update.py:116 fused_halfstep + "
+                    "src/repro/kernels/qg_update.py:133 fused_qg_buffer",
+        "launches": main_launches["qg_step"],
+        "max_abs_err": worst["qg_step"]["abs"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None,
+        "replaced_ms": t["replaced_ms"]})
     for row in kernels:  # one message a step: the top-k and QSGD runs
         run = {"threshold_mask": "topk", "quantize_dequantize": "qsgd"}.get(
             row["name"])

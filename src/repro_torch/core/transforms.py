@@ -16,8 +16,10 @@ and ``qg_buffer``, the chain runner, the fused dispatcher and the analytic
 bytes-moved model.  The other stages of the reference come with slice 2.
 
 ``chain_apply(fused=...)`` routes the segments it recognises through the
-packed one-pass kernels: ``'kernel'`` always (CPU tensors then take the
-kernels' plain versions, see ``kernels/ops.py``), ``'off'`` never, and
+kernels (the dense-gossip step through one ``qg_step`` launch, other
+segments through the packed one-pass kernels): ``'kernel'`` always (CPU
+tensors then take the kernels' plain versions, see ``kernels/ops.py``),
+``'off'`` never, and
 ``'auto'`` iff the tensors lie on a CUDA device.  ``'pallas'`` is accepted
 as another name for ``'kernel'`` so the reference's spec JSON loads.
 """
@@ -30,7 +32,11 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import pack as _kp
-from repro_torch.tree import tree_leaves, tree_map, tree_paths
+from repro_torch.kernels import qg_update as _kqg
+from repro_torch.tree import tree_leaves, tree_map, tree_paths, \
+    tree_unflatten
+
+from . import gossip
 
 Tree = Any
 MixFn = Callable[[torch.Tensor, Tree], Tree]
@@ -261,18 +267,26 @@ def qg_buffer(mu: float, *, tau: int = 1, name: str = "qg_buffer") -> Stage:
 # fused execution (packed one-pass kernels)
 # ---------------------------------------------------------------------------
 #
-# The fusion boundary is the mix site: gossip needs the per-node tree, so a
-# fused segment covers what lies between mix sites, never across one:
+# The reference's fusion boundary is the mix site: gossip needs the
+# per-node tree, so its fused segments cover what lies between mix sites:
 #
 #   pre-mix   [weight_decay?] heavyball gossip_mix   -> fused_halfstep
 #   post-mix  qg_buffer                              -> fused_qg_buffer
 #
 # Each packs the node-stacked trees into one contiguous fp32 buffer per role
-# and streams them once.  Segments that don't match run unfused: the same
-# stages, just more passes.  A matched segment that cannot take its kernel
-# (non-fp32 leaves, params rewritten by an earlier stage) runs unfused only
-# on CPU tensors; on a device it raises, so a kernel is never silently
-# replaced by its plain version.
+# and streams them once; the gossip exchange runs between them on the
+# unpacked tree through ``ctx.mix_fn``.  The dense mix W @ x mixes along the
+# node axis only, so where ``ctx.mix_fn`` is ``gossip.mix_dense`` and the
+# tree has at most ``qg_update.STEP_MAX_NODES`` nodes, the whole segment
+# (the pre-mix one, and the qg_buffer that seeds its heavyball, if any) is
+# one ``qg_step`` launch instead, with the mix inside the kernel and
+# nothing packed (``_match_step`` decides, from the chain and n alone).
+# Compressed rounds (CHOCO, EF), the warm-start capture and any other mix
+# hook keep the two-kernel path.  Segments that match neither run unfused:
+# the same stages, just more passes.  A matched segment that cannot take
+# its kernel (non-fp32 leaves, params rewritten by an earlier stage) runs
+# unfused only on CPU tensors; on a device it raises, so a kernel is never
+# silently replaced by its plain version.
 
 #: stage kinds that may follow a fused gossip_mix: they read only
 #: params_pre_mix/params_post_mix and their own state, never sv.update or
@@ -322,6 +336,48 @@ def _match_halfstep(stages: tuple[Stage, ...], i: int):
     return wd, hb, j - i
 
 
+def _match_step(stages: tuple[Stage, ...], i: int, mix_fn, n: int):
+    """Match the segment one ``qg_step`` launch takes at ``stages[i:]``:
+    ``[weight_decay?] heavyball gossip_mix``, ending the chain (DSGDm) or
+    followed only by the ``qg_buffer`` that seeds the heavyball (QG), with
+    ``mix_fn`` the dense mix and ``n <= STEP_MAX_NODES`` nodes.  Returns
+    (wd, heavyball_stage, qg_buffer_stage or None, n_consumed) or None, in
+    which case the segment takes ``fused_halfstep``, ``mix_fn`` and
+    ``fused_qg_buffer``."""
+    if mix_fn is not gossip.mix_dense or n > _kqg.STEP_MAX_NODES:
+        return None
+    seg = _match_halfstep(stages, i)
+    if seg is None:
+        return None
+    wd, hb, consumed = seg
+    rest = stages[i + consumed:]
+    seed = hb.meta["seed_from"]
+    if seed is None and not rest:
+        return wd, hb, None, consumed
+    if (seed is not None and len(rest) == 1 and rest[0].name == seed
+            and _meta_kind(rest[0]) == "qg_buffer"):
+        return wd, hb, rest[0], consumed + 1
+    return None
+
+
+def _apply_qg_step(ctx, sv, states, wd, hb, qg, m_prev):
+    """weight_decay + heavyball + the dense gossip round (+ the QG refresh
+    of ``qg``) of every leaf in one ``qg_step`` launch."""
+    hbm, paths = hb.meta, tree_paths(sv.params)
+    refresh = mu = None
+    if qg is not None:
+        refresh = _refresh_gate(ctx.t, qg.meta["tau"])
+        mu = qg.meta["mu"]
+    x_new, m_out = ops.qg_step(
+        tree_leaves(sv.params), tree_leaves(m_prev), tree_leaves(sv.update),
+        ctx.w, ctx.lr, refresh, beta=hbm["beta"], wd=wd,
+        nesterov=hbm["nesterov"], mu=mu)
+    mixed, m_new = tree_unflatten(paths, x_new), tree_unflatten(paths, m_out)
+    states = {**states, **({qg.name: {"m_hat": m_new}} if qg is not None
+                           else {hb.name: {"m": m_new}})}
+    return sv.replace(params=mixed, params_post_mix=mixed), states
+
+
 def _apply_fused_halfstep(ctx, sv, states, wd, hb, m_prev):
     """weight_decay + heavyball + the gossip half step in one packed pass;
     then the gossip exchange on the unpacked tree (views, no copy)."""
@@ -355,9 +411,11 @@ def _apply_fused_qg_buffer(ctx, sv, states, stage):
 
 def _chain_apply_fused(stages, ctx, sv, states):
     states = dict(states)
+    n = tree_leaves(sv.params)[0].shape[0]
     i = 0
     while i < len(stages):
         s = stages[i]
+        step = _match_step(stages, i, ctx.mix_fn, n)
         seg = _match_halfstep(stages, i)
         if seg is not None:
             wd, hb, consumed = seg
@@ -371,6 +429,11 @@ def _chain_apply_fused(stages, ctx, sv, states):
                    if sv.params is not sv.params_pre_mix else
                    _non_f32(params=sv.params, update=sv.update,
                             momentum=m_prev))
+            if why is None and step is not None:
+                sv, states = _apply_qg_step(ctx, sv, states, wd, hb,
+                                            step[2], m_prev)
+                i += step[3]
+                continue
             if why is None:
                 sv, states = _apply_fused_halfstep(
                     ctx, sv, states, wd, hb, m_prev)

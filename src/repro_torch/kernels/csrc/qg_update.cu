@@ -13,6 +13,13 @@
 //   qg_buffer_update    repro/kernels/qg_update.py:qg_buffer_update
 //                       (_buffer_update_kernel), static lr
 //
+// and one that replaces a sequence of them on the dense-gossip path:
+//
+//   qg_step             repro/kernels/qg_update.py:116 fused_halfstep, the
+//                       dense mix W @ half of repro/core/gossip.py
+//                       (mix_dense) and repro/kernels/qg_update.py:133
+//                       fused_qg_buffer, in one launch (see below).
+//
 // Bound on this card: device-memory bandwidth.  Each does a handful of
 // flops per element and moves, per element, 12 bytes in and 4 out
 // (16 bytes); fused_halfstep with emit_m writes a second output (20
@@ -34,6 +41,35 @@
 //     plain PyTorch versions in repro_torch/kernels/ref.py do;
 //   * launched on the caller's stream; no sync and no allocation inside.
 //     Each launcher returns cudaGetLastError() for the wrapper to check.
+//
+// qg_step: one training step's optimizer segment on the dense-gossip path.
+// The reference cuts its fused segments at the mix site (gossip needs the
+// per-node tree), so a step there streams x, m, g through fused_halfstep,
+// the half step through the product W @ half, and x, x_new, m_hat through
+// fused_qg_buffer: with the packing around them, about 22 arrays of the
+// tree's size and 12 launches a QG step, where the step needs 5 streams
+// (x, m, g in; x_new and m_hat_new, or DSGDm's m_new, out).  Every leaf
+// is node-stacked [n, f] and the dense mix runs along the node axis only,
+// so a block that holds one column tile of all n nodes holds all that
+// those columns need:
+//   * phase 1: each thread loads x, m, g of its (R nodes, 4 columns) and
+//     forms the half step (and DSGDm's new buffer, stored at once) in
+//     registers, writing half into shared memory ([n][kStepCols]);
+//   * phase 2: after a barrier, it sums its (nodes, columns) over the n
+//     rows of the tile, x_new = sum_k W[node,k] * half[k], in node order
+//     k = 0..n-1 with __fmul_rn/__fadd_rn, W read once a block into
+//     shared memory from the [n, n] device tensor of the step (so a
+//     time-varying topology costs no host read), its first tile's loads
+//     in flight meanwhile;
+//   * the QG refresh then runs on x (still in registers), x_new and m_hat.
+// Bytes bound it still: 20 bytes an element against 2n - 1 flops of the
+// mix and about 13 of the two elementwise passes.
+// The leaves of a tree go in one launch (up to kMaxLeaves, a table passed
+// by value as in elementwise.cuh's rowwise_group), so nothing is packed.
+// A leaf whose f is a multiple of 4 with every stream 16-byte aligned runs
+// on float4 (4 contiguous columns a thread); any other on a scalar loop of
+// the same kernel (4 columns a quarter tile apart a thread, so that a
+// warp's loads stay coalesced).
 
 #include "elementwise.cuh"
 
@@ -112,6 +148,291 @@ struct BufferUpdate {
   __device__ __forceinline__ BufferUpdate bind() const { return *this; }
 };
 
+// ---------------------------------------------------------------------------
+// qg_step: the half step, the dense mix and the QG refresh in one launch.
+//
+// A block takes a tile of C columns of all n rows (nodes) of one leaf at a
+// time.  Its threads are C/4 column groups (4 columns each) by ceil(n / R)
+// row groups of R consecutive rows: each thread mixes R rows of its 4
+// columns, so one read of a half-step row from shared memory serves R
+// outputs, and W is kept transposed there, so the R weights of a term are
+// one vector read.  R is 2 up to 16 nodes and 4 above.  C is 64, so that
+// the small trees of the presets give a block to every SM (the quickstart
+// MLP: 214 tiles); the wrapper lays the tiles out.
+
+constexpr int kStepCols = 64;                   // C: columns of a tile
+constexpr int kStepMaxNodes = 64;               // W and a tile in smem
+constexpr int kStepMaxThreads = 256;
+constexpr int kStepFields = 8;                  // int64 a leaf in the table
+
+struct StepLeaf {
+  const float* x;
+  const float* m;  // DSGDm's buffer, or the QG m_hat that seeds it
+  const float* g;
+  float* x_new;
+  float* m_out;    // DSGDm's m_new, or QG's m_hat_new
+  int64_t f;       // columns: the leaf is [n, f]
+  int64_t tile0;   // the leaf's first tile in the launch
+  int64_t vec;     // 1: float4 path; 0: scalar loop
+};
+
+struct StepGroup {
+  StepLeaf leaf[kMaxLeaves];
+  int64_t tiles;  // of all leaves
+  int64_t n;      // leaves
+};
+static_assert(sizeof(StepGroup) <= 3500, "the leaf table outgrows 4 KB");
+
+// Column e (0..3) of 4-column group q in a tile: contiguous on the float4
+// path; a quarter tile apart on the scalar loop, so that neighbouring
+// threads load neighbouring floats.
+__device__ __forceinline__ int step_col(bool vec, int q, int e) {
+  return vec ? 4 * q + e : q + kStepCols / 4 * e;
+}
+
+__device__ __forceinline__ float& lane(float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// Rows a thread mixes, the row stride of W^T in shared memory (n padded
+// to R), threads a block (whole warps) and shared memory of a block: W^T
+// [n][stride] (padded to 16 bytes), then the half step of a tile
+// [n][kStepCols].
+__host__ __device__ __forceinline__ int step_rows(int nodes) {
+  return nodes <= 16 ? 2 : 4;
+}
+__host__ __device__ __forceinline__ int step_stride(int nodes, int r) {
+  return (nodes + r - 1) / r * r;
+}
+__host__ __device__ __forceinline__ int step_wt_floats(int nodes, int r) {
+  return (nodes * step_stride(nodes, r) + 3) & ~3;
+}
+inline int step_threads(int nodes, int r) {
+  return ((nodes + r - 1) / r * (kStepCols / 4) + 31) / 32 * 32;
+}
+inline size_t step_smem(int nodes, int r) {
+  return sizeof(float) * (step_wt_floats(nodes, r) + nodes * kStepCols);
+}
+
+template <int R>
+__device__ __forceinline__ void load_weights(const float* p, float (&w)[R]) {
+  if constexpr (R == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  }
+}
+
+// The leaf of tile t (the last whose first tile <= t) and the tile's first
+// column in it.
+struct StepTile {
+  const StepLeaf* leaf;
+  int64_t j0;
+};
+
+__device__ __forceinline__ StepTile step_tile(const StepGroup& grp,
+                                              int64_t t) {
+  int lo = 0, hi = static_cast<int>(grp.n) - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (grp.leaf[mid].tile0 <= t) lo = mid;
+    else hi = mid - 1;
+  }
+  return {&grp.leaf[lo], (t - grp.leaf[lo].tile0) * kStepCols};
+}
+
+// x, m, g of rows r0 .. r0+R-1 at the thread's 4 columns of tile T (0 off
+// the leaf, and everywhere unless ``on``).
+template <int R>
+__device__ __forceinline__ void step_load(const StepTile& T, bool on, int r0,
+                                          int q, int nodes, float4 (&x)[R],
+                                          float4 (&m)[R], float4 (&g)[R]) {
+  const StepLeaf& L = *T.leaf;
+  const int64_t f = L.f;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    x[r] = m[r] = g[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (!on || r0 + r >= nodes) continue;
+    const int64_t row = static_cast<int64_t>(r0 + r) * f;
+    if (L.vec) {
+      const int64_t c = T.j0 + 4 * q;
+      if (c < f) {
+        x[r] = *reinterpret_cast<const float4*>(L.x + row + c);
+        m[r] = *reinterpret_cast<const float4*>(L.m + row + c);
+        g[r] = *reinterpret_cast<const float4*>(L.g + row + c);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int64_t c = T.j0 + step_col(false, q, e);
+        if (c < f) {
+          lane(x[r], e) = L.x[row + c];
+          lane(m[r], e) = L.m[row + c];
+          lane(g[r], e) = L.g[row + c];
+        }
+      }
+    }
+  }
+}
+
+// A block walks tiles blockIdx.x, + gridDim.x, ...
+template <bool kQg, int R>
+__global__ void __launch_bounds__(kStepMaxThreads)
+    qg_step_kernel(const __grid_constant__ StepGroup grp,
+                   const float* __restrict__ w, int nodes, Halfstep hs,
+                   QgBuffer qb) {
+  extern __shared__ float4 smem4[];
+  const int stride = step_stride(nodes, R);
+  float* swt = reinterpret_cast<float*>(smem4);  // swt[j*stride+i] = W[i,j]
+  float* sh = swt + step_wt_floats(nodes, R);
+  const int q = threadIdx.x % (kStepCols / 4);
+  const int r0 = threadIdx.x / (kStepCols / 4) * R;  // first row of the thread
+  const bool active = r0 < nodes;
+  const auto half_fn = hs.bind();
+  QgBuffer::Bound qg_fn{};
+  if constexpr (kQg) qg_fn = qb.bind();
+  for (int64_t t = blockIdx.x; t < grp.tiles; t += gridDim.x) {
+    const StepTile cur = step_tile(grp, t);
+    const StepLeaf& L = *cur.leaf;
+    const int64_t f = L.f, j0 = cur.j0;
+    const bool vec = L.vec != 0;
+    float4 x[R], m[R], g[R];
+    step_load<R>(cur, active, r0, q, nodes, x, m, g);
+    if (t == blockIdx.x) {  // W^T, while the first tile's loads fly
+      for (int k = threadIdx.x; k < nodes * stride; k += blockDim.x) {
+        const int j = k / stride, i = k - j * stride;
+        swt[k] = i < nodes ? w[i * nodes + j] : 0.0f;
+      }
+    }
+    // W^T is in, and the last tile's phase 2 is done with sh
+    __syncthreads();
+    // phase 1: the half step of the thread's rows into shared memory
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (!active || r0 + r >= nodes) continue;
+      const int64_t row = static_cast<int64_t>(r0 + r) * f;
+      float4 h, mn;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        half_fn(lane(x[r], e), lane(m[r], e), lane(g[r], e), lane(h, e),
+                lane(mn, e));
+      if constexpr (!kQg) {  // DSGDm's new buffer needs no mix
+        if (vec) {
+          if (j0 + 4 * q < f)
+            *reinterpret_cast<float4*>(L.m_out + row + j0 + 4 * q) = mn;
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int64_t c = j0 + step_col(false, q, e);
+            if (c < f) L.m_out[row + c] = lane(mn, e);
+          }
+        }
+      }
+      float* hrow = sh + (r0 + r) * kStepCols;
+      if (vec) {
+        reinterpret_cast<float4*>(hrow)[q] = h;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) hrow[step_col(false, q, e)] = lane(h, e);
+      }
+    }
+    __syncthreads();
+    if (active) {
+      // phase 2: x_new = W @ half along the nodes, in node order
+      float4 acc[R];
+      for (int j = 0; j < nodes; ++j) {
+        float4 hj;
+        if (vec) {
+          hj = reinterpret_cast<const float4*>(sh + j * kStepCols)[q];
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            lane(hj, e) = sh[j * kStepCols + step_col(false, q, e)];
+        }
+        float wj[R];
+        load_weights<R>(swt + j * stride + r0, wj);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = __fmul_rn(wj[r], lane(hj, e));
+            lane(acc[r], e) = j == 0 ? p : __fadd_rn(lane(acc[r], e), p);
+          }
+        }
+      }
+      // then the QG refresh on x (still in registers), x_new and m_hat
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r0 + r >= nodes) continue;
+        const int64_t row = static_cast<int64_t>(r0 + r) * f;
+        float4 mo;
+        if constexpr (kQg) {
+          float unused;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            qg_fn(lane(x[r], e), lane(acc[r], e), lane(m[r], e),
+                  lane(mo, e), unused);
+        }
+        if (vec) {
+          const int64_t c = j0 + 4 * q;
+          if (c < f) {
+            *reinterpret_cast<float4*>(L.x_new + row + c) = acc[r];
+            if constexpr (kQg)
+              *reinterpret_cast<float4*>(L.m_out + row + c) = mo;
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int64_t c = j0 + step_col(false, q, e);
+            if (c < f) {
+              L.x_new[row + c] = lane(acc[r], e);
+              if constexpr (kQg) L.m_out[row + c] = lane(mo, e);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+template <bool kQg, int R>
+int launch_step(const StepGroup& g, int64_t tiles, int nodes, const float* w,
+                Halfstep hs, QgBuffer qb, cudaStream_t stream) {
+  const int threads = step_threads(nodes, R);
+  const size_t smem = step_smem(nodes, R);
+  // blocks of this instantiation an SM holds, by node count, on the
+  // process's card (found at the first launch of each)
+  static int per_sm[kStepMaxNodes + 1] = {};
+  static int sms = 0;
+  cudaError_t err = cudaSuccess;
+  if (per_sm[nodes] == 0)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm[nodes], qg_step_kernel<kQg, R>, threads, smem);
+  if (err == cudaSuccess && sms == 0) err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int64_t cap =
+      static_cast<int64_t>(sms) * (per_sm[nodes] > 0 ? per_sm[nodes] : 1);
+  const int64_t blocks = tiles < cap ? tiles : cap;
+  qg_step_kernel<kQg, R><<<static_cast<unsigned>(blocks), threads, smem,
+                           stream>>>(g, w, nodes, hs, qb);
+  return cudaGetLastError();
+}
+
+template <bool kQg>
+int launch_step_rows(const StepGroup& g, int64_t tiles, int nodes,
+                     const float* w, Halfstep hs, QgBuffer qb,
+                     cudaStream_t stream) {
+  return step_rows(nodes) == 2
+             ? launch_step<kQg, 2>(g, tiles, nodes, w, hs, qb, stream)
+             : launch_step<kQg, 4>(g, tiles, nodes, w, hs, qb, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -151,6 +472,48 @@ int qg_buffer_update(const float* x_old, const float* x_new,
                      float one_minus_mu, float inv_eta, void* stream) {
   return launch3(x_old, x_new, m_hat, out, nullptr, n,
                  BufferUpdate{mu, one_minus_mu, inv_eta}, stream);
+}
+
+// One launch of qg_step over ``n_leaves`` <= kMaxLeaves leaves of
+// ``table`` (kStepFields int64 each: x, m, g, x_new, m_out, f, tile0,
+// vec), ``tiles`` their total in tiles of kStepCols columns, each leaf
+// [nodes, f] with w the fp32 [nodes, nodes] mixing matrix.  qg_form != 0:
+// m is m_hat and m_out receives the refresh (mu, one_minus_mu folded in
+// double on the host) behind the ``refresh`` gate; else m_out receives the
+// new HeavyBall buffer and refresh may be null.
+int qg_step(const int64_t* table, int n_leaves, int64_t tiles, int nodes,
+            const float* w, const float* eta, const float* refresh,
+            float beta, float wd, int nesterov, int has_wd, int qg_form,
+            float mu, float one_minus_mu, void* stream) {
+  if (n_leaves <= 0 || tiles <= 0) return cudaSuccess;
+  if (n_leaves > kMaxLeaves || nodes < 1 || nodes > kStepMaxNodes)
+    return cudaErrorInvalidValue;
+  StepGroup g{};
+  for (int i = 0; i < n_leaves; ++i) {
+    const int64_t* e = table + static_cast<int64_t>(i) * kStepFields;
+    g.leaf[i] = {reinterpret_cast<const float*>(e[0]),
+                 reinterpret_cast<const float*>(e[1]),
+                 reinterpret_cast<const float*>(e[2]),
+                 reinterpret_cast<float*>(e[3]),
+                 reinterpret_cast<float*>(e[4]),
+                 e[5], e[6], e[7]};
+  }
+  g.tiles = tiles;
+  g.n = n_leaves;
+  const Halfstep hs{eta, beta, wd, nesterov, has_wd};
+  const QgBuffer qb{eta, refresh, mu, one_minus_mu};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return qg_form ? launch_step_rows<true>(g, tiles, nodes, w, hs, qb, s)
+                 : launch_step_rows<false>(g, tiles, nodes, w, hs, qb, s);
+}
+
+// The tile geometry the wrapper must lay out: columns a tile, leaves a
+// launch, int64 fields a leaf, most nodes.
+void qg_step_geometry(int64_t* out) {
+  out[0] = kStepCols;
+  out[1] = kMaxLeaves;
+  out[2] = kStepFields;
+  out[3] = kStepMaxNodes;
 }
 
 const char* qg_error_string(int err) {

@@ -20,7 +20,7 @@ from . import ref
 from . import ssd_scan as _ssd
 
 __all__ = ["fused_halfstep", "fused_qg_buffer", "qg_local_step",
-           "qg_buffer_update", "gamma_correct", "threshold_mask",
+           "qg_buffer_update", "qg_step", "gamma_correct", "threshold_mask",
            "quantize_dequantize", "threshold_mask_group",
            "quantize_dequantize_group", "flash_attention",
            "paged_decode_attention", "ssd_scan", "launch_counts",
@@ -67,6 +67,18 @@ def qg_buffer_update(x_old, x_new, m_hat, *, eta, mu):
     if _on_cpu(x_old, x_new, m_hat):
         return ref.qg_buffer_update(x_old, x_new, m_hat, eta=eta, mu=mu)
     return _qg.qg_buffer_update(x_old, x_new, m_hat, eta=eta, mu=mu)
+
+
+def qg_step(xs, ms, gs, w, eta, refresh=None, *, beta, wd=0.0,
+            nesterov=False, mu=None):
+    """``fused_halfstep``, the dense mix and (``mu`` given) ``fused_qg_buffer``
+    of every leaf: ``(x_new, m_out)``; on CUDA tensors one launch (per
+    ``qg_update.MAX_LEAVES`` leaves)."""
+    if _on_cpu(*xs, *ms, *gs, w, eta, refresh):
+        return ref.qg_step(xs, ms, gs, w, eta, refresh, beta=beta, wd=wd,
+                           nesterov=nesterov, mu=mu)
+    return _qg.qg_step(xs, ms, gs, w, eta, refresh, beta=beta, wd=wd,
+                       nesterov=nesterov, mu=mu)
 
 
 def gamma_correct(x, mixed, anchor, *, gamma):

@@ -8,7 +8,12 @@ The kernels live in ``csrc/qg_update.cu`` (built and bound by
     gossip half step in one pass, emitting the half step and, for stateful
     momentum (``emit_m``), the new buffer;
   * ``fused_qg_buffer``  the post-mix QG refresh behind the tau gate;
-  * ``qg_local_step`` / ``qg_buffer_update``  the static-lr forms.
+  * ``qg_local_step`` / ``qg_buffer_update``  the static-lr forms;
+  * ``qg_step``  on the dense-gossip path, ``fused_halfstep``, the dense
+    mix ``W @ half`` and ``fused_qg_buffer`` of a whole tree in one launch
+    (one per ``MAX_LEAVES`` leaves), unpacked: each leaf [n, f] is cut
+    into tiles of ``STEP_COLS`` columns of all n nodes, laid out here
+    (``qg_step_plan``) and passed to the kernel in its leaf table.
 
 The fused forms take the lr and the refresh gate as fp32 [1] device tensors
 (a schedule value, read by the kernel, never by the host).  Every wrapper
@@ -16,7 +21,8 @@ takes CUDA tensors only, checks them (device, fp32, contiguity, equal
 lengths), allocates its outputs with ``torch.empty`` and launches on the
 current stream; ``kernels/ops.py`` routes CPU tensors to the plain versions
 instead.  ``LAUNCHES`` counts the launches of each kernel, so that a run can
-show that its main path went through them.
+show that its main path went through them; ``STEP_PATHS`` counts the
+leaves ``qg_step`` ran on its float4 path and on its scalar loop.
 """
 from __future__ import annotations
 
@@ -28,11 +34,26 @@ import torch
 from . import build as _build
 
 __all__ = ["fused_halfstep", "fused_qg_buffer", "qg_local_step",
-           "qg_buffer_update", "LAUNCHES"]
+           "qg_buffer_update", "qg_step", "qg_step_plan", "step_vec",
+           "STEP_COLS", "STEP_MAX_NODES", "MAX_LEAVES", "LAUNCHES",
+           "STEP_PATHS"]
 
 #: launches of each kernel in this process (bumped once per kernel launch)
 LAUNCHES = {"fused_halfstep": 0, "fused_qg_buffer": 0, "qg_local_step": 0,
-            "qg_buffer_update": 0}
+            "qg_buffer_update": 0, "qg_step": 0}
+#: leaves launched by ``qg_step``, by path: ``vector`` (float4) or
+#: ``scalar`` (the scalar loop)
+STEP_PATHS = {"vector": 0, "scalar": 0}
+
+#: ``qg_step``'s geometry (``kStepCols``, ``kMaxLeaves``, ``kStepFields``,
+#: ``kStepMaxNodes`` of ``csrc/qg_update.cu``): columns of all n nodes a
+#: tile, leaves a launch (the leaf table, a kernel parameter, stays within
+#: 4 KB), int64 fields a leaf in the table and the most nodes (W and a
+#: tile's half step, 32 KB at 64 nodes, sit in shared memory)
+STEP_COLS = 64
+MAX_LEAVES = 48
+STEP_FIELDS = 8
+STEP_MAX_NODES = 64
 
 _P, _N, _F, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_int
 _SIGNATURES = {
@@ -40,13 +61,24 @@ _SIGNATURES = {
     "qg_fused_qg_buffer": [_P, _P, _P, _P, _P, _P, _N, _F, _F, _P],
     "qg_local_step": [_P, _P, _P, _P, _N, _F, _F, _I, _P],
     "qg_buffer_update": [_P, _P, _P, _P, _N, _F, _F, _F, _P],
+    "qg_step": [_P, _I, _N, _I, _P, _P, _P, _F, _F, _I, _I, _I, _F, _F, _P],
 }
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    """The typed library handle, built on the first CUDA launch."""
-    return _build.bind("qg_update", _SIGNATURES, "qg_error_string")
+    """The typed library handle, built on the first CUDA launch; raises
+    if ``qg_step``'s geometry is not the one ``qg_step_plan`` lays out."""
+    lib = _build.bind("qg_update", _SIGNATURES, "qg_error_string")
+    lib.qg_step_geometry.argtypes = [_P]
+    lib.qg_step_geometry.restype = None
+    geometry = (ctypes.c_int64 * 4)()
+    lib.qg_step_geometry(geometry)
+    want = (STEP_COLS, MAX_LEAVES, STEP_FIELDS, STEP_MAX_NODES)
+    if tuple(geometry) != want:
+        raise RuntimeError(f"qg_update: the kernel's qg_step geometry "
+                           f"{tuple(geometry)} is not the wrapper's {want}")
+    return lib
 
 
 def _run(kernel: str, fn: str, dev: torch.device, *args) -> None:
@@ -108,3 +140,108 @@ def qg_buffer_update(x_old, x_new, m_hat, *, eta: float, mu: float):
              x_old.data_ptr(), x_new.data_ptr(), m_hat.data_ptr(),
              out.data_ptr(), out.numel(), mu, 1.0 - mu, 1.0 / eta)
     return out
+
+
+# ---------------------------------------------------------------------------
+# qg_step: the dense-gossip step in one launch
+# ---------------------------------------------------------------------------
+
+def step_vec(f: int, addrs) -> bool:
+    """Whether a leaf of ``f`` columns whose streams begin at byte addresses
+    ``addrs`` runs on the float4 path: every row of every stream then
+    starts on 16 bytes.  Any other leaf takes the scalar loop."""
+    return f % 4 == 0 and all(a % 16 == 0 for a in addrs)
+
+
+def qg_step_plan(leaves) -> list[tuple[list[tuple[int, int, bool]], int]]:
+    """The launches of ``qg_step`` over ``leaves``, a list of ``(f,
+    addrs)`` (none empty): ``[(entries, tiles), ...]``, one per
+    ``MAX_LEAVES`` leaves, where ``entries`` lists ``(leaf index, first
+    tile, vec)`` and ``tiles`` counts the launch's tiles, ``ceil(f /
+    STEP_COLS)`` a leaf.  A block of the kernel finds its leaf by the first
+    tiles."""
+    launches = []
+    for start in range(0, len(leaves), MAX_LEAVES):
+        entries, tiles = [], 0
+        for i in range(start, min(start + MAX_LEAVES, len(leaves))):
+            f, addrs = leaves[i]
+            entries.append((i, tiles, step_vec(f, addrs)))
+            tiles += -(-f // STEP_COLS)
+        launches.append((entries, tiles))
+    return launches
+
+
+def _views(shapes, dev):
+    """One ``torch.empty`` buffer for the leaves of ``shapes`` and the
+    leaves as views of it, each starting on 16 bytes."""
+    offsets, total = [], 0
+    for s in shapes:
+        offsets.append(total)
+        total += -(-s.numel() // 4) * 4
+    buf = torch.empty(total, dtype=torch.float32, device=dev)
+    return [buf[o:o + s.numel()].view(s) for o, s in zip(offsets, shapes)]
+
+
+def qg_step(xs, ms, gs, w, eta, refresh=None, *, beta: float,
+            wd: float = 0.0, nesterov: bool = False, mu: float | None = None):
+    """``(x_new, m_out)``, lists of the leaves of one optimizer step on the
+    dense-gossip path: for each leaf [n, ...] of ``xs`` with its buffer
+    ``ms`` and gradient ``gs``, ``x_new = W @ half`` along the nodes, where
+    ``half`` is ``fused_halfstep``'s, and ``m_out`` the DSGDm buffer
+    ``beta*m + ge`` (``mu`` None) or, in the QG form (``m`` is m_hat),
+    ``fused_qg_buffer(x, x_new, m_hat, eta, refresh, mu=mu)``.  ``w`` is the
+    fp32 [n, n] mixing matrix, ``eta`` and ``refresh`` fp32 [1] tensors,
+    all on the leaves' CUDA device; n is at most ``STEP_MAX_NODES``."""
+    qg = mu is not None
+    if not len(xs) == len(ms) == len(gs):
+        raise ValueError(f"qg_step: {len(xs)} x, {len(ms)} m, {len(gs)} g "
+                         "leaves")
+    if qg and refresh is None:
+        raise ValueError("qg_step: the QG form (mu given) needs refresh")
+    scalars = {"eta": eta, **({"refresh": refresh} if qg else {})}
+    tensors = [*xs, *ms, *gs, w, *scalars.values()]
+    devices = {t.device for t in tensors if isinstance(t, torch.Tensor)}
+    if len(devices) > 1:
+        raise ValueError(f"qg_step: operands lie on several devices: "
+                         f"{sorted(map(str, devices))}")
+    if not xs:
+        return [], []
+    nodes = xs[0].shape[0] if xs[0].dim() else 0
+    if not 1 <= nodes <= STEP_MAX_NODES:
+        raise ValueError(f"qg_step: takes 1 to {STEP_MAX_NODES} nodes, got "
+                         f"{nodes} (leaf 0 has shape {tuple(xs[0].shape)})")
+    if not isinstance(w, torch.Tensor) or tuple(w.shape) != (nodes, nodes):
+        raise ValueError(f"qg_step: w must be [{nodes}, {nodes}], got "
+                         f"{getattr(w, 'shape', w)!r}")
+    for i, (x, m, g) in enumerate(zip(xs, ms, gs)):
+        if not x.shape == m.shape == g.shape or x.shape[:1] != (nodes,):
+            raise ValueError(f"qg_step: leaf {i} has x {tuple(x.shape)}, m "
+                             f"{tuple(m.shape)}, g {tuple(g.shape)}; want "
+                             f"one shape with {nodes} nodes first")
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.dtype != torch.float32:
+            raise TypeError(f"qg_step: every operand must be float32, got "
+                            f"{t.dtype}")
+    dev = _build.check_operands("qg_step", {"w": w}, scalars)
+    for x, m, g in zip(xs, ms, gs):
+        _build.check_operands("qg_step", {"x": x, "m": m, "g": g})
+    shapes = [x.shape for x in xs]
+    x_new, m_out = _views(shapes, dev), _views(shapes, dev)
+    live = [i for i, x in enumerate(xs) if x.numel()]
+    streams = [(xs[i], ms[i], gs[i], x_new[i], m_out[i]) for i in live]
+    plan = qg_step_plan([(xs[i].numel() // nodes,
+                          [t.data_ptr() for t in s])
+                         for i, s in zip(live, streams)])
+    for entries, tiles in plan:
+        fields = []
+        for j, tile0, vec in entries:
+            fields += [t.data_ptr() for t in streams[j]]
+            fields += [xs[live[j]].numel() // nodes, tile0, int(vec)]
+            STEP_PATHS["vector" if vec else "scalar"] += 1
+        _run("qg_step", "qg_step", dev,
+             (ctypes.c_int64 * len(fields))(*fields), len(entries), tiles,
+             nodes, w.data_ptr(), eta.data_ptr(),
+             refresh.data_ptr() if qg else None, beta, wd, int(nesterov),
+             int(bool(wd)), int(qg), mu if qg else 0.0,
+             1.0 - mu if qg else 0.0)
+    return x_new, m_out

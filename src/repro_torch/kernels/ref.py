@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 __all__ = ["qg_local_step", "qg_buffer_update", "fused_halfstep",
-           "fused_qg_buffer", "gamma_correct", "threshold_mask",
+           "fused_qg_buffer", "qg_step", "gamma_correct", "threshold_mask",
            "quantize_dequantize", "threshold_mask_group",
            "quantize_dequantize_group", "attn_scale", "flash_attention",
            "paged_decode_attention", "paged_decode_partials",
@@ -103,6 +103,28 @@ def fused_qg_buffer(x_pre, x_post, m_hat, eta, refresh, *, mu: float):
     d = s * (x_pre - x_post)
     new = mu * m_hat + (1.0 - mu) * d
     return torch.where(_scalar(refresh, x_pre) != 0.0, new, m_hat)
+
+
+def qg_step(xs, ms, gs, w, eta, refresh=None, *, beta: float,
+            wd: float = 0.0, nesterov: bool = False, mu: float | None = None):
+    """The dense-gossip step of ``qg_step`` as the stages compose it, leaf
+    by leaf: :func:`fused_halfstep`, the mix ``W @ half`` along the nodes
+    (fp32 W and leaves: the same product as ``core/gossip.py``'s
+    ``mix_leaf_dense``), then (QG form, ``mu`` given)
+    :func:`fused_qg_buffer`.  Returns ``(x_new, m_out)``,
+    lists of leaves: ``m_out`` is DSGDm's new buffer or QG's refreshed
+    m_hat.  (The kernel sums the mix in node order, this version as
+    ``torch.matmul`` does.)"""
+    x_new, m_out = [], []
+    for x, m, g in zip(xs, ms, gs):
+        half, mn = fused_halfstep(x, m, g, eta, beta=beta, wd=wd,
+                                  nesterov=nesterov)
+        mixed = torch.matmul(w, half.reshape(half.shape[0], -1)
+                             ).reshape(half.shape)
+        x_new.append(mixed)
+        m_out.append(mn if mu is None else
+                     fused_qg_buffer(x, mixed, m, eta, refresh, mu=mu))
+    return x_new, m_out
 
 
 def gamma_correct(x, mixed, anchor, *, gamma: float) -> torch.Tensor:

@@ -609,7 +609,7 @@ def test_cpu_dispatch_leaves_launch_counters_at_zero():
                   q[:, :, 1, :16], torch.ones(4), chunk=4)
     counts = tops.launch_counts()
     assert set(counts) == {"fused_halfstep", "fused_qg_buffer",
-                           "qg_local_step", "qg_buffer_update",
+                           "qg_local_step", "qg_buffer_update", "qg_step",
                            "gamma_correct", "threshold_mask",
                            "quantize_dequantize", "flash_attention",
                            "paged_decode_attention", "paged_decode_merge",
