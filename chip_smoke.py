@@ -26,7 +26,12 @@ line) if anything goes wrong:
             node order, both forms, every flag, 16 and 32 nodes, over the
             quickstart's leaves, a leaf of 1001 columns, views 1-4
             elements in, 49 leaves and two leaves of more tiles than the
-            card holds blocks, with its launches and paths checked.  Time kernel and plain
+            card holds blocks, with its launches and paths checked;
+            ``choco_exchange`` (the exchange half of a compressed round and
+            the QG refresh in one launch) likewise against
+            ``ref.choco_exchange`` and bit for bit against the node-order
+            composition, CHOCO and EF, QG (refresh 0 and 1) and DSGDm, over
+            the same trees.  Time kernel and plain
             version (CUDA graphs replayed between CUDA events, so device
             time without host dispatch; eager dispatch timed apart) at the
             main path's sizes and at ~2**27 elements; the row-wise kernels
@@ -36,7 +41,11 @@ line) if anything goes wrong:
             quickstart's tree and at STEP_LARGE beside ``ref.qg_step`` and
             the sequence it replaces (pack, ``fused_halfstep``, the
             products, pack, ``fused_qg_buffer``), with the device
-            activities of each.  The
+            activities of each; ``choco_exchange`` at the quickstart's tree
+            (three forms) and at EXCHANGE_LARGE beside
+            ``ref.choco_exchange`` and the sequence it replaces (the
+            replica advance, the products, pack, ``gamma_correct``, pack,
+            ``fused_qg_buffer``).  The
             two attention kernels against their plain versions in fp32 and
             bf16 (tolerance ATT_TOL): flash
             at the reference's ATTN_CASES, TinyLlama's [2,1024,32/4,64]
@@ -55,12 +64,13 @@ line) if anything goes wrong:
             ``repro_torch.api.run(spec, device="cuda")``, with the kernel
             launch counters zeroed just before and read just after each
             run (the quickstart pair: one ``qg_step`` launch a step; the
-            compressed runs: ``fused_halfstep`` and ``fused_qg_buffer``
-            around their own mix, and one row-wise launch a step: a
-            message's leaves go in one grouped call); rerun QG with
-            ``fused="off"``, top-k and EF with
-            ``comm.backend=jnp``, and QG and top-k on the CPU, and hold the
-            histories against each other;
+            compressed runs: ``fused_halfstep``, one row-wise launch (a
+            message's leaves go in one grouped call) and one
+            ``choco_exchange`` a step, ``fused_qg_buffer`` only in the
+            warm-start capture); rerun QG with ``fused="off"``, top-k and
+            EF through the two-kernel path with a node-order mix hook (bit
+            for bit) and with ``comm.backend=jnp``, and QG and top-k on the
+            CPU, and hold the histories against each other;
 4. profile  the QG and the top-k training loops under ``torch.profiler``:
             device time by kernel, host time by op;
 5. serve    slice 7's main path: ``python -m repro_torch.serve --arch
@@ -138,6 +148,19 @@ CPU_RTOL, CPU_ATOL, CPU_ACC_ATOL = 1e-3, 1e-5, 5e-3
 #: port's own 150-step top-k history by 5e-3 to 5e-2 relative
 #: (tests/test_torch_slice.py asserts both ends), so the bound is 5e-2
 CPU_TOPK_RTOL = 5e-2
+
+#: the compressed runs through the kernels (``comm.backend=auto``) against
+#: the same runs with ``comm.backend=jnp``, (steps, rtol): the kernel path
+#: sums the mix of the anchors in node order, the jnp path by cuBLAS.  Top-k
+#: moves an entry across the k-th magnitude on such a rounding difference,
+#: as it does between the card and the CPU (3.291e-03 measured on an H100):
+#: CPU_TOPK_RTOL over the run.  Sign+norm flips a sign on one, and the EF
+#: run is chaotic (a 1e-7 change of the init leaves the reference's own
+#: history within rounding for 12 steps only, tests/test_torch_slice.py;
+#: 3.402 relative by step 31 here): HIST_RTOL over its first 12 steps.  The
+#: same runs with the jnp path's mix summed in node order are held bit for
+#: bit over all 150.
+JNP_RTOL = {"topk": (150, CPU_TOPK_RTOL), "ef_signnorm": (12, HIST_RTOL)}
 
 #: the compressed runs: the JAX package's test acc, consensus and
 #: wire.ratio_vs_dense for these specs (JAX 0.9.0 on the CPU, 150 steps).
@@ -314,6 +337,7 @@ def phase_kernels(dev) -> dict:
         log(f"kernel {name}: {w['cases']} outputs match the plain version, "
             f"max {w['ulp']} ulp (+0 == -0), max abs err {w['abs']:.3e}")
     worst["qg_step"] = _qg_step_checks(dev, gen)
+    worst["choco_exchange"] = _exchange_checks(dev, gen)
     return worst
 
 
@@ -329,20 +353,33 @@ def _step_mixing(n, dev):
                            dtype=torch.float32).to(dev)
 
 
+def _node_order(w, x):
+    """``W @ x`` along the nodes of ``x`` [n, ...], summed as the kernels
+    sum it: in node order k = 0..n-1, one rounded product and one rounded
+    sum a term."""
+    h = x.reshape(x.shape[0], -1)
+    acc = w[:, :1] * h[:1]
+    for k in range(1, h.shape[0]):
+        acc = acc + w[:, k:k + 1] * h[k:k + 1]
+    return acc.reshape(x.shape)
+
+
+def _node_order_mix(w, tree):
+    """A mix hook (``mix_impl``) that mixes every leaf by ``_node_order``."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda x: _node_order(w, x), tree)
+
+
 def _node_order_step(xs, ms, gs, w, eta, refresh, *, beta, wd, nesterov,
                      mu):
-    """``ref.qg_step`` with the mix summed as the kernel sums it: in node
-    order k = 0..n-1, one rounded product and one rounded sum a term."""
+    """``ref.qg_step`` with the mix summed as the kernel sums it
+    (``_node_order``)."""
     from repro_torch.kernels import ref
     x_new, m_out = [], []
     for x, m, g in zip(xs, ms, gs):
         half, mn = ref.fused_halfstep(x, m, g, eta, beta=beta, wd=wd,
                                       nesterov=nesterov)
-        h = half.reshape(half.shape[0], -1)
-        acc = w[:, :1] * h[:1]
-        for k in range(1, h.shape[0]):
-            acc = acc + w[:, k:k + 1] * h[k:k + 1]
-        xn = acc.reshape(x.shape)
+        xn = _node_order(w, half)
         x_new.append(xn)
         m_out.append(mn if mu is None else
                      ref.fused_qg_buffer(x, xn, m, eta, refresh, mu=mu))
@@ -356,18 +393,19 @@ def _ulp_at(v):
     return torch.nextafter(a, torch.full_like(a, float("inf"))) - a
 
 
-def _step_trees(n, gen, dev):
-    """(label, xs, ms, gs, (launches, vector, scalar)) of the qg_step
-    checks at ``n`` nodes, with the launches and the leaves on each path
-    they must take: the quickstart MLP's four leaves and a leaf of 1001
-    columns (scalar loop); leaves viewed 1, 2, 3 and 4 elements into
-    larger buffers; 49 leaves (two launches); a leaf of 70001 columns and
-    one of 65540, 2119 tiles (each block takes several)."""
+def _step_trees(n, gen, dev, roles: int = 3):
+    """(label, *role lists, (launches, vector, scalar)) of the qg_step
+    (``roles`` 3: xs, ms, gs) and choco_exchange checks at ``n`` nodes,
+    with the launches and the leaves on each path they must take: the
+    quickstart MLP's four leaves and a leaf of 1001 columns (scalar loop);
+    leaves viewed 1, 2, 3 and 4 elements into larger buffers; 49 leaves
+    (two launches); a leaf of 70001 columns and one of 65540, 2119 tiles
+    (each block takes several)."""
     import torch
 
     def draw(shape):
         return [torch.randn(shape, generator=gen, device=dev)
-                for _ in range(3)]
+                for _ in range(roles)]
 
     qs = [draw((n, f)) for _, f in LEAF_SHAPES] + [draw((n, 1001))]
     yield ("quickstart + f=1001", *map(list, zip(*qs)), (1, 4, 1))
@@ -472,6 +510,158 @@ def _step_compare(case, got, plain, node_order, inputs, worst) -> None:
             worst["abs"] = max(worst["abs"], float(dx.max()))
             worst["m_abs"] = max(worst["m_abs"], float(dm.max()))
         worst["cases"] += 1
+
+
+# ---------------------------------------------------------------------------
+# choco_exchange: the exchange half of a compressed round in one launch
+# ---------------------------------------------------------------------------
+
+#: choco_exchange's forms, (label, CHOCO, mu, refresh, gamma): CHOCO (top-k's
+#: resolved gamma) and EF (sign+norm's), each QG with the refresh gate on
+#: and off, and DSGDm
+EXCHANGE_FORMS = [
+    (f"{mode} {form}", mode == "choco", mu, rf, gamma)
+    for mode, gamma in (("choco", 0.02002), ("ef", 0.3))
+    for form, mu, rf in (("qg refresh=1", 0.9, 1.0),
+                         ("qg refresh=0", 0.9, 0.0), ("dsgdm", None, 1.0))]
+#: choco_exchange's one-leaf timing shapes: odd rows (the scalar loop) and
+#: rows on 16 bytes (float4), CHOCO/QG form
+EXCHANGE_LARGE = [(16, 2 ** 23 + 5), (16, 2 ** 23 + 8)]
+
+
+def _exchange_args(roles, w, eta, choco, mu, rf, gamma):
+    """choco_exchange's operands from the role lists (half, q, x_hat,
+    x_pre, m_hat) in one form."""
+    half, q, x_hat, x_pre, m_hat = roles
+    kw = dict(gamma=gamma, x_hats=x_hat if choco else None)
+    if mu is not None:
+        kw.update(x_pres=x_pre, m_hats=m_hat, eta=eta,
+                  refresh=_full(rf, eta), mu=mu)
+    return (half, q, w), kw
+
+
+def _node_order_exchange(halves, qs, w, *, gamma, x_hats=None, x_pres=None,
+                         m_hats=None, eta=None, refresh=None, mu=None):
+    """``ref.choco_exchange`` with the mix summed as the kernel sums it
+    (``_node_order``)."""
+    from repro_torch.kernels import ref
+    x_out, anchors, m_out = [], [], []
+    for i, (half, q) in enumerate(zip(halves, qs)):
+        a = q if x_hats is None else x_hats[i] + q
+        xo = ref.gamma_correct(half, _node_order(w, a), a, gamma=gamma)
+        x_out.append(xo)
+        anchors.append(a)
+        if mu is not None:
+            m_out.append(ref.fused_qg_buffer(x_pres[i], xo, m_hats[i], eta,
+                                             refresh, mu=mu))
+    return (x_out, None if x_hats is None else anchors,
+            None if mu is None else m_out)
+
+
+def _exchange_checks(dev, gen) -> dict:
+    """``choco_exchange`` against ``ref.choco_exchange`` and bit for bit
+    against ``_node_order_exchange`` in every EXCHANGE_FORMS form at
+    STEP_NODES nodes over ``_step_trees``, each tree's launches and
+    float4/scalar leaves checked.  Against the plain version: the new
+    replicas bit-equal (no mix in them); x_out within gamma times the mix's
+    bound, STEP_ULP ulp at sum_k |W[i,k]| |a[k,j]|, plus 4 ulp at |half| +
+    gamma |mixed - a| (the correction's roundings: mixed - a, the product
+    with gamma, the sum with half, each of which may round a different
+    operand the other way); m_out as in ``_step_compare``.  Returns the
+    worst errors."""
+    import torch
+    from repro_torch.kernels import compress as C
+    from repro_torch.kernels import ref
+
+    eta = _full(0.1, torch.empty(0, device=dev))
+    worst = {"ulp": 0.0, "abs": 0.0, "m_abs": 0.0, "cases": 0}
+    for n in STEP_NODES:
+        w = _step_mixing(n, dev)
+        for label, *roles, want in _step_trees(n, gen, dev, roles=5):
+            for form, choco, mu, rf, gamma in EXCHANGE_FORMS:
+                case = f"n={n} {label} {form}"
+                args, kw = _exchange_args(roles, w, eta, choco, mu, rf, gamma)
+                before = (C.LAUNCHES["choco_exchange"],
+                          *C.EXCHANGE_PATHS.values())
+                got = C.choco_exchange(*args, **kw)
+                ran = tuple(a - b for a, b in zip(
+                    (C.LAUNCHES["choco_exchange"],
+                     *C.EXCHANGE_PATHS.values()), before))
+                if ran != want:
+                    raise AssertionError(f"choco_exchange {case}: (launches, "
+                                         f"vector, scalar) {ran}, want "
+                                         f"{want}")
+                _exchange_compare(case, got, ref.choco_exchange(*args, **kw),
+                                  _node_order_exchange(*args, **kw),
+                                  (roles[0], roles[1], roles[3], roles[4], w,
+                                   eta, kw),
+                                  worst)
+    torch.cuda.synchronize(dev)
+    log(f"kernel choco_exchange: {worst['cases']} leaves x (x_out, x_hat', "
+        f"m_hat' as the form has them) bit-equal to the node-order "
+        f"composition; against ref.choco_exchange x_hat' bit-equal, x_out "
+        f"within {worst['ulp']:.2f} of {STEP_ULP} (the bound's share, in "
+        f"ulp at sum|W||a|), max abs err {worst['abs']:.3e}, m_out max abs "
+        f"err {worst['m_abs']:.3e}")
+    return worst
+
+
+def _exchange_compare(case, got, plain, node_order, inputs, worst) -> None:
+    import torch
+    halves, qs, x_pres, m_hats, w, eta, kw = inputs
+    gamma, mu = kw["gamma"], kw.get("mu")
+    for role, g, p, o in zip(("x_out", "x_hat'", "m_hat'"), got, plain,
+                             node_order):
+        if (g is None) != (p is None) or (g is None) != (o is None):
+            raise AssertionError(f"choco_exchange {case}: {role} given by "
+                                 f"{[v is not None for v in (g, p, o)]}")
+        for i, (gl, pl, ol) in enumerate(zip(g or [], p or [], o or [])):
+            what = f"choco_exchange {case} leaf {i} {role}"
+            if gl.shape != pl.shape or not torch.isfinite(gl).all():
+                raise AssertionError(f"{what}: shape {tuple(gl.shape)} vs "
+                                     f"{tuple(pl.shape)} or non-finite")
+            ulp = _ulp_diff(gl, ol)
+            if ulp:
+                raise AssertionError(f"{what}: differs from the node-order "
+                                     f"composition by {ulp} ulp")
+    x_tols = []
+    for i, (gx, px) in enumerate(zip(got[0], plain[0])):
+        what = f"choco_exchange {case} leaf {i}"
+        if got[1] is not None and _ulp_diff(got[1][i], plain[1][i]):
+            raise AssertionError(f"{what}: x_hat' differs from the plain "
+                                 "version")
+        a = plain[1][i] if plain[1] is not None else qs[i]
+        n = a.shape[0]
+        flat = a.reshape(n, -1)
+        scale = (w.abs() @ flat.abs()).reshape(a.shape)
+        mixed = (w @ flat).reshape(a.shape)
+        x_tol = (gamma * STEP_ULP * _ulp_at(scale)
+                 + 4 * _ulp_at(halves[i].abs() + gamma * (mixed - a).abs()))
+        dx = (gx - px).abs()
+        if (dx > x_tol).any():
+            raise AssertionError(f"{what}: x_out off the plain version by "
+                                 f"{float((dx / x_tol).max()) * STEP_ULP:.2f}"
+                                 f" (allowed {STEP_ULP})")
+        if gx.numel():
+            worst["ulp"] = max(worst["ulp"],
+                               float((dx / x_tol).max()) * STEP_ULP)
+            worst["abs"] = max(worst["abs"], float(dx.max()))
+        x_tols.append(x_tol)
+        worst["cases"] += 1
+    if mu is None:
+        return
+    for i, (gm, pm) in enumerate(zip(got[2], plain[2])):
+        terms = (mu * m_hats[i].abs()
+                 + (1.0 - mu) * (x_pres[i] - plain[0][i]).abs() / eta)
+        m_tol = (1.0 - mu) / eta * x_tols[i] + 2 * _ulp_at(terms)
+        dm = (gm - pm).abs()
+        if (dm > m_tol).any():
+            raise AssertionError(f"choco_exchange {case} leaf {i}: m_hat' "
+                                 f"off the plain version by "
+                                 f"{float(dm.max()):.3e} (allowed the x "
+                                 "bound carried through the refresh)")
+        if gm.numel():
+            worst["m_abs"] = max(worst["m_abs"], float(dm.max()))
 
 
 def _topk_threshold(x2d):
@@ -775,6 +965,7 @@ def phase_timing(dev) -> dict:
                 f"{t['peel16_ms']:.6f} ms "
                 f"({t['peel16_ms'] / t['bound_ms']:.3f}x bound)")
     _time_step(dev, timed)
+    _time_exchange(dev, timed)
     return timed
 
 
@@ -877,21 +1068,123 @@ def _time_step(dev, timed) -> None:
         torch.cuda.empty_cache()
 
 
+def _replaced_exchange(choco, mu, trees, w, eta, gamma):
+    """The sequence ``choco_exchange`` replaces, as the chain ran it
+    before: the replica advance (CHOCO), ``mix_dense`` (one product a
+    leaf), ``_decompress`` (pack half, mixed and the anchors,
+    ``gamma_correct``), then (QG form) ``_apply_fused_qg_buffer`` (the
+    refresh gate, pack x_pre, x_out and m_hat, ``fused_qg_buffer``)."""
+    import torch
+    from repro_torch.comm import CompressedGossip, make_compressor
+    from repro_torch.core import gossip
+    from repro_torch.core import transforms as T
+    from repro_torch.tree import tree_map
+
+    half, q, x_hat, x_pre, m_hat = trees
+    comm = CompressedGossip(
+        compressor=make_compressor("topk:0.01", backend="pallas"),
+        error_feedback=not choco)
+    stage = T.qg_buffer(mu if mu is not None else 0.9)
+    ctx = T.StepCtx(w=w, lr=eta, t=torch.zeros((), dtype=torch.int32,
+                                                device=eta.device),
+                    mix_fn=gossip.mix_dense)
+
+    def run():
+        anchor = tree_map(torch.add, x_hat, q) if choco else q
+        out = comm._decompress(half, gossip.mix_dense(w, anchor), anchor,
+                               gamma)
+        if mu is not None:
+            sv = T.StepVars(grads=None, update=None, params=x_pre,
+                            params_pre_mix=x_pre, params_post_mix=out)
+            T._apply_fused_qg_buffer(ctx, sv, {stage.name: {"m_hat": m_hat}},
+                                     stage)
+    return run
+
+
+def _time_exchange(dev, timed) -> None:
+    """``choco_exchange`` beside ``ref.choco_exchange``, the sequence it
+    replaces (one CUDA graph each; the sequence also fills the refresh
+    gate, which the kernel's caller fills too) and its bound (its streams
+    over the memory rate): CHOCO/QG, EF/QG and CHOCO/DSGDm forms at the
+    quickstart's tree, with the device activities and the eager dispatch
+    of one call of each, and the CHOCO/QG form at EXCHANGE_LARGE."""
+    import torch
+    from repro_torch.kernels import compress as C
+    from repro_torch.kernels import ref
+
+    eta = _full(0.1, torch.empty(0, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    forms = {"choco_qg": (True, 0.9), "ef_qg": (False, 0.9),
+             "choco_dsgdm": (True, None)}
+    trees = [("quickstart", LEAF_SHAPES, 20, forms)] + [
+        (shape, [shape], 4, {"choco_qg": forms["choco_qg"]})
+        for shape in EXCHANGE_LARGE]
+    for key, shapes, iters, which in trees:
+        n = shapes[0][0]
+        w = _step_mixing(n, dev)
+        dicts = [{f"l{i}": torch.randn(s, generator=gen, device=dev)
+                  for i, s in enumerate(shapes)} for _ in range(5)]
+        roles = [list(d.values()) for d in dicts]
+        elems = sum(t.numel() for t in roles[0])
+        for form, (choco, mu) in which.items():
+            gamma = 0.02002 if choco else 0.3
+            args, kw = _exchange_args(roles, w, eta, choco, mu, 1.0, gamma)
+            kfn = lambda: C.choco_exchange(*args, **kw)
+            pfn = lambda: ref.choco_exchange(*args, **kw)
+            seq = _replaced_exchange(choco, mu, dicts, w, eta, gamma)
+            kms, pms = _time_ms(kfn, iters), _time_ms(pfn, iters)
+            sms = _time_ms(seq, iters)
+            qg = mu is not None
+            # half, q (, x_hat) (, x_pre, m_hat) in; x_out (, x_hat')
+            # (, m_hat') out; W and the scalars once
+            streams = 3 + 2 * choco + 3 * qg
+            nbytes = streams * elems * 4 + 4 * n * n + (8 if qg else 0)
+            flops = (choco + 2 * n - 1 + 3 + 5 * qg) * elems
+            bound, by = _bound(nbytes, flops)
+            row = {"size": key, "ms": kms, "plain_ms": pms,
+                   "replaced_ms": sms, "bound_ms": bound, "bound_by": by,
+                   "bytes": nbytes, "dispatch_ms": _dispatch_ms(kfn)}
+            if key == "quickstart":
+                row["activities"] = _device_activities(dev, kfn)
+                row["replaced_activities"] = _device_activities(dev, seq)
+                row["replaced_dispatch_ms"] = _dispatch_ms(seq)
+            timed[(f"choco_exchange[{form}]", key)] = row
+            log(f"time choco_exchange {form} size={key}: kernel {kms:.6f} ms "
+                f"({kms / bound:.3f}x bound), plain {pms:.6f} ms, replaced "
+                f"sequence {sms:.6f} ms ({sms / kms:.2f}x the kernel; CUDA "
+                f"graphs of {iters} calls), bound {bound:.6f} ms ({by}, "
+                f"{nbytes} B), {nbytes / kms / 1e6:.1f} GB/s, library: none; "
+                f"eager dispatch {row['dispatch_ms']:.6f} ms"
+                + (f" vs {row['replaced_dispatch_ms']:.6f} ms replaced; "
+                   f"device activities a call {row['activities']:.1f} vs "
+                   f"{row['replaced_activities']:.1f} replaced"
+                   if key == "quickstart" else ""))
+        del dicts, roles
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
 
-def _history_close(h_a, h_b, rtol, atol, what):
-    import numpy as np
+def _history_gap(h_a, h_b, what) -> float:
+    """The largest relative difference of loss, consensus and grad_norm
+    between two histories of one length."""
     if len(h_a) != len(h_b):
         raise AssertionError(f"{what}: {len(h_a)} vs {len(h_b)} history rows")
-    worst = 0.0
+    return max((abs(ra[k] - rb[k]) / max(abs(rb[k]), 1e-30)
+                for ra, rb in zip(h_a, h_b)
+                for k in ("loss", "consensus", "grad_norm")), default=0.0)
+
+
+def _history_close(h_a, h_b, rtol, atol, what):
+    import numpy as np
+    worst = _history_gap(h_a, h_b, what)
     for ra, rb in zip(h_a, h_b):
         for k in ("loss", "consensus", "grad_norm"):
             np.testing.assert_allclose(ra[k], rb[k], rtol=rtol, atol=atol,
                                        err_msg=f"{what}: step {ra['step']} "
                                                f"{k}")
-            worst = max(worst, abs(ra[k] - rb[k]) / max(abs(rb[k]), 1e-30))
     return worst
 
 
@@ -971,15 +1264,65 @@ def phase_main(dev) -> dict:
 
 
 #: launches of the warm-start capture (``comm/choco.py``): one zero-gradient
-#: step of the run's own chain, which on the card is one fused_halfstep and
-#: one fused_qg_buffer launch for QG-DSGDm-N
+#: step of the run's own chain through its capturing hook, which on the card
+#: is one fused_halfstep and one fused_qg_buffer launch for QG-DSGDm-N (the
+#: exchange kernel takes only a compressed round)
 CAPTURE_LAUNCHES = {"fused_halfstep": 1, "fused_qg_buffer": 1}
+
+
+def _run_built(spec, dev, node_order_hook=False):
+    """``(final state, history)`` of 150 steps of ``spec`` built by
+    ``api.build`` and trained as ``api.run`` trains it; with
+    ``node_order_hook`` the trainer's compressed rounds mix by
+    ``_node_order_mix``, which keeps them off the exchange kernel (the
+    two-kernel path: ``fused_halfstep``, the round with ``gamma_correct``,
+    ``fused_qg_buffer``)."""
+    import dataclasses
+    from repro_torch import api
+    from repro_torch.comm import CompressedGossip
+    from repro_torch.train import run_training_scanned
+
+    @dataclasses.dataclass(frozen=True)
+    class NodeOrderGossip(CompressedGossip):
+        def make_mix_fn(self, sites_in, sites_out, gen, gamma, mix_impl=None):
+            return super().make_mix_fn(sites_in, sites_out, gen, gamma,
+                                       mix_impl=_node_order_mix)
+
+    ex = api.build(spec, device=dev)
+    if node_order_hook:
+        c = ex.trainer.comm
+        ex.trainer.comm = NodeOrderGossip(
+            compressor=c.compressor, gamma=c.gamma,
+            error_feedback=c.error_feedback, warm_start=c.warm_start)
+    return run_training_scanned(ex.trainer, ex.state, ex.task.make_iter(),
+                                150, chunk=spec.loop.chunk, log_every=1,
+                                log_fn=lambda *_: None)
+
+
+def _states_equal(what, a, b) -> int:
+    """Raise unless the TrainStates ``a`` and ``b`` hold equal tensors;
+    returns how many were compared."""
+    import torch
+    from repro_torch.tree import tree_leaves
+
+    def tensors(s):  # comm_state is a list of per-site trees
+        return [*tree_leaves(s.params), *tree_leaves(s.opt_state),
+                *(t for site in s.comm_state for t in tree_leaves(site))]
+
+    pairs = list(zip(tensors(a), tensors(b), strict=True))
+    for x, y in pairs:
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: final states differ by "
+                                 f"{float((x - y).abs().max()):.3e}")
+    return len(pairs)
 
 
 def phase_compressed(dev) -> dict:
     """The three compressed-gossip runs through the kernels
     (``comm.backend=auto``), each with exact launch counts; top-k and EF
-    rerun with ``comm.backend=jnp`` on the card, top-k rerun on the CPU."""
+    against the same runs through the two-kernel path with a node-order
+    mix hook (bit for bit) and rerun with ``comm.backend=jnp`` on the card,
+    top-k rerun on the CPU."""
     import numpy as np
     from repro_torch import api
     from repro_torch.kernels import ops
@@ -988,9 +1331,11 @@ def phase_compressed(dev) -> dict:
     api.run(api.presets.get("choco_topk0.01_ring16_qg").override(
         "loop.steps=25", "comm.backend=auto"), device=dev, log_fn=quiet)
     per_step = {  # launches per step of each run, by kernel
-        "topk": {"threshold_mask": 1, "gamma_correct": 1},
-        "ef_signnorm": {"gamma_correct": 1},
-        "qsgd": {"quantize_dequantize": 1, "gamma_correct": 1}}
+        "topk": {"fused_halfstep": 1, "threshold_mask": 1,
+                 "choco_exchange": 1},
+        "ef_signnorm": {"fused_halfstep": 1, "choco_exchange": 1},
+        "qsgd": {"fused_halfstep": 1, "quantize_dequantize": 1,
+                 "choco_exchange": 1}}
     specs, results, launches = {}, {}, {}
     for label, (preset, overrides, ref_acc, ref_cons, ref_ratio) in \
             COMPRESSED.items():
@@ -1000,8 +1345,8 @@ def phase_compressed(dev) -> dict:
         res = api.run(spec, device=dev, log_fn=quiet)
         counts = ops.launch_counts()
         want = {k: 150 * v for k, v in per_step[label].items()}
-        want["fused_halfstep"] = 150 + CAPTURE_LAUNCHES["fused_halfstep"]
-        want["fused_qg_buffer"] = 150 + CAPTURE_LAUNCHES["fused_qg_buffer"]
+        for k, v in CAPTURE_LAUNCHES.items():
+            want[k] = want.get(k, 0) + v
         _expect_launches(label, counts, want)
         specs[label], results[label], launches[label] = spec, res, counts
         losses = [r["loss"] for r in res.history]
@@ -1023,19 +1368,52 @@ def phase_compressed(dev) -> dict:
             f"{ref_cons:.3e}), wire.ratio_vs_dense {ratio:.4f} (reference "
             f"{ref_ratio:.4f}), launches {counts}")
 
-    # the same runs on the leaf-by-leaf path: the same arithmetic
+    # the exchange kernel against the two-kernel path with the mix summed
+    # in node order, as the kernel sums it: the same arithmetic in the same
+    # order, so bit for bit
     for label in ("topk", "ef_signnorm"):
         ops.reset_launch_counts()
-        jnp = api.run(specs[label].override("comm.backend=jnp"), device=dev,
-                      log_fn=quiet)
+        fused, h_fused = _run_built(specs[label], dev)
+        counts = ops.launch_counts()
+        ops.reset_launch_counts()
+        two, h_two = _run_built(specs[label], dev, node_order_hook=True)
+        two_counts = ops.launch_counts()
+        if counts["choco_exchange"] != 150 or two_counts["choco_exchange"] \
+                or two_counts["gamma_correct"] != 150:
+            raise AssertionError(f"{label} exchange vs two-kernel path: "
+                                 f"launches {counts} and {two_counts}")
+        rel = _history_close(h_fused, h_two, 0.0, 0.0,
+                             f"{label} exchange vs two-kernel path")
+        tensors = _states_equal(f"{label} exchange vs two-kernel path",
+                                fused, two)
+        log(f"main {label} exchange kernel vs the two-kernel path with a "
+            f"node-order mix hook on the card: 150 steps bit-equal (max rel "
+            f"diff {rel:.3e}), {tensors} tensors of the final state equal")
+
+    # the same runs on the leaf-by-leaf path: the same arithmetic, with
+    # the mix summed in node order bit for bit; with it summed by cuBLAS
+    # (the presets' own path) within JNP_RTOL
+    for label in ("topk", "ef_signnorm"):
+        spec = specs[label].override("comm.backend=jnp")
+        ops.reset_launch_counts()
+        _, h_jnp = _run_built(spec, dev, node_order_hook=True)
         _expect_launches(f"{label} comm.backend=jnp", ops.launch_counts(), {
             "fused_halfstep": 151, "fused_qg_buffer": 151})
-        rel = _history_close(results[label].history, jnp.history, HIST_RTOL,
-                             HIST_ATOL, f"{label} kernels vs jnp")
-        log(f"main {label} kernels vs comm.backend=jnp on the card: 150 "
-            f"steps agree, max rel diff {rel:.3e} (rtol {HIST_RTOL}); jnp "
-            f"{jnp.wall_time_s / 150 * 1e3:.4f} ms/step, test acc "
+        _history_close(results[label].history, h_jnp, 0.0, 0.0,
+                       f"{label} kernels vs jnp, node-order mix")
+        ops.reset_launch_counts()
+        jnp = api.run(spec, device=dev, log_fn=quiet)
+        _expect_launches(f"{label} comm.backend=jnp", ops.launch_counts(), {
+            "fused_halfstep": 151, "fused_qg_buffer": 151})
+        steps, rtol = JNP_RTOL[label]
+        gap = _history_gap(results[label].history, jnp.history, label)
+        log(f"main {label} kernels vs comm.backend=jnp on the card: with the "
+            f"node-order mix 150 steps bit-equal; with cuBLAS's max rel diff "
+            f"{gap:.3e} over 150 steps, held to rtol {rtol} over {steps}; "
+            f"jnp {jnp.wall_time_s / 150 * 1e3:.4f} ms/step, test acc "
             f"{jnp.final['acc']:.4f}")
+        _history_close(results[label].history[:steps], jnp.history[:steps],
+                       rtol, HIST_ATOL, f"{label} kernels vs jnp")
 
     # top-k on the CPU, through the kernels' plain versions
     topk = results["topk"]
@@ -1090,7 +1468,8 @@ def phase_profile(dev, label: str, spec) -> None:
         f"activities ({launches / 150:.1f} per step)")
     # the kernels of csrc/ (templates of csrc/elementwise.cuh)
     ours = [r for r in dev_rows
-            if any(k in r[0] for k in ("stream3", "rowwise", "qg_step"))]
+            if any(k in r[0] for k in ("stream3", "rowwise", "qg_step",
+                                       "choco_exchange"))]
     for key, ms, count in dev_rows[:10] + [r for r in ours
                                            if r not in dev_rows[:10]]:
         log(f"profile {label} device {ms:10.4f} ms {count:6d}x "
@@ -2244,7 +2623,7 @@ def main() -> int:
                                 "compress.cu", "group")}
     runs = {**main_out["launches"], **comp_out["launches"]}
     main_launches = {k: sum(c[k] for c in runs.values())
-                     for k in (*sources, "qg_step")}
+                     for k in (*sources, "qg_step", "choco_exchange")}
     kernels = []
     for name, (replaces, src, size) in sources.items():
         t = timed[(name, size)]
@@ -2261,6 +2640,17 @@ def main() -> int:
                     "src/repro/kernels/qg_update.py:133 fused_qg_buffer",
         "launches": main_launches["qg_step"],
         "max_abs_err": worst["qg_step"]["abs"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None,
+        "replaced_ms": t["replaced_ms"]})
+    t = timed[("choco_exchange[choco_qg]", "quickstart")]
+    kernels.append({
+        "name": "choco_exchange", "route": "cuda",
+        "source": csrc + "compress.cu",
+        "replaces": "src/repro/kernels/compress.py:115 gamma_correct + "
+                    "src/repro/kernels/qg_update.py:133 fused_qg_buffer",
+        "launches": main_launches["choco_exchange"],
+        "max_abs_err": worst["choco_exchange"]["abs"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
         "replaced_ms": t["replaced_ms"]})

@@ -19,9 +19,15 @@ exchange instead (see :meth:`CompressedGossip.mix_site`).
 ``capture_mix_targets`` discovers the call sites once at init: one
 zero-gradient step whose mix hook records each site's tree, which is both
 the site count and each site's warm start.  The trainer threads a list of
-per-site states through its step: the closure installed as ``mix_fn`` pops
-site i's state on the i-th call and deposits the new one.
+per-site states through its step: the :class:`CompressedMix` installed as
+``mix_fn`` pops site i's state on the i-th call and deposits the new one.
 ``count_mix_sites`` counts the sites without arithmetic (meta tensors).
+
+On the kernel path (``core/transforms.py``'s ``_match_exchange``) a round
+on the dense mix does not go through the call: the fused chain takes the
+compress half (:meth:`CompressedMix.compress`) and then runs the rest of
+the round, and the QG refresh after it, in one ``choco_exchange`` launch
+(:meth:`CompressedMix.exchange`).
 
 Random draws (random-k, QSGD) come from one ``torch.Generator`` on the
 tensors' device, site after site and leaf after leaf, where the reference
@@ -38,15 +44,16 @@ from repro_torch.core import gossip
 from repro_torch.kernels import ops
 from repro_torch.kernels import pack as _kp
 from repro_torch.kernels import ref
-from repro_torch.tree import tree_leaves, tree_map, tree_paths
+from repro_torch.tree import tree_leaves, tree_map, tree_paths, \
+    tree_unflatten
 
 from . import error_feedback as ef
 from .compressors import Compressor, Identity, make_compressor, tree_wire_bits
 
 Tree = Any
 
-__all__ = ["CompressedGossip", "capture_mix_targets", "count_mix_sites",
-           "make_comm"]
+__all__ = ["CompressedGossip", "CompressedMix", "capture_mix_targets",
+           "count_mix_sites", "make_comm"]
 
 
 def count_mix_sites(optimizer, params: Tree, w, *, lr: float = 0.1) -> int:
@@ -189,24 +196,81 @@ class CompressedGossip:
 
     # -- trainer hook --------------------------------------------------------
     def make_mix_fn(self, sites_in: list[dict], sites_out: list[dict], gen,
-                    gamma: float, mix_impl=None):
-        """Closure implementing the ``mix_fn`` signature.  The i-th call
-        consumes ``sites_in[i]`` and writes ``sites_out[i]``."""
-        counter = [0]
+                    gamma: float, mix_impl=None) -> "CompressedMix":
+        """The ``mix_fn`` hook of one step.  The i-th call consumes
+        ``sites_in[i]`` and writes ``sites_out[i]``."""
+        return CompressedMix(self, sites_in, sites_out, gen, gamma, mix_impl)
 
-        def comm_mix(w, tree):
-            i = counter[0]
-            counter[0] += 1
-            if i >= len(sites_in):
-                raise RuntimeError(
-                    f"optimizer made {i + 1} mix calls but comm state has "
-                    f"{len(sites_in)} sites: re-init the trainer state")
-            out, new_site = self.mix_site(w, tree, sites_in[i], gen=gen,
-                                          gamma=gamma, mix_impl=mix_impl)
-            sites_out[i] = new_site
-            return out
 
-        return comm_mix
+@dataclasses.dataclass
+class CompressedMix:
+    """The ``mix_fn`` hook of one step's compressed rounds: calling it runs
+    the next site's round (:meth:`CompressedGossip.mix_site`) and records
+    the site's new state in ``sites_out``.  ``compress`` and ``exchange``
+    split that round for the fused chain, which runs its exchange half in
+    one ``choco_exchange`` launch."""
+
+    comm: CompressedGossip
+    sites_in: list[dict]
+    sites_out: list[dict]
+    gen: Any
+    gamma: float
+    mix_impl: Any = None
+    calls: int = 0
+
+    def _next_site(self) -> int:
+        i = self.calls
+        self.calls += 1
+        if i >= len(self.sites_in):
+            raise RuntimeError(
+                f"optimizer made {i + 1} mix calls but comm state has "
+                f"{len(self.sites_in)} sites: re-init the trainer state")
+        return i
+
+    def __call__(self, w, tree: Tree) -> Tree:
+        i = self._next_site()
+        out, self.sites_out[i] = self.comm.mix_site(
+            w, tree, self.sites_in[i], gen=self.gen, gamma=self.gamma,
+            mix_impl=self.mix_impl)
+        return out
+
+    def compress(self, tree: Tree) -> tuple[int, Tree]:
+        """The compress half of the next site's round on ``tree``: ``(i,
+        q)``, the site's index and its message, ``ef21_innovation``'s
+        ``C(tree - x_hat)`` (CHOCO) or ``ef_compress``'s ``C(tree + e)``
+        (EF, whose new residual goes to ``sites_out[i]`` here).  It takes
+        the site as a call would."""
+        i = self._next_site()
+        site = self.sites_in[i]
+        if self.comm.error_feedback:
+            q, residual = ef.ef_compress(self.comm.compressor, self.gen, tree,
+                                         site["residual"])
+            self.sites_out[i] = {"residual": residual}
+            return i, q
+        return i, ef.ef21_innovation(self.comm.compressor, self.gen, tree,
+                                     site["x_hat"])
+
+    def exchange(self, w, half: Tree, *, x_pre=None, m_hat=None, eta=None,
+                 refresh=None, mu: float | None = None):
+        """The next site's round on ``half`` with the dense mix, followed,
+        ``mu`` given, by the QG refresh of ``m_hat`` from ``x_pre`` and the
+        round's output: the compress half, then ``ops.choco_exchange`` (one
+        launch on CUDA tensors), which also gives the site its new replicas
+        (CHOCO).  Returns ``(x_out, m_hat_new or None)``."""
+        i, q = self.compress(half)
+        paths, leaves = tree_paths(half), tree_leaves
+        x_hat = (None if self.comm.error_feedback
+                 else leaves(self.sites_in[i]["x_hat"]))
+        qg = {} if mu is None else dict(
+            x_pres=leaves(x_pre), m_hats=leaves(m_hat), eta=eta,
+            refresh=refresh, mu=mu)
+        x_out, x_hat_new, m_out = ops.choco_exchange(
+            leaves(half), leaves(q), w, gamma=float(self.gamma),
+            x_hats=x_hat, **qg)
+        if x_hat_new is not None:
+            self.sites_out[i] = {"x_hat": tree_unflatten(paths, x_hat_new)}
+        return (tree_unflatten(paths, x_out),
+                None if m_out is None else tree_unflatten(paths, m_out))
 
 
 def make_comm(spec: str, *, gamma: float | None = None,

@@ -26,7 +26,7 @@ from .compressors import Compressor
 
 Tree = Any
 
-__all__ = ["init_residual", "ef_compress", "ef21_update"]
+__all__ = ["init_residual", "ef_compress", "ef21_innovation", "ef21_update"]
 
 
 def init_residual(tree: Tree) -> Tree:
@@ -42,10 +42,17 @@ def ef_compress(compressor: Compressor, gen, value: Tree, residual: Tree, *,
     return compressor.compress_with_residual(gen, corrected, noise=noise)
 
 
+def ef21_innovation(compressor: Compressor, gen, target: Tree,
+                    estimate: Tree, *, noise=None) -> Tree:
+    """The message of one EF21 round, q = C_contractive(target -
+    estimate)."""
+    diff = tree_map(torch.subtract, target, estimate)
+    return compressor.contractive_compress(gen, diff, noise=noise)
+
+
 def ef21_update(compressor: Compressor, gen, target: Tree, estimate: Tree, *,
                 noise=None) -> tuple[Tree, Tree]:
     """One EF21 round: ship q = C_contractive(target - estimate) and advance
     the estimate.  Returns (new_estimate, q)."""
-    diff = tree_map(torch.subtract, target, estimate)
-    q = compressor.contractive_compress(gen, diff, noise=noise)
+    q = ef21_innovation(compressor, gen, target, estimate, noise=noise)
     return tree_map(torch.add, estimate, q), q

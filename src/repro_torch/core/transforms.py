@@ -16,7 +16,8 @@ and ``qg_buffer``, the chain runner, the fused dispatcher and the analytic
 bytes-moved model.  The other stages of the reference come with slice 2.
 
 ``chain_apply(fused=...)`` routes the segments it recognises through the
-kernels (the dense-gossip step through one ``qg_step`` launch, other
+kernels (the dense-gossip step through one ``qg_step`` launch, the exchange
+of a compressed round through one ``choco_exchange`` launch, other
 segments through the packed one-pass kernels): ``'kernel'`` always (CPU
 tensors then take the kernels' plain versions, see ``kernels/ops.py``),
 ``'off'`` never, and
@@ -30,6 +31,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.comm.choco import CompressedMix
 from repro_torch.kernels import ops
 from repro_torch.kernels import pack as _kp
 from repro_torch.kernels import qg_update as _kqg
@@ -281,12 +283,16 @@ def qg_buffer(mu: float, *, tau: int = 1, name: str = "qg_buffer") -> Stage:
 # (the pre-mix one, and the qg_buffer that seeds its heavyball, if any) is
 # one ``qg_step`` launch instead, with the mix inside the kernel and
 # nothing packed (``_match_step`` decides, from the chain and n alone).
-# Compressed rounds (CHOCO, EF), the warm-start capture and any other mix
-# hook keep the two-kernel path.  Segments that match neither run unfused:
-# the same stages, just more passes.  A matched segment that cannot take
-# its kernel (non-fp32 leaves, params rewritten by an earlier stage) runs
-# unfused only on CPU tensors; on a device it raises, so a kernel is never
-# silently replaced by its plain version.
+# Where ``ctx.mix_fn`` is a compressed round (``comm/choco.py``'s
+# ``CompressedMix``) on the dense mix with the kernel compressors, the
+# segment runs ``fused_halfstep``, the round's compress half, then the rest
+# of the round and the ``qg_buffer`` after it in one ``choco_exchange``
+# launch (``_match_exchange``).  The warm-start capture, any other mix hook
+# and more nodes keep the two-kernel path.  Segments that match none of
+# these run unfused: the same stages, just more passes.  A matched segment
+# that cannot take its kernel (non-fp32 leaves, params rewritten by an
+# earlier stage) runs unfused only on CPU tensors; on a device it raises, so
+# a kernel is never silently replaced by its plain version.
 
 #: stage kinds that may follow a fused gossip_mix: they read only
 #: params_pre_mix/params_post_mix and their own state, never sv.update or
@@ -336,16 +342,12 @@ def _match_halfstep(stages: tuple[Stage, ...], i: int):
     return wd, hb, j - i
 
 
-def _match_step(stages: tuple[Stage, ...], i: int, mix_fn, n: int):
-    """Match the segment one ``qg_step`` launch takes at ``stages[i:]``:
-    ``[weight_decay?] heavyball gossip_mix``, ending the chain (DSGDm) or
-    followed only by the ``qg_buffer`` that seeds the heavyball (QG), with
-    ``mix_fn`` the dense mix and ``n <= STEP_MAX_NODES`` nodes.  Returns
-    (wd, heavyball_stage, qg_buffer_stage or None, n_consumed) or None, in
-    which case the segment takes ``fused_halfstep``, ``mix_fn`` and
-    ``fused_qg_buffer``."""
-    if mix_fn is not gossip.mix_dense or n > _kqg.STEP_MAX_NODES:
-        return None
+def _match_segment(stages: tuple[Stage, ...], i: int):
+    """Match ``[weight_decay?] heavyball gossip_mix`` at ``stages[i:]``,
+    ending the chain (DSGDm) or followed only by the ``qg_buffer`` that
+    seeds the heavyball (QG): the segment one ``qg_step`` or
+    ``choco_exchange`` launch takes.  Returns (wd, heavyball_stage,
+    qg_buffer_stage or None, n_consumed) or None."""
     seg = _match_halfstep(stages, i)
     if seg is None:
         return None
@@ -358,6 +360,30 @@ def _match_step(stages: tuple[Stage, ...], i: int, mix_fn, n: int):
             and _meta_kind(rest[0]) == "qg_buffer"):
         return wd, hb, rest[0], consumed + 1
     return None
+
+
+def _match_step(stages: tuple[Stage, ...], i: int, mix_fn, n: int):
+    """:func:`_match_segment` where ``mix_fn`` is the dense mix and ``n <=
+    STEP_MAX_NODES``: the segment one ``qg_step`` launch takes.  Else None,
+    and the segment takes ``fused_halfstep``, ``mix_fn`` and
+    ``fused_qg_buffer``."""
+    if mix_fn is not gossip.mix_dense or n > _kqg.STEP_MAX_NODES:
+        return None
+    return _match_segment(stages, i)
+
+
+def _match_exchange(stages: tuple[Stage, ...], i: int, mix_fn, n: int):
+    """:func:`_match_segment` where ``mix_fn`` is a compressed round
+    (``CompressedMix``) with the kernel compressors (backend 'pallas') on
+    the dense mix (``mix_impl`` None or ``gossip.mix_dense``) and ``n <=
+    STEP_MAX_NODES``: the segment that takes ``fused_halfstep``, the
+    round's compress half and one ``choco_exchange`` launch.  Else None."""
+    if (not isinstance(mix_fn, CompressedMix)
+            or mix_fn.comm.compressor.backend != "pallas"
+            or mix_fn.mix_impl not in (None, gossip.mix_dense)
+            or n > _kqg.STEP_MAX_NODES):
+        return None
+    return _match_segment(stages, i)
 
 
 def _apply_qg_step(ctx, sv, states, wd, hb, qg, m_prev):
@@ -378,9 +404,10 @@ def _apply_qg_step(ctx, sv, states, wd, hb, qg, m_prev):
     return sv.replace(params=mixed, params_post_mix=mixed), states
 
 
-def _apply_fused_halfstep(ctx, sv, states, wd, hb, m_prev):
-    """weight_decay + heavyball + the gossip half step in one packed pass;
-    then the gossip exchange on the unpacked tree (views, no copy)."""
+def _halfstep(ctx, sv, states, wd, hb, m_prev):
+    """weight_decay + heavyball + the gossip half step in one packed pass:
+    ``(half, states)``, the half step unpacked (views, no copy) and, for
+    stateful momentum, the new buffer in ``states``."""
     hbm = hb.meta
     spec = _kp.plan_pack(sv.params)
     x = _kp.pack(spec, sv.params)
@@ -394,7 +421,27 @@ def _apply_fused_halfstep(ctx, sv, states, wd, hb, m_prev):
         states = {**states, hb.name: {"m": _kp.unpack(spec, m_buf)}}
     else:
         half_buf = out  # seeded momentum: the local buffer is discarded
-    mixed = ctx.mix_fn(ctx.w, _kp.unpack(spec, half_buf))
+    return _kp.unpack(spec, half_buf), states
+
+
+def _apply_fused_halfstep(ctx, sv, states, wd, hb, m_prev):
+    """:func:`_halfstep`, then the gossip exchange on the unpacked tree."""
+    half, states = _halfstep(ctx, sv, states, wd, hb, m_prev)
+    mixed = ctx.mix_fn(ctx.w, half)
+    return sv.replace(params=mixed, params_post_mix=mixed), states
+
+
+def _apply_exchange(ctx, sv, states, wd, hb, qg, m_prev):
+    """:func:`_halfstep`, then the compressed round on it (and the QG
+    refresh of ``qg``) through ``ctx.mix_fn.exchange``: the compress half
+    and one ``choco_exchange`` launch."""
+    half, states = _halfstep(ctx, sv, states, wd, hb, m_prev)
+    qg_kw = {} if qg is None else dict(
+        x_pre=sv.params_pre_mix, m_hat=m_prev, eta=ctx.lr,
+        refresh=_refresh_gate(ctx.t, qg.meta["tau"]), mu=qg.meta["mu"])
+    mixed, m_new = ctx.mix_fn.exchange(ctx.w, half, **qg_kw)
+    if qg is not None:
+        states = {**states, qg.name: {"m_hat": m_new}}
     return sv.replace(params=mixed, params_post_mix=mixed), states
 
 
@@ -416,6 +463,7 @@ def _chain_apply_fused(stages, ctx, sv, states):
     while i < len(stages):
         s = stages[i]
         step = _match_step(stages, i, ctx.mix_fn, n)
+        exchange = _match_exchange(stages, i, ctx.mix_fn, n)
         seg = _match_halfstep(stages, i)
         if seg is not None:
             wd, hb, consumed = seg
@@ -433,6 +481,11 @@ def _chain_apply_fused(stages, ctx, sv, states):
                 sv, states = _apply_qg_step(ctx, sv, states, wd, hb,
                                             step[2], m_prev)
                 i += step[3]
+                continue
+            if why is None and exchange is not None:
+                sv, states = _apply_exchange(ctx, sv, states, wd, hb,
+                                             exchange[2], m_prev)
+                i += exchange[3]
                 continue
             if why is None:
                 sv, states = _apply_fused_halfstep(

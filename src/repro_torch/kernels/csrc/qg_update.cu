@@ -66,12 +66,11 @@
 // mix and about 13 of the two elementwise passes.
 // The leaves of a tree go in one launch (up to kMaxLeaves, a table passed
 // by value as in elementwise.cuh's rowwise_group), so nothing is packed.
-// A leaf whose f is a multiple of 4 with every stream 16-byte aligned runs
-// on float4 (4 contiguous columns a thread); any other on a scalar loop of
-// the same kernel (4 columns a quarter tile apart a thread, so that a
-// warp's loads stay coalesced).
+// The tiles, the loads and stores (float4 or the scalar loop) and the mix
+// are node_mix.cuh's, shared with compress.cu's choco_exchange; so is the
+// QG refresh, QgBuffer.
 
-#include "elementwise.cuh"
+#include "node_mix.cuh"
 
 namespace {
 
@@ -93,31 +92,6 @@ struct Halfstep {
   };
   __device__ __forceinline__ Bound bind() const {
     return {-__ldg(eta), beta, wd, nesterov, has_wd};
-  }
-};
-
-struct QgBuffer {
-  const float* eta;      // fp32 [1]
-  const float* refresh;  // fp32 [1]: write the new buffer iff != 0
-  float mu, one_minus_mu;
-
-  struct Bound {
-    float s, mu, one_minus_mu;
-    bool on;
-    __device__ __forceinline__ void operator()(float x_pre, float x_post,
-                                               float m, float& out,
-                                               float&) const {
-      if (!on) {
-        out = m;
-        return;
-      }
-      const float d = __fmul_rn(s, __fsub_rn(x_pre, x_post));
-      out = __fadd_rn(__fmul_rn(mu, m), __fmul_rn(one_minus_mu, d));
-    }
-  };
-  __device__ __forceinline__ Bound bind() const {
-    return {__fdiv_rn(1.0f, __ldg(eta)), mu, one_minus_mu,
-            __ldg(refresh) != 0.0f};
   }
 };
 
@@ -149,20 +123,11 @@ struct BufferUpdate {
 };
 
 // ---------------------------------------------------------------------------
-// qg_step: the half step, the dense mix and the QG refresh in one launch.
-//
-// A block takes a tile of C columns of all n rows (nodes) of one leaf at a
-// time.  Its threads are C/4 column groups (4 columns each) by ceil(n / R)
-// row groups of R consecutive rows: each thread mixes R rows of its 4
-// columns, so one read of a half-step row from shared memory serves R
-// outputs, and W is kept transposed there, so the R weights of a term are
-// one vector read.  R is 2 up to 16 nodes and 4 above.  C is 64, so that
-// the small trees of the presets give a block to every SM (the quickstart
-// MLP: 214 tiles); the wrapper lays the tiles out.
+// qg_step: the half step, the dense mix and the QG refresh in one launch,
+// over column tiles of all n nodes (node_mix.cuh).  C is 64, so that the
+// small trees of the presets give a block to every SM (the quickstart MLP:
+// 214 tiles).
 
-constexpr int kStepCols = 64;                   // C: columns of a tile
-constexpr int kStepMaxNodes = 64;               // W and a tile in smem
-constexpr int kStepMaxThreads = 256;
 constexpr int kStepFields = 8;                  // int64 a leaf in the table
 
 struct StepLeaf {
@@ -183,104 +148,6 @@ struct StepGroup {
 };
 static_assert(sizeof(StepGroup) <= 3500, "the leaf table outgrows 4 KB");
 
-// Column e (0..3) of 4-column group q in a tile: contiguous on the float4
-// path; a quarter tile apart on the scalar loop, so that neighbouring
-// threads load neighbouring floats.
-__device__ __forceinline__ int step_col(bool vec, int q, int e) {
-  return vec ? 4 * q + e : q + kStepCols / 4 * e;
-}
-
-__device__ __forceinline__ float& lane(float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-// Rows a thread mixes, the row stride of W^T in shared memory (n padded
-// to R), threads a block (whole warps) and shared memory of a block: W^T
-// [n][stride] (padded to 16 bytes), then the half step of a tile
-// [n][kStepCols].
-__host__ __device__ __forceinline__ int step_rows(int nodes) {
-  return nodes <= 16 ? 2 : 4;
-}
-__host__ __device__ __forceinline__ int step_stride(int nodes, int r) {
-  return (nodes + r - 1) / r * r;
-}
-__host__ __device__ __forceinline__ int step_wt_floats(int nodes, int r) {
-  return (nodes * step_stride(nodes, r) + 3) & ~3;
-}
-inline int step_threads(int nodes, int r) {
-  return ((nodes + r - 1) / r * (kStepCols / 4) + 31) / 32 * 32;
-}
-inline size_t step_smem(int nodes, int r) {
-  return sizeof(float) * (step_wt_floats(nodes, r) + nodes * kStepCols);
-}
-
-template <int R>
-__device__ __forceinline__ void load_weights(const float* p, float (&w)[R]) {
-  if constexpr (R == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    w[0] = v.x;
-    w[1] = v.y;
-  } else {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    w[0] = v.x;
-    w[1] = v.y;
-    w[2] = v.z;
-    w[3] = v.w;
-  }
-}
-
-// The leaf of tile t (the last whose first tile <= t) and the tile's first
-// column in it.
-struct StepTile {
-  const StepLeaf* leaf;
-  int64_t j0;
-};
-
-__device__ __forceinline__ StepTile step_tile(const StepGroup& grp,
-                                              int64_t t) {
-  int lo = 0, hi = static_cast<int>(grp.n) - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (grp.leaf[mid].tile0 <= t) lo = mid;
-    else hi = mid - 1;
-  }
-  return {&grp.leaf[lo], (t - grp.leaf[lo].tile0) * kStepCols};
-}
-
-// x, m, g of rows r0 .. r0+R-1 at the thread's 4 columns of tile T (0 off
-// the leaf, and everywhere unless ``on``).
-template <int R>
-__device__ __forceinline__ void step_load(const StepTile& T, bool on, int r0,
-                                          int q, int nodes, float4 (&x)[R],
-                                          float4 (&m)[R], float4 (&g)[R]) {
-  const StepLeaf& L = *T.leaf;
-  const int64_t f = L.f;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    x[r] = m[r] = g[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (!on || r0 + r >= nodes) continue;
-    const int64_t row = static_cast<int64_t>(r0 + r) * f;
-    if (L.vec) {
-      const int64_t c = T.j0 + 4 * q;
-      if (c < f) {
-        x[r] = *reinterpret_cast<const float4*>(L.x + row + c);
-        m[r] = *reinterpret_cast<const float4*>(L.m + row + c);
-        g[r] = *reinterpret_cast<const float4*>(L.g + row + c);
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int64_t c = T.j0 + step_col(false, q, e);
-        if (c < f) {
-          lane(x[r], e) = L.x[row + c];
-          lane(m[r], e) = L.m[row + c];
-          lane(g[r], e) = L.g[row + c];
-        }
-      }
-    }
-  }
-}
-
 // A block walks tiles blockIdx.x, + gridDim.x, ...
 template <bool kQg, int R>
 __global__ void __launch_bounds__(kStepMaxThreads)
@@ -298,103 +165,51 @@ __global__ void __launch_bounds__(kStepMaxThreads)
   QgBuffer::Bound qg_fn{};
   if constexpr (kQg) qg_fn = qb.bind();
   for (int64_t t = blockIdx.x; t < grp.tiles; t += gridDim.x) {
-    const StepTile cur = step_tile(grp, t);
-    const StepLeaf& L = *cur.leaf;
-    const int64_t f = L.f, j0 = cur.j0;
+    int64_t j0;
+    const StepLeaf& L = step_leaf(grp, t, j0);
+    const int64_t f = L.f;
     const bool vec = L.vec != 0;
     float4 x[R], m[R], g[R];
-    step_load<R>(cur, active, r0, q, nodes, x, m, g);
-    if (t == blockIdx.x) {  // W^T, while the first tile's loads fly
-      for (int k = threadIdx.x; k < nodes * stride; k += blockDim.x) {
-        const int j = k / stride, i = k - j * stride;
-        swt[k] = i < nodes ? w[i * nodes + j] : 0.0f;
-      }
-    }
+    load_rows<R>(L.x, f, j0, vec, active, r0, q, nodes, x);
+    load_rows<R>(L.m, f, j0, vec, active, r0, q, nodes, m);
+    load_rows<R>(L.g, f, j0, vec, active, r0, q, nodes, g);
+    // W^T, while the first tile's loads fly
+    if (t == blockIdx.x) load_wt(swt, w, nodes, stride);
     // W^T is in, and the last tile's phase 2 is done with sh
     __syncthreads();
     // phase 1: the half step of the thread's rows into shared memory
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       if (!active || r0 + r >= nodes) continue;
-      const int64_t row = static_cast<int64_t>(r0 + r) * f;
       float4 h, mn;
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         half_fn(lane(x[r], e), lane(m[r], e), lane(g[r], e), lane(h, e),
                 lane(mn, e));
-      if constexpr (!kQg) {  // DSGDm's new buffer needs no mix
-        if (vec) {
-          if (j0 + 4 * q < f)
-            *reinterpret_cast<float4*>(L.m_out + row + j0 + 4 * q) = mn;
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int64_t c = j0 + step_col(false, q, e);
-            if (c < f) L.m_out[row + c] = lane(mn, e);
-          }
-        }
-      }
-      float* hrow = sh + (r0 + r) * kStepCols;
-      if (vec) {
-        reinterpret_cast<float4*>(hrow)[q] = h;
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) hrow[step_col(false, q, e)] = lane(h, e);
-      }
+      if constexpr (!kQg)  // DSGDm's new buffer needs no mix
+        store_row(L.m_out, static_cast<int64_t>(r0 + r) * f, f, j0, vec, q,
+                  mn);
+      put_tile_row(sh + (r0 + r) * kStepCols, vec, q, h);
     }
     __syncthreads();
     if (active) {
       // phase 2: x_new = W @ half along the nodes, in node order
       float4 acc[R];
-      for (int j = 0; j < nodes; ++j) {
-        float4 hj;
-        if (vec) {
-          hj = reinterpret_cast<const float4*>(sh + j * kStepCols)[q];
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            lane(hj, e) = sh[j * kStepCols + step_col(false, q, e)];
-        }
-        float wj[R];
-        load_weights<R>(swt + j * stride + r0, wj);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float p = __fmul_rn(wj[r], lane(hj, e));
-            lane(acc[r], e) = j == 0 ? p : __fadd_rn(lane(acc[r], e), p);
-          }
-        }
-      }
+      mix_rows<R>(sh, swt, stride, nodes, q, r0, vec, acc);
       // then the QG refresh on x (still in registers), x_new and m_hat
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if (r0 + r >= nodes) continue;
         const int64_t row = static_cast<int64_t>(r0 + r) * f;
-        float4 mo;
+        store_row(L.x_new, row, f, j0, vec, q, acc[r]);
         if constexpr (kQg) {
+          float4 mo;
           float unused;
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             qg_fn(lane(x[r], e), lane(acc[r], e), lane(m[r], e),
                   lane(mo, e), unused);
-        }
-        if (vec) {
-          const int64_t c = j0 + 4 * q;
-          if (c < f) {
-            *reinterpret_cast<float4*>(L.x_new + row + c) = acc[r];
-            if constexpr (kQg)
-              *reinterpret_cast<float4*>(L.m_out + row + c) = mo;
-          }
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int64_t c = j0 + step_col(false, q, e);
-            if (c < f) {
-              L.x_new[row + c] = lane(acc[r], e);
-              if constexpr (kQg) L.m_out[row + c] = lane(mo, e);
-            }
-          }
+          store_row(L.m_out, row, f, j0, vec, q, mo);
         }
       }
     }
@@ -406,19 +221,11 @@ int launch_step(const StepGroup& g, int64_t tiles, int nodes, const float* w,
                 Halfstep hs, QgBuffer qb, cudaStream_t stream) {
   const int threads = step_threads(nodes, R);
   const size_t smem = step_smem(nodes, R);
-  // blocks of this instantiation an SM holds, by node count, on the
-  // process's card (found at the first launch of each)
   static int per_sm[kStepMaxNodes + 1] = {};
-  static int sms = 0;
-  cudaError_t err = cudaSuccess;
-  if (per_sm[nodes] == 0)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm[nodes], qg_step_kernel<kQg, R>, threads, smem);
-  if (err == cudaSuccess && sms == 0) err = sm_count(&sms);
+  int64_t blocks = 0;
+  const cudaError_t err = step_grid(qg_step_kernel<kQg, R>, per_sm, nodes,
+                                    threads, smem, tiles, &blocks);
   if (err != cudaSuccess) return err;
-  const int64_t cap =
-      static_cast<int64_t>(sms) * (per_sm[nodes] > 0 ? per_sm[nodes] : 1);
-  const int64_t blocks = tiles < cap ? tiles : cap;
   qg_step_kernel<kQg, R><<<static_cast<unsigned>(blocks), threads, smem,
                            stream>>>(g, w, nodes, hs, qb);
   return cudaGetLastError();

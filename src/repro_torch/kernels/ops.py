@@ -20,8 +20,8 @@ from . import ref
 from . import ssd_scan as _ssd
 
 __all__ = ["fused_halfstep", "fused_qg_buffer", "qg_local_step",
-           "qg_buffer_update", "qg_step", "gamma_correct", "threshold_mask",
-           "quantize_dequantize", "threshold_mask_group",
+           "qg_buffer_update", "qg_step", "gamma_correct", "choco_exchange",
+           "threshold_mask", "quantize_dequantize", "threshold_mask_group",
            "quantize_dequantize_group", "flash_attention",
            "paged_decode_attention", "ssd_scan", "launch_counts",
            "reset_launch_counts"]
@@ -85,6 +85,20 @@ def gamma_correct(x, mixed, anchor, *, gamma):
     if _on_cpu(x, mixed, anchor):
         return ref.gamma_correct(x, mixed, anchor, gamma=gamma)
     return _cmp.gamma_correct(x, mixed, anchor, gamma=gamma)
+
+
+def choco_exchange(halves, qs, w, *, gamma, x_hats=None, x_pres=None,
+                   m_hats=None, eta=None, refresh=None, mu=None):
+    """The replica advance, the dense mix of the anchors and
+    ``gamma_correct`` of a compressed round (and, ``mu`` given,
+    ``fused_qg_buffer``) of every leaf: ``(x_out, x_hat_new, m_out)``; on
+    CUDA tensors one launch (per ``compress.MAX_LEAVES`` leaves)."""
+    kw = dict(gamma=gamma, x_hats=x_hats, x_pres=x_pres, m_hats=m_hats,
+              eta=eta, refresh=refresh, mu=mu)
+    if _on_cpu(*halves, *qs, w, *(x_hats or ()), *(x_pres or ()),
+               *(m_hats or ()), eta, refresh):
+        return ref.choco_exchange(halves, qs, w, **kw)
+    return _cmp.choco_exchange(halves, qs, w, **kw)
 
 
 def threshold_mask(x2d, thr):

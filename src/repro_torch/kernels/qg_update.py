@@ -34,7 +34,8 @@ import torch
 from . import build as _build
 
 __all__ = ["fused_halfstep", "fused_qg_buffer", "qg_local_step",
-           "qg_buffer_update", "qg_step", "qg_step_plan", "step_vec",
+           "qg_buffer_update", "qg_step", "qg_step_plan", "step_operands",
+           "step_vec",
            "STEP_COLS", "STEP_MAX_NODES", "MAX_LEAVES", "LAUNCHES",
            "STEP_PATHS"]
 
@@ -182,6 +183,49 @@ def _views(shapes, dev):
     return [buf[o:o + s.numel()].view(s) for o, s in zip(offsets, shapes)]
 
 
+def step_operands(kernel: str, roles: dict, w, scalars: dict):
+    """Check the operands of a step kernel (``qg_step``, or ``compress``'s
+    ``choco_exchange``) before anything is built: ``roles`` maps each role
+    to its list of leaves, one length for all, leaf i [n, ...] of one shape
+    in every role with 1 <= n <= ``STEP_MAX_NODES``; ``w`` is the [n, n]
+    mixing matrix and ``scalars`` fp32 [1] tensors; every operand is a
+    contiguous fp32 tensor, all on one CUDA device.  Returns ``(device,
+    n)``, or None for no leaves."""
+    counts = {role: len(leaves) for role, leaves in roles.items()}
+    if len(set(counts.values())) > 1:
+        raise ValueError(f"{kernel}: leaves by role {counts}")
+    tensors = [*(t for leaves in roles.values() for t in leaves), w,
+               *scalars.values()]
+    devices = {t.device for t in tensors if isinstance(t, torch.Tensor)}
+    if len(devices) > 1:
+        raise ValueError(f"{kernel}: operands lie on several devices: "
+                         f"{sorted(map(str, devices))}")
+    first = next(iter(roles.values()))
+    if not first:
+        return None
+    nodes = first[0].shape[0] if first[0].dim() else 0
+    if not 1 <= nodes <= STEP_MAX_NODES:
+        raise ValueError(f"{kernel}: takes 1 to {STEP_MAX_NODES} nodes, got "
+                         f"{nodes} (leaf 0 has shape {tuple(first[0].shape)})")
+    if not isinstance(w, torch.Tensor) or tuple(w.shape) != (nodes, nodes):
+        raise ValueError(f"{kernel}: w must be [{nodes}, {nodes}], got "
+                         f"{getattr(w, 'shape', w)!r}")
+    for i, leaf in enumerate(zip(*roles.values())):
+        if len({t.shape for t in leaf}) > 1 or leaf[0].shape[:1] != (nodes,):
+            raise ValueError(
+                f"{kernel}: leaf {i} has shapes "
+                f"{ {r: tuple(t.shape) for r, t in zip(roles, leaf)} }; want "
+                f"one shape with {nodes} nodes first")
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.dtype != torch.float32:
+            raise TypeError(f"{kernel}: every operand must be float32, got "
+                            f"{t.dtype}")
+    dev = _build.check_operands(kernel, {"w": w}, scalars)
+    for leaf in zip(*roles.values()):
+        _build.check_operands(kernel, dict(zip(roles, leaf)))
+    return dev, nodes
+
+
 def qg_step(xs, ms, gs, w, eta, refresh=None, *, beta: float,
             wd: float = 0.0, nesterov: bool = False, mu: float | None = None):
     """``(x_new, m_out)``, lists of the leaves of one optimizer step on the
@@ -193,38 +237,14 @@ def qg_step(xs, ms, gs, w, eta, refresh=None, *, beta: float,
     fp32 [n, n] mixing matrix, ``eta`` and ``refresh`` fp32 [1] tensors,
     all on the leaves' CUDA device; n is at most ``STEP_MAX_NODES``."""
     qg = mu is not None
-    if not len(xs) == len(ms) == len(gs):
-        raise ValueError(f"qg_step: {len(xs)} x, {len(ms)} m, {len(gs)} g "
-                         "leaves")
     if qg and refresh is None:
         raise ValueError("qg_step: the QG form (mu given) needs refresh")
-    scalars = {"eta": eta, **({"refresh": refresh} if qg else {})}
-    tensors = [*xs, *ms, *gs, w, *scalars.values()]
-    devices = {t.device for t in tensors if isinstance(t, torch.Tensor)}
-    if len(devices) > 1:
-        raise ValueError(f"qg_step: operands lie on several devices: "
-                         f"{sorted(map(str, devices))}")
-    if not xs:
+    checked = step_operands(
+        "qg_step", {"x": xs, "m": ms, "g": gs}, w,
+        {"eta": eta, **({"refresh": refresh} if qg else {})})
+    if checked is None:
         return [], []
-    nodes = xs[0].shape[0] if xs[0].dim() else 0
-    if not 1 <= nodes <= STEP_MAX_NODES:
-        raise ValueError(f"qg_step: takes 1 to {STEP_MAX_NODES} nodes, got "
-                         f"{nodes} (leaf 0 has shape {tuple(xs[0].shape)})")
-    if not isinstance(w, torch.Tensor) or tuple(w.shape) != (nodes, nodes):
-        raise ValueError(f"qg_step: w must be [{nodes}, {nodes}], got "
-                         f"{getattr(w, 'shape', w)!r}")
-    for i, (x, m, g) in enumerate(zip(xs, ms, gs)):
-        if not x.shape == m.shape == g.shape or x.shape[:1] != (nodes,):
-            raise ValueError(f"qg_step: leaf {i} has x {tuple(x.shape)}, m "
-                             f"{tuple(m.shape)}, g {tuple(g.shape)}; want "
-                             f"one shape with {nodes} nodes first")
-    for t in tensors:
-        if isinstance(t, torch.Tensor) and t.dtype != torch.float32:
-            raise TypeError(f"qg_step: every operand must be float32, got "
-                            f"{t.dtype}")
-    dev = _build.check_operands("qg_step", {"w": w}, scalars)
-    for x, m, g in zip(xs, ms, gs):
-        _build.check_operands("qg_step", {"x": x, "m": m, "g": g})
+    dev, nodes = checked
     shapes = [x.shape for x in xs]
     x_new, m_out = _views(shapes, dev), _views(shapes, dev)
     live = [i for i, x in enumerate(xs) if x.numel()]

@@ -42,8 +42,8 @@ import numpy as np
 import torch
 
 __all__ = ["qg_local_step", "qg_buffer_update", "fused_halfstep",
-           "fused_qg_buffer", "qg_step", "gamma_correct", "threshold_mask",
-           "quantize_dequantize", "threshold_mask_group",
+           "fused_qg_buffer", "qg_step", "gamma_correct", "choco_exchange",
+           "threshold_mask", "quantize_dequantize", "threshold_mask_group",
            "quantize_dequantize_group", "attn_scale", "flash_attention",
            "paged_decode_attention", "paged_decode_partials",
            "paged_decode_merge", "ssd_chunk_len", "ssd_scan", "SSD_BLOCK",
@@ -131,6 +131,34 @@ def gamma_correct(x, mixed, anchor, *, gamma: float) -> torch.Tensor:
     """CHOCO/EF post-exchange correction ``x + gamma*(mixed - anchor)``;
     ``gamma`` rounds to fp32 as the reference's weak-typed scalar does."""
     return x + gamma * (mixed - anchor)
+
+
+def choco_exchange(halves, qs, w, *, gamma: float, x_hats=None,
+                   x_pres=None, m_hats=None, eta=None, refresh=None,
+                   mu: float | None = None):
+    """The exchange half of a compressed gossip round on the dense mix, as
+    the stages compose it, leaf by leaf: the anchor ``a = x_hat + q``
+    (CHOCO, ``x_hats`` given: the replica advance of
+    ``comm/error_feedback.py``'s ``ef21_update``) or ``a = q`` (EF), the mix
+    ``W @ a`` along the nodes (fp32 W and leaves: the product of
+    ``core/gossip.py``'s ``mix_leaf_dense``), :func:`gamma_correct`, then
+    (QG form, ``mu`` given) :func:`fused_qg_buffer` on ``x_pre`` and the
+    corrected params.  Returns ``(x_out, x_hat_new, m_out)``, lists of
+    leaves: ``x_hat_new`` the anchors in CHOCO form (else None), ``m_out``
+    the refreshed m_hat in QG form (else None).  (The kernel sums the mix
+    in node order, this version as ``torch.matmul`` does.)"""
+    x_out, anchors, m_out = [], [], []
+    for i, (half, q) in enumerate(zip(halves, qs, strict=True)):
+        a = q if x_hats is None else x_hats[i] + q
+        mixed = torch.matmul(w, a.reshape(a.shape[0], -1)).reshape(a.shape)
+        xo = gamma_correct(half, mixed, a, gamma=gamma)
+        x_out.append(xo)
+        anchors.append(a)
+        if mu is not None:
+            m_out.append(fused_qg_buffer(x_pres[i], xo, m_hats[i], eta,
+                                         refresh, mu=mu))
+    return (x_out, None if x_hats is None else anchors,
+            None if mu is None else m_out)
 
 
 def threshold_mask(x2d, thr):

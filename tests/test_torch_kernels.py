@@ -596,6 +596,9 @@ def test_cpu_dispatch_leaves_launch_counters_at_zero():
     opt.step(params, params, opt.init(params), w=w, t=0)
     x2d = x.reshape(4, 25)
     tops.gamma_correct(x, m, g, gamma=0.3)
+    tops.choco_exchange([x2d], [x2d], torch.eye(4), gamma=0.3,
+                        x_hats=[x2d], x_pres=[x2d], m_hats=[x2d], eta=eta,
+                        refresh=one, mu=0.9)
     tops.threshold_mask(x2d, x2d.abs().amax(dim=1))
     tops.quantize_dequantize(x2d, x2d.abs().amax(dim=1), torch.rand(4, 25),
                              levels=15)
@@ -611,7 +614,8 @@ def test_cpu_dispatch_leaves_launch_counters_at_zero():
     assert set(counts) == {"fused_halfstep", "fused_qg_buffer",
                            "qg_local_step", "qg_buffer_update", "qg_step",
                            "gamma_correct", "threshold_mask",
-                           "quantize_dequantize", "flash_attention",
+                           "quantize_dequantize", "choco_exchange",
+                           "flash_attention",
                            "paged_decode_attention", "paged_decode_merge",
                            "ssd_scan", "ssd_scan_passing",
                            "ssd_scan_outputs"}
