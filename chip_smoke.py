@@ -73,7 +73,24 @@ line) if anything goes wrong:
             CPU, and hold the histories against each other;
 4. profile  the QG and the top-k training loops under ``torch.profiler``:
             device time by kernel, host time by op;
-5. serve    slice 7's main path: ``python -m repro_torch.serve --arch
+5. zoo      slice 2: ``social32_alpha0.1_qg`` (32 nodes) and
+            ``exp16_alpha0.1_qg`` (a W that changes every step) for 150
+            steps with one ``qg_step`` a step, accuracy within ACC_ATOL of
+            the JAX package's, history within CPU_RTOL of the port's CPU
+            run, each profiled; 8 exp16 steps with every ``qg_step``'s W
+            recorded under CUDA sync debugging (the stack's phase t % 4,
+            no host sync); the 14 new registry entries on the quickstart
+            task against their CPU runs (``qg_step`` 150 for
+            ``gt_dsgdm_n`` and ``mt_dsgdm``, no launch for the others; the
+            chaotic Adam pair held over its first steps, ZOO_CHAOTIC); the
+            paper's comparison on ring16 and social32; ``mt_dsgdm`` and
+            ``gut`` under CHOCO top-k with ``comm.backend=auto`` (two
+            sites, the predicted launches, MT's ``choco_exchange`` at site
+            1, the reference's wire ratio); ``run_gossip`` and
+            ``run_qg_consensus`` on ring16, ring32, social32 and exp16
+            against the JAX package's histories (CONSENSUS_REF) and the
+            port's CPU runs; the zoo's launches on a line of their own;
+6. serve    slice 7's main path: ``python -m repro_torch.serve --arch
             tinyllama-1.1b --full --use-pallas --requests 16`` in code (a
             seeded init at the published widths and 22 layers), with
             ``paged_decode_attention`` launched exactly 22 times per decode
@@ -84,7 +101,7 @@ line) if anything goes wrong:
             launches against the chunked path (logits and every layer's
             K/V) and once under ``torch.profiler`` (wall beside device
             time), and the serving run under the profiler (0 merges);
-6. mamba    the SSD scan kernels (chunk pass, state pass, output pass)
+7. mamba    the SSD scan kernels (chunk pass, state pass, output pass)
             against the sequential plain version in fp32 and bf16 at the
             reference's SSD_CASES, S = 1 and 17, chunk 64 vs 256, dt x 1e-2,
             P 48 and the main shape, and at SSD_PATH_CASES (P in several
@@ -108,6 +125,7 @@ line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import re
 import statistics
@@ -1457,7 +1475,7 @@ def phase_profile(dev, label: str, spec) -> None:
             host_rows.append((e.key, e.self_cpu_time_total / 1e3, e.count))
     if not dev_rows:
         log("profile: the profiler recorded no device time")
-        return
+        return None
     dev_rows.sort(key=lambda r: -r[1])
     host_rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in dev_rows)
@@ -1484,6 +1502,385 @@ def phase_profile(dev, label: str, spec) -> None:
                     for k, m, c in dev_rows],
          "host": [{"name": k, "ms": m, "count": c}
                   for k, m, c in host_rows]}, indent=1))
+    return {"wall_ms": wall_ms, "device_ms": busy}
+
+
+# ---------------------------------------------------------------------------
+# the zoo (slice 2): the other optimizers, topologies and consensus
+# ---------------------------------------------------------------------------
+
+#: the registry entries slice 2 brings, each run on the quickstart task
+ZOO_NEW = ("dsgdm_sync", "dsgdm_n_sync", "dsgdm_n_sync_global", "qhm",
+           "dadam", "qg_dadam", "slowmo", "dmsgd", "d2", "d2_plus", "gt",
+           "gt_dsgdm_n", "mt_dsgdm", "gut")
+#: the entries whose chain holds ``[weight_decay?] heavyball gossip_mix`` at
+#: its end (at stage 2 here, after weight_decay and grad_track ran
+#: unfused): one ``qg_step`` a step on the dense mix; every other new entry
+#: runs stage by stage, as the reference's dispatcher runs it
+#: (tests/test_torch_zoo.py derives this from the reference)
+ZOO_STEP = ("gt_dsgdm_n", "mt_dsgdm")
+#: entries whose history is chaotic, held to CPU_RTOL over their first
+#: steps only: on the CPU a 1e-7 change of the init moves the port's own
+#: DAdam history by more than 1e-4 relative from step 16 (more than 1e-3
+#: from 25) and QG-DAdam's from step 13 (1e-3 from 18);
+#: tests/test_torch_zoo.py asserts both ends
+ZOO_CHAOTIC = {"dadam": 12, "qg_dadam": 10}
+#: the JAX package's test accuracy for the two presets (repro.api.run on
+#: the CPU, JAX 0.9.0, 150 steps; the port's init is a torch draw, so the
+#: card's run is held to the band ACC_ATOL around it)
+ZOO_PRESETS = {"social32_alpha0.1_qg": 0.97509765625,
+               "exp16_alpha0.1_qg": 0.974365234375}
+#: the paper's comparison: QG-DSGDm-N against DSGDm-N, D^2_+ and
+#: GT-DSGDm-N, QG-DAdam against DAdam
+ZOO_COMPARE = ("qg_dsgdm_n", "dsgdm_n", "d2_plus", "gt_dsgdm_n", "qg_dadam",
+               "dadam")
+#: the tracking chains under CHOCO top-k with ``comm.backend=auto``, two
+#: mix sites each (the tracker's, then the params'), launches per step and
+#: in the warm-start capture, predicted before the first run (PERF.md):
+#: MT's tracker site is a plain compressed round (``gamma_correct``), its
+#: params site takes ``fused_halfstep``, the compress half and one
+#: ``choco_exchange`` as site 1; GUT's chain matches no kernel segment, so
+#: both of its sites are plain rounds, and its capture launches nothing
+ZOO_TRACKING = {
+    "mt_dsgdm": ({"fused_halfstep": 1, "threshold_mask": 2,
+                  "gamma_correct": 1, "choco_exchange": 1},
+                 {"fused_halfstep": 1}),
+    "gut": ({"threshold_mask": 2, "gamma_correct": 2}, {}),
+}
+#: the reference's wire.ratio_vs_dense of both tracking chains under
+#: choco_topk0.01_ring16_qg (JAX 0.9.0 on the CPU): a count, equal
+ZOO_WIRE_RATIO = 49.46376811594203
+#: consensus: rounds, dimension, and the JAX package's CPU histories
+#: (repro.core.consensus, JAX 0.9.0) at rounds CONSENSUS_ROUNDS with
+#: steps_to_distance(., 1e-2); the card is held to rtol 1e-4 with atol 1e-6
+#: times the round-0 distance (rounds at fp32's floor), and its whole
+#: history to the port's CPU run the same way
+CONSENSUS_STEPS, CONSENSUS_DIM = 200, 128
+CONSENSUS_ROUNDS = list(range(0, 200, 10)) + [199]
+CONSENSUS_RTOL, CONSENSUS_ATOL = 1e-4, 1e-6
+CONSENSUS_REF = {
+    ("ring", 16, "gossip"): (81, [
+        5.994057655334473, 2.433166980743408, 1.4315029382705688,
+        0.850073516368866, 0.5049760341644287, 0.29997873306274414,
+        0.17820113897323608, 0.10585964471101761, 0.06288546323776245,
+        0.03735684975981712, 0.02219167724251747, 0.01318286918103695,
+        0.007831227965652943, 0.004652108531445265, 0.0027635726146399975,
+        0.0016416971338912845, 0.0009752397309057415, 0.0005793371237814426,
+        0.0003441591397859156, 0.0002044455468421802, 0.0001279348653042689
+    ]),
+    ("ring", 16, "qg"): (66, [
+        5.994057655334473, 1.780677080154419, 0.4983194172382355,
+        1.1432578563690186, 1.2221943140029907, 0.8125300407409668,
+        0.28899434208869934, 0.10017763823270798, 0.27182790637016296,
+        0.2625499367713928, 0.15953271090984344, 0.044619880616664886,
+        0.033776868134737015, 0.06328322738409042, 0.055506207048892975,
+        0.03060275688767433, 0.005796855315566063, 0.00969445239752531,
+        0.014397288672626019, 0.011548109352588654, 0.006308907642960548
+    ]),
+    ("ring", 32, "gossip"): (-1, [
+        6.1884541511535645, 2.911515474319458, 2.209583282470703,
+        1.8191853761672974, 1.5504379272460938, 1.3432306051254272,
+        1.1728087663650513, 1.0277442932128906, 0.9021403193473816,
+        0.7924996614456177, 0.6964306235313416, 0.6121065020561218,
+        0.5380324721336365, 0.47293832898139954, 0.4157261252403259,
+        0.36543744802474976, 0.3212330639362335, 0.2823762595653534,
+        0.24821977317333221, 0.21819494664669037, 0.19429083168506622
+    ]),
+    ("ring", 32, "qg"): (135, [
+        6.1884541511535645, 2.4533956050872803, 1.65280282497406,
+        1.2460764646530151, 0.8997160196304321, 0.6349698305130005,
+        0.682391345500946, 0.8748987913131714, 0.9679163694381714,
+        0.9203331470489502, 0.7690146565437317, 0.5625412464141846,
+        0.3398604989051819, 0.13098856806755066, 0.07367212325334549,
+        0.20409345626831055, 0.29140427708625793, 0.32836106419563293,
+        0.32019054889678955, 0.2769230008125305, 0.21805614233016968
+    ]),
+    ("social", 32, "gossip"): (41, [
+        5.635720252990723, 0.950836181640625, 0.3425566256046295,
+        0.13759499788284302, 0.05739838629961014, 0.02423941344022751,
+        0.010274962522089481, 0.00436045415699482, 0.001851111650466919,
+        0.0007859133183956146, 0.0003336808003950864, 0.00014167153858579695,
+        6.015214239596389e-05, 2.554248203523457e-05, 1.0854687388928141e-05,
+        4.6320487854245584e-06, 2.057358187812497e-06, 1.0535217143115005e-06,
+        7.809023259142123e-07, 7.381241289294849e-07, 7.334887186516426e-07
+    ]),
+    ("social", 32, "qg"): (51, [
+        5.635720252990723, 0.7223691344261169, 0.727898120880127,
+        0.5422820448875427, 0.2569226026535034, 0.05796563997864723,
+        0.06475598365068436, 0.06808916479349136, 0.0364333912730217,
+        0.0062000323086977005, 0.00915251113474369, 0.010048319585621357,
+        0.005233230069279671, 0.0006900569424033165, 0.0014191637746989727,
+        0.0014918994856998324, 0.0007496264879591763, 7.758662104606628e-05,
+        0.000220598274609074, 0.0002211555402027443, 0.00011931071639992297
+    ]),
+    ("exp", 16, "gossip"): (3, [
+        7.585473537445068, 3.2588258136456716e-07, 3.2588258136456716e-07,
+        3.2588258136456716e-07, 3.2588258136456716e-07, 3.2588258136456716e-07,
+        3.2588258136456716e-07, 3.2588258136456716e-07, 3.2588258136456716e-07,
+        3.2588258136456716e-07, 3.2588258136456716e-07, 3.2588258136456716e-07,
+        3.2588258136456716e-07, 3.2588258136456716e-07, 3.2588258136456716e-07,
+        3.2588258136456716e-07, 3.2588258136456716e-07, 3.2588258136456716e-07,
+        3.2588258136456716e-07, 3.2588258136456716e-07, 3.2588258136456716e-07
+    ]),
+    ("exp", 16, "qg"): (27, [
+        7.585473537445068, 0.5636687278747559, 0.15741311013698578,
+        0.056559912860393524, 0.015260828658938408, 0.005748056340962648,
+        0.00149219436571002, 0.0005905373254790902, 0.00014727743109688163,
+        6.123813363956288e-05, 1.4688106602989137e-05, 6.402175586117664e-06,
+        1.496673348810873e-06, 7.18187322945596e-07, 3.759112132684095e-07,
+        3.587101389257441e-07, 3.524183398440073e-07, 3.5382333862798987e-07,
+        3.5377777862777293e-07, 3.537896304806054e-07, 3.5379059681872604e-07
+    ]),
+}
+
+
+@functools.cache
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def _finite_run(what, res, steps=150):
+    import numpy as np
+    losses = [r["loss"] for r in res.history]
+    if res.steps_run != steps or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: {res.steps_run} steps, finite "
+                             f"losses: {np.all(np.isfinite(losses))}")
+
+
+def _add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _card_and_cpu(what, spec, dev, want, zoo_launches, steps_held=150):
+    """Run ``spec`` on the card with exact launches ``want`` and on the CPU;
+    hold the card's history to the CPU's (CPU_RTOL over ``steps_held``
+    steps).  Returns the card's result and the gap over the whole run."""
+    from repro_torch import api
+    from repro_torch.kernels import ops
+
+    quiet = lambda *_: None
+    ops.reset_launch_counts()
+    res = api.run(spec, device=dev, log_fn=quiet)
+    counts = ops.launch_counts()
+    _expect_launches(what, counts, want)
+    _add_counts(zoo_launches, counts)
+    _finite_run(what, res)
+    cpu = api.run(spec, device="cpu", log_fn=quiet)
+    _history_close(res.history[:steps_held], cpu.history[:steps_held],
+                   CPU_RTOL, CPU_ATOL, f"{what} card vs CPU")
+    return res, cpu, _history_gap(res.history, cpu.history, what)
+
+
+def _exp16_w_on_device(dev) -> int:
+    """8 steps of exp16 through the trainer with every ``qg_step`` call's W
+    recorded, under CUDA sync debugging: each step's W is the stack's
+    phase t % 4, picked on the card by the device step counter, and no
+    step synchronizes with the host.  Returns the steps checked."""
+    import warnings
+    import torch
+    from repro_torch import api
+    from repro_torch.kernels import ops
+
+    spec = api.presets.get("exp16_alpha0.1_qg")
+    ex = api.build(spec, device=dev)
+    it = ex.task.make_iter()
+    batches = [ex.trainer.put_batch(next(it)) for _ in range(8)]
+    seen, real = [], ops.qg_step
+
+    def spy(xs, ms, gs, w, *a, **kw):
+        seen.append(w)
+        return real(xs, ms, gs, w, *a, **kw)
+
+    state = ex.state
+    torch.cuda.synchronize(dev)
+    ops.qg_step = spy
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for b in batches:
+                    state, _ = ex.trainer.step(state, b)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        ops.qg_step = real
+    torch.cuda.synchronize(dev)
+    # the mode's own notice ("... is a prototype feature ...") is not a sync
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing" in str(w.message)]
+    if syncs:
+        raise AssertionError(f"exp16 steps synchronized with the host: "
+                             f"{syncs[:3]}")
+    mixing = ex.trainer._mixing
+    if len(seen) != 8 or any(not w.is_cuda or not torch.equal(
+            w, mixing[t % mixing.shape[0]]) for t, w in enumerate(seen)):
+        raise AssertionError(f"exp16: {len(seen)} qg_step calls, W not "
+                             f"the stack's phase t % 4 on the card")
+    if any(torch.equal(a, b) for a, b in zip(seen, seen[1:])):
+        raise AssertionError("exp16: two consecutive steps had one W")
+    return len(seen)
+
+
+def phase_zoo(dev, main_out) -> dict:
+    """Slice 2 on the card: the social32 and exp16 presets, the 14 new
+    registry entries on the quickstart task, the paper's comparison on
+    ring16 and social32, the two tracking chains under compressed gossip
+    and the consensus experiments, each checked as PERF.md states."""
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.comm.choco import CompressedMix
+    from repro_torch.core import consensus, topology
+    from repro_torch.kernels import ops
+
+    card = _card()
+    zoo_launches: dict = {}
+    accs = {"ring16": {}, "social32": {}}
+
+    # 1. the two presets: one qg_step a step, on 32 nodes and on a W that
+    # changes every step
+    for preset, ref_acc in ZOO_PRESETS.items():
+        spec = api.presets.get(preset).override("loop.log_every=1")
+        res, cpu, gap = _card_and_cpu(preset, spec, dev, {"qg_step": 150},
+                                      zoo_launches)
+        acc = res.final["acc"]
+        if abs(acc - ref_acc) > ACC_ATOL:
+            raise AssertionError(f"{preset}: test acc {acc:.4f} is not "
+                                 f"within {ACC_ATOL} of the reference's "
+                                 f"{ref_acc}")
+        prof = phase_profile(dev, preset.split("_")[0],
+                             api.presets.get(preset))
+        busy = ("not measured" if prof is None else
+                f"{100 * prof['device_ms'] / prof['wall_ms']:.2f}% busy, "
+                f"{prof['wall_ms'] / 150:.4f} ms/step unlogged")
+        log(f"zoo {preset}: 150 steps in {res.wall_time_s:.4f} s "
+            f"({res.wall_time_s / 150 * 1e3:.4f} ms/step logged every "
+            f"step), profiled {busy} [{card}]; test acc {acc:.4f} "
+            f"(reference {ref_acc}), card vs CPU max rel diff {gap:.3e}, "
+            f"consensus {res.final['consensus']:.3e}, launches qg_step 150")
+        if preset.startswith("social32"):
+            accs["social32"]["qg_dsgdm_n"] = acc
+    steps = _exp16_w_on_device(dev)
+    log(f"zoo exp16: {steps} steps, each step's W the stack's phase t % 4 "
+        f"picked on the card and passed to qg_step, no host sync")
+
+    # 2. the 14 new entries on the quickstart task
+    quick = api.presets.get("quickstart_ring16_alpha0.1_qg")
+    for name in ZOO_NEW:
+        spec = quick.override(f"optim.name={name}", "loop.log_every=1")
+        want = {"qg_step": 150} if name in ZOO_STEP else {}
+        held = ZOO_CHAOTIC.get(name, 150)
+        res, cpu, gap = _card_and_cpu(name, spec, dev, want, zoo_launches,
+                                      held)
+        accs["ring16"][name] = res.final["acc"]
+        log(f"zoo {name} (quickstart task): 150 steps, "
+            f"{res.wall_time_s / 150 * 1e3:.4f} ms/step [{card}], test acc "
+            f"{res.final['acc']:.4f} (CPU {cpu.final['acc']:.4f}), card vs "
+            f"CPU max rel diff {gap:.3e} over 150 steps, held to "
+            f"{CPU_RTOL} over {held}; launches {want or 'none'}")
+    for preset, name in (("quickstart_ring16_alpha0.1_qg", "qg_dsgdm_n"),
+                         ("quickstart_ring16_alpha0.1_dsgdm", "dsgdm_n")):
+        accs["ring16"][name] = main_out["results"][preset].final["acc"]
+
+    # 3. the paper's comparison on social32 (ring16's runs are above)
+    social = api.presets.get("social32_alpha0.1_qg")
+    for name in ZOO_COMPARE[1:]:
+        spec = social.override(f"optim.name={name}")
+        ops.reset_launch_counts()
+        res = api.run(spec, device=dev, log_fn=lambda *_: None)
+        counts = ops.launch_counts()
+        _expect_launches(f"social32 {name}", counts, {"qg_step": 150} if name
+                         in ("dsgdm_n", "gt_dsgdm_n") else {})
+        _add_counts(zoo_launches, counts)
+        _finite_run(f"social32 {name}", res)
+        accs["social32"][name] = res.final["acc"]
+    for topo, row in accs.items():
+        log(f"zoo comparison {topo} (test acc, 150 steps) [{card}]: " + ", "
+            .join(f"{n} {row[n]:.4f}" for n in ZOO_COMPARE))
+
+    # 4. the tracking chains under compressed gossip
+    sites, real = [], CompressedMix.compress
+
+    def spy(self, tree):
+        i, q = real(self, tree)
+        sites.append(i)
+        return i, q
+
+    for name, (per_step, capture) in ZOO_TRACKING.items():
+        spec = api.presets.get("choco_topk0.01_ring16_qg").override(
+            f"optim.name={name}", "comm.backend=auto", "loop.log_every=1")
+        want = {k: 150 * v for k, v in per_step.items()}
+        _add_counts(want, capture)
+        sites.clear()
+        ops.reset_launch_counts()
+        CompressedMix.compress = spy
+        try:
+            res = api.run(spec, device=dev, log_fn=lambda *_: None)
+        finally:
+            CompressedMix.compress = real
+        counts = ops.launch_counts()
+        _expect_launches(f"{name} top-k", counts, want)
+        _add_counts(zoo_launches, counts)
+        _finite_run(f"{name} top-k", res)
+        exchanges = 150 * per_step.get("choco_exchange", 0)
+        if sites != [1] * exchanges:
+            raise AssertionError(f"{name} top-k: exchange sites "
+                                 f"{sorted(set(sites))} x {len(sites)}, "
+                                 f"want site 1 x {exchanges}")
+        wire = res.wire
+        if wire["mix_sites"] != 2 or wire["ratio_vs_dense"] != \
+                ZOO_WIRE_RATIO:
+            raise AssertionError(f"{name} top-k: wire {wire}")
+        log(f"zoo {name} choco_topk0.01 comm.backend=auto: 2 sites, "
+            f"wire.ratio_vs_dense {wire['ratio_vs_dense']} (reference "
+            f"{ZOO_WIRE_RATIO}), {res.wall_time_s / 150 * 1e3:.4f} ms/step "
+            f"[{card}], test acc {res.final['acc']:.4f}, launches {want}"
+            + (f", choco_exchange at site 1 x {exchanges}" if exchanges
+               else ""))
+
+    # 5. consensus: plain gossip against the QG iteration
+    for (name, n, kind), (ref_steps, ref_h) in CONSENSUS_REF.items():
+        topo = topology.get_topology(name, n)
+        fn = (consensus.run_gossip if kind == "gossip"
+              else consensus.run_qg_consensus)
+        kw = dict(dim=CONSENSUS_DIM, steps=CONSENSUS_STEPS)
+        fn(topo, device=dev, **kw)  # warm-up
+        t0 = time.perf_counter()
+        h = fn(topo, device=dev, **kw)
+        ms = (time.perf_counter() - t0) * 1e3
+        h_cpu = fn(topo, device="cpu", **kw)
+        atol = CONSENSUS_ATOL * ref_h[0]
+        np.testing.assert_allclose(
+            h[CONSENSUS_ROUNDS], np.asarray(ref_h, np.float32),
+            rtol=CONSENSUS_RTOL, atol=atol,
+            err_msg=f"consensus {name}{n} {kind} vs the JAX package")
+        np.testing.assert_allclose(
+            h, h_cpu, rtol=CONSENSUS_RTOL, atol=atol,
+            err_msg=f"consensus {name}{n} {kind} card vs CPU")
+        got = consensus.steps_to_distance(h, 1e-2)
+        if got != ref_steps:
+            raise AssertionError(f"consensus {name}{n} {kind}: "
+                                 f"steps_to_distance {got}, reference "
+                                 f"{ref_steps}")
+        log(f"zoo consensus {name}{n} {kind}: {CONSENSUS_STEPS} rounds at "
+            f"dim {CONSENSUS_DIM} in {ms:.3f} ms [{card}], distance "
+            f"{h[-1] / h[0]:.3e} of round 0's, steps to 1e-2 {got} "
+            f"(reference {ref_steps})")
+    for (name, n, kind), (ref_steps, _) in CONSENSUS_REF.items():
+        if kind == "qg":
+            sg = CONSENSUS_REF[(name, n, "gossip")][0]
+            speed = (f"{sg / ref_steps:.3f}x" if sg > 0 else
+                     f"gossip does not reach 1e-2 in {CONSENSUS_STEPS} "
+                     f"rounds")
+            log(f"zoo consensus {name}{n}: QG reaches 1e-2 in {ref_steps} "
+                f"rounds, gossip in {sg}: speed-up {speed}")
+    log(f"zoo launches {json.dumps({k: v for k, v in zoo_launches.items() if v}, sort_keys=True)}")
+    return {"launches": zoo_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -2583,7 +2980,11 @@ def main() -> int:
     phase_profile(dev, "topk", api.presets.get(
         "choco_topk0.01_ring16_qg").override("comm.backend=auto"))
 
-    # 5. slice 7's main path: TinyLlama-1.1B served through the
+    # 5. slice 2: the other optimizers, the social and exponential graphs
+    # and the consensus experiments
+    phase_zoo(dev, main_out)
+
+    # 6. slice 7's main path: TinyLlama-1.1B served through the
     # paged-decode kernel, its full-width prefill through the flash kernel,
     # and the serving run under the profiler
     cfg, params, reqs = _serve_setup(dev)
@@ -2593,17 +2994,14 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    # 6. slice 6b-i's main path: mamba2-130m prefilled through the SSD scan
+    # 7. slice 6b-i's main path: mamba2-130m prefilled through the SSD scan
     # kernel, decoded from the state it leaves, and profiled
     mamba_out = phase_mamba(dev)
     phase_mamba_profile(dev, mamba_out.pop("cfg"), mamba_out.pop("params"),
                         mamba_out.pop("tokens"))
     torch.cuda.empty_cache()
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = _card()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {  # name: (TPU kernel it replaces, source, timed at)

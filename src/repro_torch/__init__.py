@@ -17,7 +17,11 @@ random-k, sign+norm and QSGD), whose three passes are CUDA kernels too
 (``configs/``, ``models/``), whose flash and paged-decode attention are
 CUDA kernels (``kernels/csrc/attention.cu``); and slice 6b-i, the Mamba-2
 mixer (``models/ssm.py``) with its prefill through the SSD scan as a CUDA
-kernel (``kernels/csrc/ssd_scan.cu``) and its O(1)-state decode.
+kernel (``kernels/csrc/ssd_scan.cu``) and its O(1)-state decode; and
+slice 2, the rest of the optimizer zoo (all 20 registry entries and the
+``OptimSpec.stages`` chains), the social, exponential, torus, star and
+complete topologies with the ``social32``/``exp16`` presets, and the
+gradient-free consensus experiments (``core/consensus.py``).
 
 Entry points (``api.build``, ``api.run``, ``python -m repro_torch.api``,
 ``python -m repro_torch.serve``) run on the CUDA device unless the caller

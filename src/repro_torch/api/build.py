@@ -2,7 +2,8 @@
 ``run(spec) -> Result``.
 
 Port of ``repro/api/build.py`` for the slice the spec layer accepts (see
-``api/spec.py``).  Both run on the CUDA device unless the caller passes
+``api/spec.py``): a registry optimizer, or a ``ChainOptimizer`` from
+``spec.optim.stages``.  Both run on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device the default raises.
 """
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 
 from repro_torch.comm import count_mix_sites, make_comm
 from repro_torch.core import topology as topo_lib
-from repro_torch.core.optim import make_optimizer
+from repro_torch.core.optim import ChainOptimizer, make_optimizer
 from repro_torch.device import describe_device, resolve_device
 from repro_torch.train import (DecentralizedTrainer, TrainState, lr_schedule,
                                run_training, run_training_scanned)
@@ -66,6 +67,16 @@ class Result:
         return json.dumps(self.to_dict(), indent=indent)
 
 
+def _make_opt(spec: ExperimentSpec):
+    o = spec.optim
+    if o.stages:
+        return ChainOptimizer(
+            lr=o.lr, weight_decay=o.weight_decay, fused=o.fused,
+            stage_specs=tuple((n, dict(kw)) for n, kw in o.stages))
+    return make_optimizer(o.name, lr=o.lr, weight_decay=o.weight_decay,
+                          fused=o.fused, **o.kwargs)
+
+
 def build(spec: ExperimentSpec, *, device="cuda") -> Experiment:
     """Validate the spec, then assemble trainer + init state + client data +
     model bundle on ``device``.  The init draws from a ``torch.Generator``
@@ -83,9 +94,7 @@ def build(spec: ExperimentSpec, *, device="cuda") -> Experiment:
         lr_fn = lr_schedule(spec.optim.lr, total_steps=lp.steps,
                             warmup=lp.warmup, decay_at=lp.decay_at,
                             decay=lp.decay, warmup_from=lp.warmup_from)
-    o = spec.optim
-    opt = make_optimizer(o.name, lr=o.lr, weight_decay=o.weight_decay,
-                         fused=o.fused, **o.kwargs)
+    opt = _make_opt(spec)
     c = spec.comm
     comm = make_comm(c.compressor, gamma=c.gamma,
                      error_feedback=c.error_feedback, backend=c.backend)

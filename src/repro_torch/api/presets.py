@@ -1,12 +1,14 @@
 """Preset registry: the paper's scenarios as named, serializable specs.
 
-Port of ``repro/api/presets.py`` for the quickstart pair (the main path)
-and its compressed-gossip variants:
+Port of ``repro/api/presets.py`` for the quickstart pair (the main path),
+the social and time-varying topologies and the compressed-gossip variants:
 
 | preset                            | scenario                              |
 |-----------------------------------|---------------------------------------|
 | quickstart_ring16_alpha0.1_dsgdm  | quickstart grid: DSGDm-N baseline     |
 | quickstart_ring16_alpha0.1_qg     | quickstart grid: QG-DSGDm-N (Table 1) |
+| social32_alpha0.1_qg              | Davis social graph n=32 (Table 3)     |
+| exp16_alpha0.1_qg                 | time-varying 1-peer exp graph (T.4)   |
 | choco_topk0.01_ring16_qg          | QG-DSGDm-N + CHOCO top-1% gossip      |
 | ef_signnorm_ring16_qg             | QG-DSGDm-N + EF sign+norm gossip      |
 
@@ -29,8 +31,7 @@ __all__ = ["PRESETS", "register_preset", "get", "names"]
 PRESETS: dict[str, Callable[[], ExperimentSpec]] = {}
 
 #: the reference's other presets, by the port slice that brings each
-_LATER = {"social32_alpha0.1_qg": 2, "exp16_alpha0.1_qg": 2,
-          "cifar_ring16_alpha0.1_qg": 4, "lm100m_ring8_alpha0.1_qg": 6,
+_LATER = {"cifar_ring16_alpha0.1_qg": 4, "lm100m_ring8_alpha0.1_qg": 6,
           "n1024_ring": 8, "n1024_powerlaw": 8, "n1024_churn": 8}
 
 
@@ -77,6 +78,30 @@ def _qs_dsgdm():
 @register_preset("quickstart_ring16_alpha0.1_qg")
 def _qs_qg():
     return _quickstart("qg_dsgdm_n", "quickstart_ring16_alpha0.1_qg")
+
+
+def _bench_task(name: str, topo: TopologySpec, **kw) -> ExperimentSpec:
+    steps = kw.pop("steps", 150)
+    return ExperimentSpec(
+        name=name, seed=0,
+        data=DataSpec(dataset="classification", alpha=0.1, batch=16,
+                      n_data=4096, n_classes=20, hw=8, noise=2.5),
+        topology=topo,
+        optim=OptimSpec(name="qg_dsgdm_n", lr=0.1, weight_decay=1e-4),
+        loop=LoopSpec(steps=steps, warmup=max(1, steps // 20),
+                      decay_at=(0.5, 0.75)),
+        model=ModelSpec(name="mlp"),
+        **kw)
+
+
+@register_preset("social32_alpha0.1_qg")
+def _social():
+    return _bench_task("social32_alpha0.1_qg", TopologySpec(name="social", n=32))
+
+
+@register_preset("exp16_alpha0.1_qg")
+def _exp16():
+    return _bench_task("exp16_alpha0.1_qg", TopologySpec(name="exp", n=16))
 
 
 @register_preset("choco_topk0.01_ring16_qg")

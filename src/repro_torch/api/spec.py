@@ -4,10 +4,11 @@ Port of ``repro/api/spec.py``.  The spec tree is the reference's, field for
 field, so the port loads the reference's JSON unchanged
 (``ExperimentSpec.from_json(reference_spec.to_json())``) and round-trips it
 losslessly.  ``validate()`` accepts the subset that the port runs today:
-the ring topology, the main-path optimizers, dense gossip (plain or
-compressed) on the vmap runtime, the MLP on classification data.  Anything
-outside it raises ``NotImplementedError`` naming the slice of the port that
-brings it; malformed values raise ``ValueError`` as in the reference.
+every registry topology but the generated graphs, every optimizer and
+explicit stage chain, dense gossip (plain or compressed) on the vmap
+runtime, the MLP on classification data.  Anything outside it raises
+``NotImplementedError`` naming the slice of the port that brings it;
+malformed values raise ``ValueError`` as in the reference.
 """
 from __future__ import annotations
 
@@ -229,8 +230,8 @@ class ExperimentSpec:
         from repro_torch.api.models import MODEL_DATASETS, MODELS
         from repro_torch.comm.compressors import BACKENDS, make_compressor
         from repro_torch.core import topology as topo_lib
-        from repro_torch.core.optim import OPTIMIZERS, make_optimizer
-        from repro_torch.core.transforms import FUSED_MODES
+        from repro_torch.core.optim import OPTIMIZERS
+        from repro_torch.core.transforms import FUSED_MODES, STAGES
         from repro_torch.runtime import RUNTIMES
 
         where = f"ExperimentSpec{f'[{self.name}]' if self.name else ''}"
@@ -249,9 +250,18 @@ class ExperimentSpec:
             err("topology", str(e))
         # optimizer
         if self.optim.stages:
-            later("optim.stages", "an explicit stage chain", 2)
-        if self.optim.name not in OPTIMIZERS:
-            make_optimizer(self.optim.name)  # raises: slice 2 or unknown
+            for entry in self.optim.stages:
+                if (len(entry) != 2 or not isinstance(entry[0], str)
+                        or not isinstance(entry[1], dict)):
+                    err("optim.stages",
+                        f"each entry must be (stage_name, kwargs), got "
+                        f"{entry!r}")
+                if entry[0] not in STAGES:
+                    err("optim.stages", f"unknown stage {entry[0]!r}; have "
+                        f"{sorted(STAGES)}")
+        elif self.optim.name not in OPTIMIZERS:
+            err("optim.name", f"unknown optimizer {self.optim.name!r}; have "
+                f"{sorted(OPTIMIZERS)}")
         if self.optim.lr <= 0:
             err("optim.lr", f"must be > 0, got {self.optim.lr}")
         if self.optim.fused not in FUSED_MODES:

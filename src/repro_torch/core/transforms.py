@@ -11,9 +11,12 @@ is the per-step :class:`StepCtx` (mixing matrix, lr, step counter, gossip
 hook), ``sv`` the :class:`StepVars` flowing down the chain and ``states``
 the ``{stage_name: state}`` mapping, updated in chain order.
 
-Ported here: ``weight_decay``, ``heavyball``, ``gossip_mix``, ``descent``
-and ``qg_buffer``, the chain runner, the fused dispatcher and the analytic
-bytes-moved model.  The other stages of the reference come with slice 2.
+Every stage of the reference is ported, with its ``STAGES`` registry and
+``make_stage`` (the serializable ``OptimSpec.stages`` form), the chain
+runner, the fused dispatcher and the analytic bytes-moved model.  Gates
+that depend on the step (a tracker's first step, SlowMo's outer step, the
+QG refresh) are device tensors selected with ``torch.where``: no stage
+reads ``t`` or ``lr`` back to the host.
 
 ``chain_apply(fused=...)`` routes the segments it recognises through the
 kernels (the dense-gossip step through one ``qg_step`` launch, the exchange
@@ -46,7 +49,9 @@ MixFn = Callable[[torch.Tensor, Tree], Tree]
 __all__ = [
     "Stage", "StepCtx", "StepVars", "chain", "chain_init", "chain_apply",
     "chain_bytes_moved", "FUSED_MODES",
-    "weight_decay", "heavyball", "gossip_mix", "descent", "qg_buffer",
+    "weight_decay", "heavyball", "qhm_momentum", "adam_scale", "gossip_mix",
+    "descent", "qg_buffer", "qg_adam_buffer", "dmsgd_buffer", "grad_track",
+    "d2_correction", "slow_outer", "buffer_sync", "STAGES", "make_stage",
 ]
 
 #: values of the ``fused`` knob ('pallas' = 'kernel', for reference JSON)
@@ -83,12 +88,15 @@ def _lerp(mu, a, b):
 class StepCtx:
     """Per-step inputs every stage sees.  ``lr`` is a fp32 [1] tensor on the
     params' device (the schedule value), ``t`` the 0-d int step counter
-    there too: neither is ever read back by the host."""
+    there too: neither is ever read back by the host.  ``n_nodes`` is the
+    global node count for the node-reducing stages (None: the leaves'
+    leading-axis size)."""
 
     w: Any                      # mixing matrix for this round (None if local)
     lr: Any                     # resolved learning rate eta_t
     t: Any                      # step counter
     mix_fn: MixFn               # the gossip hook
+    n_nodes: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,6 +213,127 @@ def heavyball(beta: float, *, nesterov: bool = False,
                        "nesterov": bool(nesterov), "seed_from": seed_from})
 
 
+def qhm_momentum(beta: float, mu: float, *, name: str = "qhm") -> Stage:
+    """Quasi-Hyperbolic momentum, the exact single-worker reduction of
+    QG-DSGDm (App. B.3.1): with beta_hat = mu + (1-mu)*beta,
+
+        m <- beta_hat m + g ;  upd = (1 - mu/beta_hat) m + (mu/beta_hat) g
+    """
+    beta_hat = mu + (1.0 - mu) * beta
+    c1 = 1.0 - mu / beta_hat
+    c2 = mu / beta_hat
+
+    def init(params):
+        return {"m": _zeros_like(params)}
+
+    def apply(ctx, sv, states):
+        m = _axpy(beta_hat, states[name]["m"], sv.update)
+        upd = tree_map(lambda mm, gg: c1 * mm + c2 * gg, m, sv.update)
+        return sv.replace(update=upd), {**states, name: {"m": m}}
+
+    return Stage(name=name, init=init, apply=apply)
+
+
+def adam_scale(beta1: float, beta2: float, eps: float, *,
+               seed_from: str | None = None, name: str = "adam") -> Stage:
+    """Adam moment update and preconditioned direction, no bias correction
+    (the paper's decentralized Adam baselines, Table 6).  ``seed_from``
+    reads the moments from a quasi-global buffer stage (Alg. 2) instead of
+    local state, as :func:`heavyball` does."""
+
+    def init(params):
+        if seed_from:
+            return None
+        return {"m": _zeros_like(params), "v": _zeros_like(params)}
+
+    def apply(ctx, sv, states):
+        if seed_from:
+            m_prev = states[seed_from]["m_hat"]
+            v_prev = states[seed_from]["v_hat"]
+        else:
+            m_prev = states[name]["m"]
+            v_prev = states[name]["v"]
+        g = sv.update
+        m = _lerp(beta1, m_prev, g)
+        v = tree_map(lambda vv, gg: beta2 * vv + (1 - beta2) * gg * gg,
+                     v_prev, g)
+        upd = tree_map(lambda mm, vv: mm / (torch.sqrt(vv) + eps), m, v)
+        sv = sv.replace(update=upd)
+        if seed_from:
+            return sv, states
+        return sv, {**states, name: {"m": m, "v": v}}
+
+    return Stage(name=name, init=init, apply=apply)
+
+
+def _counter(params) -> torch.Tensor:
+    """A stage's own 0-d int32 step counter, on the params' device."""
+    return torch.zeros((), dtype=torch.int32,
+                       device=tree_leaves(params)[0].device)
+
+
+def grad_track(*, name: str = "grad_track") -> Stage:
+    """Gossip-tracking of the incoming update's global average:
+
+        y^t = W y^{t-1} + u^t - u^{t-1}        (y^0 = u^0)
+
+    Right after ``weight_decay`` this is gradient tracking (Table 2); after
+    a momentum stage it tracks the momentum update itself (Global Update
+    Tracking).  One ``mix_fn`` call, before the params mix site."""
+
+    def init(params):
+        return {"y": _zeros_like(params), "prev_u": _zeros_like(params),
+                "t": _counter(params)}
+
+    def apply(ctx, sv, states):
+        st = states[name]
+        first = st["t"] == 0
+        u = sv.update
+        y_mixed = ctx.mix_fn(ctx.w, st["y"])
+        y = tree_map(lambda ym, uu, pu: torch.where(first, uu, ym + uu - pu),
+                     y_mixed, u, st["prev_u"])
+        new = {"y": y, "prev_u": u, "t": st["t"] + 1}
+        return sv.replace(update=y), {**states, name: new}
+
+    return Stage(name=name, init=init, apply=apply)
+
+
+def d2_correction(*, plus: bool = False, name: str = "d2") -> Stage:
+    """D^2 (Tang et al. 2018b) correction of the update:
+
+        u <- (x^{t-1} - x^t) * scale / eta + g^t - g^{t-1}
+
+    (plain g on the first step).  ``plus`` rescales the model-difference
+    term by eta_t / eta_{t-1}, the paper's D^2_+ lr-decay fix (footnote
+    9).  ``prev_lr`` is kept on the device."""
+
+    def init(params):
+        leaf = tree_leaves(params)[0]
+        return {"prev_x": tree_map(torch.clone, params),
+                "prev_g": _zeros_like(params),
+                "prev_lr": torch.zeros((), dtype=torch.float32,
+                                       device=leaf.device),
+                "t": _counter(params)}
+
+    def apply(ctx, sv, states):
+        st = states[name]
+        eta = ctx.lr
+        first = st["t"] == 0
+        prev_lr = torch.where(first, eta, st["prev_lr"])
+        scale = (eta / prev_lr) if plus else 1.0
+        u = sv.update
+        corr = tree_map(
+            lambda xp, x, g, gp: torch.where(
+                first, g, scale * (xp - x) / eta + g - gp),
+            st["prev_x"], sv.params_pre_mix, u, st["prev_g"])
+        new = {"prev_x": sv.params_pre_mix, "prev_g": u,
+               "prev_lr": eta.to(torch.float32).reshape(()),
+               "t": st["t"] + 1}
+        return sv.replace(update=corr), {**states, name: new}
+
+    return Stage(name=name, init=init, apply=apply)
+
+
 def gossip_mix(*, name: str = "gossip_mix") -> Stage:
     """The mix point: the local half step x - eta*u, then one gossip round
     through ``ctx.mix_fn``.  Records ``params_post_mix``."""
@@ -263,6 +392,175 @@ def qg_buffer(mu: float, *, tau: int = 1, name: str = "qg_buffer") -> Stage:
     return Stage(name=name, init=init, apply=apply,
                  meta={"kind": "qg_buffer", "mu": float(mu),
                        "tau": int(tau)})
+
+
+def qg_adam_buffer(beta1: float, beta2: float, *,
+                   name: str = "qg_adam") -> Stage:
+    """Quasi-global Adam buffers (Alg. 2 lines 8-10): refresh both moments
+    from the per-node L2-normalized model difference d_hat after the gossip
+    round.  The squared norm sums the leaves in tree order, as the
+    reference does.  Pair with ``adam_scale(seed_from=<this name>)``."""
+
+    def init(params):
+        return {"m_hat": _zeros_like(params), "v_hat": _zeros_like(params)}
+
+    def apply(ctx, sv, states):
+        st = states[name]
+        d = _sub(sv.params_pre_mix, sv.params_post_mix)
+        flat = tree_leaves(d)
+        n_nodes = flat[0].shape[0]
+        sq = sum(torch.sum(l.reshape(n_nodes, -1).to(torch.float32) ** 2,
+                           dim=-1) for l in flat)
+        inv_norm = 1.0 / (torch.sqrt(sq) + 1e-12)  # [n]
+
+        def _nrm(leaf):
+            bshape = (n_nodes,) + (1,) * (leaf.dim() - 1)
+            return leaf * inv_norm.reshape(bshape).to(leaf.dtype)
+
+        d_hat = tree_map(_nrm, d)
+        m_hat = _lerp(beta1, st["m_hat"], d_hat)
+        v_hat = tree_map(lambda vv, dd: beta2 * vv + (1 - beta2) * dd * dd,
+                         st["v_hat"], d_hat)
+        return sv, {**states, name: {"m_hat": m_hat, "v_hat": v_hat}}
+
+    return Stage(name=name, init=init, apply=apply)
+
+
+def dmsgd_buffer(beta: float, mu: float, *, option: int = 2,
+                 name: str = "dmsgd_buffer") -> Stage:
+    """DMSGD re-organized buffer (Balu et al. 2020, Alg. 7/8).  Option II:
+
+        m_hat <- mu * (beta m_hat + g) + (1 - mu) * (x_pre - x_post)/eta
+
+    Option I also replays the previous step's quantities (App. B.2).  The
+    ``beta m_hat + g`` term is the incoming update of the paired
+    ``heavyball(seed_from=<this name>)`` stage."""
+
+    def init(params):
+        z = _zeros_like(params)
+        if option == 1:
+            return {"m_hat": z, "prev_m_hat": z, "prev_g": z,
+                    "prev_x": tree_map(torch.clone, params)}
+        return {"m_hat": z}
+
+    def apply(ctx, sv, states):
+        st = states[name]
+        eta = ctx.lr
+        local = sv.update  # beta * m_hat + g from the seeded heavyball
+        d = _scale(torch.reciprocal(eta),
+                   _sub(sv.params_pre_mix, sv.params_post_mix))
+        if option == 2:
+            return sv, {**states, name: {"m_hat": _lerp(mu, local, d)}}
+        inner = tree_map(
+            lambda loc, xp, x, pm, pg: loc + (xp - x) / eta
+            - beta * pm - pg,
+            local, st["prev_x"], sv.params_pre_mix, st["prev_m_hat"],
+            st["prev_g"])
+        new = {"m_hat": _lerp(mu, inner, d), "prev_m_hat": st["m_hat"],
+               "prev_g": sv.grads, "prev_x": sv.params_pre_mix}
+        return sv, {**states, name: new}
+
+    return Stage(name=name, init=init, apply=apply)
+
+
+def slow_outer(slow_beta: float, slow_alpha: float, tau: int, *,
+               base: str = "heavyball", name: str = "slow_outer") -> Stage:
+    """SlowMo outer loop (Wang et al. 2020c, Alg. 5): every ``tau`` steps
+    average the model over all nodes, apply slow momentum on the outer
+    iterates and reset the ``base`` momentum stage's buffer.  A write into
+    another stage's state, so it is chained after that stage.  The outer
+    step is a device gate, ``(t+1) % tau == 0``, applied by
+    ``torch.where``."""
+
+    def init(params):
+        return {"slow_m": _zeros_like(params),
+                "anchor": tree_map(torch.clone, params)}
+
+    def apply(ctx, sv, states):
+        st = states[name]
+        eta = ctx.lr
+        do_outer = (ctx.t + 1) % tau == 0
+        n = tree_leaves(sv.params)[0].shape[0]
+        avg = tree_map(lambda a: a.expand((n,) + a.shape[1:]),
+                       gossip.node_mean(sv.params))
+        slow_m_new = tree_map(
+            lambda sm, x0, xt: slow_beta * sm + (x0 - xt) / eta,
+            st["slow_m"], st["anchor"], avg)
+        outer = tree_map(lambda x0, sm: x0 - slow_alpha * eta * sm,
+                         st["anchor"], slow_m_new)
+
+        def sel(a, b):
+            return tree_map(lambda x, y: torch.where(do_outer, x, y), a, b)
+
+        out_params = sel(outer, sv.params)
+        base_m = states[base]["m"]
+        new_states = {
+            **states,
+            base: {**states[base], "m": sel(_zeros_like(base_m), base_m)},
+            name: {"slow_m": sel(slow_m_new, st["slow_m"]),
+                   "anchor": sel(outer, st["anchor"])},
+        }
+        return sv.replace(params=out_params), new_states
+
+    return Stage(name=name, init=init, apply=apply)
+
+
+def buffer_sync(target: str = "heavyball", *, mode: str = "ring",
+                name: str = "buffer_sync") -> Stage:
+    """Gossip another stage's momentum buffer after the params mix (Table 5
+    'extra communication' rows): ``mode='ring'`` mixes with the same W
+    through ``mix_fn`` (a second compressed-comm site), ``mode='complete'``
+    averages it globally every step, through ``mix_fn`` too, with the 1/n
+    matrix."""
+
+    def apply(ctx, sv, states):
+        m = states[target]["m"]
+        if mode == "ring":
+            m = ctx.mix_fn(ctx.w, m)
+        elif mode == "complete":
+            leaf = tree_leaves(m)[0]
+            n = ctx.n_nodes or leaf.shape[0]
+            m = ctx.mix_fn(torch.full((n, n), 1.0 / n, dtype=torch.float32,
+                                      device=leaf.device), m)
+        else:
+            raise ValueError(f"unknown buffer_sync mode {mode!r}")
+        return sv, {**states, target: {**states[target], "m": m}}
+
+    return _stateless(name, apply)
+
+
+# ---------------------------------------------------------------------------
+# stage-factory registry (serializable chains: OptimSpec.stages)
+# ---------------------------------------------------------------------------
+
+STAGES: dict[str, Callable[..., Stage]] = {
+    "weight_decay": weight_decay,
+    "heavyball": heavyball,
+    "qhm_momentum": qhm_momentum,
+    "adam_scale": adam_scale,
+    "gossip_mix": gossip_mix,
+    "descent": descent,
+    "qg_buffer": qg_buffer,
+    "qg_adam_buffer": qg_adam_buffer,
+    "dmsgd_buffer": dmsgd_buffer,
+    "grad_track": grad_track,
+    "d2_correction": d2_correction,
+    "slow_outer": slow_outer,
+    "buffer_sync": buffer_sync,
+}
+
+
+def make_stage(name: str, /, **kwargs) -> Stage:
+    """Build one registered stage from its factory name and kwargs, the
+    serializable form of an ``OptimSpec.stages`` chain."""
+    if name not in STAGES:
+        raise ValueError(
+            f"unknown transform stage {name!r}; have {sorted(STAGES)}")
+    try:
+        return STAGES[name](**kwargs)
+    except TypeError as e:
+        raise ValueError(
+            f"bad kwargs for stage {name!r}: {e}") from None
 
 
 # ---------------------------------------------------------------------------
@@ -524,13 +822,21 @@ _PASSES_BY_KIND = {
 }
 
 
+#: passes by stage name for the stages without a fusion kind (the
+#: reference's figures; informational: no kernel takes these stages)
+_PASSES_BY_NAME = {
+    "qhm": 6, "adam": 9, "grad_track": 4, "descent": 3, "d2": 4,
+    "qg_adam": 12, "dmsgd_buffer": 8, "slow_outer": 9, "buffer_sync": 0,
+}
+
+
 def _stage_passes(s: Stage) -> int:
-    """Passes of one unfused stage; 3 (two reads, one write) for a stage
-    without a fusion kind, such as ``descent``."""
+    """Passes of one unfused stage: by fusion kind, else by name, else 3
+    (two reads, one write)."""
     kind = _meta_kind(s)
     if kind in _PASSES_BY_KIND:
         return _PASSES_BY_KIND[kind](s.meta)
-    return 3
+    return _PASSES_BY_NAME.get(s.name, 3)
 
 
 def chain_bytes_moved(stages: tuple[Stage, ...], n_elems: int, *,

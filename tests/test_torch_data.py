@@ -95,7 +95,8 @@ def test_ring_mixing_bit_equal(n):
     wt.validate()
 
 
-@pytest.mark.parametrize("name", ["exp", "social", "torus", "powerlaw:2.5"])
+@pytest.mark.parametrize("name", ["powerlaw", "smallworld", "smallworld:0.1",
+                                  "powerlaw:2.5"])
 def test_unported_topologies_name_their_slice(name):
     with pytest.raises(NotImplementedError, match="slice"):
         ttopo.get_topology(name, 16)

@@ -82,8 +82,8 @@ def test_port_loads_reference_spec_json(preset):
     ("gossip.schedule=ring_ppermute", "slice 8"),
     ("telemetry.enabled=true", "slice 5"),
     ("scenario.enabled=true", "slice 8"),
-    ("topology.name=exp", "slice 2"),
-    ("optim.name=qg_dadam", "slice 2"),
+    ("topology.name=powerlaw:2.5", "slice 8"),
+    ("data.dataset=lm_domains", "slice 6"),
     ("model.name=resnet20", "slice 4"),
 ])
 def test_spec_outside_the_slice_names_its_slice(override, match):
@@ -109,8 +109,8 @@ def test_spec_rejects_invalid_values():
 def test_unported_presets_name_their_slice():
     with pytest.raises(NotImplementedError, match="slice 4"):
         tapi.presets.get("cifar_ring16_alpha0.1_qg")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tapi.presets.get("social32_alpha0.1_qg")
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        tapi.presets.get("lm100m_ring8_alpha0.1_qg")
     with pytest.raises(ValueError, match="unknown preset"):
         tapi.presets.get("bogus")
 
