@@ -18,15 +18,16 @@ line) if anything goes wrong:
             at the quickstart MLP's four leaf shapes, odd shapes and
             [16, 2**23+5], QSGD at L = 1 and 15 with a zero-scale row and u
             just under 1, alone and as grouped calls (the four leaves, all
-            ROW_SHAPES, views offset by 1-4 and 20 elements; heads peeled
-            to 128 bytes and to 16), with the float4 or scalar path of
-            every leaf checked; ``qg_step`` (the dense-gossip step in one
+            ROW_SHAPES, ResNet-20's 80 leaves in two launches, views
+            offset by 1-4 and 20 elements; heads peeled to 128 bytes and to
+            16), with the float4 or scalar path of every leaf checked; ``qg_step`` (the dense-gossip step in one
             launch) against ``ref.qg_step`` (tolerance STEP_ULP) and bit
             for bit against the same composition with the mix summed in
             node order, both forms, every flag, 16 and 32 nodes, over the
             quickstart's leaves, a leaf of 1001 columns, views 1-4
-            elements in, 49 leaves and two leaves of more tiles than the
-            card holds blocks, with its launches and paths checked;
+            elements in, 49 leaves, two leaves of more tiles than the
+            card holds blocks and ResNet-20's 80 leaves, with its launches
+            and paths checked;
             ``choco_exchange`` (the exchange half of a compressed round and
             the QG refresh in one launch) likewise against
             ``ref.choco_exchange`` and bit for bit against the node-order
@@ -38,7 +39,8 @@ line) if anything goes wrong:
             at each quickstart leaf, the four-leaf grouped call beside four
             single launches, and [16, 2**23+5] beside [16, 2**23+8], each
             with heads peeled to 128 bytes and to 16; ``qg_step`` at the
-            quickstart's tree and at STEP_LARGE beside ``ref.qg_step`` and
+            quickstart's tree, at ResNet-20's (80 leaves, two launches)
+            and at STEP_LARGE beside ``ref.qg_step`` and
             the sequence it replaces (pack, ``fused_halfstep``, the
             products, pack, ``fused_qg_buffer``), with the device
             activities of each; ``choco_exchange`` at the quickstart's tree
@@ -90,7 +92,29 @@ line) if anything goes wrong:
             ``run_qg_consensus`` on ring16, ring32, social32 and exp16
             against the JAX package's histories (CONSENSUS_REF) and the
             port's CPU runs; the zoo's launches on a line of their own;
-6. serve    slice 7's main path: ``python -m repro_torch.serve --arch
+6. cifar    slices 4 and 5: ``cifar_ring16_alpha0.1_qg`` (ResNet-20 with
+            EvoNorm at width 1, 16 nodes) and its DSGDm-N twin for 60
+            steps with ``qg_step`` 120 times a run (48 + 32 leaves a step,
+            ``head_b`` on the scalar loop) and no other kernel; QG's
+            accuracy in the JAX package's seed range widened by ACC_ATOL
+            (CIFAR_REF) and above DSGDm-N's; QG against the port's CPU run
+            (CIFAR_CPU_RTOL over CIFAR_CPU_STEPS, accuracy within ACC_ATOL;
+            the same run with TF32 convs must fail it) and against
+            ``fused="off"`` (HIST_RTOL); GN and BN for 20 steps (48 + 13
+            leaves); CHOCO top-k with ``comm.backend=auto`` for 20 steps
+            with the launches CIFAR_TOPK predicts; telemetry at every 1 and
+            10 on the quickstart and the CIFAR runs (histories bit-equal to
+            the runs without, launches unchanged, rows on cadence), 8 steps
+            under CUDA sync debugging (no host sync); under cuDNN's
+            deterministic algorithms, runs interrupted after a checkpoint
+            at step 10 of 20 and resumed bit-equal to the whole run (BN,
+            whose running statistics are checked local to each node, and
+            top-k), and top-k bit-equal to ``comm.backend=jnp`` with a
+            node-order mix hook and within CIFAR_TOPK_TOL of the preset's
+            ``comm.backend=jnp`` and of the CPU; the loop profiled
+            (ms/step, busy share, the convs' share, ``qg_step``); the
+            phase's launches on a line of their own;
+7. serve    slice 7's main path: ``python -m repro_torch.serve --arch
             tinyllama-1.1b --full --use-pallas --requests 16`` in code (a
             seeded init at the published widths and 22 layers), with
             ``paged_decode_attention`` launched exactly 22 times per decode
@@ -101,7 +125,7 @@ line) if anything goes wrong:
             launches against the chunked path (logits and every layer's
             K/V) and once under ``torch.profiler`` (wall beside device
             time), and the serving run under the profiler (0 merges);
-7. mamba    the SSD scan kernels (chunk pass, state pass, output pass)
+8. mamba    the SSD scan kernels (chunk pass, state pass, output pass)
             against the sequential plain version in fp32 and bf16 at the
             reference's SSD_CASES, S = 1 and 17, chunk 64 vs 256, dt x 1e-2,
             P 48 and the main shape, and at SSD_PATH_CASES (P in several
@@ -127,6 +151,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -418,7 +443,8 @@ def _step_trees(n, gen, dev, roles: int = 3):
     quickstart MLP's four leaves and a leaf of 1001 columns (scalar loop);
     leaves viewed 1, 2, 3 and 4 elements into larger buffers; 49 leaves
     (two launches); a leaf of 70001 columns and one of 65540, 2119 tiles
-    (each block takes several)."""
+    (each block takes several); ResNet-20's 80 leaves (EvoNorm, the CIFAR
+    preset's tree: two launches, ``head_b`` on the scalar loop)."""
     import torch
 
     def draw(shape):
@@ -438,6 +464,9 @@ def _step_trees(n, gen, dev, roles: int = 3):
     yield ("49 leaves", *map(list, zip(*many)), (2, vec, 49 - vec))
     big = [draw((n, 70001)), draw((n, 65540))]
     yield ("2119 tiles", *map(list, zip(*big)), (1, 1, 1))
+    del big
+    resnet = [draw(shape) for shape in _resnet20_shapes(n=n)]
+    yield ("ResNet-20", *map(list, zip(*resnet)), (2, 79, 1))
 
 
 def _qg_step_checks(dev, gen) -> dict:
@@ -730,9 +759,12 @@ def _rowwise_checks(dev, gen, worst) -> None:
     from repro_torch.kernels import compress as C
     from repro_torch.kernels import ref
 
-    def check(label, xs, us, thrs, scales, vector, scalar, peel=C.PEELS[0]):
+    def check(label, xs, us, thrs, scales, vector, scalar, peel=C.PEELS[0],
+              launches=None):
         label = f"{label}, peel {peel}"
         before = dict(C.ROW_PATHS)
+        calls = {k: C.LAUNCHES[k]
+                 for k in ("threshold_mask", "quantize_dequantize")}
         _compare_groups("threshold_mask", label,
                         C.threshold_mask_group(xs, thrs, peel=peel),
                         ref.threshold_mask_group(xs, thrs), worst)
@@ -749,6 +781,12 @@ def _rowwise_checks(dev, gen, worst) -> None:
                                          f"row did not quantize to zero "
                                          f"({label})")
         _expect_paths(label, before, 3 * vector, 3 * scalar)
+        ran = {k: C.LAUNCHES[k] - v for k, v in calls.items()}
+        if launches is not None and ran != {"threshold_mask": launches,
+                                            "quantize_dequantize":
+                                                2 * launches}:
+            raise AssertionError(f"{label}: launches {ran}, want "
+                                 f"{launches} a call")
 
     for shape in ROW_SHAPES:  # one leaf a call
         x, u, thr, scale = _rowwise_inputs(shape, gen, dev)
@@ -760,6 +798,12 @@ def _rowwise_checks(dev, gen, worst) -> None:
             cols = list(zip(*(_rowwise_inputs(s, gen, dev) for s in shapes)))
             check(label, *cols, len(shapes), 0, peel)
             del cols
+        # the CHOCO top-k ResNet-20 run's message: 80 leaves, each [16, -1],
+        # in two launches (compress.group_plan)
+        cols = list(zip(*(_rowwise_inputs((s[0], math.prod(s[1:])), gen, dev)
+                          for s in _resnet20_shapes())))
+        check("ResNet-20 group (80 leaves)", *cols, 80, 0, peel, launches=2)
+        del cols
         for offset in (4, 20):  # unaligned views in a group, on float4
             leaves = [_rowwise_inputs(s, gen, dev) for s in LEAF_SHAPES]
             views = [_rowwise_inputs(s, gen, dev, offset)
@@ -1029,8 +1073,9 @@ def _time_step(dev, timed) -> None:
     """``qg_step`` beside ``ref.qg_step``, the sequence it replaces (one
     CUDA graph each) and its bound (5 streams over the memory rate), QG
     (QG-DSGDm-N) and DSGDm (DSGDm-N) forms, wd 1e-4, at the quickstart's
-    tree and at STEP_LARGE; the device activities of one eager call of
-    each at the quickstart's tree."""
+    tree, at ResNet-20's (80 leaves, two launches; its outputs held as
+    ``_step_compare`` holds them) and at STEP_LARGE; the device activities
+    of one eager call of each at the quickstart's tree."""
     import torch
     from repro_torch.core import optim
     from repro_torch.kernels import qg_update as K
@@ -1043,7 +1088,8 @@ def _time_step(dev, timed) -> None:
                                          weight_decay=1e-4)._stages(),
               "dsgdm": optim.make_optimizer("dsgdm_n",
                                             weight_decay=1e-4)._stages()}
-    trees = [("quickstart", LEAF_SHAPES, 20)] + [
+    trees = [("quickstart", LEAF_SHAPES, 20),
+             ("resnet20", _resnet20_shapes(), 20)] + [
         (shape, [shape], 4) for shape in STEP_LARGE]
     for key, shapes, iters in trees:
         n = shapes[0][0]
@@ -1057,6 +1103,16 @@ def _time_step(dev, timed) -> None:
             kw = dict(beta=0.9, wd=1e-4, nesterov=True, mu=mu)
             kfn = lambda: K.qg_step(xs, ms, gs, w, eta, one, **kw)
             pfn = lambda: ref.qg_step(xs, ms, gs, w, eta, one, **kw)
+            if key == "resnet20":  # the timed call's outputs, held too
+                worst = {"ulp": 0.0, "abs": 0.0, "m_abs": 0.0, "cases": 0}
+                _step_compare(f"timed {form} at ResNet-20's tree", kfn(),
+                              pfn(), _node_order_step(xs, ms, gs, w, eta,
+                                                      one, **kw),
+                              (xs, ms, gs, w, eta, kw), worst)
+                log(f"qg_step {form} at ResNet-20's tree: {worst['cases']} "
+                    f"leaves bit-equal to the node-order composition, x_new "
+                    f"within {worst['ulp']:.2f} ulp of ref.qg_step (allowed "
+                    f"{STEP_ULP}), max abs err {worst['abs']:.3e}")
             seq = _replaced_sequence(stages[form], x, m, g, w, eta)
             kms, pms = _time_ms(kfn, iters), _time_ms(pfn, iters)
             sms = _time_ms(seq, iters)
@@ -1288,8 +1344,8 @@ def phase_main(dev) -> dict:
 CAPTURE_LAUNCHES = {"fused_halfstep": 1, "fused_qg_buffer": 1}
 
 
-def _run_built(spec, dev, node_order_hook=False):
-    """``(final state, history)`` of 150 steps of ``spec`` built by
+def _run_built(spec, dev, node_order_hook=False, steps=150):
+    """``(final state, history)`` of ``steps`` steps of ``spec`` built by
     ``api.build`` and trained as ``api.run`` trains it; with
     ``node_order_hook`` the trainer's compressed rounds mix by
     ``_node_order_mix``, which keeps them off the exchange kernel (the
@@ -1313,7 +1369,7 @@ def _run_built(spec, dev, node_order_hook=False):
             compressor=c.compressor, gamma=c.gamma,
             error_feedback=c.error_feedback, warm_start=c.warm_start)
     return run_training_scanned(ex.trainer, ex.state, ex.task.make_iter(),
-                                150, chunk=spec.loop.chunk, log_every=1,
+                                steps, chunk=spec.loop.chunk, log_every=1,
                                 log_fn=lambda *_: None)
 
 
@@ -1447,10 +1503,17 @@ def phase_compressed(dev) -> dict:
     return {"launches": launches, "results": results}
 
 
-def phase_profile(dev, label: str, spec) -> None:
-    """Device time by kernel and host time by op over the 150-step training
-    loop of one run of ``spec`` (a measurement: printed, and written to
-    build/chip_smoke/profile_<label>.json)."""
+#: the device kernels of a cuDNN (or cuDNN-chosen) convolution, by name
+CONV_KERNEL = re.compile(r"conv|cudnn|xmma|wgrad|dgrad|fprop|implicit",
+                         re.IGNORECASE)
+
+
+def phase_profile(dev, label: str, spec, steps: int = 150) -> dict | None:
+    """Device time by kernel and host time by op over the ``steps``-step
+    training loop of one run of ``spec`` (a measurement: printed, and
+    written to build/chip_smoke/profile_<label>.json); returns wall and
+    device ms, the convolutions' device ms and ``qg_step``'s (ms,
+    launches)."""
     import torch
     from repro_torch import api
     from repro_torch.train import run_training_scanned
@@ -1460,8 +1523,9 @@ def phase_profile(dev, label: str, spec) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_training_scanned(ex.trainer, ex.state, ex.task.make_iter(), 150,
-                             chunk=spec.loop.chunk, log_fn=lambda *_: None)
+        run_training_scanned(ex.trainer, ex.state, ex.task.make_iter(),
+                             steps, chunk=spec.loop.chunk,
+                             log_fn=lambda *_: None)
         torch.cuda.synchronize(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev_rows, host_rows = [], []
@@ -1480,10 +1544,10 @@ def phase_profile(dev, label: str, spec) -> None:
     host_rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in dev_rows)
     launches = sum(r[2] for r in dev_rows)
-    log(f"profile {label} training loop, 150 steps (profiler on): wall "
+    log(f"profile {label} training loop, {steps} steps (profiler on): wall "
         f"{wall_ms:.3f} ms, device kernel time {busy:.3f} ms "
         f"({100 * busy / wall_ms:.2f}% busy), {launches} device "
-        f"activities ({launches / 150:.1f} per step)")
+        f"activities ({launches / steps:.1f} per step)")
     # the kernels of csrc/ (templates of csrc/elementwise.cuh)
     ours = [r for r in dev_rows
             if any(k in r[0] for k in ("stream3", "rowwise", "qg_step",
@@ -1502,7 +1566,10 @@ def phase_profile(dev, label: str, spec) -> None:
                     for k, m, c in dev_rows],
          "host": [{"name": k, "ms": m, "count": c}
                   for k, m, c in host_rows]}, indent=1))
-    return {"wall_ms": wall_ms, "device_ms": busy}
+    step = [(m, c) for k, m, c in dev_rows if "qg_step" in k]
+    return {"wall_ms": wall_ms, "device_ms": busy,
+            "conv_ms": sum(m for k, m, _ in dev_rows if CONV_KERNEL.search(k)),
+            "qg_step": (sum(m for m, _ in step), sum(c for _, c in step))}
 
 
 # ---------------------------------------------------------------------------
@@ -1881,6 +1948,507 @@ def phase_zoo(dev, main_out) -> dict:
                 f"rounds, gossip in {sg}: speed-up {speed}")
     log(f"zoo launches {json.dumps({k: v for k, v in zoo_launches.items() if v}, sort_keys=True)}")
     return {"launches": zoo_launches}
+
+
+# ---------------------------------------------------------------------------
+# slices 4 and 5: the paper's CV protocol, telemetry and checkpoints
+# ---------------------------------------------------------------------------
+
+#: the JAX package's test accuracy on ``cifar_ring16_alpha0.1_qg`` (60
+#: steps, JAX 0.9.0 on the CPU) by (optimizer, seed), with ``seed=<s>``
+#: overriding the spec (init, data and partition);
+#: tests/test_torch_cifar.py holds each against the JAX package
+CIFAR_REF = {("qg_dsgdm_n", 0): 0.79638671875,
+             ("qg_dsgdm_n", 1): 0.759765625,
+             ("qg_dsgdm_n", 2): 0.765625,
+             ("dsgdm_n", 0): 0.607177734375}
+#: the band the card's QG-DSGDm-N accuracy must land in: the reference's
+#: seed range widened by ACC_ATOL.  The port's init is a torch draw (ROADMAP
+#: C3), and the reference's own spread over three seeds (0.037) is wider
+#: than ACC_ATOL, so a band around seed 0 alone would not hold an honest
+#: run
+CIFAR_QG_BAND = (min(v for (m, _), v in CIFAR_REF.items()
+                     if m == "qg_dsgdm_n") - ACC_ATOL,
+                 max(v for (m, _), v in CIFAR_REF.items()
+                     if m == "qg_dsgdm_n") + ACC_ATOL)
+#: ``qg_step``'s leaves a launch on ResNet-20's tree (48 a launch at most):
+#: EvoNorm has 80 param leaves, GN and BN 61; ``head_b`` (10 columns) is
+#: the one leaf on the scalar loop
+CIFAR_STEP_LEAVES = {"evonorm": (48, 32), "gn": (48, 13), "bn": (48, 13)}
+#: the CHOCO top-k ResNet-20 run (``comm.compressor=topk:0.01``,
+#: ``comm.backend=auto``, 20 steps), predicted before the first run
+#: (PERF.md §6) from the plans: one packed ``fused_halfstep`` a step
+#: and one in the warm-start capture with its one ``fused_qg_buffer``; the
+#: message's 80 leaves in ceil(80 / 48) = 2 grouped ``threshold_mask``
+#: launches (``compress.group_plan``) and 2 ``choco_exchange`` launches
+#: (``compress.exchange_plan``) a step
+CIFAR_TOPK = {"fused_halfstep": 21, "fused_qg_buffer": 1,
+              "threshold_mask": 40, "choco_exchange": 40}
+#: card vs CPU on the CIFAR preset: CIFAR_CPU_RTOL (atol 0) over every
+#: step.  The run is not chaotic: on the CPU a 1e-7 change of the init
+#: moved the port's 60-step history by at most 1.7e-6 relative, and on an
+#: H100 the card's history stayed within 1.482e-06 of the CPU's over all
+#: 60 steps (PERF.md §6).  The same run with TF32 convs
+#: (``cudnn.allow_tf32``, which ``device.resolve_device`` turns off) must
+#: fail it: the phase runs that control too
+CIFAR_CPU_STEPS, CIFAR_CPU_RTOL = 60, 1e-5
+#: the CHOCO top-k ResNet-20 run through the kernels against the same run
+#: with ``comm.backend=jnp`` (the anchors' mix by cuBLAS) and against the
+#: port's CPU run, (steps, rtol), atol 0.  On an H100 (PERF.md §6) no
+#: entry crossed the k-th magnitude in these 20 steps (top-k's jump on a
+#: rounding difference, CPU_TOPK_RTOL): the histories stayed within
+#: 1.726e-06 (jnp) and 3.861e-06 (CPU) relative over all 20, and the
+#: bounds give each about 5x that
+CIFAR_TOPK_TOL = {"jnp": (20, 1e-5), "cpu": (20, 2e-5)}
+#: the telemetry cadences run on the card, and the steps of the no-sync
+#: check (every CIFAR_SYNC_EVERY-th of them collecting)
+CIFAR_EVERY = (1, 10)
+CIFAR_SYNC_STEPS, CIFAR_SYNC_EVERY = 8, 4
+#: ResNet-20's EvoNorm tree (16 nodes): qg_step's timed shape
+RESNET20_ELEMS = 272_970
+
+
+def _resnet20_shapes(norm="evonorm", n=16):
+    """The node-stacked shapes of ResNet-20's param leaves, tree order."""
+    import torch
+    from repro_torch.models import resnet
+    from repro_torch.tree import tree_leaves
+    params, _ = resnet.init_resnet20(torch.Generator().manual_seed(0),
+                                     norm=norm)
+    return [(n, *leaf.shape) for leaf in tree_leaves(params)]
+
+
+def _cifar_spec(*overrides):
+    from repro_torch import api
+    return api.presets.get("cifar_ring16_alpha0.1_qg").override(
+        "loop.log_every=1", *overrides)
+
+
+def _run_counted(what, spec, dev, want, steps, **kw):
+    """``api.run`` of ``spec`` on the card with the launch counters zeroed
+    just before and read just after; exact launches ``want``; returns the
+    result and the float4/scalar leaves ``qg_step`` ran."""
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import qg_update as K
+
+    before = dict(K.STEP_PATHS)
+    ops.reset_launch_counts()
+    res = api.run(spec, device=dev, log_fn=lambda *_: None, **kw)
+    counts = ops.launch_counts()
+    paths = {k: K.STEP_PATHS[k] - before[k] for k in before}
+    _expect_launches(what, counts, want)
+    _finite_run(what, res, steps)
+    return res, counts, paths
+
+
+def _expect_step_plan(what, norm, paths, steps) -> None:
+    """``qg_step`` ran CIFAR_STEP_LEAVES[norm] leaves a launch, every leaf
+    on float4 but ``head_b`` on the scalar loop, checked on the plan of the
+    tree's leaves and on the paths the wrapper counted."""
+    from repro_torch.kernels import qg_update as K
+    from repro_torch.models import resnet
+    import torch
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    params, _ = resnet.init_resnet20(torch.Generator().manual_seed(0),
+                                     norm=norm)
+    names, leaves = tree_paths(params), tree_leaves(params)
+    plan = K.qg_step_plan([(leaf.numel(), [0] * 5) for leaf in leaves])
+    sizes = tuple(len(entries) for entries, _ in plan)
+    scalar = [names[i] for entries, _ in plan for i, _, vec in entries
+              if not vec]
+    want = {"vector": steps * (len(leaves) - 1), "scalar": steps}
+    if sizes != CIFAR_STEP_LEAVES[norm] or scalar != [("head_b",)] \
+            or paths != want:
+        raise AssertionError(f"{what}: qg_step plan {sizes}, scalar leaves "
+                             f"{scalar}, paths {paths} (want "
+                             f"{CIFAR_STEP_LEAVES[norm]}, head_b, {want})")
+
+
+def _bn_stats_local(ckpt) -> str:
+    """BN's running statistics in the checkpoint ``ckpt`` (an open npz of
+    a 16-node ring run) differ across nodes and equal no node's mix
+    (W @ stats): they were never gossiped."""
+    import numpy as np
+    from repro_torch.core import topology
+
+    w = np.asarray(topology.ring(16).mixing[0], np.float32)
+    keys = [k for k in ckpt.files if "x:.model_state" in k]
+    for k in keys:
+        leaf = ckpt[k].reshape(16, -1)
+        mixed = w @ leaf
+        if np.array_equal(leaf, np.broadcast_to(
+                leaf[:1], leaf.shape)) or any(
+                np.array_equal(leaf[i], mixed[i]) for i in range(16)):
+            raise AssertionError(f"BN running statistics look gossiped "
+                                 f"({k})")
+    if not keys:
+        raise AssertionError("the BN checkpoint holds no model state")
+    return (f"; {len(keys)} running-statistics leaves differ across nodes "
+            f"and equal no node's mix")
+
+
+def _sync_free_steps(dev) -> tuple[int, int]:
+    """CIFAR_SYNC_STEPS steps of the CIFAR QG spec with telemetry through
+    the trainer, every CIFAR_SYNC_EVERY-th collecting, under CUDA sync
+    debugging: no step synchronizes with the host (the off-cadence steps
+    are the telemetry-free step).  Returns (steps, collecting steps)."""
+    import warnings
+    import torch
+    from repro_torch import api
+
+    spec = _cifar_spec("telemetry.enabled=true",
+                       f"telemetry.every={CIFAR_SYNC_EVERY}")
+    ex = api.build(spec, device=dev)
+    it = ex.task.make_iter()
+    batches = [ex.trainer.put_batch(next(it))
+               for _ in range(CIFAR_SYNC_STEPS + 2)]
+    state = ex.state
+    for b in batches[:2]:  # warm-up: the convs' first calls, the handles
+        state, _ = ex.trainer.step(state, b, True)
+    torch.cuda.synchronize(dev)
+    found, collected = {}, 0
+    for i, b in enumerate(batches[2:]):
+        collect = i % CIFAR_SYNC_EVERY == 0
+        collected += collect
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                state, metrics = ex.trainer.step(state, b, collect)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = [str(w.message) for w in caught
+                 if "called a synchronizing" in str(w.message)]
+        if syncs:
+            found[i] = syncs[:2]
+        if collect != any(k.startswith("tm.") for k in metrics):
+            raise AssertionError(f"sync check: step {i} collect={collect}, "
+                                 f"metrics {sorted(metrics)}")
+    torch.cuda.synchronize(dev)
+    if found:
+        raise AssertionError(f"CIFAR steps synchronized with the host: "
+                             f"{found}")
+    return CIFAR_SYNC_STEPS, collected
+
+
+class _Cut(Exception):
+    """Interrupts a run from its ``log_fn``, as a kill would."""
+
+
+def _cut_at(step):
+    """A ``log_fn`` that interrupts the run when it logs step ``step``
+    (0-based), that is after the periodic checkpoint of its first ``step``
+    steps; the spec must log every step."""
+    def log_fn(line):
+        if line.startswith("step") and int(line.split()[1]) >= step:
+            raise _Cut
+    return log_fn
+
+
+def _resume_pair(what, spec, dev, cut_at, check_full=None) -> str:
+    """``spec`` run whole with a final checkpoint, and run with
+    ``loop.checkpoint_every=cut_at`` and interrupted after that checkpoint,
+    then resumed from it, all through ``api.run`` as the CLI's
+    ``--checkpoint``/``--resume`` run it; the two final checkpoints
+    (params, opt, model and comm state, counter, generator state) compared
+    key by key.  ``check_full(npz)`` adds its own reading of the whole
+    run's checkpoint.  Returns a description of the comparison."""
+    import json as _json
+    import numpy as np
+    from repro_torch import api
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    full, cut, resumed = (str(OUT / f"ckpt_{what}_{p}.npz")
+                          for p in ("full", "cut", "resumed"))
+    quiet = lambda *_: None
+    api.run(spec, device=dev, checkpoint_path=full, log_fn=quiet)
+    try:
+        api.run(spec.override(f"loop.checkpoint_every={cut_at}"),
+                device=dev, checkpoint_path=cut, log_fn=_cut_at(cut_at))
+    except _Cut:
+        pass
+    else:
+        raise AssertionError(f"{what} resume: the run was not interrupted")
+    with np.load(cut) as c:
+        step = _json.loads(str(c["__meta__"]))["step"]
+    if step != cut_at:
+        raise AssertionError(f"{what} resume: cut checkpoint at step {step}, "
+                             f"want {cut_at}")
+    api.run(spec, device=dev, resume=cut, checkpoint_path=resumed,
+            log_fn=quiet)
+    with np.load(full) as a, np.load(resumed) as b:
+        same = _same_checkpoints(what, a, b)
+        if check_full is not None:
+            same += check_full(a)
+    # the checkpoints hold every node's state (tens of MB): not kept
+    for p in (full, cut, resumed):
+        Path(p).unlink()
+    return same
+
+
+def _same_checkpoints(what, a, b) -> str:
+    """Raise unless the npz files ``a`` and ``b`` hold the same arrays, bit
+    for bit; returns what was compared."""
+    import numpy as np
+    if set(a.files) != set(b.files):
+        raise AssertionError(f"{what} resume: keys "
+                             f"{sorted(set(a.files) ^ set(b.files))}")
+    differ = [k for k in a.files if not np.array_equal(a[k], b[k])]
+    if differ:
+        gaps = {k: float(np.max(np.abs(a[k].astype(np.float64) - b[k])))
+                for k in differ if a[k].dtype.kind == "f"}
+        raise AssertionError(f"{what} resume: {len(differ)} of "
+                             f"{len(a.files)} arrays differ, max abs "
+                             f"{max(gaps.values(), default=0.0):.3e} "
+                             f"(first {differ[:3]})")
+    groups = {g: sum(f"x:.{g}" in k for k in a.files)
+              for g in ("params", "opt_state", "model_state", "comm_state")}
+    return f"{len(a.files)} arrays bit-equal (" + ", ".join(
+        f"{g} {c}" for g, c in groups.items() if c) + ")"
+
+
+def _telemetry_pair(what, spec, base, dev, want, steps) -> list:
+    """``spec`` with telemetry at each cadence of CIFAR_EVERY against
+    ``base`` (the same spec without): history bit-equal, launches
+    unchanged, rows as the cadence says.  Returns log fragments."""
+    from repro_torch.telemetry import read_jsonl
+
+    out = []
+    for every in CIFAR_EVERY:
+        path = OUT / f"metrics_{what}_{every}.jsonl"
+        res, _, _ = _run_counted(
+            f"{what} telemetry every {every}",
+            spec.override("telemetry.enabled=true",
+                          f"telemetry.every={every}"), dev, want, steps,
+            telemetry_path=str(path))
+        if res.history != base.history:
+            raise AssertionError(f"{what} telemetry every {every}: history "
+                                 f"differs from the run without")
+        rows = read_jsonl(str(path))
+        if [r["step"] for r in rows] != list(range(0, steps, every)):
+            raise AssertionError(f"{what} telemetry every {every}: rows at "
+                                 f"{[r['step'] for r in rows]}")
+        out.append(f"every {every}: {len(rows)} rows, "
+                   f"{res.wall_time_s / steps * 1e3:.4f} ms/step")
+        last = {k: v for k, v in rows[-1].items() if k != "step"}
+    out.append("last row " + ", ".join(f"{k} {v:.4g}"
+                                       for k, v in sorted(last.items())))
+    return out
+
+
+def _topk_checks(spec, dev) -> None:
+    """The CHOCO top-k ResNet-20 run through the kernels (two grouped
+    ``threshold_mask`` and two ``choco_exchange`` launches a step over its
+    80 leaves) against the same run with ``comm.backend=jnp`` and a
+    node-order mix hook, history and final state bit for bit; against
+    ``comm.backend=jnp`` as the preset runs it (cuBLAS's mix) and against
+    the port's CPU run within CIFAR_TOPK_TOL.  The caller sets
+    ``cudnn.deterministic``: two card runs are compared bit for bit."""
+    from repro_torch import api
+    from repro_torch.kernels import ops
+
+    quiet = lambda *_: None
+    ops.reset_launch_counts()
+    fused, h_fused = _run_built(spec, dev, steps=20)
+    _expect_launches("cifar top-k kernels", ops.launch_counts(), CIFAR_TOPK)
+    jspec = spec.override("comm.backend=jnp")
+    ops.reset_launch_counts()
+    two, h_two = _run_built(jspec, dev, node_order_hook=True, steps=20)
+    _expect_launches("cifar top-k comm.backend=jnp", ops.launch_counts(),
+                     {"fused_halfstep": 21, "fused_qg_buffer": 21})
+    what = "cifar top-k kernels vs jnp with the node-order mix"
+    _history_close(h_fused, h_two, 0.0, 0.0, what)
+    tensors = _states_equal(what, fused, two)
+    del fused, two
+    jnp = api.run(jspec, device=dev, log_fn=quiet)
+    t0 = time.perf_counter()
+    cpu = api.run(spec, device="cpu", log_fn=quiet)
+    cpu_s = time.perf_counter() - t0
+    parts = []
+    for key, other in (("jnp", jnp.history), ("cpu", cpu.history)):
+        steps, rtol = CIFAR_TOPK_TOL[key]
+        by_step = [_history_gap([a], [b], key)
+                   for a, b in zip(h_fused, other, strict=True)]
+        _history_close(h_fused[:steps], other[:steps], rtol, 0.0,
+                       f"cifar top-k kernels vs {key}")
+        parts.append(f"vs {key}: max rel diff {max(by_step):.3e} (by step "
+                     + " ".join(f"{g:.1e}" for g in by_step)
+                     + f"), held to rtol {rtol} atol 0 over {steps}")
+    log(f"cifar top-k kernels vs comm.backend=jnp with the node-order mix: "
+        f"20 steps bit-equal, {tensors} tensors of the final state equal; "
+        + "; ".join(parts) + f" (CPU run {cpu_s:.1f} s)")
+
+
+def phase_cifar(dev, main_out) -> dict:
+    """Slices 4 and 5 on the card: the CIFAR preset (ResNet-20, EvoNorm) and
+    its DSGDm-N twin for 60 steps, GN and BN and CHOCO top-k for 20, each
+    with exact launches; card against CPU (with the TF32 control), fused
+    against unfused, against the JAX package's accuracies (CIFAR_REF);
+    telemetry on against off and without host syncs; checkpoint and
+    resume; top-k against the jnp path and the CPU; the loop profiled."""
+    import torch
+    from repro_torch import api
+    from repro_torch.train import run_training_scanned
+
+    card = _card()
+    quiet = lambda *_: None
+    launches: dict = {}
+    api.run(_cifar_spec("loop.steps=5"), device=dev, log_fn=quiet)  # warm-up
+
+    # 1. the preset and its DSGDm-N twin: two qg_step launches a step
+    results = {}
+    for method in ("qg_dsgdm_n", "dsgdm_n"):
+        spec = _cifar_spec(f"optim.name={method}")
+        res, counts, paths = _run_counted(f"cifar {method}", spec, dev,
+                                          {"qg_step": 120}, 60)
+        _expect_step_plan(f"cifar {method}", "evonorm", paths, 60)
+        _add_counts(launches, counts)
+        results[method] = res
+        log(f"cifar {method} (ResNet-20 EvoNorm, 16 nodes, 60 steps): "
+            f"{res.wall_time_s / 60 * 1e3:.4f} ms/step logged every step "
+            f"[{card}], test acc {res.final['acc']:.4f} (JAX package, seed 0: "
+            f"{CIFAR_REF[(method, 0)]}), consensus "
+            f"{res.final['consensus']:.3e}, launches qg_step 120 "
+            f"({'+'.join(map(str, CIFAR_STEP_LEAVES['evonorm']))} leaves, "
+            f"head_b on the scalar loop: paths {paths})")
+    qg, ds = results["qg_dsgdm_n"], results["dsgdm_n"]
+    lo, hi = CIFAR_QG_BAND
+    if not lo <= qg.final["acc"] <= hi or \
+            qg.final["acc"] <= ds.final["acc"]:
+        raise AssertionError(
+            f"cifar: QG-DSGDm-N acc {qg.final['acc']:.4f} (band "
+            f"{lo:.4f}-{hi:.4f}), DSGDm-N {ds.final['acc']:.4f}")
+    log(f"cifar against the JAX package: QG-DSGDm-N {qg.final['acc']:.4f} in "
+        f"{lo:.4f}-{hi:.4f} (seeds 0-2: "
+        + ", ".join(f"{v}" for (m, _), v in CIFAR_REF.items()
+                    if m == "qg_dsgdm_n")
+        + f"), beats DSGDm-N {ds.final['acc']:.4f} (seed 0: "
+          f"{CIFAR_REF[('dsgdm_n', 0)]}) by "
+          f"{qg.final['acc'] - ds.final['acc']:.4f}")
+
+    # card against the port's CPU run, and against the unfused chain
+    t0 = time.perf_counter()
+    cpu = api.run(_cifar_spec("optim.fused=kernel"), device="cpu",
+                  log_fn=quiet)
+    cpu_s = time.perf_counter() - t0
+    rel = _history_close(qg.history[:CIFAR_CPU_STEPS],
+                         cpu.history[:CIFAR_CPU_STEPS], CIFAR_CPU_RTOL, 0.0,
+                         "cifar card vs CPU")
+    if abs(qg.final["acc"] - cpu.final["acc"]) > ACC_ATOL:
+        raise AssertionError(f"cifar card vs CPU: test acc "
+                             f"{qg.final['acc']} vs {cpu.final['acc']}")
+    # the control: the same run with TF32 convs must fail that check
+    ex = api.build(_cifar_spec(), device=dev)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        _, h_tf32 = run_training_scanned(
+            ex.trainer, ex.state, ex.task.make_iter(), 60,
+            chunk=ex.spec.loop.chunk, log_every=1, log_fn=quiet)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    del ex
+    rel_tf32 = _history_gap(h_tf32[:CIFAR_CPU_STEPS],
+                            cpu.history[:CIFAR_CPU_STEPS], "cifar TF32")
+    try:
+        _history_close(h_tf32[:CIFAR_CPU_STEPS],
+                       cpu.history[:CIFAR_CPU_STEPS], CIFAR_CPU_RTOL, 0.0,
+                       "cifar TF32 convs vs CPU")
+    except AssertionError:
+        pass
+    else:
+        raise AssertionError(f"cifar: the run with TF32 convs passes the "
+                             f"card-vs-CPU check (max rel diff "
+                             f"{rel_tf32:.3e})")
+    off, _, _ = _run_counted("cifar fused=off", _cifar_spec("optim.fused=off"),
+                             dev, {}, 60)
+    rel_off = _history_close(qg.history, off.history, HIST_RTOL, HIST_ATOL,
+                             "cifar fused vs unfused")
+    log(f"cifar card vs CPU: max rel diff {rel:.3e} over {CIFAR_CPU_STEPS} "
+        f"steps (rtol {CIFAR_CPU_RTOL}, atol 0; CPU run {cpu_s:.1f} s), test "
+        f"acc {qg.final['acc']:.4f} vs {cpu.final['acc']:.4f}; with TF32 "
+        f"convs (the control) max rel diff {rel_tf32:.3e}, which fails it; "
+        f"fused vs unfused on the card: max rel "
+        f"diff {rel_off:.3e} (rtol {HIST_RTOL}, atol {HIST_ATOL}), unfused "
+        f"{off.wall_time_s / 60 * 1e3:.4f} ms/step, test acc "
+        f"{off.final['acc']:.4f}")
+
+    # 2. GN and BN: 48 + 13 leaves a launch; BN's statistics stay local
+    for norm in ("gn", "bn"):
+        spec = _cifar_spec(f"model.kwargs.norm={norm}", "loop.steps=20")
+        res, counts, paths = _run_counted(f"cifar {norm}", spec, dev,
+                                          {"qg_step": 40}, 20)
+        _expect_step_plan(f"cifar {norm}", norm, paths, 20)
+        _add_counts(launches, counts)
+        log(f"cifar {norm}: 20 steps, {res.wall_time_s / 20 * 1e3:.4f} "
+            f"ms/step [{card}], test acc {res.final['acc']:.4f}, launches "
+            f"qg_step 40 ({'+'.join(map(str, CIFAR_STEP_LEAVES[norm]))} "
+            f"leaves)")
+
+    # 3. CHOCO top-k on the kernels: launches as CIFAR_TOPK predicts
+    topk_spec = _cifar_spec("comm.compressor=topk:0.01", "comm.backend=auto",
+                            "loop.steps=20")
+    res, counts, _ = _run_counted("cifar top-k", topk_spec, dev, CIFAR_TOPK,
+                                  20)
+    _add_counts(launches, counts)
+    log(f"cifar top-k comm.backend=auto: 20 steps, "
+        f"{res.wall_time_s / 20 * 1e3:.4f} ms/step [{card}], test acc "
+        f"{res.final['acc']:.4f}, wire.ratio_vs_dense "
+        f"{res.wire['ratio_vs_dense']:.4f}, launches {CIFAR_TOPK} as "
+        f"predicted")
+
+    # 4. telemetry: histories bit-equal with it off, launches unchanged,
+    # rows on cadence, no host sync; 5. checkpoint and resume.  Both
+    # compare runs bit for bit, so the convs take cuDNN's deterministic
+    # algorithms here (its backward-weight algorithms may otherwise sum in
+    # any order from run to run); the MLP has no conv
+    torch.backends.cudnn.deterministic = True
+    try:
+        quick = api.presets.get("quickstart_ring16_alpha0.1_qg").override(
+            "loop.log_every=1")
+        base, _, _ = _run_counted("cifar deterministic", _cifar_spec(), dev,
+                                  {"qg_step": 120}, 60)
+        for what, spec, base, want, steps in (
+                ("quickstart", quick,
+                 main_out["results"]["quickstart_ring16_alpha0.1_qg"],
+                 {"qg_step": 150}, 150),
+                ("cifar", _cifar_spec(), base, {"qg_step": 120}, 60)):
+            parts = _telemetry_pair(what, spec, base, dev, want, steps)
+            log(f"cifar telemetry {what}: history bit-equal to telemetry "
+                f"off ({base.wall_time_s / steps * 1e3:.4f} ms/step), "
+                f"launches {want} unchanged; " + "; ".join(parts)
+                + f" [{card}]")
+        steps, collected = _sync_free_steps(dev)
+        log(f"cifar telemetry: {steps} steps ({collected} collecting, every "
+            f"{CIFAR_SYNC_EVERY}) under CUDA sync debugging, no host sync")
+        for what, spec, check in (
+                ("bn", _cifar_spec("model.kwargs.norm=bn", "loop.steps=20"),
+                 _bn_stats_local),
+                ("topk", topk_spec, None)):
+            log(f"cifar checkpoint {what}: 20 steps whole vs interrupted "
+                f"after a checkpoint at 10 and resumed: "
+                f"{_resume_pair(what, spec, dev, 10, check)}")
+        _topk_checks(topk_spec, dev)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # 6. where the time goes
+    prof = phase_profile(dev, "cifar", _cifar_spec(), steps=60)
+    if prof is not None:
+        step_ms, step_n = prof["qg_step"]
+        # x, m, g in, x_new, m_out out, fp32, over every node's params
+        bound_us = RESNET20_ELEMS * 16 * 20 / PEAK_BYTES_S * 1e6
+        log(f"cifar profile: {prof['wall_ms'] / 60:.4f} ms/step, "
+            f"{100 * prof['device_ms'] / prof['wall_ms']:.2f}% busy, convs "
+            f"(cuDNN's kernels) {prof['conv_ms']:.4f} ms, "
+            f"{100 * prof['conv_ms'] / prof['device_ms']:.2f}% of device "
+            f"time; qg_step {step_n} launches, {step_ms / 60 * 1e3:.3f} us "
+            f"a step ({step_ms / max(step_n, 1) * 1e3:.3f} us each) against "
+            f"the step's bytes bound {bound_us:.3f} us [{card}]")
+    shown = {k: v for k, v in launches.items() if v}
+    log(f"cifar launches {json.dumps(shown, sort_keys=True)}")
+    return {"launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -2984,7 +3552,11 @@ def main() -> int:
     # and the consensus experiments
     phase_zoo(dev, main_out)
 
-    # 6. slice 7's main path: TinyLlama-1.1B served through the
+    # 6. slices 4 and 5: the CIFAR protocol on ResNet-20, telemetry and
+    # checkpoints
+    cifar_out = phase_cifar(dev, main_out)
+
+    # 7. slice 7's main path: TinyLlama-1.1B served through the
     # paged-decode kernel, its full-width prefill through the flash kernel,
     # and the serving run under the profiler
     cfg, params, reqs = _serve_setup(dev)
@@ -2994,7 +3566,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    # 7. slice 6b-i's main path: mamba2-130m prefilled through the SSD scan
+    # 8. slice 6b-i's main path: mamba2-130m prefilled through the SSD scan
     # kernel, decoded from the state it leaves, and profiled
     mamba_out = phase_mamba(dev)
     phase_mamba_profile(dev, mamba_out.pop("cfg"), mamba_out.pop("params"),
@@ -3032,6 +3604,7 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
     t = timed[("qg_step[qg]", "quickstart")]
+    r = timed[("qg_step[qg]", "resnet20")]
     kernels.append({
         "name": "qg_step", "route": "cuda", "source": csrc + "qg_update.cu",
         "replaces": "src/repro/kernels/qg_update.py:116 fused_halfstep + "
@@ -3040,7 +3613,9 @@ def main() -> int:
         "max_abs_err": worst["qg_step"]["abs"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
-        "replaced_ms": t["replaced_ms"]})
+        "replaced_ms": t["replaced_ms"],
+        "resnet20": {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "replaced_ms")}})
     t = timed[("choco_exchange[choco_qg]", "quickstart")]
     kernels.append({
         "name": "choco_exchange", "route": "cuda",
@@ -3052,6 +3627,9 @@ def main() -> int:
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
         "replaced_ms": t["replaced_ms"]})
+    for row in kernels:  # slice 4's runs (the `cifar launches` line)
+        if cifar_out["launches"].get(row["name"]):
+            row["cifar_launches"] = cifar_out["launches"][row["name"]]
     for row in kernels:  # one message a step: the top-k and QSGD runs
         run = {"threshold_mask": "topk", "quantize_dequantize": "qsgd"}.get(
             row["name"])

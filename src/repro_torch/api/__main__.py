@@ -6,6 +6,13 @@
 
 A spec JSON written by the reference (``repro.api``) loads unchanged.  The
 run goes to the CUDA device unless ``--device cpu`` is given.
+
+``--checkpoint ckpt.npz`` with ``--set loop.checkpoint_every=N`` saves the
+full TrainState every N steps and at the end; ``--resume ckpt.npz``
+continues a saved run to ``loop.steps`` as the uninterrupted run would have
+gone (checkpoints of either package load in the other).  With
+``--set telemetry.enabled=true`` and ``--out r.json`` the telemetry stream
+goes to ``r.metrics.jsonl``.
 """
 from __future__ import annotations
 
@@ -29,6 +36,12 @@ def main(argv=None):
                     metavar="KEY=VALUE",
                     help="dotted spec override; repeatable")
     ap.add_argument("--out", default="", help="write the Result JSON here")
+    ap.add_argument("--checkpoint", default="", metavar="PATH",
+                    help="save the full TrainState here every "
+                         "loop.checkpoint_every steps (and at the end)")
+    ap.add_argument("--resume", default="", metavar="PATH",
+                    help="restore a --checkpoint save and continue to "
+                         "loop.steps")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: cuda)")
     ap.add_argument("--list", action="store_true", help="list presets")
@@ -46,7 +59,18 @@ def main(argv=None):
     if args.overrides:
         spec = spec.override(*args.overrides)
 
-    result = run(spec, device=args.device)
+    # the telemetry stream lands next to the Result: <out stem>.metrics.*
+    # (spec.telemetry.path wins if set)
+    telemetry_path = ""
+    if args.out and spec.telemetry.enabled and not spec.telemetry.path:
+        ext = "jsonl" if spec.telemetry.sink != "csv" else "csv"
+        telemetry_path = os.path.splitext(args.out)[0] + f".metrics.{ext}"
+
+    result = run(spec, device=args.device, checkpoint_path=args.checkpoint,
+                 resume=args.resume, telemetry_path=telemetry_path)
+    if result.telemetry and result.telemetry.get("path"):
+        print(f"telemetry -> {result.telemetry['path']} "
+              f"({result.telemetry['rows_emitted']} rows)")
     print(f"[{spec.name or 'spec'}] device={result.device} "
           f"steps={result.steps_run} wall={result.wall_time_s:.1f}s final="
           + "  ".join(f"{k}={v:.4f}" for k, v in sorted(result.final.items())

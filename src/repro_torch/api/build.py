@@ -13,14 +13,17 @@ import json
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.comm import count_mix_sites, make_comm
 from repro_torch.core import topology as topo_lib
+from repro_torch.core import transforms as T
 from repro_torch.core.optim import ChainOptimizer, make_optimizer
 from repro_torch.device import describe_device, resolve_device
 from repro_torch.train import (DecentralizedTrainer, TrainState, lr_schedule,
-                               run_training, run_training_scanned)
+                               restore_train_state, run_training,
+                               run_training_scanned, save_train_state)
 from repro_torch.tree import tree_leaves
 
 from .data import Task, build_task
@@ -57,7 +60,9 @@ class Result:
     wall_time_s: float
     wire: dict                         # bytes-on-the-wire accounting
     device: str = ""
-    telemetry: Optional[dict] = None   # always None until slice 5
+    telemetry: Optional[dict] = None   # recorder summary (sink path, row
+                                       # count, step-time percentiles) when
+                                       # spec.telemetry.enabled
     heterogeneity: Optional[dict] = None  # partition stats from the task
 
     def to_dict(self) -> dict:
@@ -98,11 +103,34 @@ def build(spec: ExperimentSpec, *, device="cuda") -> Experiment:
     c = spec.comm
     comm = make_comm(c.compressor, gamma=c.gamma,
                      error_feedback=c.error_feedback, backend=c.backend)
+    telemetry_cfg = None
+    if spec.telemetry.enabled:
+        from repro_torch.telemetry import resolve_config
+        telemetry_cfg = resolve_config(spec.telemetry.metrics,
+                                       spec.telemetry.every)
     trainer = DecentralizedTrainer(
         bundle.loss_fn, opt, topo, lr_fn=lr_fn, device=dev,
-        runtime=spec.runtime, comm=comm, rng_seed=lp.rng_seed or 0)
+        runtime=spec.runtime, comm=comm, rng_seed=lp.rng_seed or 0,
+        telemetry=telemetry_cfg)
     gen = torch.Generator().manual_seed(spec.seed)
     state = trainer.init(bundle.init_fn, gen)
+    if telemetry_cfg is not None:
+        # build-time constants of the 'wire', 'mixing', 'scenario' and
+        # 'kernel' collectors, as the reference resolves them
+        gap = topo.spectral_gap()
+        telemetry_cfg.static.update({
+            "spectral_gap": gap,
+            # consensus distance (a sqrt) contracts by sqrt(lambda_2)
+            "rho": float(np.sqrt(max(1.0 - gap, 0.0))),
+            "wire_bits_per_node_per_step":
+                wire_stats(trainer, state.params)["bits_per_node_per_step"],
+            "data_mean_tv": float(task.meta["heterogeneity"]["mean_tv"]),
+            # the optimizer's analytic bytes for the path it takes
+            # (fused='auto' resolves against the trainer's device)
+            "kernel_bytes_moved": float(T.chain_bytes_moved(
+                opt._stages(), sum(l.numel()
+                                   for l in tree_leaves(state.params)),
+                fused=opt.fused, device=dev))})
     return Experiment(spec=spec, trainer=trainer, state=state, task=task,
                       bundle=bundle)
 
@@ -131,28 +159,84 @@ def wire_stats(trainer: DecentralizedTrainer, params) -> dict:
     return out
 
 
+def _make_recorder(ex: Experiment, telemetry_path: str = ""):
+    """Recorder and sink for a telemetry-enabled experiment (None
+    otherwise).  ``telemetry_path`` overrides ``spec.telemetry.path``; a
+    file sink with neither writes ``metrics.<ext>`` in the working
+    directory."""
+    if ex.trainer.telemetry is None:
+        return None
+    from repro_torch.telemetry import TelemetryRecorder, make_sink
+    tl = ex.spec.telemetry
+    path = telemetry_path or tl.path
+    if tl.sink != "memory" and not path:
+        path = "metrics.jsonl" if tl.sink == "jsonl" else "metrics.csv"
+    return TelemetryRecorder(ex.trainer.telemetry, make_sink(tl.sink, path))
+
+
 def run(spec: ExperimentSpec, *, device="cuda", log_fn=print,
-        state: TrainState | None = None) -> Result:
-    """Build + train + evaluate one spec on ``device``.  ``state`` replaces
-    the built initial state, e.g. the reference's init carried over with
-    ``repro_torch.interop.train_state_from_numpy``."""
+        state: TrainState | None = None, checkpoint_path: str = "",
+        resume: str = "", telemetry_path: str = "") -> Result:
+    """Build + train + evaluate one spec on ``device``.  ``state``
+    replaces the built initial state, e.g. the reference's init carried
+    over with ``repro_torch.interop.train_state_from_numpy``.
+
+    ``checkpoint_path`` with ``spec.loop.checkpoint_every`` saves the full
+    TrainState (params, opt, model and comm state, step counter) and the
+    trainer's generator state every that many steps, and once at the end;
+    ``resume=<path>`` restores such a checkpoint (written by either
+    package), replays the batch stream to its step and runs the remaining
+    ``loop.steps - step`` steps, so that the run ends as the uninterrupted
+    one.  History ``step`` indices are absolute.
+
+    With ``spec.telemetry.enabled`` on-cadence steps run the collectors and
+    one row per such step goes to the sink (``telemetry_path`` overrides
+    its location); ``Result.telemetry`` holds the recorder's summary."""
     ex = build(spec, device=device)
+    recorder = _make_recorder(ex, telemetry_path)
     lp = spec.loop
     state = ex.state if state is None else state
+    # the reference's loop rng key, kept for its resume (the port has none)
+    rng = np.array([0, lp.rng_seed or 0], np.uint32)
+    start = 0
     batch_iter = ex.task.make_iter()
+    if resume:
+        state, rng, meta = restore_train_state(
+            resume, ex.state, generator=ex.trainer._comm_gen)
+        start = int(meta["step"])
+        if start > lp.steps:
+            raise ValueError(
+                f"resume checkpoint is at step {start} but loop.steps="
+                f"{lp.steps}; raise loop.steps to continue")
+        for _ in range(start):       # replay the deterministic batch stream
+            next(batch_iter)
+        log_fn(f"resumed from {resume} at step {start}")
+
+    def save(done, st):
+        save_train_state(checkpoint_path, st, rng=rng,
+                         generator=ex.trainer._comm_gen, step=done)
+
+    ckpt_kw = {}
+    if checkpoint_path and lp.checkpoint_every:
+        ckpt_kw = {"checkpoint_every": lp.checkpoint_every,
+                   "checkpoint_fn": save}
 
     t0 = time.perf_counter()
     if lp.chunk > 1:
         state, history = run_training_scanned(
-            ex.trainer, state, batch_iter, lp.steps, chunk=lp.chunk,
-            log_every=lp.log_every, log_fn=log_fn)
+            ex.trainer, state, batch_iter, lp.steps - start, chunk=lp.chunk,
+            log_every=lp.log_every, log_fn=log_fn, step_offset=start,
+            telemetry=recorder, **ckpt_kw)
     else:
         state, history = run_training(
-            ex.trainer, state, batch_iter, lp.steps,
-            log_every=lp.log_every, log_fn=log_fn)
+            ex.trainer, state, batch_iter, lp.steps - start,
+            log_every=lp.log_every, log_fn=log_fn, step_offset=start,
+            telemetry=recorder, **ckpt_kw)
     if ex.trainer.device.type == "cuda":
         torch.cuda.synchronize(ex.trainer.device)
     wall = time.perf_counter() - t0
+    if checkpoint_path:
+        save(int(state.t), state)
 
     final = dict(history[-1]) if history else {}
     final.pop("step", None)
@@ -168,4 +252,6 @@ def run(spec: ExperimentSpec, *, device="cuda", log_fn=print,
     return Result(spec=spec.to_dict(), history=history, final=final,
                   steps_run=steps_run, wall_time_s=wall, wire=wire,
                   device=describe_device(ex.trainer.device),
+                  telemetry=(recorder.close() if recorder is not None
+                             else None),
                   heterogeneity=ex.task.meta.get("heterogeneity"))

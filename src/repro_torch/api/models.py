@@ -1,9 +1,9 @@
 """Model/loss plugins for the declarative experiment layer.
 
-Port of ``repro/api/models.py`` for the MLP.  A plugin is a factory
-``factory(spec, task) -> ModelBundle`` registered under a name.  Where the
-reference writes one node's functions and vmaps them, the port's work on
-the node-stacked layout directly:
+Port of ``repro/api/models.py`` for the MLP and ResNet-20.  A plugin is a
+factory ``factory(spec, task) -> ModelBundle`` registered under a name.
+Where the reference writes one node's functions and vmaps them, the port's
+work on the node-stacked layout directly:
 
 * ``init_fn(generator) -> (params, model_state)`` for ONE node, drawn on the
   CPU from the ``torch.Generator`` (the trainer stacks it to ``[n, ...]``);
@@ -15,7 +15,7 @@ the node-stacked layout directly:
 ``jax.random`` draws cannot be reproduced in torch, so standalone runs draw
 the init from a ``torch.Generator`` at the reference's scales, and parity
 runs inject the reference's init (``repro_torch.interop``).  The
-``resnet20`` and ``transformer`` plugins come with slices 4 and 6.
+``transformer`` plugin comes with slice 6.
 """
 from __future__ import annotations
 
@@ -24,6 +24,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.tree import tree_map
 
 __all__ = ["ModelBundle", "MODELS", "MODEL_DATASETS", "register_model"]
 
@@ -38,7 +40,10 @@ class ModelBundle:
 MODELS: dict[str, Callable[..., ModelBundle]] = {}
 
 #: datasets each built-in plugin can consume (spec.validate() cross-check)
-MODEL_DATASETS: dict[str, tuple[str, ...]] = {"mlp": ("classification",)}
+MODEL_DATASETS: dict[str, tuple[str, ...]] = {
+    "mlp": ("classification",),
+    "resnet20": ("classification",),
+}
 
 
 def register_model(name: str):
@@ -106,6 +111,36 @@ def _mlp(spec, task) -> ModelBundle:
         n = logits.shape[0]
         return {"acc": torch.sum(torch.argmax(logits, -1) == yi, dim=-1),
                 "eval_loss": torch.sum(nll, dim=-1),
+                "count": torch.full((n,), float(yb.shape[0]),
+                                    device=logits.device)}
+
+    return ModelBundle(init_fn, loss_fn, eval_fn)
+
+
+@register_model("resnet20")
+def _resnet20(spec, task) -> ModelBundle:
+    """The paper's CV substrate: ResNet-20 with EvoNorm, GN or BN (BN's
+    running statistics per node, in the model state, never gossiped)."""
+    from repro_torch.models import resnet
+
+    kw = _pop_kwargs(spec, {"norm": "evonorm", "width": 1})
+    norm, width = kw["norm"], int(kw["width"])
+
+    def init_fn(generator):
+        return resnet.init_resnet20(generator, norm=norm, width=width,
+                                    num_classes=task.n_classes)
+
+    def loss_fn(p, s, batch):
+        xb, yb = batch
+        logits, ns = resnet.apply_resnet20(p, s, xb, norm=norm, train=True)
+        return _ce(logits, yb), (tree_map(torch.Tensor.detach, ns), {})
+
+    def eval_fn(p, s, batch):
+        xb, yb = batch
+        logits, _ = resnet.apply_resnet20(p, s, xb, norm=norm, train=False)
+        n = logits.shape[0]
+        return {"acc": torch.sum(torch.argmax(logits, -1) == yb.long(),
+                                 dim=-1),
                 "count": torch.full((n,), float(yb.shape[0]),
                                     device=logits.device)}
 

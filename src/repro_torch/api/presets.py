@@ -1,12 +1,14 @@
 """Preset registry: the paper's scenarios as named, serializable specs.
 
 Port of ``repro/api/presets.py`` for the quickstart pair (the main path),
-the social and time-varying topologies and the compressed-gossip variants:
+the CV protocol, the social and time-varying topologies and the
+compressed-gossip variants:
 
 | preset                            | scenario                              |
 |-----------------------------------|---------------------------------------|
 | quickstart_ring16_alpha0.1_dsgdm  | quickstart grid: DSGDm-N baseline     |
 | quickstart_ring16_alpha0.1_qg     | quickstart grid: QG-DSGDm-N (Table 1) |
+| cifar_ring16_alpha0.1_qg          | ResNet-20/EvoNorm CV protocol (T.1)   |
 | social32_alpha0.1_qg              | Davis social graph n=32 (Table 3)     |
 | exp16_alpha0.1_qg                 | time-varying 1-peer exp graph (T.4)   |
 | choco_topk0.01_ring16_qg          | QG-DSGDm-N + CHOCO top-1% gossip      |
@@ -31,7 +33,7 @@ __all__ = ["PRESETS", "register_preset", "get", "names"]
 PRESETS: dict[str, Callable[[], ExperimentSpec]] = {}
 
 #: the reference's other presets, by the port slice that brings each
-_LATER = {"cifar_ring16_alpha0.1_qg": 4, "lm100m_ring8_alpha0.1_qg": 6,
+_LATER = {"lm100m_ring8_alpha0.1_qg": 6,
           "n1024_ring": 8, "n1024_powerlaw": 8, "n1024_churn": 8}
 
 
@@ -78,6 +80,19 @@ def _qs_dsgdm():
 @register_preset("quickstart_ring16_alpha0.1_qg")
 def _qs_qg():
     return _quickstart("qg_dsgdm_n", "quickstart_ring16_alpha0.1_qg")
+
+
+@register_preset("cifar_ring16_alpha0.1_qg")
+def _cifar():
+    return ExperimentSpec(
+        name="cifar_ring16_alpha0.1_qg", seed=0,
+        data=DataSpec(dataset="classification", alpha=0.1, batch=8,
+                      n_data=1024, n_classes=10, hw=16, noise=1.2,
+                      train_frac=0.75),
+        topology=TopologySpec(name="ring", n=16),
+        optim=OptimSpec(name="qg_dsgdm_n", lr=0.03, weight_decay=1e-4),
+        loop=LoopSpec(steps=60, warmup=5, decay_at=(0.5, 0.75)),
+        model=ModelSpec(name="resnet20", kwargs={"norm": "evonorm"}))
 
 
 def _bench_task(name: str, topo: TopologySpec, **kw) -> ExperimentSpec:

@@ -6,7 +6,8 @@ field, so the port loads the reference's JSON unchanged
 losslessly.  ``validate()`` accepts the subset that the port runs today:
 every registry topology but the generated graphs, every optimizer and
 explicit stage chain, dense gossip (plain or compressed) on the vmap
-runtime, the MLP on classification data.  Anything outside it raises
+runtime, the MLP and ResNet-20 on classification data, checkpoints and
+telemetry.  Anything outside it raises
 ``NotImplementedError`` naming the slice of the port that brings it;
 malformed values raise ``ValueError`` as in the reference.
 """
@@ -114,7 +115,8 @@ class LoopSpec:
     warmup_from: float = 0.1
     log_every: int = 0
     rng_seed: int | None = None
-    checkpoint_every: int = 0         # save cadence; checkpoints: slice 5
+    checkpoint_every: int = 0         # full-TrainState save cadence (steps);
+                                      # 0 = off; needs run(checkpoint_path=)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,7 +131,8 @@ class EvalSpec:
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
     """Model/loss plugin: a ``repro_torch.api.models`` registry name +
-    kwargs, e.g. ``('mlp', {'width': 64, 'init': 'quickstart'})``."""
+    kwargs, e.g. ``('mlp', {'width': 64, 'init': 'quickstart'})``,
+    ``('resnet20', {'norm': 'evonorm'})``."""
 
     name: str = "mlp"
     kwargs: dict = dataclasses.field(default_factory=dict)
@@ -137,8 +140,12 @@ class ModelSpec:
 
 @dataclasses.dataclass(frozen=True)
 class TelemetrySpec:
-    """Metric collection and its sink; telemetry comes with slice 5 of
-    the port, so ``enabled`` must stay False."""
+    """Metric collection and its sink (``repro_torch.telemetry``).
+    Disabled (the default), the step is the telemetry-free step.  Enabled,
+    the step runs the selected collectors every ``every`` steps (gated on
+    the host: an off-cadence step is the unchanged step) and ``run(spec)``
+    streams one row per on-cadence step to the ``sink``; render it with
+    ``python -m repro_torch.telemetry.report``."""
 
     enabled: bool = False
     every: int = 1                    # collect when step % every == 0
@@ -319,20 +326,24 @@ class ExperimentSpec:
         if lp.checkpoint_every < 0:
             err("loop.checkpoint_every", f"must be >= 0, got "
                 f"{lp.checkpoint_every}")
-        if lp.checkpoint_every:
-            later("loop.checkpoint_every", "checkpointing", 5)
         for f in lp.decay_at:
             if not 0.0 <= f <= 1.0:
                 err("loop.decay_at", f"fractions must be in [0, 1], got "
                     f"{lp.decay_at}")
-        # telemetry and scenario
-        if self.telemetry.enabled:
-            later("telemetry", "in-graph telemetry", 5)
+        # telemetry (names and sink checked against the registries) and
+        # scenario
+        from repro_torch.telemetry import SINKS, MetricsSpec
+        tl = self.telemetry
+        try:
+            MetricsSpec(names=tuple(tl.metrics), every=tl.every).validate()
+        except ValueError as e:
+            raise ValueError(f"{where}.{e}") from None
+        if tl.sink not in SINKS:
+            err("telemetry.sink", f"unknown sink {tl.sink!r}; have "
+                f"{sorted(SINKS)}")
         if self.scenario.enabled:
             later("scenario", "the scenario engine", 8)
         # model
-        if self.model.name == "resnet20":
-            later("model.name", "model 'resnet20'", 4)
         if self.model.name == "transformer":
             later("model.name", "model 'transformer'", 6)
         if self.model.name not in MODELS:

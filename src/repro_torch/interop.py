@@ -26,16 +26,18 @@ def params_from_numpy(tree, device):
 
 
 def train_state_from_numpy(params, opt_state, t, device,
-                           comm_state=None) -> TrainState:
+                           comm_state=None, model_state=None) -> TrainState:
     """A :class:`TrainState` on ``device`` from the reference's node-stacked
-    ``params``, its ``opt_state``, step counter ``t`` and, for compressed
-    gossip, its ``comm_state`` (a list of per-site dicts of numpy trees);
-    the model state is empty, as for the MLP."""
+    ``params``, its ``opt_state``, step counter ``t``, for compressed
+    gossip its ``comm_state`` (a list of per-site dicts of numpy trees),
+    and its ``model_state`` (BN's per-node running statistics; None: empty,
+    as for the MLP)."""
     if comm_state is not None:
         comm_state = [params_from_numpy(site, device) for site in comm_state]
     return TrainState(params=params_from_numpy(params, device),
                       opt_state=params_from_numpy(opt_state, device),
-                      model_state={},
+                      model_state=params_from_numpy(model_state or {},
+                                                    device),
                       t=torch.tensor(int(t), dtype=torch.int32,
                                      device=device),
                       comm_state=comm_state)

@@ -5,9 +5,11 @@ loss/grad (``_stage_compute``), then the transform-stage chain with the
 gossip round (``_stage_finish_mix``), composed by ``_step_math``;
 ``_chunk_math`` runs k of those steps.  The node index is the stacked
 leading axis of every tensor.  With compressed comm the gossip round is a
-CHOCO/EF round against the state's per-site ``comm_state``.  The
-reference's overlap pipeline, scenario masks and telemetry come with later
-slices of the port; the trainer refuses them.
+CHOCO/EF round against the state's per-site ``comm_state``.  With
+``collect`` a step also runs the trainer's telemetry collectors and
+returns their scalars under the ``tm.`` prefix; without it, it is the
+telemetry-free step.  The reference's overlap pipeline and scenario masks
+come with slice 8 of the port; the trainer refuses them.
 
 A step reads nothing back to the host: the lr, the step counter and every
 metric stay on the device, and a chunk's metrics are fetched once, when the
@@ -15,6 +17,7 @@ loop records them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -22,7 +25,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import gossip
-from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
+from repro_torch.telemetry.metrics import TM_PREFIX, CollectorCtx
+from repro_torch.telemetry.trace import graph_span
+from repro_torch.tree import tree_leaves, tree_map, tree_paths, tree_unflatten
 
 
 @dataclasses.dataclass
@@ -37,7 +42,11 @@ class Runtime:
     def _stage_compute(self, state, batch):
         """Per-node loss and gradient on the node-stacked params.  The
         summed per-node losses differentiate to exact per-node grads: node
-        i's loss depends on node i's params only."""
+        i's loss depends on node i's params only.  The gradients come back
+        contiguous (a weight the model permutes, as the conv weights of
+        ``models/resnet.py``, gets a permuted gradient, which the kernels
+        refuse) and the new model state detached (BN's running statistics
+        would otherwise keep each step's graph alive)."""
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(state.params)]
         paths = tree_paths(state.params)
@@ -45,8 +54,8 @@ class Runtime:
             loss, (new_ms, metrics) = self.trainer.loss_fn(
                 tree_unflatten(paths, leaves), state.model_state, batch)
             grads = torch.autograd.grad(loss.sum(), leaves)
-        return loss.detach(), new_ms, metrics, tree_unflatten(paths,
-                                                              list(grads))
+        return (loss.detach(), tree_map(torch.Tensor.detach, new_ms), metrics,
+                tree_unflatten(paths, [g.contiguous() for g in grads]))
 
     def _stage_finish_mix(self, state, grads, w, lr):
         """The transform-stage chain: local update + gossip round, with the
@@ -73,17 +82,24 @@ class Runtime:
         return mixing.index_select(0, (t % mixing.shape[0]).reshape(1))[0]
 
     @torch.no_grad()
-    def _step_math(self, state, batch):
+    def _step_math(self, state, batch, collect: bool = False):
         """One decentralized step; returns (new TrainState, metrics), the
-        metrics as 0-d device tensors."""
+        metrics as 0-d device tensors.  ``collect`` adds the telemetry
+        collectors' scalars (``tm.``-prefixed) and labels the stages with
+        NVTX ranges (``tm/grad``, ``tm/finish_mix``, ``tm/collect``);
+        False is the telemetry-free step, unlabelled."""
         from repro_torch.train.trainer import TrainState
 
         tr = self.trainer
         n = tr.topology.n
+        collect = collect and tr.telemetry is not None
+        label = graph_span if collect else contextlib.nullcontext
         lr = tr.lr_fn(state.t)
-        loss, new_ms, metrics, grads = self._stage_compute(state, batch)
-        new_params, new_opt, new_comm = self._stage_finish_mix(
-            state, grads, self._mixing_at(state.t), lr)
+        with label("tm/grad"):
+            loss, new_ms, metrics, grads = self._stage_compute(state, batch)
+        with label("tm/finish_mix"):
+            new_params, new_opt, new_comm = self._stage_finish_mix(
+                state, grads, self._mixing_at(state.t), lr)
         out = {
             "loss": torch.mean(loss),
             "lr": lr.reshape(()),
@@ -102,24 +118,35 @@ class Runtime:
                 dtype=torch.float32, device=tr.device)
         for k, v in metrics.items():
             out[k] = torch.mean(v)
+        if collect:
+            ctx = CollectorCtx(
+                grads=grads, params_old=state.params, params_new=new_params,
+                opt_state_old=state.opt_state, opt_state_new=new_opt,
+                comm_state_old=state.comm_state, comm_state_new=new_comm,
+                lr=lr, t=state.t, n_nodes=n, static=tr.telemetry.static,
+                device=tr.device)
+            with graph_span("tm/collect"):
+                out.update({TM_PREFIX + k: v for k, v in
+                            tr.telemetry.collect(ctx).items()})
         return TrainState(new_params, new_opt, new_ms, state.t + 1,
                           new_comm), out
 
-    def _chunk_math(self, state, batches):
+    def _chunk_math(self, state, batches, collect: bool = False):
         """``k`` steps over a batch tuple stacked ``[k, n, ...]``; the
         metrics come back stacked ``[k]``."""
         rows = []
         for j in range(batches[0].shape[0]):
-            state, m = self._step_math(state, tuple(b[j] for b in batches))
+            state, m = self._step_math(state, tuple(b[j] for b in batches),
+                                       collect)
             rows.append(m)
         return state, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
     # -- backend surface ------------------------------------------------------
-    def step(self, state, batch):
-        return self._step_math(state, batch)
+    def step(self, state, batch, collect: bool = False):
+        return self._step_math(state, batch, collect)
 
-    def step_chunk(self, state, batches):
-        return self._chunk_math(state, batches)
+    def step_chunk(self, state, batches, collect: bool = False):
+        return self._chunk_math(state, batches, collect)
 
     def put_batch(self, batch):
         """Host numpy batch -> tensors on the trainer's device, one copy per

@@ -26,6 +26,10 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig, MoEConfig, SSMConfig
+from ..train.checkpoint import SEP as _SEP
+from ..train.checkpoint import flatten_paths as _flatten
+from ..train.checkpoint import npz_path as _npz
+from ..train.checkpoint import tree_from_paths as _tree_from_paths
 from ..tree import nest_map
 
 __all__ = ["consensus_params", "export_consensus",
@@ -33,52 +37,11 @@ __all__ = ["consensus_params", "export_consensus",
            "save_serving_checkpoint", "load_serving_checkpoint",
            "config_to_dict", "config_from_dict", "SERVE_FORMAT"]
 
-_SEP = "|"
 # key-path prefix of the params subtree inside a save_train_state npz:
 # {"state": TrainState, "rng": ...} -> DictKey('state') + GetAttrKey('params')
 _PARAMS_PREFIX = f"k:state{_SEP}x:.params{_SEP}"
 
 SERVE_FORMAT = "serve-v1"
-
-
-# ---------------------------------------------------------------------------
-# trees <-> checkpoint key paths
-# ---------------------------------------------------------------------------
-
-def _flatten(tree, prefix: str = "") -> dict:
-    """``{key path: leaf}`` in the reference's spelling: ``k:<key>`` for a
-    dict entry, ``i:<index>`` for a tuple entry, joined by ``|``."""
-    if isinstance(tree, dict):
-        items = [(f"k:{k}", v) for k, v in tree.items()]
-    elif isinstance(tree, (tuple, list)):
-        items = [(f"i:{i}", v) for i, v in enumerate(tree)]
-    else:
-        return {prefix: tree}
-    out = {}
-    for part, v in items:
-        out.update(_flatten(v, f"{prefix}{_SEP}{part}" if prefix else part))
-    return out
-
-
-def _tree_from_paths(items: list) -> object:
-    """Rebuild a dict/tuple tree from ``(path parts, leaf)`` pairs, the
-    inverse of :func:`_flatten` for the containers model params use."""
-    if len(items) == 1 and not items[0][0]:
-        return items[0][1]
-    first = items[0][0][0]
-    groups: dict[str, list] = {}
-    for parts, leaf in items:
-        groups.setdefault(parts[0], []).append((parts[1:], leaf))
-    if first.startswith("k:"):
-        return {k[2:]: _tree_from_paths(v) for k, v in sorted(groups.items())}
-    if first.startswith("i:"):
-        idx = sorted(groups.items(), key=lambda kv: int(kv[0][2:]))
-        return tuple(_tree_from_paths(v) for _, v in idx)
-    raise ValueError(f"unsupported checkpoint path component {first!r}")
-
-
-def _npz(path: str) -> str:
-    return path if path.endswith(".npz") else path + ".npz"
 
 
 def params_from_train_checkpoint(path: str, *, device="cpu"):

@@ -1,16 +1,54 @@
-"""Host-side step timing.
+"""Trace spans + host-side step timing.
 
-Port of ``repro/telemetry/trace.py:47`` (:class:`StepTimer`) alone; the
-reference's spans (``span``/``graph_span``, labels of the traced graph) come
-with the rest of the telemetry slice.  A lap measures host wall-clock time,
-which on the card covers the device work only where the step ends in a host
-sync (the serving engine's decode step does: its argmax is read back).
+Port of ``repro/telemetry/trace.py``.  Two span mechanisms:
+
+  * :func:`graph_span` -- an NVTX range (``torch.cuda.nvtx``), which a
+    CUDA timeline (Nsight Systems, ``torch.profiler``'s trace) shows around
+    the kernels launched inside it, and nothing in a CPU-only build of
+    torch.  The runtime wraps the stages of each collecting step in one
+    (``tm/grad``, ``tm/finish_mix``, ``tm/collect``), as the reference
+    labels them in its graph; a telemetry-free step carries none;
+  * :func:`span` -- a ``graph_span`` plus a ``torch.profiler``
+    ``record_function`` label, which the profiler's host-side tables
+    (``key_averages``) list by name; it marks host phases (the recorder's
+    flush), not per-step work.
+
+Neither touches a tensor, so a labelled step is the same step.
+
+:class:`StepTimer` keeps host wall-clock per step in a fixed-size ring
+buffer with percentile summaries.  A lap measures host time, which on the
+card covers the device work only where the step ends in a host sync (the
+serving engine's decode step does: its argmax is read back).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
-__all__ = ["StepTimer"]
+import torch
+from torch.profiler import record_function
+
+__all__ = ["span", "graph_span", "StepTimer"]
+
+
+@contextlib.contextmanager
+def graph_span(name: str):
+    """An NVTX range named ``name`` (a no-op where torch has no CUDA)."""
+    if not torch.cuda.is_available():
+        yield
+        return
+    torch.cuda.nvtx.range_push(name)
+    try:
+        yield
+    finally:
+        torch.cuda.nvtx.range_pop()
+
+
+@contextlib.contextmanager
+def span(name: str):
+    """:func:`graph_span` plus a ``torch.profiler`` label of the region."""
+    with record_function(name), graph_span(name):
+        yield
 
 
 class StepTimer:

@@ -13,7 +13,12 @@ runs them as a Python loop over one host-to-device copy of the chunk's
 batches (a CUDA graph of the chunk is later work).  The reference's per-step
 rng is dropped: no ported model draws random numbers in its loss.  The
 compressors that draw (random-k, QSGD) draw from the trainer's own
-``torch.Generator`` on its device, seeded with ``rng_seed``.
+``torch.Generator`` on its device, seeded with ``rng_seed``; a checkpoint
+carries its state (``train/checkpoint.py``).
+
+With a ``telemetry`` config, an on-cadence step also runs the collectors
+(``repro_torch.telemetry``); the cadence is decided on the host by the
+loops' recorder, so an off-cadence step is the unchanged step.
 
 Model state stays per node and is never gossiped.
 """
@@ -74,9 +79,12 @@ class DecentralizedTrainer:
     ``comm`` is a :class:`~repro_torch.comm.CompressedGossip` (or None for
     dense gossip); its random draws come from a ``torch.Generator`` on
     ``device`` seeded with ``rng_seed``, which advances from step to step.
-    ``mesh``, ``overlap``, ``scenario`` and ``telemetry`` are the
-    reference's options that later slices of the port bring; set to
-    anything but their defaults they raise ``NotImplementedError``."""
+    ``telemetry`` is a resolved
+    :class:`~repro_torch.telemetry.TelemetryConfig` (or None): steps asked
+    to ``collect`` run its collectors.  ``mesh``, ``overlap`` and
+    ``scenario`` are the reference's options that slice 8 of the port
+    brings; set to anything but their defaults they raise
+    ``NotImplementedError``."""
 
     loss_fn: Callable
     optimizer: DecentralizedOptimizer
@@ -99,8 +107,7 @@ class DecentralizedTrainer:
         for option, value, default, where in (
                 ("mesh", self.mesh, None, 8),
                 ("overlap", self.overlap, "none", 8),
-                ("scenario", self.scenario, None, 8),
-                ("telemetry", self.telemetry, None, 5)):
+                ("scenario", self.scenario, None, 8)):
             if value != default:
                 raise NotImplementedError(
                     f"trainer option {option}={value!r} is not ported yet: "
@@ -150,17 +157,18 @@ class DecentralizedTrainer:
                           comm_state=comm_state)
 
     # -- steps ---------------------------------------------------------------
-    def step(self, state: TrainState, batch):
+    def step(self, state: TrainState, batch, collect: bool = False):
         """One decentralized step on device tensors (see :meth:`put_batch`);
-        returns (new state, metrics as 0-d device tensors)."""
+        returns (new state, metrics as 0-d device tensors).  ``collect``
+        also runs the telemetry collectors (``tm.`` metrics)."""
         self._comm_setup(state.params)
-        return self._runtime.step(state, batch)
+        return self._runtime.step(state, batch, collect)
 
-    def step_chunk(self, state: TrainState, batches):
+    def step_chunk(self, state: TrainState, batches, collect: bool = False):
         """``k`` steps over batches stacked ``[k, n, ...]``; metrics come
-        back stacked ``[k]``."""
+        back stacked ``[k]``.  ``collect`` collects on every step."""
         self._comm_setup(state.params)
-        return self._runtime.step_chunk(state, batches)
+        return self._runtime.step_chunk(state, batches, collect)
 
     def put_batch(self, batch):
         """One host batch (a tuple of numpy arrays) onto the device."""
@@ -187,28 +195,58 @@ def _record_step(history, i, steps, log_every, log_fn, get_metrics):
 
 def run_training(trainer: DecentralizedTrainer, state: TrainState,
                  batch_iter, steps: int, *, log_every: int = 0,
-                 log_fn=print, step_offset: int = 0
-                 ) -> tuple[TrainState, list[dict]]:
-    """Per-step Python loop, one host-to-device copy per step."""
+                 log_fn=print, checkpoint_every: int = 0,
+                 checkpoint_fn=None, step_offset: int = 0,
+                 telemetry=None) -> tuple[TrainState, list[dict]]:
+    """Per-step Python loop, one host-to-device copy per step.
+
+    ``checkpoint_fn(done, state)`` is called whenever ``done`` (absolute
+    completed steps, ``step_offset`` included) hits a multiple of
+    ``checkpoint_every``; a run restarted from that state (and the
+    trainer's generator state, which ``checkpoint_fn`` saves beside it)
+    continues as the uninterrupted run.  ``step_offset`` makes a resumed
+    run record absolute step indices.
+
+    ``telemetry`` is an optional recorder
+    (``repro_torch.telemetry.TelemetryRecorder``): on-cadence steps
+    (``telemetry.wants(i)``) run the collectors, and each step's metrics
+    pass through ``telemetry.consume(i, metrics)``, which keeps the ``tm.``
+    values and returns the rest, so ``history`` has the same keys either
+    way and off-cadence steps are the telemetry-free step."""
     history = []
     total = step_offset + steps
     for i, batch in zip(range(step_offset, total), batch_iter):
-        state, metrics = trainer.step(state, trainer.put_batch(batch))
+        collect = telemetry is not None and telemetry.wants(i)
+        state, metrics = trainer.step(state, trainer.put_batch(batch),
+                                      collect)
+        if telemetry is not None:
+            metrics = telemetry.consume(i, metrics)
         _record_step(history, i, total, log_every, log_fn,
                      lambda: {k: float(v) for k, v in metrics.items()})
+        if checkpoint_fn and checkpoint_every \
+                and (i + 1) % checkpoint_every == 0:
+            checkpoint_fn(i + 1, state)
     return state, history
 
 
 def run_training_scanned(trainer: DecentralizedTrainer, state: TrainState,
                          batch_iter, steps: int, *, chunk: int = 16,
                          log_every: int = 0, log_fn=print,
-                         step_offset: int = 0
+                         checkpoint_every: int = 0, checkpoint_fn=None,
+                         step_offset: int = 0, telemetry=None
                          ) -> tuple[TrainState, list[dict]]:
     """``run_training`` in chunks of ``chunk`` steps: the chunk's batches
     are stacked on the host and copied to the device once, and its metrics
     come back at most once.  Same math and the same history as
     ``run_training``.  If ``batch_iter`` runs dry, the loop stops, warns
-    through ``log_fn``, and the history covers the steps that ran."""
+    through ``log_fn``, and the history covers the steps that ran.
+
+    ``checkpoint_fn(done, state)`` fires at the first chunk boundary at or
+    after each multiple of ``checkpoint_every`` of the absolute step count,
+    as the reference's does.  A chunk with an on-cadence step
+    (``telemetry.wants_chunk``) collects on all its steps, and
+    ``telemetry.consume_chunk`` keeps the on-cadence rows; a chunk without
+    one runs the telemetry-free steps."""
     it = iter(batch_iter)
     history = []
     done = 0
@@ -229,7 +267,11 @@ def run_training_scanned(trainer: DecentralizedTrainer, state: TrainState,
         total = done + k if exhausted else steps
         stacked = trainer.put_batch(
             tuple(np.stack(xs) for xs in zip(*batches)))
-        state, metrics = trainer.step_chunk(state, stacked)
+        collect = (telemetry is not None
+                   and telemetry.wants_chunk(step_offset + done, k))
+        state, metrics = trainer.step_chunk(state, stacked, collect)
+        if telemetry is not None:
+            metrics = telemetry.consume_chunk(step_offset + done, metrics)
 
         host: dict = {}  # chunk metrics, fetched once and only if needed
 
@@ -244,6 +286,11 @@ def run_training_scanned(trainer: DecentralizedTrainer, state: TrainState,
                          step_offset + total, log_every, log_fn,
                          lambda j=j: chunk_metrics(j))
         last_metrics = lambda k=k, cm=chunk_metrics: cm(k - 1)
+        abs_done = step_offset + done
+        if checkpoint_fn and checkpoint_every and (
+                (abs_done + k) // checkpoint_every
+                > abs_done // checkpoint_every):
+            checkpoint_fn(abs_done + k, state)
         done += k
     if done < steps:
         log_fn(f"warning: batch_iter exhausted after {done} steps "

@@ -80,11 +80,11 @@ def test_port_loads_reference_spec_json(preset):
     ("overlap=delayed_1", "slice 8"),
     ("runtime=sharded", "slice 8"),
     ("gossip.schedule=ring_ppermute", "slice 8"),
-    ("telemetry.enabled=true", "slice 5"),
+    ("model.name=transformer", "slice 6"),
     ("scenario.enabled=true", "slice 8"),
     ("topology.name=powerlaw:2.5", "slice 8"),
     ("data.dataset=lm_domains", "slice 6"),
-    ("model.name=resnet20", "slice 4"),
+    ("runtime=hybrid", "slice 8"),
 ])
 def test_spec_outside_the_slice_names_its_slice(override, match):
     spec = tapi.presets.get(PRESETS[0])
@@ -107,8 +107,8 @@ def test_spec_rejects_invalid_values():
 
 
 def test_unported_presets_name_their_slice():
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tapi.presets.get("cifar_ring16_alpha0.1_qg")
+    with pytest.raises(NotImplementedError, match="slice 8"):
+        tapi.presets.get("n1024_ring")
     with pytest.raises(NotImplementedError, match="slice 6"):
         tapi.presets.get("lm100m_ring8_alpha0.1_qg")
     with pytest.raises(ValueError, match="unknown preset"):

@@ -193,7 +193,7 @@ def test_chain_validation():
                  ttopo.ring(N), device="cpu")
 
 
-@pytest.mark.parametrize("option,value", [("telemetry", object()),
+@pytest.mark.parametrize("option,value", [("mesh", object()),
                                           ("scenario", object()),
                                           ("overlap", "delayed_1"),
                                           ("runtime", "sharded")])
