@@ -141,7 +141,25 @@ line) if anything goes wrong:
             repro_torch.serve --arch mamba2-130m --full --baseline
             --requests 16`` in code (with and without ``--use-pallas``),
             the engine's refusal, and the
-            prefill under ``torch.profiler``.
+            prefill under ``torch.profiler``;
+9. lm       slice 6b-ii's main path on ``lm100m_ring8_alpha0.1_qg`` at its
+            published widths (8 nodes x 62,927,616 parameters): the data
+            generator's host time; ``qg_step`` at the LM's 12-leaf tree
+            (one launch, bit-equal to the node-order composition, within
+            STEP_ULP of its plain version, timed beside its bound and the
+            sequence it replaces); the preset cut to 2 layers, 3 steps from
+            a numpy init, against the JAX package's losses and leaf norms
+            (LM_REF); QG-DSGDm-N for 200 steps through ``python -m
+            repro_torch.api ... --export-consensus`` and DSGDm-N through
+            ``api.run``, one ``qg_step`` a step and no other kernel, QG's
+            last 20 losses below ln V and its first; the export bit-equal
+            to the node mean of the final state; 20 steps under the
+            profiler; the export served through ``python -m
+            repro_torch.serve --checkpoint ... --use-pallas --requests 16``
+            and held as in phase 7 (a paged launch a layer a decode step),
+            and its [2, 512] prefill through a flash launch a layer.
+            The attention kernels are also held and timed at the LM's
+            12 query over 4 KV heads in phase 2.
 
 Imports nothing of JAX nor of the JAX package.  The second-to-last lines
 are the card's name and power limit and a JSON ``kernels`` line; the last
@@ -2467,7 +2485,9 @@ ATT_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 #: (B, S, T, H, K, D, kwargs): the reference's ATTN_CASES
 #: (tests/test_kernels.py:162), TinyLlama-1.1B's prefill (the main path's
-#: shape), a Gemma-2 27B local layer past its window, one query, S = 1000
+#: shape), a Gemma-2 27B local layer past its window, one query, S = 1000,
+#: and the LM preset's 12 query heads over 4 KV heads (GQA 3:1): the
+#: exported model's [2, 512] prefill and a training sequence of 128
 FLASH_CASES = [
     (1, 128, 128, 4, 4, 32, {}), (2, 256, 256, 8, 2, 64, {}),
     (1, 200, 200, 4, 2, 32, {}), (1, 256, 256, 4, 4, 32, {"window": 64}),
@@ -2476,16 +2496,19 @@ FLASH_CASES = [
     (2, 1024, 1024, 32, 4, 64, {}),
     (1, 4608, 4608, 32, 16, 128, {"window": 4096, "softcap": 50.0}),
     (1, 1, 1, 32, 4, 64, {}), (1, 1000, 1000, 32, 4, 64, {}),
+    (2, 512, 512, 12, 4, 64, {}), (16, 128, 128, 12, 4, 64, {}),
 ]
-FLASH_MAIN, FLASH_LONG = FLASH_CASES[6], FLASH_CASES[7]
+FLASH_MAIN, FLASH_LONG, FLASH_LM = FLASH_CASES[6], FLASH_CASES[7], \
+    FLASH_CASES[10]
 
 #: (B, H, K, D, ps, P, NP, window, softcap, lengths): the reference's four
 #: cases (tests/test_serve.py:234, lengths drawn in [1, P*ps]), the
 #: engine's shape at the serving CLI's defaults with two inactive slots
 #: (length 0, block-table rows all -1), 8 slots x 4096 tokens, the same
 #: with ragged lengths (splits past a slot's length, a length-0 slot) and
-#: with window 1000 (splits wholly outside the window): the last three
-#: split over pages and merge
+#: with window 1000 (splits wholly outside the window), which split over
+#: pages and merge; and the engine's shape for the LM preset's export (12
+#: query heads over 4 KV heads)
 PAGED_CASES = [
     (3, 8, 2, 32, 16, 8, 6, 0, 0.0, None),
     (2, 4, 4, 64, 8, 4, 8, 0, 30.0, None),
@@ -2496,8 +2519,10 @@ PAGED_CASES = [
     (8, 32, 4, 64, 16, 256, 2048, 0, 0.0,
      (1, 17, 300, 4096, 0, 2048, 4095, 16)),
     (8, 32, 4, 64, 16, 256, 2048, 1000, 0.0, (4096,) * 8),
+    (8, 12, 4, 64, 16, 16, 128, 0, 0.0, (0, 24, 33, 48, 16, 0, 40, 31)),
 ]
-PAGED_MAIN, PAGED_LONG = PAGED_CASES[4], PAGED_CASES[5]
+PAGED_MAIN, PAGED_LONG, PAGED_LM = PAGED_CASES[4], PAGED_CASES[5], \
+    PAGED_CASES[8]
 
 
 def _flash_inputs(case, dtype, dev, seed):
@@ -2658,7 +2683,8 @@ def phase_attention_timing(dev) -> dict:
 
     timed = {}
     for label, case, iters in (("main", FLASH_MAIN, 10),
-                               ("long", FLASH_LONG, 2)):
+                               ("long", FLASH_LONG, 2),
+                               ("lm", FLASH_LM, 10)):
         q, k, v, kw = _flash_inputs(case, torch.float32, dev, 30)
         b, s, t, h, kh, d, _ = case
         causal, window = kw.get("causal", True), kw.get("window", 0)
@@ -2695,7 +2721,8 @@ def phase_attention_timing(dev) -> dict:
         del q, k, v
         torch.cuda.empty_cache()
     for label, case, iters in (("main", PAGED_MAIN, 20),
-                               ("long", PAGED_LONG, 10)):
+                               ("long", PAGED_LONG, 10),
+                               ("lm", PAGED_LM, 20)):
         q, kp, vp, bt, ln, kw = _paged_inputs(case, torch.float32, dev, 40)
         b, h, kh, d, ps = case[:5]
         rows = int(ln.sum())     # visible rows (no window on these shapes)
@@ -2880,10 +2907,10 @@ def _allocator(dev) -> str:
             f"retries")
 
 
-def phase_prefill(dev, cfg, params) -> dict:
-    """``prefill(tokens [2, 1024], use_pallas=True)`` at full width: 22
-    flash launches, logits and every layer's K/V within PREFILL_TOL of the
-    chunked path, which is timed on its first call and again (the
+def phase_prefill(dev, cfg, params, shape=PREFILL_SHAPE) -> dict:
+    """``prefill(tokens shape, use_pallas=True)`` at full width (TinyLlama:
+    [2, 1024]): a flash launch a layer, logits and every layer's K/V within
+    PREFILL_TOL of the chunked path, which is timed on its first call and again (the
     allocator's state logged around the first); then one kernel-path call
     under the profiler: its wall time beside its device time."""
     import numpy as np
@@ -2893,7 +2920,7 @@ def phase_prefill(dev, cfg, params) -> dict:
 
     rng = np.random.default_rng(SERVE_SEED)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                           size=PREFILL_SHAPE)).to(dev)
+                                           size=shape)).to(dev)
     tf.prefill(params, tokens, cfg, use_pallas=True)        # warm-up
     torch.cuda.synchronize(dev)
     ops.reset_launch_counts()
@@ -2924,7 +2951,7 @@ def phase_prefill(dev, cfg, params) -> dict:
     if not torch.isfinite(logits).all() or worst > PREFILL_TOL:
         raise AssertionError(f"prefill: flash vs chunked {errs}; allowed "
                              f"{PREFILL_TOL}")
-    log(f"main prefill {cfg.name} tokens {list(PREFILL_SHAPE)}: flash "
+    log(f"main prefill {cfg.name} tokens {list(shape)}: flash "
         f"{ms:.4f} ms (after a warm-up), chunked {plain_ms[0]:.4f} ms first "
         f"call, {plain_ms[1]:.4f} ms second (host clock); max abs diff "
         f"logits {errs['logits']:.3e}, K/V "
@@ -2935,7 +2962,7 @@ def phase_prefill(dev, cfg, params) -> dict:
         dev, lambda: tf.prefill(params, tokens, cfg, use_pallas=True), 1)
     busy = sum(parts.values())
     flash = sum(v for k, v in parts.items() if k.startswith("flash_tc"))
-    log(f"main prefill {cfg.name} tokens {list(PREFILL_SHAPE)} under the "
+    log(f"main prefill {cfg.name} tokens {list(shape)} under the "
         f"profiler: wall {wall:.4f} ms, device kernel time {busy:.4f} ms "
         f"({100 * busy / wall:.2f}% busy), flash_attention {flash:.4f} ms "
         f"({100 * flash / max(busy, 1e-9):.2f}% of device time)")
@@ -3459,6 +3486,366 @@ def phase_mamba_profile(dev, cfg, params, tokens) -> None:
         indent=1))
 
 
+# ---------------------------------------------------------------------------
+# lm (slice 6b-ii): decentralized LM training, its consensus export, served
+# ---------------------------------------------------------------------------
+
+LM_PRESET = "lm100m_ring8_alpha0.1_qg"
+#: the hold against the JAX package: the preset cut in depth only to
+#: LM_REF_LAYERS layers (widths, vocab, data, nodes and optimizer as
+#: published), LM_REF_STEPS steps from one node's init drawn with numpy
+#: (``lm_numpy_init``, seed LM_INIT_SEED) on every node, in both packages.
+#: The losses of its steps and the L2 norm of each node-stacked param leaf
+#: after the last step, from ``python scripts/lm_ref.py`` (the JAX package
+#: on the CPU, JAX 0.9.0; PERF.md §6 names the run)
+LM_REF_LAYERS, LM_REF_STEPS, LM_INIT_SEED = 2, 3, 0
+LM_REF = {
+    "loss": [9.500361442565918, 9.520804405212402, 9.550020217895508],
+    "norms": {
+        "blocks/0/attn/wk": 64.0906687385301,
+        "blocks/0/attn/wo": 110.76231648000923,
+        "blocks/0/attn/wq": 110.84583571082473,
+        "blocks/0/attn/wv": 63.93617249284141,
+        "blocks/0/ln1": 0.007976513688287588,
+        "blocks/0/ln2": 0.0052864870453360425,
+        "blocks/0/mlp/down": 110.82854475888728,
+        "blocks/0/mlp/gate": 180.8043918337183,
+        "blocks/0/mlp/up": 181.13025930909242,
+        "embed": 141.87314761951438,
+        "final_norm": 0.005275827790312906,
+        "lm_head": 255.9796229614576}}
+#: card (cuBLAS, fp32, TF32 off) against the JAX package's CPU run: the
+#: same arithmetic summed in other orders by two BLAS libraries over three
+#: steps, on losses of order 9 and norms of 0.005 to 256
+LM_REF_RTOL = 1e-5
+#: the preset's run: its steps, and the window of its last steps whose mean
+#: training loss QG-DSGDm-N must bring below the uniform predictor's ln V
+#: and below its first step's loss
+LM_STEPS, LM_TAIL = 200, 20
+#: the exported model's prefill, kernel path against the chunked path
+LM_PREFILL_SHAPE = (2, 512)
+
+
+def lm_numpy_init(leaves, seed: int = LM_INIT_SEED) -> list:
+    """One node's LM init at ``init_lm``'s scales, drawn with numpy so that
+    both packages can start from it: ``leaves`` is ``[(path, shape)]`` in
+    ``jax.tree`` order (dict keys sorted, tuple entries in order), each
+    path a tuple ending in the leaf's name.  Norm weights and biases are
+    zeros, ``embed`` is N(0, 1) x 0.02, every other weight ``[..., d_in,
+    d_out]`` is N(0, 1) / sqrt(d_in); fp32."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for path, shape in leaves:
+        name = str(path[-1])
+        if name.startswith(("ln", "b")) or name == "final_norm":
+            out.append(np.zeros(shape, np.float32))
+            continue
+        scale = 0.02 if name == "embed" else 1.0 / math.sqrt(shape[-2])
+        out.append((rng.standard_normal(shape) * scale).astype(np.float32))
+    return out
+
+
+def lm_ref_spec(spec):
+    """``spec`` cut to the hold's depth and steps, every step logged."""
+    kw = dict(spec.model.kwargs)
+    kw["overrides"] = {**kw["overrides"], "n_layers": LM_REF_LAYERS}
+    return spec.override("model.kwargs=" + json.dumps(kw),
+                         f"loop.steps={LM_REF_STEPS}", "loop.log_every=1")
+
+
+def _lm_numpy_state(ex):
+    """``ex``'s initial state with every node at ``lm_numpy_init``."""
+    import torch
+    from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
+
+    paths = tree_paths(ex.state.params)
+    arrays = lm_numpy_init([(p, tuple(x.shape[1:])) for p, x in
+                            zip(paths, tree_leaves(ex.state.params))])
+    one = tree_unflatten(paths, [torch.from_numpy(a) for a in arrays])
+    return ex.trainer.init(lambda _gen: (one, {}), None)
+
+
+def _leaf_norms(params) -> dict:
+    """Each leaf's L2 norm, summed in fp64: an fp32 sum over a leaf of 50M
+    entries is off by 0.4% on the CPU."""
+    import torch
+    from repro_torch.tree import tree_leaves, tree_paths
+    return {"/".join(map(str, p)): float(torch.linalg.vector_norm(
+        x.double())) for p, x in zip(tree_paths(params), tree_leaves(params))}
+
+
+class _SharedTasks:
+    """Within the block ``api.build`` builds each distinct data spec's task
+    once: the runs below share the preset's data (a Task hands out fresh
+    batch iterators, so sharing it changes no run), whose bigram tables
+    take seconds of host time a build."""
+
+    def __enter__(self):
+        import importlib
+        from repro_torch.api.models import model_vocab
+        B = importlib.import_module("repro_torch.api.build")
+        self._module, self._orig, memo = B, B.build_task, {}
+
+        def build_task(spec, n_nodes):
+            key = (json.dumps(spec.to_dict()["data"], sort_keys=True),
+                   model_vocab(spec), spec.seed, n_nodes)
+            if key not in memo:
+                memo[key] = self._orig(spec, n_nodes)
+            return memo[key]
+        B.build_task = build_task
+        return self
+
+    def __exit__(self, *exc):
+        self._module.build_task = self._orig
+        return False
+
+
+def _lm_step_checks(dev, cfg, n: int) -> tuple[dict, dict]:
+    """``qg_step`` on the LM's tree (12 leaves, 503,420,928 fp32 elements
+    node-stacked): one launch, every leaf on float4, bit-equal to the
+    node-order composition and within STEP_ULP of ``ref.qg_step`` (QG with
+    the refresh gate on and off, DSGDm; wd 1e-4, Nesterov, the preset's
+    lr); then timed beside its plain version, the sequence it replaces and
+    its bound (5 streams of the tree over the memory rate)."""
+    import torch
+    from repro_torch.core import optim
+    from repro_torch.kernels import qg_update as K
+    from repro_torch.kernels import ref
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_leaves
+
+    shapes = [(n, *x.shape) for x in
+              tree_leaves(tf.init_lm(None, cfg, device="meta"))]
+    gen = torch.Generator(device=dev).manual_seed(22)
+    roles = [{f"l{i:02d}": torch.randn(s, generator=gen, device=dev)
+              for i, s in enumerate(shapes)} for _ in range(3)]
+    xs, ms, gs = (list(r.values()) for r in roles)
+    elems = sum(t.numel() for t in xs)
+    w = _step_mixing(n, dev)
+    eta = _full(0.02, torch.empty(0, device=dev))
+    worst = {"ulp": 0.0, "abs": 0.0, "m_abs": 0.0, "cases": 0}
+    for mu, rf in ((0.9, 1.0), (0.9, 0.0), (None, 1.0)):
+        kw = dict(beta=0.9, wd=1e-4, nesterov=True, mu=mu)
+        refresh = _full(rf, eta)
+        before = (K.LAUNCHES["qg_step"], *K.STEP_PATHS.values())
+        got = K.qg_step(xs, ms, gs, w, eta, refresh, **kw)
+        ran = tuple(a - b for a, b in zip(
+            (K.LAUNCHES["qg_step"], *K.STEP_PATHS.values()), before))
+        if ran != (1, len(shapes), 0):
+            raise AssertionError(f"qg_step at the LM's tree: (launches, "
+                                 f"vector, scalar) {ran}, want "
+                                 f"(1, {len(shapes)}, 0)")
+        _step_compare(f"LM tree mu={mu} refresh={rf}", got,
+                      ref.qg_step(xs, ms, gs, w, eta, refresh, **kw),
+                      _node_order_step(xs, ms, gs, w, eta, refresh, **kw),
+                      (xs, ms, gs, w, eta, kw), worst)
+        del got
+        torch.cuda.empty_cache()
+    log(f"kernel qg_step at the LM's tree ({len(shapes)} leaves, {elems} "
+        f"elements, {n} nodes): one launch, every leaf on float4, "
+        f"{worst['cases']} leaves x 2 outputs bit-equal to the node-order "
+        f"composition; x_new within {worst['ulp']:.2f} ulp of ref.qg_step "
+        f"at sum|W||half| (allowed {STEP_ULP}), max abs err "
+        f"{worst['abs']:.3e}, m_out {worst['m_abs']:.3e}")
+
+    one = _full(1.0, eta)
+    timed = {}
+    for form, mu in (("qg", 0.9), ("dsgdm", None)):
+        kw = dict(beta=0.9, wd=1e-4, nesterov=True, mu=mu)
+        stages = optim.make_optimizer(
+            "qg_dsgdm_n" if mu else "dsgdm_n", weight_decay=1e-4)._stages()
+        kfn = lambda: K.qg_step(xs, ms, gs, w, eta, one, **kw)
+        pfn = lambda: ref.qg_step(xs, ms, gs, w, eta, one, **kw)
+        seq = _replaced_sequence(stages, *roles, w, eta)
+        kms, pms, sms = (_time_ms(f, 2, reps=5) for f in (kfn, pfn, seq))
+        torch.cuda.empty_cache()
+        nbytes = 5 * elems * 4 + 4 * n * n + 8
+        bound, by = _bound(nbytes, (8 + 2 * n - 1 + (5 if mu else 0))
+                           * elems)
+        timed[form] = {"size": "lm", "ms": kms, "plain_ms": pms,
+                       "replaced_ms": sms, "bound_ms": bound,
+                       "bound_by": by, "bytes": nbytes}
+        log(f"time qg_step {form} at the LM's tree: kernel {kms:.6f} ms "
+            f"({kms / bound:.3f}x bound), plain {pms:.6f} ms, replaced "
+            f"sequence {sms:.6f} ms (CUDA graphs of 2 calls), bound "
+            f"{bound:.6f} ms ({by}, {nbytes} B), "
+            f"{nbytes / kms / 1e6:.1f} GB/s, library: none")
+    del roles, xs, ms, gs
+    torch.cuda.empty_cache()
+    return worst, timed
+
+
+def _lm_hold(dev, spec) -> dict:
+    """The preset cut to LM_REF_LAYERS layers, LM_REF_STEPS steps from the
+    numpy init, against the JAX package's LM_REF (LM_REF_RTOL)."""
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.kernels import ops
+
+    ref_spec = lm_ref_spec(spec)
+    state = _lm_numpy_state(api.build(ref_spec, device=dev))
+    ops.reset_launch_counts()
+    res, final = api.run(ref_spec, device=dev, state=state,
+                         with_state=True, log_fn=lambda *_: None)
+    counts = ops.launch_counts()
+    _expect_launches("lm hold", counts, {"qg_step": LM_REF_STEPS})
+    got = {"loss": [r["loss"] for r in res.history],
+           "norms": _leaf_norms(final.params)}
+    if LM_REF is None:
+        raise AssertionError(f"LM_REF is not pinned; this run gives {got}")
+    if sorted(got["norms"]) != sorted(LM_REF["norms"]):
+        raise AssertionError(f"lm hold: leaves {sorted(got['norms'])} vs "
+                             f"LM_REF's {sorted(LM_REF['norms'])}")
+    np.testing.assert_allclose(got["loss"], LM_REF["loss"],
+                               rtol=LM_REF_RTOL, err_msg="lm hold losses")
+    keys = sorted(LM_REF["norms"])
+    np.testing.assert_allclose([got["norms"][k] for k in keys],
+                               [LM_REF["norms"][k] for k in keys],
+                               rtol=LM_REF_RTOL, err_msg="lm hold norms")
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(got["loss"] + [got["norms"][k] for k in keys],
+                  LM_REF["loss"] + [LM_REF["norms"][k] for k in keys]))
+    log(f"lm hold ({LM_REF_LAYERS} layers at the preset's widths, "
+        f"{LM_REF_STEPS} steps from the numpy init): losses {got['loss']} "
+        f"and {len(keys)} leaf norms within {rel:.3e} relative of the JAX "
+        f"package's (allowed {LM_REF_RTOL}); launches {counts}")
+    return {"launches": counts, "rel": rel}
+
+
+def _lm_cli_run(dev, path: Path):
+    """``python -m repro_torch.api lm100m_ring8_alpha0.1_qg
+    --export-consensus <path>`` in this process (every step logged, its
+    output to build/chip_smoke/lm_train.log), with the final state that
+    ``api.run`` hands the CLI captured for the export check."""
+    import contextlib
+    from repro_torch.api import __main__ as cli
+
+    seen = {}
+
+    def run(*args, **kw):
+        seen["out"] = real(*args, **kw)
+        return seen["out"]
+    real, cli.run = cli.run, run
+    try:
+        with open(OUT / "lm_train.log", "w") as f, \
+                contextlib.redirect_stdout(f):
+            cli.main([LM_PRESET, "--set", "loop.log_every=1",
+                      "--export-consensus", str(path)])
+    finally:
+        cli.run = real
+    return seen["out"]
+
+
+def phase_lm(dev) -> dict:
+    """Slice 6b-ii's main path on the preset at its published widths (8
+    nodes x 62,927,616 parameters): the data generator's host time;
+    ``qg_step`` on the LM's tree; the hold against the JAX package
+    (LM_REF); QG-DSGDm-N for LM_STEPS steps through ``python -m
+    repro_torch.api ... --export-consensus`` and DSGDm-N through
+    ``api.run``, one ``qg_step`` a step and no other kernel; the export
+    bit-equal to the node mean of the final state; the training loop under
+    the profiler; the export served through ``python -m repro_torch.serve
+    --checkpoint ... --use-pallas --requests 16`` and held as the serving
+    phase holds TinyLlama, and its [2, 512] prefill through the flash
+    kernel against the chunked path."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.api import data as D
+    from repro_torch.api.models import resolve_transformer_config
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (consensus_params, load_serving_checkpoint,
+                                   resolve_config)
+    from repro_torch.serve.__main__ import main as serve_main
+    from repro_torch.serve.__main__ import make_requests
+    from repro_torch.tree import nest_leaves, tree_paths
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise AssertionError("lm: TF32 is on")
+    spec = api.presets.get(LM_PRESET)
+    cfg = resolve_transformer_config(spec.model)
+    n = spec.topology.n
+    out = {"launches": {}}
+    t0 = time.perf_counter()
+    task = D.build_task(spec, n)
+    gen_s = time.perf_counter() - t0
+    log(f"lm data: make_lm_domains ({task.meta['n_domains']} domains x "
+        f"{task.meta['n_seq_per_domain']} sequences, vocab "
+        f"{task.meta['vocab']}) and the Dirichlet split took {gen_s:.3f} s "
+        f"of host time; heterogeneity {task.meta['heterogeneity']}")
+    del task
+    out["step_worst"], out["step_timed"] = _lm_step_checks(dev, cfg, n)
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    path = OUT / "lm.npz"
+    with _SharedTasks():
+        out["hold"] = _lm_hold(dev, spec)
+        _add_counts(out["launches"], out["hold"]["launches"])
+        runs = {}
+        for name in ("qg_dsgdm_n", "dsgdm_n"):
+            ops.reset_launch_counts()
+            if name == "qg_dsgdm_n":
+                res, state = _lm_cli_run(dev, path)
+            else:
+                res = api.run(spec.override(f"optim.name={name}",
+                                            "loop.log_every=1"),
+                              device=dev, log_fn=lambda *_: None)
+            counts = ops.launch_counts()
+            _expect_launches(f"lm {name}", counts, {"qg_step": LM_STEPS})
+            _add_counts(out["launches"], counts)
+            _finite_run(f"lm {name}", res, LM_STEPS)
+            runs[name] = res
+            losses = [r["loss"] for r in res.history]
+            log(f"lm {name}: {LM_STEPS} steps in {res.wall_time_s:.4f} s "
+                f"({res.wall_time_s / LM_STEPS * 1e3:.4f} ms/step), first "
+                f"loss {losses[0]:.6f}, mean of the last {LM_TAIL} "
+                f"{np.mean(losses[-LM_TAIL:]):.6f}, final loss "
+                f"{losses[-1]:.6f}, consensus {res.final['consensus']:.6e}, "
+                f"launches {counts}")
+        losses = [r["loss"] for r in runs["qg_dsgdm_n"].history]
+        tail = float(np.mean(losses[-LM_TAIL:]))
+        if not tail < min(math.log(cfg.vocab_size), losses[0]):
+            raise AssertionError(
+                f"lm QG-DSGDm-N: mean loss of the last {LM_TAIL} steps "
+                f"{tail} is not below ln V = {math.log(cfg.vocab_size)} and "
+                f"the first step's {losses[0]}")
+        out["runs"] = runs
+        profile = phase_profile(dev, "lm", spec.override("loop.steps=20"),
+                                steps=20)
+        out["profile"] = profile
+
+    # the export: the node mean of the final state, bit for bit, and the
+    # same tree and config back from the file
+    got, got_cfg = load_serving_checkpoint(str(path), device=dev)
+    want = consensus_params(state.params)
+    if tree_paths(got) != tree_paths(want) or got_cfg != resolve_config(
+            spec) or not all(torch.equal(a, b) for a, b in
+                             zip(nest_leaves(got), nest_leaves(want))):
+        raise AssertionError("lm export: the serving checkpoint differs "
+                             "from consensus_params of the final state")
+    log(f"lm export: {path.name} ({path.stat().st_size} B) = consensus "
+        f"params of the final state bit for bit, {len(nest_leaves(got))} "
+        f"leaves, config {got_cfg.name}")
+    del state, want
+    torch.cuda.empty_cache()
+
+    # serving the export, through the CLI, then held
+    row = serve_main(["--checkpoint", str(path), "--use-pallas",
+                      "--requests", str(SERVE_REQUESTS)])
+    log(f"lm serve CLI: {row}")
+    reqs = make_requests(SERVE_REQUESTS, got_cfg.vocab_size, seed=SERVE_SEED,
+                         max_new=SERVE_MAX_NEW)
+    out["serve"] = phase_serve(dev, got_cfg, got, reqs)
+    out["prefill"] = phase_prefill(dev, got_cfg, got, LM_PREFILL_SHAPE)
+    out["serve_cli"] = row
+    path.unlink()
+    del got
+    torch.cuda.empty_cache()
+    return out
+
+
 def sass_mma_counts(lib: Path) -> dict:
     """``(HMMA, all)`` instructions per kernel in ``lib``'s SASS (HMMA: the
     tensor-core products), by ``cuobjdump -sass`` from the toolkit that
@@ -3573,6 +3960,10 @@ def main() -> int:
                         mamba_out.pop("tokens"))
     torch.cuda.empty_cache()
 
+    # 9. slice 6b-ii's main path: the LM preset trained on 8 nodes, its
+    # consensus export, and the export served through the paged kernels
+    lm_out = phase_lm(dev)
+
     smi = _card()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"
@@ -3615,7 +4006,11 @@ def main() -> int:
         "bound_by": t["bound_by"], "library_ms": None,
         "replaced_ms": t["replaced_ms"],
         "resnet20": {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by", "replaced_ms")}})
+                                       "bound_by", "replaced_ms")},
+        "lm": {k: lm_out["step_timed"]["qg"][k]
+               for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                         "replaced_ms")},
+        "lm_max_abs_err": lm_out["step_worst"]["abs"]})
     t = timed[("choco_exchange[choco_qg]", "quickstart")]
     kernels.append({
         "name": "choco_exchange", "route": "cuda",
@@ -3630,6 +4025,9 @@ def main() -> int:
     for row in kernels:  # slice 4's runs (the `cifar launches` line)
         if cifar_out["launches"].get(row["name"]):
             row["cifar_launches"] = cifar_out["launches"][row["name"]]
+    lm_launches = dict(lm_out["launches"])   # slice 6b-ii's runs
+    _add_counts(lm_launches, lm_out["serve"]["launches"])
+    _add_counts(lm_launches, lm_out["prefill"]["launches"])
     for row in kernels:  # one message a step: the top-k and QSGD runs
         run = {"threshold_mask": "topk", "quantize_dequantize": "qsgd"}.get(
             row["name"])
@@ -3650,7 +4048,13 @@ def main() -> int:
             "replaces": replaces, "launches": launches,
             "max_abs_err": att_worst[name]["float32"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "lm": {k: att_timed[(name, "lm")][k]
+                   for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")}})
+    for row in kernels:
+        if lm_launches.get(row["name"]):
+            row["lm_launches"] = lm_launches[row["name"]]
     t = ssd_timed["main"]
     kernels.append({
         "name": "ssd_scan", "route": "cuda", "source": csrc + "ssd_scan.cu",

@@ -22,10 +22,12 @@ import sys
 from pathlib import Path
 
 #: (label, preset, overrides): the quickstart QG preset (one ``qg_step`` a
-#: step) and the CHOCO top-k preset on the kernels
+#: step), the CHOCO top-k preset on the kernels, and the CIFAR preset
+#: (ResNet-20's 80 leaves: the loop that walks the most leaves a step)
 STEP_RUNS = [
     ("quickstart_qg", "quickstart_ring16_alpha0.1_qg", ()),
     ("choco_topk_auto", "choco_topk0.01_ring16_qg", ("comm.backend=auto",)),
+    ("cifar_qg", "cifar_ring16_alpha0.1_qg", ()),
 ]
 
 

@@ -21,10 +21,15 @@ kernel (``kernels/csrc/ssd_scan.cu``) and its O(1)-state decode; and
 slice 2, the rest of the optimizer zoo (all 20 registry entries and the
 ``OptimSpec.stages`` chains), the social, exponential, torus, star and
 complete topologies with the ``social32``/``exp16`` presets, and the
-gradient-free consensus experiments (``core/consensus.py``).
+gradient-free consensus experiments (``core/consensus.py``); and slices 4
+and 5, ResNet-20 and the CV protocol, telemetry and checkpoints; and slice
+6b-ii, decentralized LM training (the ``lm_domains`` data, the
+``transformer`` plugin, the ``lm100m_ring8_alpha0.1_qg`` preset) with the
+run's consensus model exported for serving.
 
-Entry points (``api.build``, ``api.run``, ``python -m repro_torch.api``,
-``python -m repro_torch.serve``) run on the CUDA device unless the caller
-passes ``device="cpu"``; there the kernels' plain PyTorch versions serve
-the CPU tensors.
+Entry points (``api.build``, ``api.run``, ``python -m repro_torch.api``
+with ``--export-consensus``, ``python -m repro_torch.serve``, ``python -m
+repro_torch.launch.train`` and ``python -m repro_torch.launch.serve``) run
+on the CUDA device unless the caller passes ``device="cpu"``; there the
+kernels' plain PyTorch versions serve the CPU tensors.
 """

@@ -12,7 +12,10 @@ full TrainState every N steps and at the end; ``--resume ckpt.npz``
 continues a saved run to ``loop.steps`` as the uninterrupted run would have
 gone (checkpoints of either package load in the other).  With
 ``--set telemetry.enabled=true`` and ``--out r.json`` the telemetry stream
-goes to ``r.metrics.jsonl``.
+goes to ``r.metrics.jsonl``.  ``--export-consensus lm.npz`` averages a
+transformer run's node-stacked params after the run and writes a serving
+checkpoint (serve it with ``python -m repro_torch.serve --checkpoint
+lm.npz``).
 """
 from __future__ import annotations
 
@@ -42,6 +45,11 @@ def main(argv=None):
     ap.add_argument("--resume", default="", metavar="PATH",
                     help="restore a --checkpoint save and continue to "
                          "loop.steps")
+    ap.add_argument("--export-consensus", default="", metavar="PATH",
+                    help="after the run, consensus-average the node-stacked "
+                         "params and write a serving checkpoint here "
+                         "(serve it with `python -m repro_torch.serve "
+                         "--checkpoint PATH`)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: cuda)")
     ap.add_argument("--list", action="store_true", help="list presets")
@@ -67,7 +75,18 @@ def main(argv=None):
         telemetry_path = os.path.splitext(args.out)[0] + f".metrics.{ext}"
 
     result = run(spec, device=args.device, checkpoint_path=args.checkpoint,
-                 resume=args.resume, telemetry_path=telemetry_path)
+                 resume=args.resume, telemetry_path=telemetry_path,
+                 with_state=bool(args.export_consensus))
+    if args.export_consensus:
+        from repro_torch.serve import export_consensus, save_serving_checkpoint
+        result, state = result
+        params, cfg = export_consensus(result, state=state)
+        if cfg is None:
+            raise SystemExit(
+                "--export-consensus: only transformer models can be "
+                "exported for serving")
+        save_serving_checkpoint(args.export_consensus, params, cfg)
+        print("consensus serving checkpoint ->", args.export_consensus)
     if result.telemetry and result.telemetry.get("path"):
         print(f"telemetry -> {result.telemetry['path']} "
               f"({result.telemetry['rows_emitted']} rows)")

@@ -175,9 +175,12 @@ def _make_recorder(ex: Experiment, telemetry_path: str = ""):
 
 
 def run(spec: ExperimentSpec, *, device="cuda", log_fn=print,
-        state: TrainState | None = None, checkpoint_path: str = "",
-        resume: str = "", telemetry_path: str = "") -> Result:
-    """Build + train + evaluate one spec on ``device``.  ``state``
+        state: TrainState | None = None, with_state: bool = False,
+        checkpoint_path: str = "", resume: str = "",
+        telemetry_path: str = ""):
+    """Build + train + evaluate one spec on ``device``; returns a
+    :class:`Result`, or with ``with_state=True`` ``(result, final_state)``
+    (for a consensus export or a launcher's own checkpoint).  ``state``
     replaces the built initial state, e.g. the reference's init carried
     over with ``repro_torch.interop.train_state_from_numpy``.
 
@@ -249,9 +252,10 @@ def run(spec: ExperimentSpec, *, device="cuda", log_fn=print,
     wire = wire_stats(ex.trainer, state.params)
     wire["total_mbytes_per_node"] = (
         wire["bits_per_node_per_step"] * steps_run / 8e6)
-    return Result(spec=spec.to_dict(), history=history, final=final,
-                  steps_run=steps_run, wall_time_s=wall, wire=wire,
-                  device=describe_device(ex.trainer.device),
-                  telemetry=(recorder.close() if recorder is not None
-                             else None),
-                  heterogeneity=ex.task.meta.get("heterogeneity"))
+    result = Result(spec=spec.to_dict(), history=history, final=final,
+                    steps_run=steps_run, wall_time_s=wall, wire=wire,
+                    device=describe_device(ex.trainer.device),
+                    telemetry=(recorder.close() if recorder is not None
+                               else None),
+                    heterogeneity=ex.task.meta.get("heterogeneity"))
+    return (result, state) if with_state else result

@@ -1,6 +1,7 @@
 """Model/loss plugins for the declarative experiment layer.
 
-Port of ``repro/api/models.py`` for the MLP and ResNet-20.  A plugin is a
+Port of ``repro/api/models.py``: the MLP, ResNet-20 and the transformer
+LM (any ``configs/`` arch whose block kinds the port runs).  A plugin is a
 factory ``factory(spec, task) -> ModelBundle`` registered under a name.
 Where the reference writes one node's functions and vmaps them, the port's
 work on the node-stacked layout directly:
@@ -15,7 +16,9 @@ work on the node-stacked layout directly:
 ``jax.random`` draws cannot be reproduced in torch, so standalone runs draw
 the init from a ``torch.Generator`` at the reference's scales, and parity
 runs inject the reference's init (``repro_torch.interop``).  The
-``transformer`` plugin comes with slice 6.
+``transformer`` plugin writes one node's loss and maps it over the node
+axis with ``torch.func.vmap``, so each matrix product runs once for all
+nodes, batched.
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ import torch
 
 from repro_torch.tree import tree_map
 
-__all__ = ["ModelBundle", "MODELS", "MODEL_DATASETS", "register_model"]
+__all__ = ["ModelBundle", "MODELS", "MODEL_DATASETS", "register_model",
+           "model_vocab", "resolve_transformer_config"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +47,7 @@ MODELS: dict[str, Callable[..., ModelBundle]] = {}
 MODEL_DATASETS: dict[str, tuple[str, ...]] = {
     "mlp": ("classification",),
     "resnet20": ("classification",),
+    "transformer": ("lm_domains",),
 }
 
 
@@ -145,3 +150,63 @@ def _resnet20(spec, task) -> ModelBundle:
                                     device=logits.device)}
 
     return ModelBundle(init_fn, loss_fn, eval_fn)
+
+
+_TRANSFORMER_KW = {"arch": "tinyllama-1.1b", "reduced": False,
+                   "overrides": None, "chunk": None, "ssd_chunk": None}
+
+
+def resolve_transformer_config(model_spec):
+    """ModelSpec -> ModelConfig (arch lookup, ``reduced``, field
+    overrides).  Shared with the ``lm_domains`` data builder, which reads
+    the vocab off it, and with the serving export."""
+    from repro_torch.configs import get_config
+
+    kw = dict(model_spec.kwargs)
+    arch = kw.get("arch", _TRANSFORMER_KW["arch"])
+    cfg = get_config(arch, reduced=bool(kw.get("reduced", False)))
+    overrides = kw.get("overrides") or {}
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    return cfg
+
+
+def model_vocab(spec) -> int | None:
+    """The vocab the model expects, for data builders (None: no vocab)."""
+    if spec.model.name == "transformer":
+        return resolve_transformer_config(spec.model).vocab_size
+    return None
+
+
+@register_model("transformer")
+def _transformer(spec, task) -> ModelBundle:
+    """A decoder LM trained on next-token cross-entropy.  Batches are
+    ``(tokens [n, B, S+1],)``: inputs are the first S positions, labels the
+    last S.  Training runs the plain chunked attention under autograd (the
+    flash kernel has no backward), as the reference trains without
+    ``use_pallas``; there is no eval protocol."""
+    from repro_torch.models import transformer as tf
+
+    kw = _pop_kwargs(spec, _TRANSFORMER_KW)
+    cfg = resolve_transformer_config(spec.model)
+    tf.check_ported(cfg)
+    fwd_kw = {}
+    if kw["chunk"] is not None:
+        fwd_kw["chunk"] = int(kw["chunk"])
+    if kw["ssd_chunk"] is not None:
+        fwd_kw["ssd_chunk"] = int(kw["ssd_chunk"])
+
+    def init_fn(generator):
+        return tf.init_lm(generator, cfg), {}
+
+    def node_loss(p, toks):
+        return tf.train_loss(p, {"tokens": toks[:, :-1],
+                                 "labels": toks[:, 1:]}, cfg, **fwd_kw)
+
+    per_node = torch.func.vmap(node_loss)
+
+    def loss_fn(params, ms, batch):
+        (toks,) = batch
+        return per_node(params, toks.long()), ({}, {})
+
+    return ModelBundle(init_fn, loss_fn, eval_fn=None)

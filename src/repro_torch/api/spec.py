@@ -6,8 +6,9 @@ field, so the port loads the reference's JSON unchanged
 losslessly.  ``validate()`` accepts the subset that the port runs today:
 every registry topology but the generated graphs, every optimizer and
 explicit stage chain, dense gossip (plain or compressed) on the vmap
-runtime, the MLP and ResNet-20 on classification data, checkpoints and
-telemetry.  Anything outside it raises
+runtime, the MLP and ResNet-20 on classification data, the transformer LM
+(dense, local/global and Mamba-2 blocks) on ``lm_domains`` data,
+checkpoints and telemetry.  Anything outside it raises
 ``NotImplementedError`` naming the slice of the port that brings it;
 malformed values raise ``ValueError`` as in the reference.
 """
@@ -234,7 +235,8 @@ class ExperimentSpec:
         """Raise ``ValueError`` on an invalid field and
         ``NotImplementedError`` on a valid one the port does not run yet;
         return self so ``spec.validate()`` chains."""
-        from repro_torch.api.models import MODEL_DATASETS, MODELS
+        from repro_torch.api.models import (MODEL_DATASETS, MODELS,
+                                            resolve_transformer_config)
         from repro_torch.comm.compressors import BACKENDS, make_compressor
         from repro_torch.core import topology as topo_lib
         from repro_torch.core.optim import OPTIMIZERS
@@ -297,9 +299,7 @@ class ExperimentSpec:
             later("gossip.schedule", f"schedule {self.gossip.schedule!r}", 8)
         # data
         d = self.data
-        if d.dataset == "lm_domains":
-            later("data.dataset", "dataset 'lm_domains'", 6)
-        if d.dataset != "classification":
+        if d.dataset not in ("classification", "lm_domains"):
             err("data.dataset", f"unknown dataset {d.dataset!r}; have "
                 "'classification' | 'lm_domains'")
         if d.alpha <= 0:
@@ -309,14 +309,24 @@ class ExperimentSpec:
         if d.ensure_min not in ("retry", "redistribute"):
             err("data.ensure_min", f"must be 'retry' | 'redistribute', got "
                 f"{d.ensure_min!r}")
-        if not 0.0 < d.train_frac < 1.0:
-            err("data.train_frac", f"must be in (0, 1), got {d.train_frac}")
-        n_train = int(d.n_data * d.train_frac)
-        if topo.n * d.min_per_client > n_train:
-            err("data", f"min_per_client={d.min_per_client} unsatisfiable: "
-                f"{topo.n} clients need {topo.n * d.min_per_client} train "
-                f"samples, have {n_train} (= {d.n_data} * train_frac "
-                f"{d.train_frac}); shrink the grid or grow n_data")
+        if d.dataset == "classification":
+            if not 0.0 < d.train_frac < 1.0:
+                err("data.train_frac", f"must be in (0, 1), got "
+                    f"{d.train_frac}")
+            n_train = int(d.n_data * d.train_frac)
+            if topo.n * d.min_per_client > n_train:
+                err("data", f"min_per_client={d.min_per_client} "
+                    f"unsatisfiable: {topo.n} clients need "
+                    f"{topo.n * d.min_per_client} train samples, have "
+                    f"{n_train} (= {d.n_data} * train_frac "
+                    f"{d.train_frac}); shrink the grid or grow n_data")
+        else:
+            if d.seq_len < 2:
+                err("data.seq_len", f"must be >= 2, got {d.seq_len}")
+            if d.vocab == 0 and self.model.name != "transformer":
+                err("data.vocab", "vocab=0 means 'take from the model "
+                    f"config', but model {self.model.name!r} has no vocab; "
+                    "set data.vocab explicitly")
         # loop
         lp = self.loop
         if lp.steps < 1:
@@ -344,8 +354,6 @@ class ExperimentSpec:
         if self.scenario.enabled:
             later("scenario", "the scenario engine", 8)
         # model
-        if self.model.name == "transformer":
-            later("model.name", "model 'transformer'", 6)
         if self.model.name not in MODELS:
             err("model.name", f"unknown model plugin {self.model.name!r}; "
                 f"have {sorted(MODELS)}")
@@ -353,6 +361,16 @@ class ExperimentSpec:
         if allowed is not None and d.dataset not in allowed:
             err("model", f"model {self.model.name!r} consumes "
                 f"{' | '.join(allowed)} data, not dataset={d.dataset!r}")
+        if self.model.name == "transformer":
+            from repro_torch.models.transformer import check_ported
+            try:
+                cfg = resolve_transformer_config(self.model)
+            except (ValueError, TypeError) as e:
+                err("model.kwargs", str(e))
+            try:
+                check_ported(cfg)
+            except NotImplementedError as e:
+                raise NotImplementedError(f"{where}.model: {e}") from None
         return self
 
 

@@ -1,17 +1,27 @@
-"""Synthetic classification data and the per-node batch iterator.
+"""Synthetic datasets and the per-node batch iterator.
 
-Port of ``repro/data/synthetic.py`` (``make_classification``,
-``ClientDataset``).  Plain numpy, copied so this package needs nothing of
-the JAX one: the arrays and batch streams are bit-equal to the reference's
-for the same seed (pinned in tests/test_torch_data.py).
+Port of ``repro/data/synthetic.py``:
+
+* ``make_classification`` -- CIFAR-shaped class-conditional image data;
+* ``make_lm_domains`` -- token streams from ``n_domains`` distinct bigram
+  generators; decentralized heterogeneity is a Dirichlet mixture over
+  domains per node (the LM analogue of label skew);
+* ``ClientDataset`` / ``iterate_client_batches`` -- the per-node epoch
+  iterator over a partition.
+
+Plain numpy, copied so this package needs nothing of the JAX one: the
+arrays and batch streams are bit-equal to the reference's for the same
+seed (pinned in tests/test_torch_data.py and tests/test_torch_lm_train.py).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import numpy as np
 
-__all__ = ["make_classification", "ClientDataset"]
+__all__ = ["make_classification", "make_lm_domains", "iterate_client_batches",
+           "ClientDataset"]
 
 
 def make_classification(
@@ -33,6 +43,36 @@ def make_classification(
     x = protos[labels] + noise * rng.normal(
         size=(n, hw, hw, channels)).astype(np.float32)
     return x.astype(np.float32), labels
+
+
+def make_lm_domains(
+    n_domains: int = 8, *, vocab: int = 512, seq_len: int = 128,
+    n_seq_per_domain: int = 256, skew: float = 8.0, seed: int = 0,
+):
+    """Per-domain bigram LMs -> (tokens [D*ns, S+1] int32, domain [D*ns]).
+
+    Tokens include one extra position so callers can split inputs/labels.
+    Each domain draws a ``vocab x vocab`` Dirichlet transition matrix in
+    float64 (0.5 GB at vocab 8192): the stream is the reference's, draw for
+    draw, so the algorithm stays as it is."""
+    rng = np.random.default_rng(seed)
+    all_tokens, all_domain = [], []
+    for d in range(n_domains):
+        # sparse random bigram transition per domain
+        trans = rng.dirichlet(np.full(vocab, 1.0 / skew), size=vocab)
+        cum = np.cumsum(trans, axis=1)
+        del trans
+        toks = np.empty((n_seq_per_domain, seq_len + 1), np.int32)
+        cur = rng.integers(0, vocab, size=n_seq_per_domain)
+        toks[:, 0] = cur
+        u = rng.random(size=(n_seq_per_domain, seq_len))
+        for t in range(seq_len):
+            cur = (cum[cur] < u[:, t:t + 1]).sum(axis=1)
+            cur = np.minimum(cur, vocab - 1)
+            toks[:, t + 1] = cur
+        all_tokens.append(toks)
+        all_domain.append(np.full(n_seq_per_domain, d, np.int32))
+    return np.concatenate(all_tokens), np.concatenate(all_domain)
 
 
 @dataclasses.dataclass
@@ -75,3 +115,9 @@ class ClientDataset:
             for a_i, arr in enumerate(self.arrays):
                 outs[a_i].append(arr[idx])
         return tuple(np.stack(o) for o in outs)
+
+
+def iterate_client_batches(ds: ClientDataset, steps: int
+                           ) -> Iterator[tuple[np.ndarray, ...]]:
+    for _ in range(steps):
+        yield ds.next_batch()

@@ -13,25 +13,26 @@ import numpy as np
 import torch
 
 from repro_torch.train.trainer import TrainState
-from repro_torch.tree import nest_map, tree_map
+from repro_torch.tree import tree_map
 
 __all__ = ["params_from_numpy", "train_state_from_numpy",
            "lm_params_from_numpy"]
 
 
 def params_from_numpy(tree, device):
-    """Nested dict of numpy arrays -> the same tree of tensors on
-    ``device`` (dtypes kept, data copied)."""
+    """A tree (dicts, and tuples as the LM keeps per period position) of
+    numpy arrays -> the same tree of tensors on ``device`` (dtypes kept,
+    data copied)."""
     return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
 
 
 def train_state_from_numpy(params, opt_state, t, device,
                            comm_state=None, model_state=None) -> TrainState:
     """A :class:`TrainState` on ``device`` from the reference's node-stacked
-    ``params``, its ``opt_state``, step counter ``t``, for compressed
-    gossip its ``comm_state`` (a list of per-site dicts of numpy trees),
-    and its ``model_state`` (BN's per-node running statistics; None: empty,
-    as for the MLP)."""
+    ``params`` (an LM's with its tuples), its ``opt_state``, step counter
+    ``t``, for compressed gossip its ``comm_state`` (a list of per-site
+    dicts of numpy trees), and its ``model_state`` (BN's per-node running
+    statistics; None: empty, as for the MLP)."""
     if comm_state is not None:
         comm_state = [params_from_numpy(site, device) for site in comm_state]
     return TrainState(params=params_from_numpy(params, device),
@@ -43,9 +44,6 @@ def train_state_from_numpy(params, opt_state, t, device,
                       comm_state=comm_state)
 
 
-def lm_params_from_numpy(tree, device):
-    """A language model's params (``init_lm``'s structure: dicts, and
-    tuples for ``blocks``/``tail``) of numpy arrays -> the same structure
-    of tensors on ``device``, the port's ``init_lm`` layout (dtypes kept,
-    data copied)."""
-    return nest_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+#: a language model's params (``init_lm``'s structure: dicts, and tuples for
+#: ``blocks``/``tail``) carry across as any other tree
+lm_params_from_numpy = params_from_numpy

@@ -33,7 +33,7 @@ class PackSpec:
     """Static offset table for one tree role (params / momentum / grads);
     one spec packs every role of the same structure."""
 
-    paths: tuple
+    paths: list     # tree_paths(tree): rebuilds the tree's containers
     shapes: tuple
     offsets: tuple
     sizes: tuple
@@ -55,7 +55,7 @@ def plan_pack(tree, *, tile: int = PACK_TILE) -> PackSpec:
     for s in sizes:
         offsets.append(off)
         off += s
-    return PackSpec(paths=tuple(tree_paths(tree)), shapes=shapes,
+    return PackSpec(paths=tree_paths(tree), shapes=shapes,
                     offsets=tuple(offsets), sizes=sizes, total=off,
                     padded=max(tile, -(-off // tile) * tile), tile=tile)
 
@@ -79,4 +79,4 @@ def unpack(spec: PackSpec, buf: torch.Tensor):
     """Inverse of :func:`pack`: the leaves are views into ``buf``."""
     leaves = [buf[o:o + n].view(shape)
               for o, n, shape in zip(spec.offsets, spec.sizes, spec.shapes)]
-    return tree_unflatten(list(spec.paths), leaves)
+    return tree_unflatten(spec.paths, leaves)

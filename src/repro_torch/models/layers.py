@@ -20,7 +20,7 @@ from ..tree import nest_map
 
 __all__ = ["normal_init", "dense_init", "embed_init", "stack_layers",
            "rms_norm", "softcap", "swiglu", "init_mlp", "rope_frequencies",
-           "apply_rope"]
+           "apply_rope", "cross_entropy"]
 
 
 # ---------------------------------------------------------------------------
@@ -111,3 +111,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_valid: int | None = None) -> torch.Tensor:
+    """Mean token cross-entropy in fp32; padded vocab rows (>=
+    ``vocab_valid``) are masked to the fp32 minimum before the
+    logsumexp."""
+    logits = logits.float()
+    if vocab_valid is not None and vocab_valid < logits.shape[-1]:
+        pad = torch.arange(logits.shape[-1], device=logits.device) \
+            >= vocab_valid
+        logits = torch.where(pad, torch.finfo(torch.float32).min, logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - gold)

@@ -28,9 +28,14 @@ final-state output (the kernel's under ``use_pallas``) and its conv state
 from the raw conv input, where the reference recomputes both through a
 second jnp pass (its ``_mamba_prefill_state``).
 
+``train_loss`` is the mean token cross-entropy of a ``train`` forward (plus
+its auxiliary loss), the loss of decentralized LM training; it is a plain
+function of the params dict, so the training plugin (``api/models.py``)
+maps it over the node axis with ``torch.func.vmap``.
+
 Not yet ported: the ``moe`` and ``cross`` kinds and the zamba2 shared block
-(they raise ``NotImplementedError`` naming their slice), ``train_loss``,
-and the TPU mesh and scan controls (``cache_constraint``, ``act_spec``,
+(they raise ``NotImplementedError`` naming their slice), and the TPU mesh
+and scan controls (``cache_constraint``, ``act_spec``,
 ``head_spec``, ``moe_expert_spec``, ``repeat_kv``, ``remat``, ``unroll``,
 ``skip_masked_chunks``, ``decode_lowp``).
 """
@@ -43,12 +48,13 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
-from ..tree import nest_map
+from ..tree import nest_map, tree_leaves, tree_paths, tree_unflatten
 from . import attention, layers, ssm
 
 __all__ = ["ATTN_KINDS", "RunCtx", "PageInfo", "init_lm", "init_cache",
-           "init_paged_cache", "supports_paged", "apply_block", "forward",
-           "prefill", "decode_step", "paged_step"]
+           "init_paged_cache", "supports_paged", "check_ported",
+           "apply_block", "forward", "train_loss", "prefill", "decode_step",
+           "paged_step"]
 
 ATTN_KINDS = ("dense", "local", "global", "moe")
 
@@ -64,6 +70,16 @@ _LATER = {
 
 def _not_ported(what: str):
     return NotImplementedError(f"repro_torch: {_LATER[what]}")
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` naming the slice that brings it if
+    ``cfg`` has a part the port cannot run yet."""
+    if cfg.shared_attn_every:
+        raise _not_ported("shared_attn")
+    for kind in cfg.period:
+        if kind in _LATER:
+            raise _not_ported(kind)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,8 +155,7 @@ def init_lm(gen, cfg: ModelConfig, dtype=torch.float32, *,
     stacked over ``n_periods``, ``tail`` a tuple), drawn from the
     ``torch.Generator`` ``gen`` on its device (``device`` overrides it;
     ``device="meta"`` with ``gen=None`` builds the shapes only)."""
-    if cfg.shared_attn_every:
-        raise _not_ported("shared_attn")
+    check_ported(cfg)
     device = torch.device(device if device is not None else gen.device)
     kw = dict(device=device, dtype=dtype)
     vp = cfg.vocab_padded
@@ -371,6 +386,16 @@ def _logits(params, x, cfg: ModelConfig):
     return layers.softcap((h @ head).float(), cfg.logit_softcap)
 
 
+def _unstack(tree, n: int) -> list:
+    """A tree of leaves stacked ``[n, ...]`` -> its ``n`` entries, views
+    from one ``unbind`` a leaf.  Under autograd the backward of an unbind
+    is one stack, where indexing each period apart would give every
+    leaf's gradient a zero-filled full-size tensor a period to add up."""
+    paths = tree_paths(tree)
+    parts = [leaf.unbind(0) for leaf in tree_leaves(tree)]
+    return [tree_unflatten(paths, [p[i] for p in parts]) for i in range(n)]
+
+
 def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
             cache=None, pos=None, chunk: int = 1024, ssd_chunk: int = 128,
             cache_len: int = 0, use_pallas: bool = False, pages=None):
@@ -394,14 +419,13 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
     x = _embed(params, tokens, cfg)
     reads_cache = mode in ("decode", "paged")
     made = [[] for _ in cfg.period]
+    periods = [_unstack(bp, cfg.n_periods) for bp in params["blocks"]]
     for i in range(cfg.n_periods):
         for j, kind in enumerate(cfg.period):
             # period i of the stacked params and caches, as views
             c = (nest_map(lambda t: t[i], cache["blocks"][j]) if reads_cache
                  else None)
-            x, _, nc = apply_block(
-                kind, nest_map(lambda t: t[i], params["blocks"][j]), x, ctx,
-                c)
+            x, _, nc = apply_block(kind, periods[j][i], x, ctx, c)
             made[j].append(nc)
     tail_caches = []
     for i, tp in enumerate(params["tail"]):
@@ -422,6 +446,15 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
         x_last = x[torch.arange(x.shape[0], device=x.device), pages.last_idx]
         return _logits(params, x_last, cfg), aux_total, cache
     return _logits(params, x[:, 0], cfg), aux_total, cache
+
+
+def train_loss(params, batch, cfg: ModelConfig, **kw):
+    """batch: ``{tokens [B,S], labels [B,S]}`` -> 0-d loss: the mean token
+    cross-entropy over the valid vocab, plus the auxiliary loss."""
+    logits, aux, _ = forward(params, batch["tokens"], cfg, mode="train",
+                             img=batch.get("image_embeds"), **kw)
+    return layers.cross_entropy(logits, batch["labels"],
+                                cfg.vocab_size) + aux
 
 
 def prefill(params, tokens, cfg: ModelConfig, *, img=None, **kw):

@@ -1,7 +1,8 @@
 """Consensus serving stack: export -> continuous-batching inference.
 
 Port of ``repro/serve``: :func:`export_consensus` collapses a node-stacked
-training state or checkpoint into the single consensus model, and
+training run (an ``api.Result`` with its final state, a state or a
+checkpoint) into the single consensus model, and
 :class:`ServeEngine` serves it with continuous request batching over a
 paged KV cache, on the card through the paged-decode kernel with
 ``use_pallas=True``.

@@ -6,9 +6,9 @@ decentralized optimizer drives the fleet toward; params are node-stacked
 ``[n, ...]``, so consensus is a mean over the leading axis of every leaf.
 
 * :func:`export_consensus` -- from a ``save_train_state`` ``.npz`` on disk
-  (the reference's format), a node-stacked state (anything with
-  ``.params``) or a bare node-stacked params tree.  Export from an
-  ``api.Result`` waits until LM training is ported.
+  (the reference's format), an ``api.Result`` with its final state, a
+  node-stacked state (anything with ``.params``) or a bare node-stacked
+  params tree; the mean is taken on the state's device.
 * :func:`save_serving_checkpoint` / :func:`load_serving_checkpoint` -- the
   ``serve-v1`` npz: consensus params under ``|``-joined key paths
   (``k:params|k:blocks|i:0|k:attn|k:wq``) plus a ``__meta__`` JSON string
@@ -72,37 +72,39 @@ def consensus_params(params):
 
 
 def resolve_config(spec) -> ModelConfig | None:
-    """The ``ModelConfig`` of an experiment spec's transformer; None for
-    the other models (their consensus exports still work, they just cannot
-    be served by the token engine)."""
+    """The ``ModelConfig`` of an experiment spec (or its ``to_dict()``
+    form); None for the other models (their consensus exports still work,
+    they just cannot be served by the token engine)."""
+    from ..api.models import resolve_transformer_config
     from ..api.spec import ExperimentSpec
-    from ..configs import get_config
 
     if isinstance(spec, dict):
         spec = ExperimentSpec.from_dict(spec)
     if spec.model.name != "transformer":
         return None
-    kw = dict(spec.model.kwargs)
-    cfg = get_config(kw.get("arch", "tinyllama-1.1b"),
-                     reduced=bool(kw.get("reduced", False)))
-    overrides = kw.get("overrides") or {}
-    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+    return resolve_transformer_config(spec.model)
 
 
 def export_consensus(source, *, state=None, spec=None):
     """Consensus-average a node-stacked run into ``(params, cfg)``.
 
-    ``source`` is a ``save_train_state`` checkpoint path (pass ``spec`` to
-    also resolve the ModelConfig: the train checkpoint stores none), a
-    state with ``.params``, or a bare node-stacked params tree.  ``cfg`` is
-    None without ``spec``."""
+    ``source`` is one of:
+
+    * a ``save_train_state`` checkpoint path -- pass ``spec`` to also
+      resolve the ModelConfig (the train checkpoint stores none);
+    * an ``api.Result`` -- pass the final state of ``run(spec,
+      with_state=True)`` as ``state=``; cfg resolves from ``result.spec``;
+    * a state with ``.params`` or a bare node-stacked params tree.
+    """
     if isinstance(source, str):
         stacked = params_from_train_checkpoint(source)
-    elif hasattr(source, "spec") and hasattr(source, "history"):
-        raise NotImplementedError(
-            "repro_torch: export from an api.Result comes with LM training "
-            "(the rest of slice 6); export from a save_train_state npz or a "
-            "node-stacked state")
+    elif hasattr(source, "spec") and hasattr(source, "history"):  # Result
+        if state is None:
+            raise ValueError(
+                "export_consensus(result) needs state=: run the spec with "
+                "with_state=True and pass the returned final state")
+        spec = source.spec if spec is None else spec
+        stacked = state.params
     elif hasattr(source, "params"):
         stacked = source.params
     else:

@@ -1,9 +1,12 @@
-"""Nested-dict trees of tensors: the port's stand-in for ``jax.tree``.
+"""Trees of tensors: the port's stand-in for ``jax.tree``.
 
-Parameters and optimizer state are plain (nested) dicts of node-stacked
-tensors with the JAX package's key names.  Leaves are visited in sorted-key
-order, the order ``jax.tree`` gives a dict, so packed buffers and leaf lists
-line up with the reference's.
+Parameters and optimizer state are nested dicts of node-stacked tensors
+with the JAX package's key names; a language model's trees also hold
+tuples (one entry per period position in ``blocks``, one per tail layer in
+``tail``), as the reference's do.  Leaves are visited in the order
+``jax.tree`` gives: dict keys sorted, tuple entries in order, so packed
+buffers and leaf lists line up with the reference's.  A path names a dict
+entry by its key and a tuple entry by its index.
 """
 from __future__ import annotations
 
@@ -16,39 +19,90 @@ Tree = Any
 
 
 def _is_node(x) -> bool:
-    return isinstance(x, dict)
+    return isinstance(x, (dict, tuple))
 
 
-def tree_paths(tree: Tree, prefix: tuple = ()) -> list[tuple]:
-    """Key paths of every leaf, in sorted-key (``jax.tree``) order."""
+def _children(tree) -> list:
+    """``(key, child)`` of a container in ``jax.tree`` order."""
+    if isinstance(tree, dict):
+        return [(k, tree[k]) for k in sorted(tree)]
+    return list(enumerate(tree))
+
+
+def _skeleton(tree):
+    """``tree``'s containers with every leaf replaced by None."""
+    if isinstance(tree, dict):
+        return {k: _skeleton(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_skeleton(v) for v in tree)
+    return None
+
+
+class Paths(list):
+    """The key paths of a tree's leaves, carrying the tree's containers
+    (``skeleton``) so that :func:`tree_unflatten` rebuilds tuples and the
+    containers that hold no leaf (an LM's empty ``tail``)."""
+
+    skeleton: Any = None
+
+
+def _paths(tree, prefix: tuple, out: list) -> None:
     if not _is_node(tree):
-        return [prefix]
-    out = []
-    for k in sorted(tree):
-        out.extend(tree_paths(tree[k], prefix + (k,)))
+        out.append(prefix)
+        return
+    for k, child in _children(tree):
+        _paths(child, prefix + (k,), out)
+
+
+def tree_paths(tree: Tree) -> Paths:
+    """Key paths of every leaf, in ``jax.tree`` order."""
+    out = Paths()
+    _paths(tree, (), out)
+    out.skeleton = _skeleton(tree)
     return out
 
 
 def tree_leaves(tree: Tree) -> list:
     if not _is_node(tree):
         return [tree]
-    return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [leaf for _, child in _children(tree)
+            for leaf in tree_leaves(child)]
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     """``fn`` over corresponding leaves of trees of one structure."""
-    if not _is_node(tree):
-        return fn(tree, *rest)
-    for r in rest:
-        if not _is_node(r) or set(r) != set(tree):
-            raise ValueError("tree_map: trees differ in structure")
-    return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, dict):
+        for r in rest:
+            if not isinstance(r, dict) or set(r) != set(tree):
+                raise ValueError("tree_map: trees differ in structure")
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    if isinstance(tree, tuple):
+        for r in rest:
+            if not isinstance(r, tuple) or len(r) != len(tree):
+                raise ValueError("tree_map: trees differ in structure")
+        return tuple(tree_map(fn, *items) for items in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def _fill(skeleton, leaves):
+    if isinstance(skeleton, dict):
+        return {k: _fill(skeleton[k], leaves) for k in sorted(skeleton)}
+    if isinstance(skeleton, tuple):
+        return tuple(_fill(v, leaves) for v in skeleton)
+    return next(leaves)
 
 
 def tree_unflatten(paths: list[tuple], leaves: list) -> Tree:
-    """Inverse of (:func:`tree_paths`, :func:`tree_leaves`)."""
-    if len(paths) == 1 and paths[0] == ():
-        return leaves[0]
+    """Inverse of (:func:`tree_paths`, :func:`tree_leaves`).  Paths from
+    :func:`tree_paths` rebuild the tree's own containers; a bare list of
+    paths builds nested dicts."""
+    skeleton = getattr(paths, "skeleton", None)
+    if skeleton is not None or (len(paths) == 1 and paths[0] == ()):
+        if len(leaves) != len(paths):
+            raise ValueError(f"tree_unflatten: {len(leaves)} leaves for "
+                             f"{len(paths)} paths")
+        return _fill(skeleton, iter(leaves))
     out: dict = {}
     for path, leaf in zip(paths, leaves, strict=True):
         node = out
@@ -58,24 +112,5 @@ def tree_unflatten(paths: list[tuple], leaves: list) -> Tree:
     return out
 
 
-def nest_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
-    """``fn`` over corresponding leaves of trees of dicts *and tuples* (the
-    LM's params, caches and page pools keep a tuple per period position,
-    as the reference's do); the structure is kept, tuples as tuples."""
-    if isinstance(tree, dict):
-        return {k: nest_map(fn, tree[k], *(r[k] for r in rest))
-                for k in tree}
-    if isinstance(tree, tuple):
-        return tuple(nest_map(fn, *items) for items in zip(tree, *rest,
-                                                            strict=True))
-    return fn(tree, *rest)
-
-
-def nest_leaves(tree: Tree) -> list:
-    """Leaves of a tree of dicts and tuples, dict keys in sorted order and
-    tuple entries in order: the order ``jax.tree.leaves`` gives."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in nest_leaves(tree[k])]
-    if isinstance(tree, tuple):
-        return [x for v in tree for x in nest_leaves(v)]
-    return [tree]
+#: the names the LM's code (``models/``, ``serve/``) uses for the same maps
+nest_map, nest_leaves = tree_map, tree_leaves

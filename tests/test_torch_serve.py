@@ -249,9 +249,14 @@ def test_train_checkpoint_export_matches_reference(pair, tmp_path):
     assert none_cfg is None
     for a, b in zip(nest_leaves(params), nest_leaves(again)):
         assert torch.equal(a, b)
-    result_like = type("R", (), {"spec": None, "history": []})()
-    with pytest.raises(NotImplementedError, match="LM training"):
+    result_like = type("R", (), {"spec": spec, "history": []})()
+    with pytest.raises(ValueError, match="state="):
         serve.export_consensus(result_like)
+    from_result, result_cfg = serve.export_consensus(result_like,
+                                                     state=state_like)
+    assert result_cfg == cfg
+    for a, b in zip(nest_leaves(params), nest_leaves(from_result)):
+        assert torch.equal(a, b)
 
 
 def test_config_dict_roundtrip_matches_reference():

@@ -76,20 +76,25 @@ def test_port_loads_reference_spec_json(preset):
     assert tapi.ExperimentSpec.from_json(spec.to_json()) == spec
 
 
+_LM = ("model.name=transformer", "data.dataset=lm_domains")
+
+
 @pytest.mark.parametrize("override,match", [
     ("overlap=delayed_1", "slice 8"),
     ("runtime=sharded", "slice 8"),
     ("gossip.schedule=ring_ppermute", "slice 8"),
-    ("model.name=transformer", "slice 6"),
+    (_LM + ('model.kwargs={"arch": "granite-moe-3b-a800m", '
+            '"reduced": true}',), "slice 6"),
     ("scenario.enabled=true", "slice 8"),
     ("topology.name=powerlaw:2.5", "slice 8"),
-    ("data.dataset=lm_domains", "slice 6"),
+    (_LM + ("scenario.enabled=true",), "slice 8"),
     ("runtime=hybrid", "slice 8"),
 ])
 def test_spec_outside_the_slice_names_its_slice(override, match):
     spec = tapi.presets.get(PRESETS[0])
+    overrides = (override,) if isinstance(override, str) else override
     with pytest.raises(NotImplementedError, match=match):
-        spec.override(override).validate()
+        spec.override(*overrides).validate()
 
 
 def test_spec_rejects_invalid_values():
@@ -109,8 +114,8 @@ def test_spec_rejects_invalid_values():
 def test_unported_presets_name_their_slice():
     with pytest.raises(NotImplementedError, match="slice 8"):
         tapi.presets.get("n1024_ring")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tapi.presets.get("lm100m_ring8_alpha0.1_qg")
+    with pytest.raises(NotImplementedError, match="slice 8"):
+        tapi.presets.get("n1024_churn")
     with pytest.raises(ValueError, match="unknown preset"):
         tapi.presets.get("bogus")
 
