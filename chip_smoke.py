@@ -1526,18 +1526,19 @@ CONV_KERNEL = re.compile(r"conv|cudnn|xmma|wgrad|dgrad|fprop|implicit",
                          re.IGNORECASE)
 
 
-def phase_profile(dev, label: str, spec, steps: int = 150) -> dict | None:
+def phase_profile(dev, label: str, spec, steps: int = 150,
+                  task=None) -> dict | None:
     """Device time by kernel and host time by op over the ``steps``-step
     training loop of one run of ``spec`` (a measurement: printed, and
     written to build/chip_smoke/profile_<label>.json); returns wall and
     device ms, the convolutions' device ms and ``qg_step``'s (ms,
-    launches)."""
+    launches).  ``task``: the spec's data, built already."""
     import torch
     from repro_torch import api
     from repro_torch.train import run_training_scanned
     from torch.profiler import ProfilerActivity, profile
 
-    ex = api.build(spec, device=dev)
+    ex = api.build(spec, device=dev, task=task)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3557,12 +3558,12 @@ def lm_ref_spec(spec):
 def _lm_numpy_state(ex):
     """``ex``'s initial state with every node at ``lm_numpy_init``."""
     import torch
-    from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
+    from repro_torch.tree import tree_flatten, tree_paths, tree_unflatten
 
-    paths = tree_paths(ex.state.params)
+    leaves, treedef = tree_flatten(ex.state.params)
     arrays = lm_numpy_init([(p, tuple(x.shape[1:])) for p, x in
-                            zip(paths, tree_leaves(ex.state.params))])
-    one = tree_unflatten(paths, [torch.from_numpy(a) for a in arrays])
+                            zip(tree_paths(ex.state.params), leaves)])
+    one = tree_unflatten(treedef, [torch.from_numpy(a) for a in arrays])
     return ex.trainer.init(lambda _gen: (one, {}), None)
 
 
@@ -3573,32 +3574,6 @@ def _leaf_norms(params) -> dict:
     from repro_torch.tree import tree_leaves, tree_paths
     return {"/".join(map(str, p)): float(torch.linalg.vector_norm(
         x.double())) for p, x in zip(tree_paths(params), tree_leaves(params))}
-
-
-class _SharedTasks:
-    """Within the block ``api.build`` builds each distinct data spec's task
-    once: the runs below share the preset's data (a Task hands out fresh
-    batch iterators, so sharing it changes no run), whose bigram tables
-    take seconds of host time a build."""
-
-    def __enter__(self):
-        import importlib
-        from repro_torch.api.models import model_vocab
-        B = importlib.import_module("repro_torch.api.build")
-        self._module, self._orig, memo = B, B.build_task, {}
-
-        def build_task(spec, n_nodes):
-            key = (json.dumps(spec.to_dict()["data"], sort_keys=True),
-                   model_vocab(spec), spec.seed, n_nodes)
-            if key not in memo:
-                memo[key] = self._orig(spec, n_nodes)
-            return memo[key]
-        B.build_task = build_task
-        return self
-
-    def __exit__(self, *exc):
-        self._module.build_task = self._orig
-        return False
 
 
 def _lm_step_checks(dev, cfg, n: int) -> tuple[dict, dict]:
@@ -3676,18 +3651,19 @@ def _lm_step_checks(dev, cfg, n: int) -> tuple[dict, dict]:
     return worst, timed
 
 
-def _lm_hold(dev, spec) -> dict:
+def _lm_hold(dev, spec, task) -> dict:
     """The preset cut to LM_REF_LAYERS layers, LM_REF_STEPS steps from the
-    numpy init, against the JAX package's LM_REF (LM_REF_RTOL)."""
+    numpy init, against the JAX package's LM_REF (LM_REF_RTOL); ``task``
+    is the preset's data (the cut leaves the data as it is)."""
     import numpy as np
     from repro_torch import api
     from repro_torch.kernels import ops
 
     ref_spec = lm_ref_spec(spec)
-    state = _lm_numpy_state(api.build(ref_spec, device=dev))
+    state = _lm_numpy_state(api.build(ref_spec, device=dev, task=task))
     ops.reset_launch_counts()
     res, final = api.run(ref_spec, device=dev, state=state,
-                         with_state=True, log_fn=lambda *_: None)
+                         with_state=True, log_fn=lambda *_: None, task=task)
     counts = ops.launch_counts()
     _expect_launches("lm hold", counts, {"qg_step": LM_REF_STEPS})
     got = {"loss": [r["loss"] for r in res.history],
@@ -3713,28 +3689,25 @@ def _lm_hold(dev, spec) -> dict:
     return {"launches": counts, "rel": rel}
 
 
-def _lm_cli_run(dev, path: Path):
+def _lm_cli_run(path: Path, ckpt: Path):
     """``python -m repro_torch.api lm100m_ring8_alpha0.1_qg
-    --export-consensus <path>`` in this process (every step logged, its
-    output to build/chip_smoke/lm_train.log), with the final state that
-    ``api.run`` hands the CLI captured for the export check."""
+    --export-consensus <path> --checkpoint <ckpt> --out <json>`` in this
+    process (every step logged; its output to build/chip_smoke/
+    lm_train.log): returns the run's Result, read back from the JSON.  The
+    checkpoint holds the final TrainState, against which the export is
+    held."""
     import contextlib
-    from repro_torch.api import __main__ as cli
+    from repro_torch import api
+    from repro_torch.api.__main__ import main as api_main
 
-    seen = {}
-
-    def run(*args, **kw):
-        seen["out"] = real(*args, **kw)
-        return seen["out"]
-    real, cli.run = cli.run, run
-    try:
-        with open(OUT / "lm_train.log", "w") as f, \
-                contextlib.redirect_stdout(f):
-            cli.main([LM_PRESET, "--set", "loop.log_every=1",
-                      "--export-consensus", str(path)])
-    finally:
-        cli.run = real
-    return seen["out"]
+    out = OUT / "lm_train.json"
+    with open(OUT / "lm_train.log", "w") as f, contextlib.redirect_stdout(f):
+        api_main([LM_PRESET, "--set", "loop.log_every=1",
+                  "--export-consensus", str(path), "--checkpoint", str(ckpt),
+                  "--out", str(out)])
+    res = api.Result(**json.loads(out.read_text()))
+    out.unlink()
+    return res
 
 
 def phase_lm(dev) -> dict:
@@ -3742,24 +3715,29 @@ def phase_lm(dev) -> dict:
     nodes x 62,927,616 parameters): the data generator's host time;
     ``qg_step`` on the LM's tree; the hold against the JAX package
     (LM_REF); QG-DSGDm-N for LM_STEPS steps through ``python -m
-    repro_torch.api ... --export-consensus`` and DSGDm-N through
-    ``api.run``, one ``qg_step`` a step and no other kernel; the export
-    bit-equal to the node mean of the final state; the training loop under
+    repro_torch.api ... --export-consensus ... --checkpoint ...`` and
+    DSGDm-N through ``api.run``, one ``qg_step`` a step and no other
+    kernel; the export bit-equal to the node mean of the final state that
+    the checkpoint holds; the training loop under
     the profiler; the export served through ``python -m repro_torch.serve
     --checkpoint ... --use-pallas --requests 16`` and held as the serving
     phase holds TinyLlama, and its [2, 512] prefill through the flash
-    kernel against the chunked path."""
+    kernel against the chunked path.  The data is drawn twice: once here,
+    timed and shared by the runs through ``api.run``, and once by the
+    CLI."""
     import numpy as np
     import torch
     from repro_torch import api
     from repro_torch.api import data as D
     from repro_torch.api.models import resolve_transformer_config
     from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
     from repro_torch.serve import (consensus_params, load_serving_checkpoint,
+                                   params_from_train_checkpoint,
                                    resolve_config)
     from repro_torch.serve.__main__ import main as serve_main
     from repro_torch.serve.__main__ import make_requests
-    from repro_torch.tree import nest_leaves, tree_paths
+    from repro_torch.tree import tree_flatten, tree_leaves, tree_paths
 
     if torch.backends.cuda.matmul.allow_tf32 or \
             torch.backends.cudnn.allow_tf32:
@@ -3775,60 +3753,64 @@ def phase_lm(dev) -> dict:
         f"{task.meta['n_seq_per_domain']} sequences, vocab "
         f"{task.meta['vocab']}) and the Dirichlet split took {gen_s:.3f} s "
         f"of host time; heterogeneity {task.meta['heterogeneity']}")
-    del task
     out["step_worst"], out["step_timed"] = _lm_step_checks(dev, cfg, n)
 
     OUT.mkdir(parents=True, exist_ok=True)
-    path = OUT / "lm.npz"
-    with _SharedTasks():
-        out["hold"] = _lm_hold(dev, spec)
-        _add_counts(out["launches"], out["hold"]["launches"])
-        runs = {}
-        for name in ("qg_dsgdm_n", "dsgdm_n"):
-            ops.reset_launch_counts()
-            if name == "qg_dsgdm_n":
-                res, state = _lm_cli_run(dev, path)
-            else:
-                res = api.run(spec.override(f"optim.name={name}",
-                                            "loop.log_every=1"),
-                              device=dev, log_fn=lambda *_: None)
-            counts = ops.launch_counts()
-            _expect_launches(f"lm {name}", counts, {"qg_step": LM_STEPS})
-            _add_counts(out["launches"], counts)
-            _finite_run(f"lm {name}", res, LM_STEPS)
-            runs[name] = res
-            losses = [r["loss"] for r in res.history]
-            log(f"lm {name}: {LM_STEPS} steps in {res.wall_time_s:.4f} s "
-                f"({res.wall_time_s / LM_STEPS * 1e3:.4f} ms/step), first "
-                f"loss {losses[0]:.6f}, mean of the last {LM_TAIL} "
-                f"{np.mean(losses[-LM_TAIL:]):.6f}, final loss "
-                f"{losses[-1]:.6f}, consensus {res.final['consensus']:.6e}, "
-                f"launches {counts}")
-        losses = [r["loss"] for r in runs["qg_dsgdm_n"].history]
-        tail = float(np.mean(losses[-LM_TAIL:]))
-        if not tail < min(math.log(cfg.vocab_size), losses[0]):
-            raise AssertionError(
-                f"lm QG-DSGDm-N: mean loss of the last {LM_TAIL} steps "
-                f"{tail} is not below ln V = {math.log(cfg.vocab_size)} and "
-                f"the first step's {losses[0]}")
-        out["runs"] = runs
-        profile = phase_profile(dev, "lm", spec.override("loop.steps=20"),
-                                steps=20)
-        out["profile"] = profile
+    path, ckpt = OUT / "lm.npz", OUT / "lm_state.npz"
+    out["hold"] = _lm_hold(dev, spec, task)
+    _add_counts(out["launches"], out["hold"]["launches"])
+    runs = {}
+    for name in ("qg_dsgdm_n", "dsgdm_n"):
+        ops.reset_launch_counts()
+        if name == "qg_dsgdm_n":
+            res = _lm_cli_run(path, ckpt)
+        else:
+            res = api.run(spec.override(f"optim.name={name}",
+                                        "loop.log_every=1"),
+                          device=dev, log_fn=lambda *_: None, task=task)
+        counts = ops.launch_counts()
+        _expect_launches(f"lm {name}", counts, {"qg_step": LM_STEPS})
+        _add_counts(out["launches"], counts)
+        _finite_run(f"lm {name}", res, LM_STEPS)
+        runs[name] = res
+        losses = [r["loss"] for r in res.history]
+        log(f"lm {name}: {LM_STEPS} steps in {res.wall_time_s:.4f} s "
+            f"({res.wall_time_s / LM_STEPS * 1e3:.4f} ms/step), first "
+            f"loss {losses[0]:.6f}, mean of the last {LM_TAIL} "
+            f"{np.mean(losses[-LM_TAIL:]):.6f}, final loss "
+            f"{losses[-1]:.6f}, consensus {res.final['consensus']:.6e}, "
+            f"launches {counts}")
+    losses = [r["loss"] for r in runs["qg_dsgdm_n"].history]
+    tail = float(np.mean(losses[-LM_TAIL:]))
+    if not tail < min(math.log(cfg.vocab_size), losses[0]):
+        raise AssertionError(
+            f"lm QG-DSGDm-N: mean loss of the last {LM_TAIL} steps "
+            f"{tail} is not below ln V = {math.log(cfg.vocab_size)} and "
+            f"the first step's {losses[0]}")
+    out["runs"] = runs
+    out["profile"] = phase_profile(dev, "lm", spec.override("loop.steps=20"),
+                                   steps=20, task=task)
+    del task
 
-    # the export: the node mean of the final state, bit for bit, and the
-    # same tree and config back from the file
+    # the export: the node mean of the final state (from the CLI run's
+    # checkpoint, which keeps no container without a leaf: the empty
+    # `tail`), bit for bit, in the model's own tree, with the config
     got, got_cfg = load_serving_checkpoint(str(path), device=dev)
-    want = consensus_params(state.params)
-    if tree_paths(got) != tree_paths(want) or got_cfg != resolve_config(
-            spec) or not all(torch.equal(a, b) for a, b in
-                             zip(nest_leaves(got), nest_leaves(want))):
+    want = consensus_params(params_from_train_checkpoint(str(ckpt),
+                                                         device=dev))
+    got_leaves, got_def = tree_flatten(got)
+    if got_def != tree_flatten(tf.init_lm(None, cfg, device="meta"))[1] \
+            or tree_paths(got) != tree_paths(want) \
+            or got_cfg != resolve_config(spec) or not all(
+                torch.equal(a, b) for a, b in zip(got_leaves,
+                                                  tree_leaves(want))):
         raise AssertionError("lm export: the serving checkpoint differs "
                              "from consensus_params of the final state")
     log(f"lm export: {path.name} ({path.stat().st_size} B) = consensus "
-        f"params of the final state bit for bit, {len(nest_leaves(got))} "
-        f"leaves, config {got_cfg.name}")
-    del state, want
+        f"params of the final state ({ckpt.name}, {ckpt.stat().st_size} "
+        f"B) bit for bit, {len(got_leaves)} leaves, config {got_cfg.name}")
+    ckpt.unlink()
+    del want
     torch.cuda.empty_cache()
 
     # serving the export, through the CLI, then held

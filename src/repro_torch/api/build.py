@@ -82,15 +82,20 @@ def _make_opt(spec: ExperimentSpec):
                           fused=o.fused, **o.kwargs)
 
 
-def build(spec: ExperimentSpec, *, device="cuda") -> Experiment:
+def build(spec: ExperimentSpec, *, device="cuda",
+          task: Task | None = None) -> Experiment:
     """Validate the spec, then assemble trainer + init state + client data +
     model bundle on ``device``.  The init draws from a ``torch.Generator``
     seeded with ``spec.seed`` (the reference's ``jax.random`` init cannot be
-    reproduced; inject it with ``repro_torch.interop`` for parity)."""
+    reproduced; inject it with ``repro_torch.interop`` for parity).
+    ``task`` is client data already built for specs of the same data
+    section, model vocab, seed and node count (a Task hands out fresh
+    batch iterators, so runs can share one); None builds it."""
     spec.validate()
     dev = resolve_device(device)
     topo = topo_lib.get_topology(spec.topology.name, spec.topology.n)
-    task = build_task(spec, topo.n)
+    if task is None:
+        task = build_task(spec, topo.n)
     bundle = MODELS[spec.model.name](spec, task)
 
     lp = spec.loop
@@ -177,12 +182,13 @@ def _make_recorder(ex: Experiment, telemetry_path: str = ""):
 def run(spec: ExperimentSpec, *, device="cuda", log_fn=print,
         state: TrainState | None = None, with_state: bool = False,
         checkpoint_path: str = "", resume: str = "",
-        telemetry_path: str = ""):
+        telemetry_path: str = "", task: Task | None = None):
     """Build + train + evaluate one spec on ``device``; returns a
     :class:`Result`, or with ``with_state=True`` ``(result, final_state)``
     (for a consensus export or a launcher's own checkpoint).  ``state``
     replaces the built initial state, e.g. the reference's init carried
-    over with ``repro_torch.interop.train_state_from_numpy``.
+    over with ``repro_torch.interop.train_state_from_numpy``; ``task``
+    is passed to :func:`build`.
 
     ``checkpoint_path`` with ``spec.loop.checkpoint_every`` saves the full
     TrainState (params, opt, model and comm state, step counter) and the
@@ -195,7 +201,7 @@ def run(spec: ExperimentSpec, *, device="cuda", log_fn=print,
     With ``spec.telemetry.enabled`` on-cadence steps run the collectors and
     one row per such step goes to the sink (``telemetry_path`` overrides
     its location); ``Result.telemetry`` holds the recorder's summary."""
-    ex = build(spec, device=device)
+    ex = build(spec, device=device, task=task)
     recorder = _make_recorder(ex, telemetry_path)
     lp = spec.loop
     state = ex.state if state is None else state

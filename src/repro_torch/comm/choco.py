@@ -44,8 +44,8 @@ from repro_torch.core import gossip
 from repro_torch.kernels import ops
 from repro_torch.kernels import pack as _kp
 from repro_torch.kernels import ref
-from repro_torch.tree import tree_leaves, tree_map, tree_paths, \
-    tree_unflatten
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
+    tree_paths, tree_unflatten
 
 from . import error_feedback as ef
 from .compressors import Compressor, Identity, make_compressor, tree_wire_bits
@@ -176,8 +176,8 @@ class CompressedGossip:
         that is not fp32 cannot take the kernel: on CPU tensors the leaf
         path runs instead, on any other device it raises."""
         if self.compressor.backend == "pallas":
-            bad = next(((p, l.dtype) for p, l in zip(tree_paths(tree),
-                                                     tree_leaves(tree))
+            leaves = tree_leaves(tree)
+            bad = next((i for i, l in enumerate(leaves)
                         if l.dtype != torch.float32), None)
             if bad is None:
                 spec = _kp.plan_pack(tree)
@@ -185,11 +185,12 @@ class CompressedGossip:
                     _kp.pack(spec, tree), _kp.pack(spec, mixed),
                     _kp.pack(spec, anchor), gamma=float(gamma))
                 return _kp.unpack(spec, out)
-            dev = tree_leaves(tree)[0].device
+            dev = leaves[0].device
             if dev.type != "cpu":
-                raise TypeError(f"gamma_correct on {dev}: leaf {bad[0]!r} is "
-                                f"{bad[1]}, not float32: the kernel cannot "
-                                "take it")
+                raise TypeError(f"gamma_correct on {dev}: leaf "
+                                f"{tree_paths(tree)[bad]!r} is "
+                                f"{leaves[bad].dtype}, not float32: the "
+                                "kernel cannot take it")
         return tree_map(lambda x, mh, h: ref.gamma_correct(x, mh, h,
                                                            gamma=gamma),
                         tree, mixed, anchor)
@@ -258,19 +259,20 @@ class CompressedMix:
         launch on CUDA tensors), which also gives the site its new replicas
         (CHOCO).  Returns ``(x_out, m_hat_new or None)``."""
         i, q = self.compress(half)
-        paths, leaves = tree_paths(half), tree_leaves
+        halves, treedef = tree_flatten(half)
         x_hat = (None if self.comm.error_feedback
-                 else leaves(self.sites_in[i]["x_hat"]))
+                 else tree_leaves(self.sites_in[i]["x_hat"]))
         qg = {} if mu is None else dict(
-            x_pres=leaves(x_pre), m_hats=leaves(m_hat), eta=eta,
+            x_pres=tree_leaves(x_pre), m_hats=tree_leaves(m_hat), eta=eta,
             refresh=refresh, mu=mu)
         x_out, x_hat_new, m_out = ops.choco_exchange(
-            leaves(half), leaves(q), w, gamma=float(self.gamma),
+            halves, tree_leaves(q), w, gamma=float(self.gamma),
             x_hats=x_hat, **qg)
         if x_hat_new is not None:
-            self.sites_out[i] = {"x_hat": tree_unflatten(paths, x_hat_new)}
-        return (tree_unflatten(paths, x_out),
-                None if m_out is None else tree_unflatten(paths, m_out))
+            self.sites_out[i] = {"x_hat": tree_unflatten(treedef,
+                                                         x_hat_new)}
+        return (tree_unflatten(treedef, x_out),
+                None if m_out is None else tree_unflatten(treedef, m_out))
 
 
 def make_comm(spec: str, *, gamma: float | None = None,

@@ -45,7 +45,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.kernels import ops, ref
-from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
+from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
 Tree = Any
 
@@ -135,31 +135,30 @@ class Compressor:
                 for x, nz in zip(x2ds, noises)]
 
     def _leaves(self, gen, tree: Tree, noise):
-        """The tree's leaves and ``_compress_leaves`` of them, every noise
-        draw made first, leaf after leaf."""
-        leaves = tree_leaves(tree)
+        """The tree's leaves, its treedef and ``_compress_leaves`` of the
+        leaves, every noise draw made first, leaf after leaf."""
+        leaves, treedef = tree_flatten(tree)
         x2ds = [_as_2d(leaf) for leaf in leaves]
         noises = [self.noise_2d(gen, x) if nz is None else nz
                   for x, nz in zip(x2ds, _per_leaf(tree, noise))]
-        return leaves, self._compress_leaves(x2ds, noises)
+        return leaves, treedef, self._compress_leaves(x2ds, noises)
 
     def compress(self, gen, tree: Tree, *, noise=None) -> Tree:
         """Dense simulation of one encode->decode round."""
-        leaves, out = self._leaves(gen, tree, noise)
-        return tree_unflatten(tree_paths(tree), [
+        leaves, treedef, out = self._leaves(gen, tree, noise)
+        return tree_unflatten(treedef, [
             q.reshape(leaf.shape).to(leaf.dtype)
             for leaf, (q, _) in zip(leaves, out)])
 
     def compress_with_residual(self, gen, tree: Tree, *,
                                noise=None) -> tuple[Tree, Tree]:
         """(C(tree), tree - C(tree)) in one pass: the EF14 hot path."""
-        leaves, out = self._leaves(gen, tree, noise)
+        leaves, treedef, out = self._leaves(gen, tree, noise)
         qs = [q.reshape(leaf.shape).to(leaf.dtype)
               for leaf, (q, _) in zip(leaves, out)]
         rs = [r.reshape(leaf.shape).to(leaf.dtype)
               for leaf, (_, r) in zip(leaves, out)]
-        paths = tree_paths(tree)
-        return tree_unflatten(paths, qs), tree_unflatten(paths, rs)
+        return tree_unflatten(treedef, qs), tree_unflatten(treedef, rs)
 
     def contractive_compress(self, gen, tree: Tree, *, noise=None) -> Tree:
         """The operator CHOCO consumes: C itself when biased-contractive,
@@ -167,11 +166,12 @@ class Compressor:
         q = self.compress(gen, tree, noise=noise)
         if not self.unbiased:
             return q
+        qs, treedef = tree_flatten(q)
         out = []
-        for ql in tree_leaves(q):
+        for ql in qs:
             d = int(ql.numel() // ql.shape[0]) if ql.dim() else 1
             out.append(_div(ql, 1.0 + self.omega(max(d, 1))))
-        return tree_unflatten(tree_paths(q), out)
+        return tree_unflatten(treedef, out)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -38,8 +38,8 @@ from repro_torch.comm.choco import CompressedMix
 from repro_torch.kernels import ops
 from repro_torch.kernels import pack as _kp
 from repro_torch.kernels import qg_update as _kqg
-from repro_torch.tree import tree_leaves, tree_map, tree_paths, \
-    tree_unflatten
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
+    tree_paths, tree_unflatten
 
 from . import gossip
 
@@ -606,9 +606,10 @@ def _non_f32(**trees) -> Optional[str]:
     """Why the named trees cannot be packed for a kernel (the first leaf
     that is not fp32), or None."""
     for role, t in trees.items():
-        for path, l in zip(tree_paths(t), tree_leaves(t)):
+        for i, l in enumerate(tree_leaves(t)):
             if l.dtype != torch.float32:
-                return f"{role} leaf {path!r} is {l.dtype}, not float32"
+                return (f"{role} leaf {tree_paths(t)[i]!r} is {l.dtype}, "
+                        "not float32")
     return None
 
 
@@ -687,16 +688,18 @@ def _match_exchange(stages: tuple[Stage, ...], i: int, mix_fn, n: int):
 def _apply_qg_step(ctx, sv, states, wd, hb, qg, m_prev):
     """weight_decay + heavyball + the dense gossip round (+ the QG refresh
     of ``qg``) of every leaf in one ``qg_step`` launch."""
-    hbm, paths = hb.meta, tree_paths(sv.params)
+    hbm = hb.meta
+    xs, treedef = tree_flatten(sv.params)
     refresh = mu = None
     if qg is not None:
         refresh = _refresh_gate(ctx.t, qg.meta["tau"])
         mu = qg.meta["mu"]
     x_new, m_out = ops.qg_step(
-        tree_leaves(sv.params), tree_leaves(m_prev), tree_leaves(sv.update),
+        xs, tree_leaves(m_prev), tree_leaves(sv.update),
         ctx.w, ctx.lr, refresh, beta=hbm["beta"], wd=wd,
         nesterov=hbm["nesterov"], mu=mu)
-    mixed, m_new = tree_unflatten(paths, x_new), tree_unflatten(paths, m_out)
+    mixed = tree_unflatten(treedef, x_new)
+    m_new = tree_unflatten(treedef, m_out)
     states = {**states, **({qg.name: {"m_hat": m_new}} if qg is not None
                            else {hb.name: {"m": m_new}})}
     return sv.replace(params=mixed, params_post_mix=mixed), states

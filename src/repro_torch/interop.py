@@ -15,8 +15,7 @@ import torch
 from repro_torch.train.trainer import TrainState
 from repro_torch.tree import tree_map
 
-__all__ = ["params_from_numpy", "train_state_from_numpy",
-           "lm_params_from_numpy"]
+__all__ = ["params_from_numpy", "train_state_from_numpy"]
 
 
 def params_from_numpy(tree, device):
@@ -42,8 +41,3 @@ def train_state_from_numpy(params, opt_state, t, device,
                       t=torch.tensor(int(t), dtype=torch.int32,
                                      device=device),
                       comm_state=comm_state)
-
-
-#: a language model's params (``init_lm``'s structure: dicts, and tuples for
-#: ``blocks``/``tail``) carry across as any other tree
-lm_params_from_numpy = params_from_numpy

@@ -20,7 +20,8 @@ import math
 
 import torch
 
-from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
+from repro_torch.tree import (tree_flatten, tree_leaves, tree_paths,
+                              tree_unflatten)
 
 __all__ = ["PackSpec", "plan_pack", "pack", "unpack", "PACK_TILE"]
 
@@ -33,7 +34,8 @@ class PackSpec:
     """Static offset table for one tree role (params / momentum / grads);
     one spec packs every role of the same structure."""
 
-    paths: list     # tree_paths(tree): rebuilds the tree's containers
+    paths: tuple    # the leaves' names (tree_paths)
+    treedef: tuple  # the tree's containers (tree_flatten)
     shapes: tuple
     offsets: tuple
     sizes: tuple
@@ -48,16 +50,16 @@ class PackSpec:
 
 def plan_pack(tree, *, tile: int = PACK_TILE) -> PackSpec:
     """Offset table for ``tree`` (leaves in sorted-key order)."""
-    leaves = tree_leaves(tree)
+    leaves, treedef = tree_flatten(tree)
     shapes = tuple(tuple(l.shape) for l in leaves)
     sizes = tuple(math.prod(s) for s in shapes)
     offsets, off = [], 0
     for s in sizes:
         offsets.append(off)
         off += s
-    return PackSpec(paths=tree_paths(tree), shapes=shapes,
-                    offsets=tuple(offsets), sizes=sizes, total=off,
-                    padded=max(tile, -(-off // tile) * tile), tile=tile)
+    return PackSpec(paths=tuple(tree_paths(tree)), treedef=treedef,
+                    shapes=shapes, offsets=tuple(offsets), sizes=sizes,
+                    total=off, padded=max(tile, -(-off // tile) * tile), tile=tile)
 
 
 def pack(spec: PackSpec, tree) -> torch.Tensor:
@@ -79,4 +81,4 @@ def unpack(spec: PackSpec, buf: torch.Tensor):
     """Inverse of :func:`pack`: the leaves are views into ``buf``."""
     leaves = [buf[o:o + n].view(shape)
               for o, n, shape in zip(spec.offsets, spec.sizes, spec.shapes)]
-    return tree_unflatten(spec.paths, leaves)
+    return tree_unflatten(spec.treedef, leaves)

@@ -16,7 +16,7 @@ import math
 
 import torch
 
-from ..tree import nest_map
+from ..tree import tree_map
 
 __all__ = ["normal_init", "dense_init", "embed_init", "stack_layers",
            "rms_norm", "softcap", "swiglu", "init_mlp", "rope_frequencies",
@@ -54,7 +54,7 @@ def stack_layers(n: int, init_fn):
     """``init_fn() -> dict`` called ``n`` times; each leaf stacked on a
     leading axis of length ``n``."""
     trees = [init_fn() for _ in range(n)]
-    return nest_map(lambda *leaves: torch.stack(leaves), *trees)
+    return tree_map(lambda *leaves: torch.stack(leaves), *trees)
 
 
 # ---------------------------------------------------------------------------

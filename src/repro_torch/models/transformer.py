@@ -48,7 +48,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
-from ..tree import nest_map, tree_leaves, tree_paths, tree_unflatten
+from ..tree import tree_flatten, tree_map, tree_unflatten
 from . import attention, layers, ssm
 
 __all__ = ["ATTN_KINDS", "RunCtx", "PageInfo", "init_lm", "init_cache",
@@ -391,9 +391,9 @@ def _unstack(tree, n: int) -> list:
     from one ``unbind`` a leaf.  Under autograd the backward of an unbind
     is one stack, where indexing each period apart would give every
     leaf's gradient a zero-filled full-size tensor a period to add up."""
-    paths = tree_paths(tree)
-    parts = [leaf.unbind(0) for leaf in tree_leaves(tree)]
-    return [tree_unflatten(paths, [p[i] for p in parts]) for i in range(n)]
+    leaves, treedef = tree_flatten(tree)
+    parts = [leaf.unbind(0) for leaf in leaves]
+    return [tree_unflatten(treedef, [p[i] for p in parts]) for i in range(n)]
 
 
 def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
@@ -423,7 +423,7 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
     for i in range(cfg.n_periods):
         for j, kind in enumerate(cfg.period):
             # period i of the stacked params and caches, as views
-            c = (nest_map(lambda t: t[i], cache["blocks"][j]) if reads_cache
+            c = (tree_map(lambda t: t[i], cache["blocks"][j]) if reads_cache
                  else None)
             x, _, nc = apply_block(kind, periods[j][i], x, ctx, c)
             made[j].append(nc)
@@ -438,7 +438,7 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
         return _logits(params, x, cfg), aux_total, None
     if mode == "prefill":
         new_cache = {"blocks": tuple(
-                         nest_map(lambda *ls: torch.stack(ls), *m)
+                         tree_map(lambda *ls: torch.stack(ls), *m)
                          for m in made),
                      "tail": tuple(tail_caches)}
         return _logits(params, x[:, -1], cfg), aux_total, new_cache

@@ -27,7 +27,7 @@ import torch
 from repro_torch.core import gossip
 from repro_torch.telemetry.metrics import TM_PREFIX, CollectorCtx
 from repro_torch.telemetry.trace import graph_span
-from repro_torch.tree import tree_leaves, tree_map, tree_paths, tree_unflatten
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass
@@ -49,13 +49,13 @@ class Runtime:
         would otherwise keep each step's graph alive)."""
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(state.params)]
-        paths = tree_paths(state.params)
+        treedef = self.trainer.params_treedef
         with torch.enable_grad():
             loss, (new_ms, metrics) = self.trainer.loss_fn(
-                tree_unflatten(paths, leaves), state.model_state, batch)
+                tree_unflatten(treedef, leaves), state.model_state, batch)
             grads = torch.autograd.grad(loss.sum(), leaves)
         return (loss.detach(), tree_map(torch.Tensor.detach, new_ms), metrics,
-                tree_unflatten(paths, [g.contiguous() for g in grads]))
+                tree_unflatten(treedef, [g.contiguous() for g in grads]))
 
     def _stage_finish_mix(self, state, grads, w, lr):
         """The transform-stage chain: local update + gossip round, with the

@@ -30,7 +30,7 @@ from ..train.checkpoint import SEP as _SEP
 from ..train.checkpoint import flatten_paths as _flatten
 from ..train.checkpoint import npz_path as _npz
 from ..train.checkpoint import tree_from_paths as _tree_from_paths
-from ..tree import nest_map
+from ..tree import tree_map
 
 __all__ = ["consensus_params", "export_consensus",
            "params_from_train_checkpoint", "resolve_config",
@@ -56,7 +56,7 @@ def params_from_train_checkpoint(path: str, *, device="cpu"):
         raise ValueError(
             f"{path}: no '{_PARAMS_PREFIX}*' leaves -- not a "
             f"save_train_state checkpoint")
-    return nest_map(lambda a: torch.from_numpy(np.array(a)).to(device),
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device),
                     _tree_from_paths(items))
 
 
@@ -67,7 +67,7 @@ def params_from_train_checkpoint(path: str, *, device="cpu"):
 def consensus_params(params):
     """Mean over the node axis of every leaf: [n, ...] -> [...], summed in
     fp32 so that bf16 fleets average without precision loss."""
-    return nest_map(lambda x: torch.mean(x.float(), dim=0).to(x.dtype),
+    return tree_map(lambda x: torch.mean(x.float(), dim=0).to(x.dtype),
                     params)
 
 

@@ -29,7 +29,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..models import transformer as tf
-from ..tree import nest_leaves
+from ..tree import tree_leaves
 
 __all__ = ["PagedKVCache"]
 
@@ -78,7 +78,7 @@ class PagedKVCache:
 
     def pool_bytes(self) -> int:
         return sum(t.numel() * t.element_size()
-                   for t in nest_leaves(self.pages))
+                   for t in tree_leaves(self.pages))
 
     def used_bytes(self) -> int:
         """Bytes of pool actually backing live sequences right now."""

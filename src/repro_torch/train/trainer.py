@@ -34,7 +34,7 @@ from repro_torch.core.optim import DecentralizedOptimizer
 from repro_torch.core.topology import Topology
 from repro_torch.core.transforms import FUSED_MODES
 from repro_torch.device import resolve_device
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
 __all__ = ["TrainState", "lr_schedule", "DecentralizedTrainer",
            "run_training", "run_training_scanned"]
@@ -121,14 +121,18 @@ class DecentralizedTrainer:
                                        dtype=torch.float32).to(self.device)
         self._comm_gen = None
         self._comm_gamma = None   # resolved on first sight of params
+        self.params_treedef = None   # likewise: the step rebuilds from it
         if self.comm is not None:
             self._comm_gen = torch.Generator(
                 device=self.device).manual_seed(self.rng_seed)
         from repro_torch.runtime import make_runtime
         self._runtime = make_runtime(self, self.runtime)
 
-    def _comm_setup(self, params) -> None:
-        """Resolve gamma and the wire bits per site and node once."""
+    def _setup(self, params) -> None:
+        """Keep the params' treedef (a run's structure is fixed) and
+        resolve gamma and the wire bits per site and node, once."""
+        if self.params_treedef is None:
+            self.params_treedef = tree_flatten(params)[1]
         if self.comm is None or self._comm_gamma is not None:
             return
         self._comm_gamma = self.comm.resolved_gamma(params)
@@ -161,13 +165,13 @@ class DecentralizedTrainer:
         """One decentralized step on device tensors (see :meth:`put_batch`);
         returns (new state, metrics as 0-d device tensors).  ``collect``
         also runs the telemetry collectors (``tm.`` metrics)."""
-        self._comm_setup(state.params)
+        self._setup(state.params)
         return self._runtime.step(state, batch, collect)
 
     def step_chunk(self, state: TrainState, batches, collect: bool = False):
         """``k`` steps over batches stacked ``[k, n, ...]``; metrics come
         back stacked ``[k]``.  ``collect`` collects on every step."""
-        self._comm_setup(state.params)
+        self._setup(state.params)
         return self._runtime.step_chunk(state, batches, collect)
 
     def put_batch(self, batch):

@@ -5,68 +5,104 @@ with the JAX package's key names; a language model's trees also hold
 tuples (one entry per period position in ``blocks``, one per tail layer in
 ``tail``), as the reference's do.  Leaves are visited in the order
 ``jax.tree`` gives: dict keys sorted, tuple entries in order, so packed
-buffers and leaf lists line up with the reference's.  A path names a dict
-entry by its key and a tuple entry by its index.
+buffers and leaf lists line up with the reference's.
+
+As in ``jax.tree_util``, :func:`tree_flatten` splits a tree into its leaves
+and its ``treedef``, and :func:`tree_unflatten` puts leaves back into a
+treedef.  A treedef is a hashable nested tuple: ``None`` for a leaf,
+``(dict, ((key, treedef), ...))`` with the keys sorted, ``(tuple,
+(treedef, ...))``; it keeps the containers that hold no leaf (an LM's
+empty ``tail``).  A structure fixed for a run is flattened once and its
+treedef kept.  :func:`tree_paths` gives the leaves' names only: a path
+names a dict entry by its key and a tuple entry by its index.
 """
 from __future__ import annotations
 
 from typing import Any, Callable
 
-__all__ = ["tree_leaves", "tree_paths", "tree_map", "tree_unflatten",
-           "nest_map", "nest_leaves"]
+__all__ = ["tree_leaves", "tree_flatten", "tree_unflatten", "tree_paths",
+           "tree_map"]
 
 Tree = Any
+TreeDef = Any
+
+_END = object()
 
 
-def _is_node(x) -> bool:
-    return isinstance(x, (dict, tuple))
-
-
-def _children(tree) -> list:
-    """``(key, child)`` of a container in ``jax.tree`` order."""
+def _flatten(tree, out: list) -> TreeDef:
     if isinstance(tree, dict):
-        return [(k, tree[k]) for k in sorted(tree)]
-    return list(enumerate(tree))
-
-
-def _skeleton(tree):
-    """``tree``'s containers with every leaf replaced by None."""
-    if isinstance(tree, dict):
-        return {k: _skeleton(v) for k, v in tree.items()}
+        return (dict, tuple((k, _flatten(tree[k], out))
+                            for k in sorted(tree)))
     if isinstance(tree, tuple):
-        return tuple(_skeleton(v) for v in tree)
+        return (tuple, tuple(_flatten(v, out) for v in tree))
+    out.append(tree)
     return None
 
 
-class Paths(list):
-    """The key paths of a tree's leaves, carrying the tree's containers
-    (``skeleton``) so that :func:`tree_unflatten` rebuilds tuples and the
-    containers that hold no leaf (an LM's empty ``tail``)."""
-
-    skeleton: Any = None
-
-
-def _paths(tree, prefix: tuple, out: list) -> None:
-    if not _is_node(tree):
-        out.append(prefix)
-        return
-    for k, child in _children(tree):
-        _paths(child, prefix + (k,), out)
+def tree_flatten(tree: Tree) -> tuple[list, TreeDef]:
+    """``(leaves, treedef)``: the leaves in ``jax.tree`` order and the
+    tree's containers."""
+    leaves: list = []
+    return leaves, _flatten(tree, leaves)
 
 
-def tree_paths(tree: Tree) -> Paths:
-    """Key paths of every leaf, in ``jax.tree`` order."""
-    out = Paths()
-    _paths(tree, (), out)
-    out.skeleton = _skeleton(tree)
-    return out
+def _build(treedef: TreeDef, leaves):
+    if treedef is None:
+        return next(leaves)
+    kind, children = treedef
+    if kind is dict:
+        return {k: _build(d, leaves) for k, d in children}
+    return tuple([_build(d, leaves) for d in children])
+
+
+def tree_unflatten(treedef: TreeDef, leaves: list) -> Tree:
+    """Inverse of :func:`tree_flatten`: ``leaves`` in ``treedef``'s
+    containers."""
+    it = iter(leaves)
+    try:
+        tree = _build(treedef, it)
+    except StopIteration:
+        raise ValueError(f"tree_unflatten: {len(leaves)} leaves are too few "
+                         "for the treedef") from None
+    if next(it, _END) is not _END:
+        raise ValueError(f"tree_unflatten: {len(leaves)} leaves are too "
+                         "many for the treedef")
+    return tree
+
+
+def _leaves(tree, out: list) -> None:
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _leaves(tree[k], out)
+    elif isinstance(tree, tuple):
+        for v in tree:
+            _leaves(v, out)
+    else:
+        out.append(tree)
 
 
 def tree_leaves(tree: Tree) -> list:
-    if not _is_node(tree):
-        return [tree]
-    return [leaf for _, child in _children(tree)
-            for leaf in tree_leaves(child)]
+    out: list = []
+    _leaves(tree, out)
+    return out
+
+
+def _paths(tree, prefix: tuple, out: list) -> None:
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _paths(tree[k], prefix + (k,), out)
+    elif isinstance(tree, tuple):
+        for i, v in enumerate(tree):
+            _paths(v, prefix + (i,), out)
+    else:
+        out.append(prefix)
+
+
+def tree_paths(tree: Tree) -> list[tuple]:
+    """Key paths of every leaf, in ``jax.tree`` order."""
+    out: list = []
+    _paths(tree, (), out)
+    return out
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
@@ -83,34 +119,3 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
                 raise ValueError("tree_map: trees differ in structure")
         return tuple(tree_map(fn, *items) for items in zip(tree, *rest))
     return fn(tree, *rest)
-
-
-def _fill(skeleton, leaves):
-    if isinstance(skeleton, dict):
-        return {k: _fill(skeleton[k], leaves) for k in sorted(skeleton)}
-    if isinstance(skeleton, tuple):
-        return tuple(_fill(v, leaves) for v in skeleton)
-    return next(leaves)
-
-
-def tree_unflatten(paths: list[tuple], leaves: list) -> Tree:
-    """Inverse of (:func:`tree_paths`, :func:`tree_leaves`).  Paths from
-    :func:`tree_paths` rebuild the tree's own containers; a bare list of
-    paths builds nested dicts."""
-    skeleton = getattr(paths, "skeleton", None)
-    if skeleton is not None or (len(paths) == 1 and paths[0] == ()):
-        if len(leaves) != len(paths):
-            raise ValueError(f"tree_unflatten: {len(leaves)} leaves for "
-                             f"{len(paths)} paths")
-        return _fill(skeleton, iter(leaves))
-    out: dict = {}
-    for path, leaf in zip(paths, leaves, strict=True):
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = leaf
-    return out
-
-
-#: the names the LM's code (``models/``, ``serve/``) uses for the same maps
-nest_map, nest_leaves = tree_map, tree_leaves

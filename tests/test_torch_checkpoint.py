@@ -214,7 +214,7 @@ def test_pytree_checkpoints_round_trip_across_packages(tmp_path):
     tree = {"params": params, "t": np.int32(7)}
     jpath, tpath = str(tmp_path / "j.npz"), str(tmp_path / "t.npz")
     jckpt.save_checkpoint(jpath, tree, step=3, extra={"a": 1})
-    like = interop.lm_params_from_numpy(jax.tree.map(np.asarray, tree),
+    like = interop.params_from_numpy(jax.tree.map(np.asarray, tree),
                                         "cpu")
     got, meta = tckpt.restore_checkpoint(jpath, like)
     assert meta == {"step": 3, "extra": {"a": 1}}

@@ -2,7 +2,7 @@
 configs, ``models/layers.py``, ``models/attention.py`` and
 ``models/transformer.py`` (``forward`` in its four modes, ``prefill``,
 ``decode_step``, ``paged_step``) on reduced configs, fed the same numpy
-inputs and the reference's own init (``interop.lm_params_from_numpy``).
+inputs and the reference's own init (``interop.params_from_numpy``).
 
 Tolerances, each with its reason:
 * layers and attention functions: 2e-6 abs on values of order 1; the same
@@ -33,7 +33,7 @@ from repro_torch.configs import ARCHS, get_config
 from repro_torch.models import attention as tatt
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttf
-from repro_torch.tree import nest_leaves
+from repro_torch.tree import tree_leaves
 
 FN_TOL = dict(atol=2e-6, rtol=0)
 LOGIT_TOL = dict(atol=1e-4, rtol=0)
@@ -227,7 +227,7 @@ def lm(request):
                 blk["attn"][name] = _np(10 + i, *blk["attn"][name].shape,
                                         scale=0.5)
     jp = jax.tree.map(jnp.asarray, jp)
-    tp = interop.lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    tp = interop.params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     return request.param, jcfg, tcfg, jp, tp
 
 
@@ -241,13 +241,13 @@ def test_init_lm_structure_matches_reference(lm):
     gen = torch.Generator().manual_seed(0)
     mine = ttf.init_lm(gen, tcfg)
     flat_j = jax.tree_util.tree_flatten_with_path(jp)[0]
-    assert [tuple(x.shape) for x in nest_leaves(mine)] == \
+    assert [tuple(x.shape) for x in tree_leaves(mine)] == \
         [tuple(x.shape) for _, x in flat_j]
     meta = ttf.init_lm(None, tcfg, device="meta")
-    assert [x.shape for x in nest_leaves(meta)] == [x.shape for x in
-                                                nest_leaves(mine)]
+    assert [x.shape for x in tree_leaves(meta)] == [x.shape for x in
+                                                tree_leaves(mine)]
     assert isinstance(mine["blocks"], tuple) and mine["tail"] == ()
-    n = sum(x.numel() for x in nest_leaves(mine))
+    n = sum(x.numel() for x in tree_leaves(mine))
     assert n == sum(int(np.prod(x.shape)) for x in jax.tree.leaves(jp))
 
 
@@ -271,7 +271,7 @@ def test_forward_train_and_prefill_match_reference(lm, use_pallas):
         if mode == "prefill":
             for (path, jleaf), tleaf in zip(
                     jax.tree_util.tree_flatten_with_path(jc)[0],
-                    nest_leaves(tc)):
+                    tree_leaves(tc)):
                 assert tuple(tleaf.shape) == tuple(jleaf.shape), path
                 if jleaf.dtype == jnp.int32:
                     np.testing.assert_array_equal(tleaf.numpy(),
@@ -299,7 +299,7 @@ def test_decode_steps_match_reference(lm):
         tl, tc2 = ttf.decode_step(tp, _t(tok), s + i, tc, tcfg)
         assert tc2 is tc                    # written in place
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
-    for jleaf, tleaf in zip(jax.tree.leaves(jc), nest_leaves(tc)):
+    for jleaf, tleaf in zip(jax.tree.leaves(jc), tree_leaves(tc)):
         if jleaf.dtype == jnp.int32:
             np.testing.assert_array_equal(tleaf.numpy(), np.asarray(jleaf))
         else:
@@ -311,7 +311,7 @@ def test_init_cache_matches_reference(lm):
     _, jcfg, tcfg, _, _ = lm
     jc = jtf.init_cache(jcfg, 2, 100)
     tc = ttf.init_cache(tcfg, 2, 100, device="cpu")
-    for jleaf, tleaf in zip(jax.tree.leaves(jc), nest_leaves(tc)):
+    for jleaf, tleaf in zip(jax.tree.leaves(jc), tree_leaves(tc)):
         assert tuple(tleaf.shape) == tuple(jleaf.shape)
         np.testing.assert_array_equal(tleaf.numpy(), np.asarray(jleaf))
 
@@ -360,7 +360,7 @@ def test_paged_step_matches_reference(lm, use_pallas):
         np.testing.assert_allclose(tl[:2], jl[:2], **LOGIT_TOL)
         pos = pos + nv
     for jleaf, tleaf in zip(jax.tree.leaves(jpages_box[0]),
-                            nest_leaves(tpages)):
+                            tree_leaves(tpages)):
         np.testing.assert_allclose(tleaf.numpy(), np.asarray(jleaf),
                                    **CACHE_TOL)
 
@@ -369,16 +369,16 @@ def test_paged_step_with_no_kept_row_leaves_the_pool_unchanged():
     cfg = get_config("tinyllama-1.1b", reduced=True)
     params = ttf.init_lm(torch.Generator().manual_seed(0), cfg)
     pages = ttf.init_paged_cache(cfg, 4, 8, device="cpu")
-    for leaf in nest_leaves(pages):
+    for leaf in tree_leaves(pages):
         leaf.normal_(generator=torch.Generator().manual_seed(1))
-    before = [x.clone() for x in nest_leaves(pages)]
+    before = [x.clone() for x in tree_leaves(pages)]
     logits, _ = ttf.paged_step(
         params, torch.zeros(2, 1, dtype=torch.int32),
         torch.zeros(2, dtype=torch.int32), torch.zeros(2, dtype=torch.int32),
         torch.full((2, 2), -1, dtype=torch.int32), pages, cfg, page_size=8,
         use_pallas=True)
     assert torch.isfinite(logits).all()
-    for a, b in zip(before, nest_leaves(pages)):
+    for a, b in zip(before, tree_leaves(pages)):
         assert torch.equal(a, b)
 
 
@@ -414,5 +414,5 @@ def test_supports_paged_and_init_lm_match_reference(arch):
     want = jax.eval_shape(lambda: jtf.init_lm(jax.random.PRNGKey(0), jcfg))
     got = ttf.init_lm(None, cfg, device="meta")
     assert [(tuple(x.shape), str(x.dtype).split(".")[1])
-            for x in nest_leaves(got)] == \
+            for x in tree_leaves(got)] == \
         [(tuple(x.shape), str(x.dtype)) for x in jax.tree.leaves(want)]

@@ -54,7 +54,7 @@ from repro_torch.launch import train as tlaunch
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttf
 from repro_torch.serve import export as texport
-from repro_torch.tree import nest_leaves, tree_leaves, tree_paths, \
+from repro_torch.tree import tree_flatten, tree_leaves, tree_paths, \
     tree_unflatten
 
 PRESET = "lm100m_ring8_alpha0.1_qg"
@@ -134,16 +134,17 @@ def test_train_loss_and_grads_match_reference_per_node(arch, fwd_kw):
     tspec = tapi.ExperimentSpec.from_json(spec.to_json())
     task = tdata.build_task(tspec, n)
     bundle = tmodels.MODELS["transformer"](tspec, task)
-    params = interop.lm_params_from_numpy(
+    params = interop.params_from_numpy(
         jax.tree.map(np.asarray, stacked), "cpu")
-    paths, leaves = tree_paths(params), [
-        x.requires_grad_(True) for x in tree_leaves(params)]
-    loss, _ = bundle.loss_fn(tree_unflatten(paths, leaves), {}, (_t(toks),))
+    leaves, treedef = tree_flatten(params)
+    leaves = [x.requires_grad_(True) for x in leaves]
+    loss, _ = bundle.loss_fn(tree_unflatten(treedef, leaves), {},
+                             (_t(toks),))
     grads = torch.autograd.grad(loss.sum(), leaves)
     assert loss.shape == (n,)
     np.testing.assert_allclose(loss.detach().numpy(), np.asarray(want_l),
                                rtol=LOSS_RTOL)
-    assert len(grads) == len(nest_leaves(params))
+    assert len(grads) == len(tree_leaves(params))
     _assert_grads_close(grads, jax.tree.leaves(want_g))
 
 
@@ -195,8 +196,8 @@ def test_full_preset_config_and_vocab_equal_reference():
         jmodels.resolve_transformer_config(spec.model))
     assert tmodels.model_vocab(tspec) == jmodels.model_vocab(spec) == 8192
     like = ttf.init_lm(None, got, device="meta")
-    assert sum(x.numel() for x in nest_leaves(like)) == 62_927_616
-    assert len(nest_leaves(like)) == 12 and like["tail"] == ()
+    assert sum(x.numel() for x in tree_leaves(like)) == 62_927_616
+    assert len(tree_leaves(like)) == 12 and like["tail"] == ()
 
 
 # ---------------------------------------------------------------------------
@@ -211,7 +212,7 @@ def injected_run():
     ref, ref_state = japi.run(spec, with_state=True, **QUIET)
     init = jax.tree.map(np.asarray, japi.build(spec).state.params)
     tspec = tapi.ExperimentSpec.from_json(spec.to_json())
-    params = interop.lm_params_from_numpy(init, "cpu")
+    params = interop.params_from_numpy(init, "cpu")
     opt_state = tapi.build(tspec, device="cpu").trainer.optimizer.init(params)
     state = interop.train_state_from_numpy(init, opt_state, 0, "cpu")
     got, got_state = tapi.run(tspec, device="cpu", state=state,
@@ -230,8 +231,8 @@ def test_reduced_run_matches_reference(injected_run):
     assert got.wire == ref.wire
     assert got.heterogeneity == ref.heterogeneity
     want = jax.tree.leaves(ref_state.params)
-    assert len(want) == len(nest_leaves(got_state.params))
-    for g, w in zip(nest_leaves(got_state.params), want):
+    assert len(want) == len(tree_leaves(got_state.params))
+    for g, w in zip(tree_leaves(got_state.params), want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6,
                                    rtol=0)
     assert got_state.params["tail"] == ()
@@ -246,7 +247,7 @@ def test_export_from_result_is_node_mean_and_served_by_reference(
     params, cfg = texport.export_consensus(got, state=got_state)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
         jmodels.resolve_transformer_config(spec.model))
-    for g, x in zip(nest_leaves(params), nest_leaves(got_state.params)):
+    for g, x in zip(tree_leaves(params), tree_leaves(got_state.params)):
         assert torch.equal(g, torch.mean(x, dim=0))
     path = str(tmp_path / "lm.npz")
     texport.save_serving_checkpoint(path, params, cfg)
@@ -333,12 +334,12 @@ def test_reference_lm_state_carries_across_as_tuples():
     assert isinstance(state.params["blocks"], tuple)
     assert state.params["tail"] == () and int(state.t) == 5
     for tree, want in ((state.params, params), (state.opt_state, opt)):
-        got = tree_leaves(tree)
+        got, treedef = tree_flatten(tree)
         assert [g.shape for g in got] == [w.shape for w in
                                           jax.tree.leaves(want)]
         for g, w in zip(got, jax.tree.leaves(want)):
             assert np.array_equal(g.numpy(), w)
-        rebuilt = tree_unflatten(tree_paths(tree), got)
+        rebuilt = tree_unflatten(treedef, got)
         assert jax.tree.structure(jax.tree.map(lambda _: 0, rebuilt)) == \
             jax.tree.structure(jax.tree.map(lambda _: 0, want))
 

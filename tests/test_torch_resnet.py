@@ -29,8 +29,8 @@ from repro_torch import api as tapi
 from repro_torch import interop
 from repro_torch.kernels import qg_update as tK
 from repro_torch.models import resnet as tres
-from repro_torch.tree import (nest_leaves, nest_map, tree_leaves, tree_paths,
-                              tree_unflatten)
+from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,
+                              tree_paths, tree_unflatten)
 
 NORMS = ["bn", "gn", "evonorm"]
 N, B = 2, 2
@@ -66,7 +66,7 @@ def _stacked(init, **kw):
 
 
 def _tensors(tree):
-    return nest_map(lambda a: torch.from_numpy(np.array(a)), tree)
+    return tree_map(lambda a: torch.from_numpy(np.array(a)), tree)
 
 
 def _close(got, want, rtol, atol_scale, what):
@@ -153,8 +153,9 @@ def test_per_node_grads_match_reference(norm):
     want = jax.jit(jax.vmap(jax.grad(loss)))(params, state, x, y)
     tparams = _tensors(params)
     paths = tree_paths(tparams)
-    leaves = [t.requires_grad_(True) for t in tree_leaves(tparams)]
-    logits, _ = tres.apply_resnet20(tree_unflatten(paths, leaves),
+    leaves, treedef = tree_flatten(tparams)
+    leaves = [t.requires_grad_(True) for t in leaves]
+    logits, _ = tres.apply_resnet20(tree_unflatten(treedef, leaves),
                                     _tensors(state), torch.from_numpy(x),
                                     norm=norm)
     picked = torch.gather(logits, -1, torch.from_numpy(y).long()[..., None])
@@ -194,10 +195,10 @@ def test_init_tree_and_scales_match_reference(model, kw):
     tinit = getattr(tres, f"init_{model}")
     jp, js = jinit(jax.random.PRNGKey(0), **kw)
     tp, ts = tinit(torch.Generator().manual_seed(0), **kw)
-    as_np = lambda t: nest_map(lambda a: a.numpy(), t)
+    as_np = lambda t: tree_map(lambda a: a.numpy(), t)
     assert _paths_and_shapes(as_np(tp)) == _paths_and_shapes(jp)
     assert _paths_and_shapes(as_np(ts)) == _paths_and_shapes(js)
-    for (path, _), leaf in zip(_paths_and_shapes(as_np(tp)), nest_leaves(tp)):
+    for (path, _), leaf in zip(_paths_and_shapes(as_np(tp)), tree_leaves(tp)):
         if path[-1] in ("scale", "v"):
             assert torch.equal(leaf, torch.ones_like(leaf)), path
         elif path[-1] in ("bias", "head_b"):
@@ -284,11 +285,11 @@ def test_step_hands_the_optimizer_contiguous_grads_and_detached_state(
     monkeypatch.setattr(type(ex.trainer.optimizer), "step", spy)
     batch = ex.trainer.put_batch(next(ex.task.make_iter()))
     # autograd's own gradient of the permuted stem weight is not contiguous
-    leaves = [p.detach().requires_grad_(True)
-              for p in tree_leaves(ex.state.params)]
+    leaves, treedef = tree_flatten(ex.state.params)
+    leaves = [p.detach().requires_grad_(True) for p in leaves]
     with torch.enable_grad():
         loss, (ns, _) = attached_loss(
-            tree_unflatten(tree_paths(ex.state.params), leaves),
+            tree_unflatten(treedef, leaves),
             ex.state.model_state, batch)
         raw = torch.autograd.grad(loss.sum(), leaves, retain_graph=True)
     assert not all(g.is_contiguous() for g in raw)

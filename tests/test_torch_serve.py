@@ -32,7 +32,7 @@ from repro_torch import interop, serve
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as ttf
-from repro_torch.tree import nest_leaves
+from repro_torch.tree import tree_leaves
 from repro_torch.serve.__main__ import make_requests
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -44,7 +44,7 @@ def pair(request):
     jcfg = jget_config(request.param, reduced=True)
     cfg = get_config(request.param, reduced=True)
     jp = jtf.init_lm(jax.random.PRNGKey(0), jcfg)
-    tp = interop.lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    tp = interop.params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     return jp, jcfg, tp, cfg
 
 
@@ -88,7 +88,7 @@ def test_kvcache_reservation_accounting_matches_reference():
     assert kv.free_pages() == jkv.free_pages() == 4
     assert kv.peak_pages_used == jkv.peak_pages_used == 5
     assert kv.held(0) == 0
-    for a, b in zip(nest_leaves(kv.pages), jax.tree.leaves(jkv.pages)):
+    for a, b in zip(tree_leaves(kv.pages), jax.tree.leaves(jkv.pages)):
         assert tuple(a.shape) == tuple(b.shape)
 
 
@@ -195,7 +195,7 @@ def test_reference_serving_checkpoint_loads_bit_equal(pair, tmp_path):
     assert got_cfg == cfg and isinstance(got_cfg.period, tuple)
     assert isinstance(params["blocks"], tuple) and params["tail"] == ()
     for (kp, a), b in zip(jax.tree_util.tree_flatten_with_path(jp)[0],
-                          nest_leaves(params)):
+                          tree_leaves(params)):
         assert b.dtype == torch.float32
         np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=kp)
 
@@ -206,10 +206,10 @@ def test_port_serving_checkpoint_loads_in_reference(pair, tmp_path):
     serve.save_serving_checkpoint(path, tp, cfg)
     jparams, got_cfg = jserve.load_serving_checkpoint(path)
     assert got_cfg == jcfg
-    for a, b in zip(jax.tree.leaves(jparams), nest_leaves(tp)):
+    for a, b in zip(jax.tree.leaves(jparams), tree_leaves(tp)):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
     back, _ = serve.load_serving_checkpoint(path, device="cpu")
-    for a, b in zip(nest_leaves(back), nest_leaves(tp)):
+    for a, b in zip(tree_leaves(back), tree_leaves(tp)):
         assert torch.equal(a, b)
 
 
@@ -233,7 +233,7 @@ def test_train_checkpoint_export_matches_reference(pair, tmp_path):
     path = str(tmp_path / "train.npz")
     save_train_state(path, state, rng=jax.random.PRNGKey(0))
     got = serve.params_from_train_checkpoint(path)
-    for a, b in zip(jax.tree.leaves(stacked), nest_leaves(got)):
+    for a, b in zip(jax.tree.leaves(stacked), tree_leaves(got)):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
     spec = {"model": {"name": "transformer",
                       "kwargs": {"arch": jcfg.name.replace("-reduced", ""),
@@ -241,13 +241,13 @@ def test_train_checkpoint_export_matches_reference(pair, tmp_path):
     params, got_cfg = serve.export_consensus(path, spec=spec)
     want, _ = jserve.export_consensus(jax.tree.map(jnp.asarray, stacked))
     assert got_cfg == cfg
-    for a, b in zip(jax.tree.leaves(want), nest_leaves(params)):
+    for a, b in zip(jax.tree.leaves(want), tree_leaves(params)):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0,
                                    atol=1e-7)
     state_like = type("S", (), {"params": got})()
     again, none_cfg = serve.export_consensus(state_like)
     assert none_cfg is None
-    for a, b in zip(nest_leaves(params), nest_leaves(again)):
+    for a, b in zip(tree_leaves(params), tree_leaves(again)):
         assert torch.equal(a, b)
     result_like = type("R", (), {"spec": spec, "history": []})()
     with pytest.raises(ValueError, match="state="):
@@ -255,7 +255,7 @@ def test_train_checkpoint_export_matches_reference(pair, tmp_path):
     from_result, result_cfg = serve.export_consensus(result_like,
                                                      state=state_like)
     assert result_cfg == cfg
-    for a, b in zip(nest_leaves(params), nest_leaves(from_result)):
+    for a, b in zip(tree_leaves(params), tree_leaves(from_result)):
         assert torch.equal(a, b)
 
 

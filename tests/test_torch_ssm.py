@@ -5,7 +5,7 @@ interpret mode), ``models/ssm.py``, the mamba kind of
 ``sequential_generate``, the serving CLI, the engine's refusal, serving
 checkpoints and the full-size shapes of mamba2-130m.  Inputs are numpy
 draws from a seed; the reference's params are carried across with
-``interop.lm_params_from_numpy``.
+``interop.params_from_numpy``.
 
 Tolerances, each with its reason:
 * the sequential oracle against the reference's: 1e-5 abs on values of
@@ -44,7 +44,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssd_scan as kssd
 from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as ttf
-from repro_torch.tree import nest_leaves
+from repro_torch.tree import tree_leaves
 
 ROOT = Path(__file__).resolve().parents[1]
 ORACLE_TOL = dict(atol=1e-5, rtol=0)
@@ -289,7 +289,7 @@ def mamba():
                          ).astype(np.float32)
         blk["ln"] = (0.1 * rng.normal(size=blk["ln"].shape)).astype(
             np.float32)
-    tp = interop.lm_params_from_numpy(jp, "cpu")
+    tp = interop.params_from_numpy(jp, "cpu")
     return jcfg, tcfg, jax.tree.map(jnp.asarray, jp), tp
 
 
@@ -415,7 +415,7 @@ def _tokens(cfg, b, s, seed=0):
 
 def _close_trees(got, want, tol):
     jl = jax.tree_util.tree_flatten_with_path(want)[0]
-    tl = nest_leaves(got)
+    tl = tree_leaves(got)
     assert len(jl) == len(tl)
     for (path, w), g in zip(jl, tl):
         assert tuple(g.shape) == tuple(w.shape), path
@@ -496,9 +496,9 @@ def test_full_size_shapes_match_reference():
     want = jax.eval_shape(lambda: jtf.init_lm(jax.random.PRNGKey(0), jcfg))
     got = ttf.init_lm(None, tcfg, device="meta")
     flat = jax.tree_util.tree_flatten_with_path(want)[0]
-    assert [tuple(x.shape) for x in nest_leaves(got)] == \
+    assert [tuple(x.shape) for x in tree_leaves(got)] == \
         [tuple(x.shape) for _, x in flat]
-    assert [str(x.dtype).split(".")[1] for x in nest_leaves(got)] == \
+    assert [str(x.dtype).split(".")[1] for x in tree_leaves(got)] == \
         [str(x.dtype) for _, x in flat]
     assert tcfg.n_params() == 167_751_360
     assert (tcfg.ssm.n_heads(tcfg.d_model), tcfg.ssm.d_state,
@@ -527,13 +527,13 @@ def test_serving_checkpoint_round_trips_both_ways(mamba, tmp_path):
     params, cfg = serve.load_serving_checkpoint(path, device="cpu")
     assert cfg == tcfg
     for (kp, a), b in zip(jax.tree_util.tree_flatten_with_path(jp)[0],
-                          nest_leaves(params)):
+                          tree_leaves(params)):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=kp)
     path = str(tmp_path / "port.npz")
     serve.save_serving_checkpoint(path, tp, tcfg)
     jparams, got_cfg = jserve.load_serving_checkpoint(path)
     assert got_cfg == jcfg
-    for a, b in zip(jax.tree.leaves(jparams), nest_leaves(tp)):
+    for a, b in zip(jax.tree.leaves(jparams), tree_leaves(tp)):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
 
