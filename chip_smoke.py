@@ -159,7 +159,22 @@ line) if anything goes wrong:
             and held as in phase 7 (a paged launch a layer a decode step),
             and its [2, 512] prefill through a flash launch a layer.
             The attention kernels are also held and timed at the LM's
-            12 query over 4 KV heads in phase 2.
+            12 query over 4 KV heads in phase 2;
+10. scenario slice 8a's main path: ``n1024_ring``, ``n1024_powerlaw`` and
+            ``n1024_churn`` (1024 nodes, 40 steps) through ``python -m
+            repro_torch.api``, each with exactly 40 ``fused_halfstep`` and
+            40 ``fused_qg_buffer`` launches and no ``qg_step`` (more than
+            64 nodes, and the churn run's masked mix hook), final accuracy
+            in the JAX package's seed range widened by ACC_ATOL
+            (N1024_ACC) and ordered powerlaw > churn > ring; the churn
+            run's alive/mix fractions at all 40 steps equal to the JAX
+            package's (N1024_CHURN_FRACS, from ``scripts/n1024_ref.py``);
+            ``fused_halfstep`` and ``fused_qg_buffer`` at the presets'
+            packed shape against their plain versions (0 ulp) and timed
+            beside their bound, and the dense [1024, 1024] mix, the masked
+            mix and ``mask_renormalize`` timed; card against the CPU over
+            N1024_CPU_STEPS steps; DSGDm-N on ``n1024_churn``; each
+            preset's loop under the profiler.
 
 Imports nothing of JAX nor of the JAX package.  The second-to-last lines
 are the card's name and power limit and a JSON ``kernels`` line; the last
@@ -3828,6 +3843,291 @@ def phase_lm(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the scenario engine (slice 8a): 1024 nodes, generated graphs, churn
+# ---------------------------------------------------------------------------
+
+N1024_PRESETS = ("n1024_ring", "n1024_powerlaw", "n1024_churn")
+N1024_STEPS = 40
+#: the JAX package's final test accuracy of each preset at seed 0, 1 and 2
+#: (``PYTHONPATH=src JAX_PLATFORMS=cpu python3 scripts/n1024_ref.py``, JAX
+#: 0.9.0 on the CPU); the card's run is held to the seed range widened by
+#: ACC_ATOL, as CIFAR_QG_BAND is (the port's init comes from a
+#: torch.Generator, ROADMAP C4)
+N1024_ACC = {
+    "n1024_ring": (0.3004636764526367, 0.3342738151550293,
+                   0.3458743095397949),
+    "n1024_powerlaw": (0.859400749206543, 0.892737865447998,
+                       0.8979334831237793),
+    "n1024_churn": (0.534548282623291, 0.5799393653869629,
+                    0.6151485443115234)}
+N1024_BAND = {p: (min(v) - ACC_ATOL, max(v) + ACC_ATOL)
+              for p, v in N1024_ACC.items()}
+#: (alive_frac, mix_frac) of each of n1024_churn's 40 steps in the JAX
+#: package's runs (scripts/n1024_ref.py; they depend on scenario.seed only):
+#: the masks are threefry draws the port reproduces bit for bit, so the
+#: card's history is held to them exactly
+N1024_CHURN_FRACS = (
+    (0.7109375, 0.6640625), (0.7421875, 0.69921875),
+    (0.724609375, 0.69140625), (0.7373046875, 0.6982421875),
+    (0.7158203125, 0.68359375), (0.7041015625, 0.673828125),
+    (0.7265625, 0.6962890625), (0.7236328125, 0.689453125),
+    (0.7158203125, 0.677734375), (0.7138671875, 0.681640625),
+    (0.703125, 0.67578125), (0.7119140625, 0.6796875),
+    (0.71875, 0.685546875), (0.7109375, 0.6591796875),
+    (0.6943359375, 0.6611328125), (0.7392578125, 0.7060546875),
+    (0.7109375, 0.6796875), (0.708984375, 0.671875),
+    (0.728515625, 0.693359375), (0.724609375, 0.6865234375),
+    (0.73828125, 0.6982421875), (0.7353515625, 0.7109375),
+    (0.75390625, 0.720703125), (0.7294921875, 0.6953125),
+    (0.73046875, 0.6875), (0.7236328125, 0.69140625),
+    (0.7138671875, 0.677734375), (0.7138671875, 0.681640625),
+    (0.7314453125, 0.705078125), (0.7255859375, 0.6875),
+    (0.7158203125, 0.673828125), (0.7216796875, 0.6845703125),
+    (0.72265625, 0.689453125), (0.728515625, 0.697265625),
+    (0.7255859375, 0.6904296875), (0.7216796875, 0.689453125),
+    (0.7275390625, 0.6826171875), (0.7197265625, 0.6875),
+    (0.7060546875, 0.6787109375), (0.7060546875, 0.6669921875))
+#: more than qg_update.STEP_MAX_NODES nodes, and under a scenario a masked
+#: mix hook: the QG-DSGDm-N chain takes the two-kernel path, one
+#: fused_halfstep and one fused_qg_buffer a step, and no qg_step
+N1024_LAUNCHES = {"fused_halfstep": N1024_STEPS,
+                  "fused_qg_buffer": N1024_STEPS}
+#: card against the port on the CPU: n1024_churn's first steps, TF32 off,
+#: final params within this relative distance
+N1024_CPU_STEPS, N1024_CPU_RTOL = 5, 1e-5
+
+
+def _n1024_cli_run(preset: str, dev):
+    """``python -m repro_torch.api <preset> --device <dev> --out <json>`` in
+    this process (its output to build/chip_smoke/<preset>.log); returns
+    the Result read back from the JSON."""
+    import contextlib
+    from repro_torch import api
+    from repro_torch.api.__main__ import main as api_main
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    out = OUT / f"{preset}.json"
+    args = [preset, "--device", str(dev), "--out", str(out)]
+    with open(OUT / f"{preset}.log", "w") as f, contextlib.redirect_stdout(f):
+        api_main(args)
+    res = api.Result(**json.loads(out.read_text()))
+    out.unlink()
+    return res
+
+
+def _max_rel(a_tree, b_tree) -> float:
+    """Largest leaf-wise max |a - b| / max |b| of two trees of tensors."""
+    from repro_torch.tree import tree_leaves
+    return max(float((a.cpu() - b.cpu()).abs().max() / b.abs().max())
+               for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree),
+                               strict=True))
+
+
+def _n1024_kernels(dev) -> tuple[dict, dict]:
+    """B1 and B2 at the n1024 presets' packed shape (1024 nodes x 13,652
+    parameters) against their plain versions (0 ulp) and timed beside
+    their bound; the dense [1024, 1024] mix of the MLP's tree, the masked
+    one and ``mask_renormalize`` timed beside the mix's bound.  Returns
+    (worst errors, timings)."""
+    import torch
+    from repro_torch import api
+    from repro_torch.core import gossip
+    from repro_torch.kernels import pack as P
+    from repro_torch.kernels import qg_update as K
+    from repro_torch.kernels import ref
+    from repro_torch.tree import tree_leaves
+
+    ex = api.build(api.presets.get("n1024_churn"), device=dev)
+    params = ex.state.params
+    n = ex.trainer.topology.n
+    per_node = sum(l[0].numel() for l in tree_leaves(params))
+    size = P.plan_pack(params).padded
+    gen = torch.Generator(device=dev).manual_seed(23)
+    a, b, c = (torch.randn(size, generator=gen, device=dev)
+               for _ in range(3))
+    eta, one = _full(0.1, a), _full(1.0, a)
+    worst, timed = {}, {}
+    for name, case, k, p in _cases():
+        if name in ("fused_halfstep", "fused_qg_buffer"):
+            _compare(name, f"{case} n1024 size={size}", k(a, b, c, eta),
+                     p(a, b, c, eta), worst)
+    for name, w in worst.items():
+        log(f"scenario kernel {name} at the n1024 shape ({n} x {per_node} "
+            f"packed to {size}): {w['cases']} outputs, max {w['ulp']} ulp, "
+            f"max abs err {w['abs']:.3e}")
+    timed["fused_halfstep"] = _time_row(
+        "fused_halfstep[n1024]", size,
+        lambda: K.fused_halfstep(a, b, c, eta, beta=0.9, wd=1e-4,
+                                 nesterov=True, emit_m=False),
+        lambda: ref.fused_halfstep(a, b, c, eta, beta=0.9, wd=1e-4,
+                                   nesterov=True)[0], 4 * size * 4 + 4,
+        size, 20)
+    timed["fused_qg_buffer"] = _time_row(
+        "fused_qg_buffer[n1024]", size,
+        lambda: K.fused_qg_buffer(a, b, c, eta, one, mu=0.9),
+        lambda: ref.fused_qg_buffer(a, b, c, eta, one, mu=0.9),
+        4 * size * 4 + 8, size, 20)
+    del a, b, c
+    # the mix: 2 n^2 P fp32 operations; W, x and the output once each
+    w = ex.trainer._mixing[0]
+    m = torch.from_numpy(ex.trainer.scenario.masks(12)[1]).to(dev)
+    flops, nbytes = 2 * n * n * per_node, 4 * (n * n + 2 * n * per_node)
+    bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S) * 1e3
+    for label, fn in (
+            ("dense mix", lambda: gossip.mix_dense(w, params)),
+            ("masked mix", lambda: gossip.mix_dense(
+                gossip.mask_renormalize(w, m), params)),
+            ("mask_renormalize", lambda: gossip.mask_renormalize(w, m))):
+        timed[label] = _time_ms(fn, 10)
+        log(f"time scenario {label} at n={n} ({per_node} parameters a "
+            f"node): {timed[label]:.6f} ms (CUDA graph of 10 calls); the "
+            f"mix's bound {bound:.6f} ms (operations, {flops} fp32 "
+            f"operations; bytes {nbytes / PEAK_BYTES_S * 1e3:.6f} ms)")
+    timed["mix_bound_ms"] = bound
+    del ex, params
+    torch.cuda.empty_cache()
+    return worst, timed
+
+
+def phase_scenario(dev) -> dict:
+    """Slice 8a's main path: the three n1024 presets (1024 nodes, the MLP at
+    its preset widths, 40 steps) through ``python -m repro_torch.api``,
+    each with exactly N1024_LAUNCHES; final accuracy in N1024_BAND and
+    powerlaw > churn > ring; n1024_churn's alive/mix fractions equal to the
+    JAX package's (N1024_CHURN_FRACS), all 40 steps through the chunked
+    loop; B1/B2 at the presets' shape against their plain versions and
+    timed, with the dense and the masked mix; card against the port on the
+    CPU (N1024_CPU_STEPS, N1024_CPU_RTOL); DSGDm-N on n1024_churn beside
+    QG-DSGDm-N; each preset's loop under the profiler (ms/step, busy
+    share); the host time of the presets' data (built once, and a batch
+    for 1024 nodes)."""
+    import torch
+    from repro_torch import api
+    from repro_torch.api.data import build_task
+    from repro_torch.kernels import ops
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise AssertionError("scenario: TF32 is on")
+    quiet = lambda *_: None
+    out = {"launches": {}, "results": {}}
+    # warm-up (cuBLAS at the [1024, 1024] mix); not the main path's
+    api.run(api.presets.get("n1024_ring").override("loop.steps=3",
+                                                   "eval.enabled=false"),
+            device=dev, log_fn=quiet)
+    worst, timed = _n1024_kernels(dev)
+    out["worst"], out["timed"] = worst, timed
+    t0 = time.perf_counter()
+    task = build_task(api.presets.get("n1024_churn"), 1024)
+    build_s = time.perf_counter() - t0
+    it = task.make_iter()
+    t0 = time.perf_counter()
+    for _ in range(N1024_STEPS):
+        next(it)
+    out["batch_ms"] = (time.perf_counter() - t0) / N1024_STEPS * 1e3
+    log(f"scenario data: the n1024 task built in {build_s:.4f} s of host "
+        f"time (heterogeneity {task.meta['heterogeneity']}); a batch for "
+        f"1024 nodes {out['batch_ms']:.4f} ms of host time (mean of "
+        f"{N1024_STEPS})")
+    del task, it
+
+    for preset in N1024_PRESETS:
+        ops.reset_launch_counts()
+        res = _n1024_cli_run(preset, dev)
+        counts = ops.launch_counts()
+        _expect_launches(preset, counts, N1024_LAUNCHES)
+        _add_counts(out["launches"], counts)
+        _finite_run(preset, res, N1024_STEPS)
+        out["results"][preset] = res
+        acc = res.final["acc"]
+        lo, hi = N1024_BAND[preset]
+        if not lo <= acc <= hi:
+            raise AssertionError(f"{preset}: test acc {acc:.4f} outside the "
+                                 f"JAX package's seed range widened by "
+                                 f"{ACC_ATOL}, [{lo:.4f}, {hi:.4f}]")
+        masks = ("none" if res.scenario is None else
+                 f"{res.scenario['mask_host_ms_per_step']:.4f} ms/step")
+        log(f"scenario {preset}: device {res.device}, {N1024_STEPS} steps "
+            f"in {res.wall_time_s:.4f} s ({res.wall_time_s / N1024_STEPS
+                                          * 1e3:.4f} ms/step), final loss "
+            f"{res.final['loss']:.6f}, test acc {acc:.4f} (JAX package "
+            f"{N1024_ACC[preset]}), consensus {res.final['consensus']:.3e}, "
+            f"masks' host time {masks}, launches {counts}")
+    acc = {p: r.final["acc"] for p, r in out["results"].items()}
+    if not acc["n1024_powerlaw"] > acc["n1024_churn"] > acc["n1024_ring"]:
+        raise AssertionError(f"scenario: accuracies {acc} are not ordered "
+                             "powerlaw > churn > ring")
+
+    # the churn run's masks: every step's fractions, through the chunked
+    # loop (a chunk's masks in one copy), against the JAX package's
+    churn = api.presets.get("n1024_churn")
+    ops.reset_launch_counts()
+    chunked = api.run(churn.override("loop.chunk=10", "loop.log_every=1",
+                                     "eval.enabled=false"),
+                      device=dev, log_fn=quiet)
+    _expect_launches("n1024_churn chunked", ops.launch_counts(),
+                     N1024_LAUNCHES)
+    fracs = tuple((r["alive_frac"], r["mix_frac"]) for r in chunked.history)
+    if fracs != N1024_CHURN_FRACS:
+        bad = next(i for i, (a, b) in enumerate(zip(fracs,
+                                                    N1024_CHURN_FRACS))
+                   if a != b)
+        raise AssertionError(f"n1024_churn: step {bad} fractions "
+                             f"{fracs[bad]}, JAX package "
+                             f"{N1024_CHURN_FRACS[bad]}")
+    main = out["results"]["n1024_churn"].history
+    rows = {r["step"]: r for r in chunked.history}
+    for r in main:
+        for k in ("alive_frac", "mix_frac"):
+            if r[k] != rows[r["step"]][k]:
+                raise AssertionError(f"n1024_churn step {r['step']}: {k} "
+                                     "differs between the loops")
+    gap = _history_close(main, [rows[r["step"]] for r in main], HIST_RTOL,
+                         HIST_ATOL, "n1024_churn chunk 1 vs 10")
+    log(f"scenario n1024_churn masks: all {N1024_STEPS} steps' alive/mix "
+        f"fractions equal the JAX package's exactly (chunks of 10, "
+        f"{chunked.scenario['mask_host_ms_per_step']:.4f} ms/step of host "
+        f"time); the preset's loop at its logged steps within {gap:.3e}")
+
+    # card against the port on the CPU
+    spec = churn.override(f"loop.steps={N1024_CPU_STEPS}",
+                          "loop.log_every=1", "eval.enabled=false")
+    card, card_state = api.run(spec, device=dev, log_fn=quiet,
+                               with_state=True)
+    cpu, cpu_state = api.run(spec.override("optim.fused=kernel"),
+                             device="cpu", log_fn=quiet, with_state=True)
+    rel = _max_rel(card_state.params, cpu_state.params)
+    hist = _history_close(card.history, cpu.history, CPU_RTOL, CPU_ATOL,
+                          "n1024_churn card vs CPU")
+    if rel > N1024_CPU_RTOL:
+        raise AssertionError(f"n1024_churn card vs CPU: final params "
+                             f"{rel:.3e} apart (relative), allowed "
+                             f"{N1024_CPU_RTOL}")
+    log(f"scenario n1024_churn card vs CPU, {N1024_CPU_STEPS} steps, TF32 "
+        f"off: final params {rel:.3e} apart (relative, allowed "
+        f"{N1024_CPU_RTOL}), history {hist:.3e}")
+    out["cpu_rel"] = rel
+
+    # DSGDm-N on n1024_churn beside QG-DSGDm-N (reported, not held)
+    ops.reset_launch_counts()
+    ds = api.run(churn.override("optim.name=dsgdm_n"), device=dev,
+                 log_fn=quiet)
+    counts = ops.launch_counts()
+    _expect_launches("n1024_churn dsgdm_n", counts,
+                     {"fused_halfstep": N1024_STEPS})
+    _finite_run("n1024_churn dsgdm_n", ds, N1024_STEPS)
+    log(f"scenario n1024_churn DSGDm-N: test acc {ds.final['acc']:.4f} "
+        f"(QG-DSGDm-N {acc['n1024_churn']:.4f}), "
+        f"{ds.wall_time_s / N1024_STEPS * 1e3:.4f} ms/step, launches "
+        f"{counts}")
+    out["dsgdm_acc"] = ds.final["acc"]
+    out["profile"] = {p: phase_profile(dev, p, api.presets.get(p),
+                                       steps=N1024_STEPS)
+                      for p in N1024_PRESETS}
+    return out
+
+
 def sass_mma_counts(lib: Path) -> dict:
     """``(HMMA, all)`` instructions per kernel in ``lib``'s SASS (HMMA: the
     tensor-core products), by ``cuobjdump -sass`` from the toolkit that
@@ -3945,6 +4245,11 @@ def main() -> int:
     # 9. slice 6b-ii's main path: the LM preset trained on 8 nodes, its
     # consensus export, and the export served through the paged kernels
     lm_out = phase_lm(dev)
+    torch.cuda.empty_cache()
+
+    # 10. slice 8a's main path: the three 1024-node presets through the
+    # two-kernel path, the churn scenario's masks against the JAX package's
+    scen_out = phase_scenario(dev)
 
     smi = _card()
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -4007,6 +4312,13 @@ def main() -> int:
     for row in kernels:  # slice 4's runs (the `cifar launches` line)
         if cifar_out["launches"].get(row["name"]):
             row["cifar_launches"] = cifar_out["launches"][row["name"]]
+    for row in kernels:  # slice 8a's runs: the three n1024 presets
+        if row["name"] in scen_out["timed"]:
+            row["n1024_launches"] = scen_out["launches"].get(row["name"], 0)
+            row["n1024"] = {k: scen_out["timed"][row["name"]][k]
+                            for k in ("size", "ms", "plain_ms", "bound_ms",
+                                      "bound_by")}
+            row["n1024_max_abs_err"] = scen_out["worst"][row["name"]]["abs"]
     lm_launches = dict(lm_out["launches"])   # slice 6b-ii's runs
     _add_counts(lm_launches, lm_out["serve"]["launches"])
     _add_counts(lm_launches, lm_out["prefill"]["launches"])

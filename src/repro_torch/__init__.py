@@ -25,7 +25,10 @@ gradient-free consensus experiments (``core/consensus.py``); and slices 4
 and 5, ResNet-20 and the CV protocol, telemetry and checkpoints; and slice
 6b-ii, decentralized LM training (the ``lm_domains`` data, the
 ``transformer`` plugin, the ``lm100m_ring8_alpha0.1_qg`` preset) with the
-run's consensus model exported for serving.
+run's consensus model exported for serving; and slice 8a, the thousand-node
+scenario engine (``scenario/``: generated graphs, client sampling, churn
+and stragglers with masks bit-equal to the reference's, the masked dense
+gossip and the ``n1024_*`` presets).
 
 Entry points (``api.build``, ``api.run``, ``python -m repro_torch.api``
 with ``--export-consensus``, ``python -m repro_torch.serve``, ``python -m

@@ -64,6 +64,9 @@ class Result:
                                        # count, step-time percentiles) when
                                        # spec.telemetry.enabled
     heterogeneity: Optional[dict] = None  # partition stats from the task
+    scenario: Optional[dict] = None    # the scenario masks' host time
+                                       # (mask_host_s, mask_host_ms_per_step)
+                                       # when the run's scenario masks
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -113,10 +116,18 @@ def build(spec: ExperimentSpec, *, device="cuda",
         from repro_torch.telemetry import resolve_config
         telemetry_cfg = resolve_config(spec.telemetry.metrics,
                                        spec.telemetry.every)
+    scenario = None
+    sc = spec.scenario
+    if sc.enabled:
+        from repro_torch.scenario import ScenarioContext
+        scenario = ScenarioContext(
+            n=topo.n, seed=sc.seed, participation=sc.participation,
+            dropout=sc.dropout, churn_window=sc.churn_window,
+            straggler=sc.straggler)
     trainer = DecentralizedTrainer(
         bundle.loss_fn, opt, topo, lr_fn=lr_fn, device=dev,
         runtime=spec.runtime, comm=comm, rng_seed=lp.rng_seed or 0,
-        telemetry=telemetry_cfg)
+        scenario=scenario, telemetry=telemetry_cfg)
     gen = torch.Generator().manual_seed(spec.seed)
     state = trainer.init(bundle.init_fn, gen)
     if telemetry_cfg is not None:
@@ -146,7 +157,7 @@ def wire_stats(trainer: DecentralizedTrainer, params) -> dict:
     site.  Compressed comm replaces it with the compressor's bits; the
     anchor gossip is dense ``W @ x`` on one device, which ships no extra
     message, so its bits are 0 (the reference charges them only under a
-    ppermute schedule, which comes with slice 8)."""
+    ppermute schedule, which comes with slice 8b)."""
     per_node = sum(l[0].numel() for l in tree_leaves(params))
     sites = count_mix_sites(trainer.optimizer, params, trainer._mixing[0])
     dense_bits = 32.0 * per_node * sites
@@ -255,6 +266,11 @@ def run(spec: ExperimentSpec, *, device="cuda", log_fn=print,
                                          ex.task.eval_batches))
 
     steps_run = (history[-1]["step"] + 1) if history else 0
+    masks_info = None
+    if ex.trainer._scenario is not None:
+        masks_info = {"mask_host_s": ex.trainer.mask_host_s,
+                      "mask_host_ms_per_step": ex.trainer.mask_host_s
+                      * 1e3 / max(steps_run - start, 1)}
     wire = wire_stats(ex.trainer, state.params)
     wire["total_mbytes_per_node"] = (
         wire["bits_per_node_per_step"] * steps_run / 8e6)
@@ -263,5 +279,6 @@ def run(spec: ExperimentSpec, *, device="cuda", log_fn=print,
                     device=describe_device(ex.trainer.device),
                     telemetry=(recorder.close() if recorder is not None
                                else None),
-                    heterogeneity=ex.task.meta.get("heterogeneity"))
+                    heterogeneity=ex.task.meta.get("heterogeneity"),
+                    scenario=masks_info)
     return (result, state) if with_state else result

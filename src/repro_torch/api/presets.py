@@ -1,8 +1,9 @@
 """Preset registry: the paper's scenarios as named, serializable specs.
 
-Port of ``repro/api/presets.py`` for the quickstart pair (the main path),
-the CV protocol, the social and time-varying topologies and the
-compressed-gossip variants:
+Port of ``repro/api/presets.py``, every preset of the reference: the
+quickstart pair (the main path), the CV protocol, the social and
+time-varying topologies, the compressed-gossip variants, the thousand-node
+scenarios and the LM:
 
 | preset                            | scenario                              |
 |-----------------------------------|---------------------------------------|
@@ -13,28 +14,25 @@ compressed-gossip variants:
 | exp16_alpha0.1_qg                 | time-varying 1-peer exp graph (T.4)   |
 | choco_topk0.01_ring16_qg          | QG-DSGDm-N + CHOCO top-1% gossip      |
 | ef_signnorm_ring16_qg             | QG-DSGDm-N + EF sign+norm gossip      |
+| n1024_ring                        | 1024 nodes on a ring                  |
+| n1024_powerlaw                    | 1024 nodes on a power-law graph       |
+| n1024_churn                       | 1024 nodes + sampling/churn scenario  |
 | lm100m_ring8_alpha0.1_qg          | ~63M-param LM a node, 8 on a ring     |
 
 The compressed presets say ``comm.backend='jnp'``, as the reference's do,
 so they run the unfused path; ``--set comm.backend=auto`` puts them on the
 kernels.
-
-The reference's other presets raise ``NotImplementedError`` naming the
-slice of the port that brings them.
 """
 from __future__ import annotations
 
 from typing import Callable
 
 from .spec import (CommSpec, DataSpec, EvalSpec, ExperimentSpec, LoopSpec,
-                   ModelSpec, OptimSpec, TopologySpec)
+                   ModelSpec, OptimSpec, ScenarioSpec, TopologySpec)
 
 __all__ = ["PRESETS", "register_preset", "get", "names"]
 
 PRESETS: dict[str, Callable[[], ExperimentSpec]] = {}
-
-#: the reference's other presets, by the port slice that brings each
-_LATER = {"n1024_ring": 8, "n1024_powerlaw": 8, "n1024_churn": 8}
 
 
 def register_preset(name: str):
@@ -46,10 +44,6 @@ def register_preset(name: str):
 
 def get(name: str) -> ExperimentSpec:
     """A fresh, validated spec for ``name``."""
-    if name in _LATER:
-        raise NotImplementedError(
-            f"preset {name!r} is not ported yet: it comes with slice "
-            f"{_LATER[name]} of the port; have {names()}")
     if name not in PRESETS:
         raise ValueError(f"unknown preset {name!r}; have {names()}")
     return PRESETS[name]().validate()
@@ -132,6 +126,41 @@ def _ef():
         "qg_dsgdm_n", "ef_signnorm_ring16_qg",
         comm=CommSpec(compressor="signnorm", gamma=0.3,
                       error_feedback=True))
+
+
+def _n1024(name: str, topo_name: str, **kw) -> ExperimentSpec:
+    """1024-node base: Dirichlet(0.1) over 20 classes is unsatisfiable by
+    resampling at this scale, so the partition uses deterministic
+    redistribution; without a mesh it runs on the vmap runtime."""
+    return ExperimentSpec(
+        name=name, seed=0,
+        data=DataSpec(dataset="classification", alpha=0.1, batch=4,
+                      n_data=8192, n_classes=20, hw=8, noise=2.5,
+                      train_frac=0.75, ensure_min="redistribute"),
+        topology=TopologySpec(name=topo_name, n=1024),
+        optim=OptimSpec(name="qg_dsgdm_n", lr=0.1, weight_decay=1e-4),
+        loop=LoopSpec(steps=40, log_every=10),
+        eval=EvalSpec(batch=1024),
+        model=ModelSpec(name="mlp"),
+        **kw)
+
+
+@register_preset("n1024_ring")
+def _n1024_ring():
+    return _n1024("n1024_ring", "ring")
+
+
+@register_preset("n1024_powerlaw")
+def _n1024_powerlaw():
+    return _n1024("n1024_powerlaw", "powerlaw:2.5")
+
+
+@register_preset("n1024_churn")
+def _n1024_churn():
+    return _n1024(
+        "n1024_churn", "powerlaw:2.5",
+        scenario=ScenarioSpec(enabled=True, seed=7, participation=0.8,
+                              dropout=0.1, churn_window=5, straggler=0.05))
 
 
 @register_preset("lm100m_ring8_alpha0.1_qg")

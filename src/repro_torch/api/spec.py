@@ -4,11 +4,11 @@ Port of ``repro/api/spec.py``.  The spec tree is the reference's, field for
 field, so the port loads the reference's JSON unchanged
 (``ExperimentSpec.from_json(reference_spec.to_json())``) and round-trips it
 losslessly.  ``validate()`` accepts the subset that the port runs today:
-every registry topology but the generated graphs, every optimizer and
+every registry topology (the generated graphs too), every optimizer and
 explicit stage chain, dense gossip (plain or compressed) on the vmap
-runtime, the MLP and ResNet-20 on classification data, the transformer LM
-(dense, local/global and Mamba-2 blocks) on ``lm_domains`` data,
-checkpoints and telemetry.  Anything outside it raises
+runtime, the scenario engine, the MLP and ResNet-20 on classification
+data, the transformer LM (dense, local/global and Mamba-2 blocks) on
+``lm_domains`` data, checkpoints and telemetry.  Anything outside it raises
 ``NotImplementedError`` naming the slice of the port that brings it;
 malformed values raise ``ValueError`` as in the reference.
 """
@@ -94,7 +94,7 @@ class CommSpec:
 class GossipSpec:
     """Collective schedule for the mix.  The port runs the dense
     contraction (``'auto'`` | ``'dense'``); the ppermute schedules come
-    with slice 8."""
+    with slice 8b."""
 
     schedule: str = "auto"            # auto | dense | ring_ppermute | sparse_ppermute
     node_axis: str = "data"
@@ -158,8 +158,18 @@ class TelemetrySpec:
 
 @dataclasses.dataclass(frozen=True)
 class ScenarioSpec:
-    """Participation/fault model of the thousand-node scenario engine;
-    it comes with slice 8 of the port, so ``enabled`` must stay False."""
+    """Thousand-node scenario engine: participation/fault model
+    (``repro_torch.scenario``).
+
+    Disabled (the default), the step is the no-scenario step.  Enabled,
+    each round draws deterministic masks from ``seed``: every node
+    participates with probability ``participation``, drops out (holds
+    state, mixing renormalizes around it) with probability ``dropout`` per
+    ``churn_window`` steps, and straggles (updates locally but misses the
+    round's gossip) with probability ``straggler``.  Runs on the vmap
+    runtime with dense gossip, uncompressed comm and symmetric mixing
+    matrices only: ``validate`` and the trainer raise on other
+    combinations."""
 
     enabled: bool = False
     seed: int = 0
@@ -183,8 +193,8 @@ class ExperimentSpec:
 
     name: str = ""
     seed: int = 0                     # init + data/partition seed
-    runtime: str = "auto"             # auto | vmap (sharded, hybrid: slice 8)
-    overlap: str = "none"             # none (delayed_1: slice 8)
+    runtime: str = "auto"             # auto | vmap (sharded, hybrid: 8b)
+    overlap: str = "none"             # none (delayed_1: slice 8b)
     data: DataSpec = dataclasses.field(default_factory=DataSpec)
     topology: TopologySpec = dataclasses.field(default_factory=TopologySpec)
     optim: OptimSpec = dataclasses.field(default_factory=OptimSpec)
@@ -248,7 +258,7 @@ class ExperimentSpec:
         def err(field: str, msg: str):
             raise ValueError(f"{where}.{field}: {msg}")
 
-        def later(field: str, what: str, slice_no: int):
+        def later(field: str, what: str, slice_no: str):
             raise NotImplementedError(
                 f"{where}.{field}: {what} is not ported yet; it comes with "
                 f"slice {slice_no} of the port")
@@ -292,11 +302,12 @@ class ExperimentSpec:
             err("runtime", f"unknown runtime {self.runtime!r}; valid: "
                 f"{' | '.join(RUNTIMES)}")
         if self.runtime not in ("auto", "vmap"):
-            later("runtime", f"runtime {self.runtime!r}", 8)
+            later("runtime", f"runtime {self.runtime!r}", "8b")
         if self.overlap != "none":
-            later("overlap", f"overlap {self.overlap!r}", 8)
+            later("overlap", f"overlap {self.overlap!r}", "8b")
         if self.gossip.schedule not in ("auto", "dense"):
-            later("gossip.schedule", f"schedule {self.gossip.schedule!r}", 8)
+            later("gossip.schedule", f"schedule {self.gossip.schedule!r}",
+                  "8b")
         # data
         d = self.data
         if d.dataset not in ("classification", "lm_domains"):
@@ -340,8 +351,7 @@ class ExperimentSpec:
             if not 0.0 <= f <= 1.0:
                 err("loop.decay_at", f"fractions must be in [0, 1], got "
                     f"{lp.decay_at}")
-        # telemetry (names and sink checked against the registries) and
-        # scenario
+        # telemetry (names and sink checked against the registries)
         from repro_torch.telemetry import SINKS, MetricsSpec
         tl = self.telemetry
         try:
@@ -351,8 +361,26 @@ class ExperimentSpec:
         if tl.sink not in SINKS:
             err("telemetry.sink", f"unknown sink {tl.sink!r}; have "
                 f"{sorted(SINKS)}")
-        if self.scenario.enabled:
-            later("scenario", "the scenario engine", 8)
+        # scenario: field ranges here; the n/comm/symmetry cross-checks
+        # live in DecentralizedTrainer, as in the reference
+        sc = self.scenario
+        if not 0.0 < sc.participation <= 1.0:
+            err("scenario.participation", f"must be in (0, 1], got "
+                f"{sc.participation}")
+        if not 0.0 <= sc.dropout < 1.0:
+            err("scenario.dropout", f"must be in [0, 1), got {sc.dropout}")
+        if not 0.0 <= sc.straggler < 1.0:
+            err("scenario.straggler", f"must be in [0, 1), got "
+                f"{sc.straggler}")
+        if sc.churn_window < 1:
+            err("scenario.churn_window", f"must be >= 1, got "
+                f"{sc.churn_window}")
+        if sc.enabled and (sc.participation < 1.0 or sc.dropout > 0.0
+                           or sc.straggler > 0.0):
+            if self.comm.compressor != "dense":
+                err("scenario", "fault injection with compressed comm is "
+                    "not supported (CHOCO/EF replicas assume full "
+                    "participation); set comm.compressor='dense'")
         # model
         if self.model.name not in MODELS:
             err("model.name", f"unknown model plugin {self.model.name!r}; "

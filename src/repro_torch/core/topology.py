@@ -7,9 +7,8 @@ doubly-stochastic mixing stack (Metropolis-Hastings weights for the
 undirected graphs).  Plain numpy, copied so this package needs nothing of
 the JAX one: every registry topology's ``mixing`` is bit-equal to the
 reference's (pinned in tests/test_torch_topology.py).  The generated graphs
-``powerlaw`` and ``smallworld`` live in the reference's
-``scenario/graphs.py`` and raise ``NotImplementedError`` naming slice 8 of
-the port.
+``powerlaw`` and ``smallworld`` live in ``repro_torch/scenario/graphs.py``,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -228,16 +227,19 @@ def _social_for(n: int) -> Topology:
     return topo
 
 
-def _generated(kind: str):
-    def builder(n: int, param: float | None) -> Topology:
-        raise NotImplementedError(
-            f"topology {kind!r} is not ported yet: the generated graphs "
-            f"come with slice 8 of the port")
-    return builder
+def _powerlaw_for(n: int, param: float | None) -> Topology:
+    from repro_torch.scenario.graphs import powerlaw  # core <-> scenario
+    return powerlaw(n, param if param is not None else 2.5)
+
+
+def _smallworld_for(n: int, param: float | None) -> Topology:
+    from repro_torch.scenario.graphs import smallworld
+    return smallworld(n, param if param is not None else 0.1)
 
 
 #: name -> (builder(n, param), takes_param), the reference's registry.
-#: Builders without a parameter reject ``name:param`` forms.
+#: Builders without a parameter reject ``name:param`` forms;
+#: parameterized ones default when bare.
 TOPOLOGIES: dict = {
     "ring": (lambda n, _p: ring(n), False),
     "complete": (lambda n, _p: complete(n), False),
@@ -245,8 +247,8 @@ TOPOLOGIES: dict = {
     "social": (lambda n, _p: _social_for(n), False),
     "exp": (lambda n, _p: one_peer_exponential(n), False),
     "torus": (lambda n, _p: _torus_for(n), False),
-    "powerlaw": (_generated("powerlaw"), True),     # degree exponent gamma
-    "smallworld": (_generated("smallworld"), True),  # rewiring probability
+    "powerlaw": (_powerlaw_for, True),      # param = degree exponent gamma
+    "smallworld": (_smallworld_for, True),  # param = rewiring probability
 }
 
 

@@ -1,8 +1,9 @@
 """Execution backends for the decentralized trainer.
 
 Only the node-stacked ``'vmap'`` backend is ported; ``'auto'`` resolves to
-it.  The reference's ``'sharded'`` and ``'hybrid'`` backends come with
-slice 8 of the port.
+it; it runs the scenario engine too (dense masked gossip).  The
+reference's ``'sharded'`` and ``'hybrid'`` backends come with slice 8b of
+the port.
 """
 from __future__ import annotations
 
@@ -20,6 +21,6 @@ def make_runtime(trainer, name: str = "auto") -> Runtime:
                          f"{' | '.join(RUNTIMES)}")
     if name in ("sharded", "hybrid"):
         raise NotImplementedError(
-            f"runtime {name!r} is not ported yet: it comes with slice 8 of "
-            "the port; repro_torch runs 'vmap'")
+            f"runtime {name!r} is not ported yet: it comes with slice 8b "
+            "of the port; repro_torch runs 'vmap'")
     return VmapRuntime(trainer)

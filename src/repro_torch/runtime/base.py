@@ -8,12 +8,18 @@ leading axis of every tensor.  With compressed comm the gossip round is a
 CHOCO/EF round against the state's per-site ``comm_state``.  With
 ``collect`` a step also runs the trainer's telemetry collectors and
 returns their scalars under the ``tm.`` prefix; without it, it is the
-telemetry-free step.  The reference's overlap pipeline and scenario masks
-come with slice 8 of the port; the trainer refuses them.
+telemetry-free step.  The reference's overlap pipeline comes with slice 8b
+of the port; the trainer refuses it.
 
-A step reads nothing back to the host: the lr, the step counter and every
-metric stay on the device, and a chunk's metrics are fetched once, when the
-loop records them.
+Under a scenario (``repro_torch.scenario``) a step takes the round's
+update and mix masks as a device tensor ``[2, n]``: the gossip mixes
+through ``mask_renormalize(W, mix_mask)``, and nodes outside the update
+mask hold params, optimizer and model state exactly (``_hold_nodes``).  A
+trivial scenario runs the no-scenario step.
+
+A step reads nothing back to the host: the lr, the step counter, the
+masks and every metric stay on the device, and a chunk's metrics are
+fetched once, when the loop records them.
 """
 from __future__ import annotations
 
@@ -28,6 +34,30 @@ from repro_torch.core import gossip
 from repro_torch.telemetry.metrics import TM_PREFIX, CollectorCtx
 from repro_torch.telemetry.trace import graph_span
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+
+def _hold_nodes(mask: torch.Tensor, new, old):
+    """Per-node old-vs-new select for the scenario's hold: leaves whose
+    leading axis is the mask's length are node-stacked, and take ``new``
+    where ``mask`` is 1 and ``old`` where it is 0.  Other leaves take
+    ``new``."""
+    mb = mask.to(torch.bool)
+
+    def sel(a, b):
+        shape = getattr(a, "shape", ())
+        if len(shape) >= 1 and shape[0] == mb.shape[0]:
+            return torch.where(mb.reshape((shape[0],) + (1,) *
+                                          (len(shape) - 1)), a, b)
+        return a
+
+    return tree_map(sel, new, old)
+
+
+def _masked_mix(mix_mask: torch.Tensor):
+    """The scenario's mix hook: dense gossip over the mixing matrix
+    renormalized onto the nodes of ``mix_mask``."""
+    return lambda w, tree: gossip.mix_dense(
+        gossip.mask_renormalize(w, mix_mask), tree)
 
 
 @dataclasses.dataclass
@@ -57,13 +87,15 @@ class Runtime:
         return (loss.detach(), tree_map(torch.Tensor.detach, new_ms), metrics,
                 tree_unflatten(treedef, [g.contiguous() for g in grads]))
 
-    def _stage_finish_mix(self, state, grads, w, lr):
+    def _stage_finish_mix(self, state, grads, w, lr, mix_impl=None):
         """The transform-stage chain: local update + gossip round, with the
-        mix hook swapped for a compressed round when the trainer has comm
-        (one site per mix call).  Returns ``(new_params, new_opt,
-        new_comm)``."""
+        mix hook ``mix_impl`` (a scenario's masked mix) or a compressed
+        round when the trainer has comm (one site per mix call).  Returns
+        ``(new_params, new_opt, new_comm)``."""
         tr = self.trainer
         opt = tr.optimizer
+        if mix_impl is not None:
+            opt = dataclasses.replace(opt, mix_fn=mix_impl)
         new_comm = state.comm_state
         if tr.comm is not None and state.comm_state is not None:
             sites_in = list(state.comm_state)
@@ -82,12 +114,14 @@ class Runtime:
         return mixing.index_select(0, (t % mixing.shape[0]).reshape(1))[0]
 
     @torch.no_grad()
-    def _step_math(self, state, batch, collect: bool = False):
+    def _step_math(self, state, batch, collect: bool = False, masks=None):
         """One decentralized step; returns (new TrainState, metrics), the
         metrics as 0-d device tensors.  ``collect`` adds the telemetry
         collectors' scalars (``tm.``-prefixed) and labels the stages with
         NVTX ranges (``tm/grad``, ``tm/finish_mix``, ``tm/collect``);
-        False is the telemetry-free step, unlabelled."""
+        False is the telemetry-free step, unlabelled.  ``masks`` is the
+        round's ``[2, n]`` (update mask, mix mask) pair on the device under
+        a non-trivial scenario, else None."""
         from repro_torch.train.trainer import TrainState
 
         tr = self.trainer
@@ -95,11 +129,22 @@ class Runtime:
         collect = collect and tr.telemetry is not None
         label = graph_span if collect else contextlib.nullcontext
         lr = tr.lr_fn(state.t)
+        alive = mix_impl = None
+        if masks is not None:
+            alive, mix_mask = masks[0], masks[1]
+            mix_impl = _masked_mix(mix_mask)
         with label("tm/grad"):
             loss, new_ms, metrics, grads = self._stage_compute(state, batch)
         with label("tm/finish_mix"):
             new_params, new_opt, new_comm = self._stage_finish_mix(
-                state, grads, self._mixing_at(state.t), lr)
+                state, grads, self._mixing_at(state.t), lr, mix_impl)
+        if alive is not None:
+            # dropped and unsampled nodes hold their state exactly; their
+            # mixing rows were the identity, so no alive node read the
+            # values discarded here
+            new_params = _hold_nodes(alive, new_params, state.params)
+            new_opt = _hold_nodes(alive, new_opt, state.opt_state)
+            new_ms = _hold_nodes(alive, new_ms, state.model_state)
         out = {
             "loss": torch.mean(loss),
             "lr": lr.reshape(()),
@@ -118,35 +163,43 @@ class Runtime:
                 dtype=torch.float32, device=tr.device)
         for k, v in metrics.items():
             out[k] = torch.mean(v)
+        if alive is not None:
+            # exact sums of 0/1 values (integers <= n in fp32), times 1/n
+            # as XLA computes the reference's sum / n: bit-equal at any n
+            out["alive_frac"] = torch.sum(alive) * (1.0 / n)
+            out["mix_frac"] = torch.sum(mix_mask) * (1.0 / n)
         if collect:
             ctx = CollectorCtx(
                 grads=grads, params_old=state.params, params_new=new_params,
                 opt_state_old=state.opt_state, opt_state_new=new_opt,
                 comm_state_old=state.comm_state, comm_state_new=new_comm,
                 lr=lr, t=state.t, n_nodes=n, static=tr.telemetry.static,
-                device=tr.device)
+                device=tr.device, alive=alive)
             with graph_span("tm/collect"):
                 out.update({TM_PREFIX + k: v for k, v in
                             tr.telemetry.collect(ctx).items()})
         return TrainState(new_params, new_opt, new_ms, state.t + 1,
                           new_comm), out
 
-    def _chunk_math(self, state, batches, collect: bool = False):
-        """``k`` steps over a batch tuple stacked ``[k, n, ...]``; the
-        metrics come back stacked ``[k]``."""
+    def _chunk_math(self, state, batches, collect: bool = False,
+                    masks=None):
+        """``k`` steps over a batch tuple stacked ``[k, n, ...]`` (and the
+        scenario's masks stacked ``[k, 2, n]``); the metrics come back
+        stacked ``[k]``."""
         rows = []
         for j in range(batches[0].shape[0]):
-            state, m = self._step_math(state, tuple(b[j] for b in batches),
-                                       collect)
+            state, m = self._step_math(
+                state, tuple(b[j] for b in batches), collect,
+                None if masks is None else masks[j])
             rows.append(m)
         return state, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
     # -- backend surface ------------------------------------------------------
-    def step(self, state, batch, collect: bool = False):
-        return self._step_math(state, batch, collect)
+    def step(self, state, batch, collect: bool = False, masks=None):
+        return self._step_math(state, batch, collect, masks)
 
-    def step_chunk(self, state, batches, collect: bool = False):
-        return self._chunk_math(state, batches, collect)
+    def step_chunk(self, state, batches, collect: bool = False, masks=None):
+        return self._chunk_math(state, batches, collect, masks)
 
     def put_batch(self, batch):
         """Host numpy batch -> tensors on the trainer's device, one copy per

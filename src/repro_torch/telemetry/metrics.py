@@ -16,11 +16,12 @@ over axis 0.
 
 ``METRICS`` is the registry a :class:`MetricsSpec` selects from;
 :func:`resolve_config` turns the ``TelemetrySpec`` fields into the
-:class:`TelemetryConfig` the trainer threads into its runtime.  The
-scenario engine and the overlap pipeline come with slice 8 of the port;
-until then ``scenario`` emits only its ``data_mean_tv`` static and
-``staleness`` nothing, as the reference's do without a scenario or an
-overlap.
+:class:`TelemetryConfig` the trainer threads into its runtime.  Under a
+scenario (``CollectorCtx.alive``) ``grad_norms`` covers the participating
+nodes only and ``scenario`` adds ``alive_frac``; without one both emit
+what they emit without it.  The overlap pipeline comes with slice 8b of
+the port; until then ``staleness`` emits nothing, as the reference's does
+without an overlap.
 """
 from __future__ import annotations
 
@@ -51,7 +52,9 @@ class CollectorCtx:
     ``static`` carries host-side constants resolved once at build time
     (spectral gap, wire bits, kernel bytes); a collector whose static key
     is missing returns ``{}``.  ``device`` is where the step's tensors
-    live (constants are filled there, never copied from the host)."""
+    live (constants are filled there, never copied from the host).
+    ``alive`` is the scenario's ``[n]`` update mask this step (None
+    without a scenario)."""
 
     grads: Any                     # per-node gradients
     params_old: Any                # params entering the step
@@ -65,6 +68,7 @@ class CollectorCtx:
     n_nodes: int
     static: dict
     device: Any = None
+    alive: Any = None
     _flat: dict = dataclasses.field(default_factory=dict, repr=False)
 
     # -- node reductions and shared per-node helpers -------------------------
@@ -124,11 +128,24 @@ def _consensus(ctx: CollectorCtx) -> dict:
 
 def _grad_norms(ctx: CollectorCtx) -> dict:
     """Per-node gradient-norm spread: a large std/max against the mean is
-    the heterogeneity signature."""
+    the heterogeneity signature.  Under a scenario the statistics cover the
+    participating nodes only: a dropped node's gradient is discarded by the
+    hold, so it never touched the trajectory."""
     norms = torch.sqrt(ctx.per_node_sq_norm(ctx.grads))
-    return {"grad_norm_mean": ctx.node_mean(norms),
-            "grad_norm_std": ctx.node_std(norms),
-            "grad_norm_max": ctx.node_max(norms)}
+    if ctx.alive is None:
+        return {"grad_norm_mean": ctx.node_mean(norms),
+                "grad_norm_std": ctx.node_std(norms),
+                "grad_norm_max": ctx.node_max(norms)}
+    a = ctx.alive.to(torch.float32)
+    cnt = torch.clamp(torch.sum(a), min=1.0)
+    mean = torch.sum(a * norms) / cnt
+    m2 = torch.sum(a * norms ** 2) / cnt
+    return {"grad_norm_mean": mean,
+            "grad_norm_std": torch.sqrt(torch.clamp(m2 - mean ** 2,
+                                                    min=0.0)),
+            "grad_norm_max": ctx.node_max(torch.where(a > 0, norms,
+                                                      torch.zeros_like(
+                                                          norms)))}
 
 
 def _alignment(ctx: CollectorCtx) -> dict:
@@ -173,7 +190,7 @@ def _wire(ctx: CollectorCtx) -> dict:
     """Bits on the wire per node and step (``api.build.wire_stats``),
     replayed into every row so that a stream describes itself.  (The
     reference also counts messages a step under a ppermute schedule, which
-    comes with slice 8.)"""
+    comes with slice 8b.)"""
     s = ctx.static
     if "wire_bits_per_node_per_step" not in s:
         return {}
@@ -211,16 +228,22 @@ def _mixing(ctx: CollectorCtx) -> dict:
 
 def _scenario(ctx: CollectorCtx) -> dict:
     """The run's data heterogeneity (mean pairwise TV distance of the
-    Dirichlet partition, a build-time static).  The participation fraction
-    comes with the scenario engine (slice 8)."""
-    if "data_mean_tv" not in ctx.static:
-        return {}
-    return {"data_mean_tv": ctx.const(ctx.static["data_mean_tv"])}
+    Dirichlet partition, a build-time static) and, under a scenario, this
+    round's participation fraction ``alive_frac``."""
+    out = {}
+    if "data_mean_tv" in ctx.static:
+        out["data_mean_tv"] = ctx.const(ctx.static["data_mean_tv"])
+    if ctx.alive is not None:
+        # the sum of 0/1 values times 1/n, as XLA computes the reference's
+        # node mean: the step's alive_frac, bit for bit
+        a = ctx.alive.to(torch.float32)
+        out["alive_frac"] = torch.sum(a) * (1.0 / a.shape[0])
+    return out
 
 
 def _staleness(ctx: CollectorCtx) -> dict:
     """The overlap pipeline's staleness gap; the pipeline comes with slice
-    8, and without it the collector emits nothing, as the reference's."""
+    8b, and without it the collector emits nothing, as the reference's."""
     return {}
 
 

@@ -20,11 +20,20 @@ With a ``telemetry`` config, an on-cadence step also runs the collectors
 (``repro_torch.telemetry``); the cadence is decided on the host by the
 loops' recorder, so an off-cadence step is the unchanged step.
 
+With a ``scenario`` (``repro_torch.scenario.ScenarioContext``) the loops
+draw each step's update and mix masks on the host, keyed by the loop's own
+absolute step index, ``MASK_BLOCK`` steps in one vectorised draw, and copy
+a step's or a chunk's masks to the device with its batches, so that a step
+reads nothing back to the host; :meth:`DecentralizedTrainer.step` called
+on its own reads ``state.t`` once instead.  The host time of the draws
+adds up in ``mask_host_s``.
+
 Model state stays per node and is never gossiped.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -37,7 +46,11 @@ from repro_torch.device import resolve_device
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
 __all__ = ["TrainState", "lr_schedule", "DecentralizedTrainer",
-           "run_training", "run_training_scanned"]
+           "run_training", "run_training_scanned", "MASK_BLOCK"]
+
+#: steps of scenario masks drawn in one vectorised host call (at n = 1024,
+#: 512 KiB of host memory)
+MASK_BLOCK = 64
 
 
 @dataclasses.dataclass
@@ -81,9 +94,12 @@ class DecentralizedTrainer:
     ``device`` seeded with ``rng_seed``, which advances from step to step.
     ``telemetry`` is a resolved
     :class:`~repro_torch.telemetry.TelemetryConfig` (or None): steps asked
-    to ``collect`` run its collectors.  ``mesh``, ``overlap`` and
-    ``scenario`` are the reference's options that slice 8 of the port
-    brings; set to anything but their defaults they raise
+    to ``collect`` run its collectors.  ``scenario`` is a
+    :class:`~repro_torch.scenario.ScenarioContext` (or None: full
+    participation); a non-trivial one needs uncompressed comm, its ``n``
+    equal to the topology's and symmetric mixing, as in the reference.
+    ``mesh`` and ``overlap`` are the reference's options that slice 8b of
+    the port brings; set to anything but their defaults they raise
     ``NotImplementedError``."""
 
     loss_fn: Callable
@@ -104,14 +120,13 @@ class DecentralizedTrainer:
             raise ValueError(
                 f"optimizer.fused must be one of {FUSED_MODES}, got "
                 f"{self.optimizer.fused!r}")
-        for option, value, default, where in (
-                ("mesh", self.mesh, None, 8),
-                ("overlap", self.overlap, "none", 8),
-                ("scenario", self.scenario, None, 8)):
+        for option, value, default in (("mesh", self.mesh, None),
+                                       ("overlap", self.overlap, "none")):
             if value != default:
                 raise NotImplementedError(
                     f"trainer option {option}={value!r} is not ported yet: "
-                    f"it comes with slice {where} of the port")
+                    "it comes with slice 8b of the port")
+        self._validate_scenario()
         self.device = resolve_device(self.device)
         if self.lr_fn is None:
             lr = torch.full((1,), self.optimizer.lr, dtype=torch.float32,
@@ -125,8 +140,78 @@ class DecentralizedTrainer:
         if self.comm is not None:
             self._comm_gen = torch.Generator(
                 device=self.device).manual_seed(self.rng_seed)
+        self._masks_ahead = None   # (first step, host masks [b, 2, n])
+        self.mask_host_s = 0.0     # host time of the scenario's draws
         from repro_torch.runtime import make_runtime
         self._runtime = make_runtime(self, self.runtime)
+
+    @property
+    def _scenario(self):
+        """The scenario when it masks anything, else None (a trivial one
+        runs the no-scenario step)."""
+        sc = self.scenario
+        return None if sc is None or sc.trivial else sc
+
+    def _validate_scenario(self) -> None:
+        """The reference's eager checks of the participation/fault model,
+        with its texts."""
+        sc = self.scenario
+        if sc is None or getattr(sc, "trivial", False):
+            return
+        if sc.n != self.topology.n:
+            raise ValueError(
+                f"scenario is configured for n={sc.n} nodes, topology has "
+                f"n={self.topology.n}")
+        if self.comm is not None:
+            raise ValueError(
+                "scenario fault injection with compressed comm is not "
+                "supported: CHOCO/EF replica states assume every node "
+                "completes every round; run uncompressed (comm=None)")
+        mix = np.asarray(self.topology.mixing)
+        if not np.allclose(mix, np.swapaxes(mix, 1, 2), atol=1e-8):
+            raise ValueError(
+                "scenario fault injection requires symmetric mixing "
+                "(Metropolis weights) so the alive-subgraph renormalization "
+                f"stays doubly stochastic; topology {self.topology.name!r} "
+                "is asymmetric (e.g. one-peer exponential)")
+
+    def scenario_masks(self, start: int, k: int, until: int = 0):
+        """The scenario's masks of steps ``start .. start + k - 1`` as a
+        host array ``[k, 2, n]`` (update mask, mix mask), or None without
+        a scenario that masks.  Drawn ``MASK_BLOCK`` steps (at least
+        ``k``, none from step ``until`` on if it is given) at a time and
+        kept until a step outside the block is asked; the draws' host time
+        adds up in ``mask_host_s``."""
+        sc = self._scenario
+        if sc is None:
+            return None
+        t0 = time.perf_counter()
+        ahead = self._masks_ahead
+        if (ahead is None or start < ahead[0]
+                or start + k > ahead[0] + len(ahead[1])):
+            stop = start + max(k, MASK_BLOCK)
+            if until:
+                stop = max(start + k, min(stop, until))
+            ahead = (start, sc.stacked_masks(np.arange(start, stop)))
+            self._masks_ahead = ahead
+        out = ahead[1][start - ahead[0]:start - ahead[0] + k]
+        self.mask_host_s += time.perf_counter() - t0
+        return out
+
+    def put_steps(self, batch, start: int, k: Optional[int] = None,
+                  until: int = 0):
+        """One step's host batch (``k`` None) or ``k`` steps' stacked
+        ``[k, n, ...]``, with the scenario's masks of the steps from
+        ``start`` (drawn ahead up to step ``until``, see
+        :meth:`scenario_masks`), onto the device in one :meth:`put_batch`:
+        ``(batch, masks)``, the masks ``[2, n]`` (``[k, 2, n]``) or
+        None."""
+        masks = self.scenario_masks(start, 1 if k is None else k, until)
+        if masks is None:
+            return self.put_batch(batch), None
+        *dev, dev_masks = self.put_batch(
+            (*batch, masks[0] if k is None else masks))
+        return tuple(dev), dev_masks
 
     def _setup(self, params) -> None:
         """Keep the params' treedef (a run's structure is fixed) and
@@ -161,18 +246,31 @@ class DecentralizedTrainer:
                           comm_state=comm_state)
 
     # -- steps ---------------------------------------------------------------
-    def step(self, state: TrainState, batch, collect: bool = False):
+    def step(self, state: TrainState, batch, collect: bool = False,
+             masks=None):
         """One decentralized step on device tensors (see :meth:`put_batch`);
         returns (new state, metrics as 0-d device tensors).  ``collect``
-        also runs the telemetry collectors (``tm.`` metrics)."""
+        also runs the telemetry collectors (``tm.`` metrics).  ``masks``:
+        the scenario's ``[2, n]`` masks of this step on the device (see
+        :meth:`put_steps`); None under a scenario that masks reads
+        ``state.t`` once and draws them."""
         self._setup(state.params)
-        return self._runtime.step(state, batch, collect)
+        if masks is None and self._scenario is not None:
+            masks = self.put_batch(
+                (self.scenario_masks(int(state.t), 1)[0],))[0]
+        return self._runtime.step(state, batch, collect, masks)
 
-    def step_chunk(self, state: TrainState, batches, collect: bool = False):
+    def step_chunk(self, state: TrainState, batches, collect: bool = False,
+                   masks=None):
         """``k`` steps over batches stacked ``[k, n, ...]``; metrics come
-        back stacked ``[k]``.  ``collect`` collects on every step."""
+        back stacked ``[k]``.  ``collect`` collects on every step.
+        ``masks``: the scenario's ``[k, 2, n]``, as for :meth:`step`."""
         self._setup(state.params)
-        return self._runtime.step_chunk(state, batches, collect)
+        if masks is None and self._scenario is not None:
+            k = batches[0].shape[0]
+            masks = self.put_batch(
+                (self.scenario_masks(int(state.t), k),))[0]
+        return self._runtime.step_chunk(state, batches, collect, masks)
 
     def put_batch(self, batch):
         """One host batch (a tuple of numpy arrays) onto the device."""
@@ -202,14 +300,16 @@ def run_training(trainer: DecentralizedTrainer, state: TrainState,
                  log_fn=print, checkpoint_every: int = 0,
                  checkpoint_fn=None, step_offset: int = 0,
                  telemetry=None) -> tuple[TrainState, list[dict]]:
-    """Per-step Python loop, one host-to-device copy per step.
+    """Per-step Python loop, one host-to-device copy per step (with the
+    scenario's masks of the step, if any).
 
     ``checkpoint_fn(done, state)`` is called whenever ``done`` (absolute
     completed steps, ``step_offset`` included) hits a multiple of
     ``checkpoint_every``; a run restarted from that state (and the
     trainer's generator state, which ``checkpoint_fn`` saves beside it)
     continues as the uninterrupted run.  ``step_offset`` makes a resumed
-    run record absolute step indices.
+    run record absolute step indices, and keys its scenario masks by them:
+    ``state.t`` must equal ``step_offset``.
 
     ``telemetry`` is an optional recorder
     (``repro_torch.telemetry.TelemetryRecorder``): on-cadence steps
@@ -221,8 +321,8 @@ def run_training(trainer: DecentralizedTrainer, state: TrainState,
     total = step_offset + steps
     for i, batch in zip(range(step_offset, total), batch_iter):
         collect = telemetry is not None and telemetry.wants(i)
-        state, metrics = trainer.step(state, trainer.put_batch(batch),
-                                      collect)
+        batch, masks = trainer.put_steps(batch, i, until=total)
+        state, metrics = trainer.step(state, batch, collect, masks)
         if telemetry is not None:
             metrics = telemetry.consume(i, metrics)
         _record_step(history, i, total, log_every, log_fn,
@@ -240,8 +340,8 @@ def run_training_scanned(trainer: DecentralizedTrainer, state: TrainState,
                          step_offset: int = 0, telemetry=None
                          ) -> tuple[TrainState, list[dict]]:
     """``run_training`` in chunks of ``chunk`` steps: the chunk's batches
-    are stacked on the host and copied to the device once, and its metrics
-    come back at most once.  Same math and the same history as
+    (and the scenario's masks of its steps) are stacked on the host and
+    copied to the device once, and its metrics come back at most once.  Same math and the same history as
     ``run_training``.  If ``batch_iter`` runs dry, the loop stops, warns
     through ``log_fn``, and the history covers the steps that ran.
 
@@ -269,11 +369,12 @@ def run_training_scanned(trainer: DecentralizedTrainer, state: TrainState,
             break
         k = len(batches)
         total = done + k if exhausted else steps
-        stacked = trainer.put_batch(
-            tuple(np.stack(xs) for xs in zip(*batches)))
+        stacked, masks = trainer.put_steps(
+            tuple(np.stack(xs) for xs in zip(*batches)), step_offset + done,
+            k, until=step_offset + steps)
         collect = (telemetry is not None
                    and telemetry.wants_chunk(step_offset + done, k))
-        state, metrics = trainer.step_chunk(state, stacked, collect)
+        state, metrics = trainer.step_chunk(state, stacked, collect, masks)
         if telemetry is not None:
             metrics = telemetry.consume_chunk(step_offset + done, metrics)
 

@@ -98,8 +98,11 @@ def test_ring_mixing_bit_equal(n):
 @pytest.mark.parametrize("name", ["powerlaw", "smallworld", "smallworld:0.1",
                                   "powerlaw:2.5"])
 def test_unported_topologies_name_their_slice(name):
-    with pytest.raises(NotImplementedError, match="slice"):
-        ttopo.get_topology(name, 16)
+    """The generated graphs came with slice 8a: doubly stochastic and
+    bit-equal to the reference's."""
+    wt, wj = ttopo.get_topology(name, 16), jtopo.get_topology(name, 16)
+    np.testing.assert_array_equal(wt.mixing, wj.mixing)
+    assert ttopo.is_doubly_stochastic(wt.w(0))
 
 
 def test_unknown_topology_raises_value_error():

@@ -85,9 +85,10 @@ _LM = ("model.name=transformer", "data.dataset=lm_domains")
     ("gossip.schedule=ring_ppermute", "slice 8"),
     (_LM + ('model.kwargs={"arch": "granite-moe-3b-a800m", '
             '"reduced": true}',), "slice 6"),
-    ("scenario.enabled=true", "slice 8"),
-    ("topology.name=powerlaw:2.5", "slice 8"),
-    (_LM + ("scenario.enabled=true",), "slice 8"),
+    (("scenario.enabled=true", "scenario.dropout=0.1", "runtime=hybrid"),
+     "slice 8b"),
+    ("gossip.schedule=sparse_ppermute", "slice 8b"),
+    (_LM + ("overlap=delayed_1",), "slice 8b"),
     ("runtime=hybrid", "slice 8"),
 ])
 def test_spec_outside_the_slice_names_its_slice(override, match):
@@ -112,10 +113,13 @@ def test_spec_rejects_invalid_values():
 
 
 def test_unported_presets_name_their_slice():
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tapi.presets.get("n1024_ring")
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tapi.presets.get("n1024_churn")
+    """No preset is left to port (slice 8a brought the n1024 ones): the
+    port has every preset of the reference, each equal to the reference's
+    JSON, and an unknown name raises."""
+    assert tapi.presets.names() == sorted(japi.presets.names())
+    for name in ("n1024_ring", "n1024_powerlaw", "n1024_churn"):
+        assert tapi.presets.get(name) == tapi.ExperimentSpec.from_json(
+            japi.presets.get(name).to_json())
     with pytest.raises(ValueError, match="unknown preset"):
         tapi.presets.get("bogus")
 

@@ -137,9 +137,9 @@ def test_cadence_rows_and_collecting_steps(chunk, every, collecting):
                                   f"telemetry.every={every}"), device="cpu")
     ran, real = [], ex.trainer._runtime._step_math
 
-    def spy(state, batch, collect=False):
+    def spy(state, batch, collect=False, masks=None):
         ran.append(collect)
-        return real(state, batch, collect)
+        return real(state, batch, collect, masks)
 
     ex.trainer._runtime._step_math = spy
     sink = MemorySink()

@@ -92,8 +92,13 @@ def test_get_topology_error_texts_match_reference(spec, n):
 @pytest.mark.parametrize("spec", ["powerlaw", "powerlaw:2.5", "smallworld",
                                   "smallworld:0.1"])
 def test_generated_graphs_name_slice_8(spec):
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        ttopo.get_topology(spec, 16)
+    """Slice 8a ported the generated graphs: the registry builds them,
+    bit-equal to the reference's (tests/test_torch_scenario.py holds them
+    at more sizes and parameters)."""
+    a, b = ttopo.get_topology(spec, 16), jtopo.get_topology(spec, 16)
+    assert a.name == b.name
+    np.testing.assert_array_equal(a.mixing, b.mixing)
+    assert a.neighbors == b.neighbors
 
 
 # ---------------------------------------------------------------------------

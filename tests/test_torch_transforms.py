@@ -194,7 +194,7 @@ def test_chain_validation():
 
 
 @pytest.mark.parametrize("option,value", [("mesh", object()),
-                                          ("scenario", object()),
+                                          ("runtime", "hybrid"),
                                           ("overlap", "delayed_1"),
                                           ("runtime", "sharded")])
 def test_trainer_refuses_unported_options(option, value):
