@@ -174,7 +174,31 @@ line) if anything goes wrong:
             beside their bound, and the dense [1024, 1024] mix, the masked
             mix and ``mask_renormalize`` timed; card against the CPU over
             N1024_CPU_STEPS steps; DSGDm-N on ``n1024_churn``; each
-            preset's loop under the profiler.
+            preset's loop under the profiler;
+11. lmstack slice 6b-iii's main paths at the published widths: the hold
+            against the JAX package (granite at 2 layers, zamba2 at 7 with
+            one tail layer, the VLM at one period with its gates at 0.5;
+            a [1, 64] prompt's prefill through the kernels and 4 decode
+            steps within LMSTACK_REF_RTOL of LMSTACK_REF, from
+            ``scripts/lmstack_ref.py``); ``python -m repro_torch.serve
+            --arch granite-moe-3b-a800m --full --use-pallas --requests 16``
+            in code (32 paged launches a decode step, no merge, tokens equal
+            to the plain engine's, a second run token for token, the pairs
+            dropped for capacity, and at a capacity factor that drops
+            nothing the engine against ``sequential_generate``), its [2,
+            1024] prefill through 32 flash launches; zamba2-7b's [1, 4608]
+            prefill through 81 launches of each scan kernel and 13 flash
+            launches at head_dim 112 (window 4096: the shared block's
+            caches ring buffers) against the plain path, 32 decode steps
+            against ``sequential_generate``, the serving CLI's baseline
+            with and without ``--use-pallas``, the engine's refusal; ``python
+            -m repro_torch.launch.serve --arch llama-3.2-vision-11b --full
+            --use-pallas --batch 2 --prompt-len 512 --gen-len 16`` in code
+            (32 flash launches, tokens equal without the kernel), and its
+            prefill with the gates at 0.5, kernel against plain path; the
+            LM preset on reduced granite trained 20 steps (one ``qg_step``
+            a step) against the port's CPU run.  Flash at head_dim 112 is
+            also held (FLASH_CASES) and timed (``zamba2``) in phase 2.
 
 Imports nothing of JAX nor of the JAX package.  The second-to-last lines
 are the card's name and power limit and a JSON ``kernels`` line; the last
@@ -2513,9 +2537,19 @@ FLASH_CASES = [
     (1, 4608, 4608, 32, 16, 128, {"window": 4096, "softcap": 50.0}),
     (1, 1, 1, 32, 4, 64, {}), (1, 1000, 1000, 32, 4, 64, {}),
     (2, 512, 512, 12, 4, 64, {}), (16, 128, 128, 12, 4, 64, {}),
+    (1, 4608, 4608, 32, 32, 112, {"window": 4096}),
+    (1, 1, 1, 32, 32, 112, {"window": 4096}),
+    (1, 1000, 1000, 32, 32, 112, {"window": 4096}),
+    (2, 300, 300, 8, 2, 112, {}), (1, 200, 333, 8, 2, 112, {"causal": False}),
+    (2, 1024, 1024, 24, 8, 64, {}), (2, 512, 512, 32, 8, 128, {}),
 ]
 FLASH_MAIN, FLASH_LONG, FLASH_LM = FLASH_CASES[6], FLASH_CASES[7], \
     FLASH_CASES[10]
+#: slice 6b-iii's flash shapes: zamba2-7b's shared block (head_dim 112,
+#: window 4096) over a [1, 4608] prefill, then head_dim 112 at S = 1 and
+#: 1000, with GQA 4:1 and non-causal; granite-moe-3b's [2, 1024] prefill
+#: (24 over 8 heads of 64) and the VLM's [2, 512] (32 over 8 of 128)
+FLASH_ZAMBA2 = FLASH_CASES[12]
 
 #: (B, H, K, D, ps, P, NP, window, softcap, lengths): the reference's four
 #: cases (tests/test_serve.py:234, lengths drawn in [1, P*ps]), the
@@ -2524,7 +2558,7 @@ FLASH_MAIN, FLASH_LONG, FLASH_LM = FLASH_CASES[6], FLASH_CASES[7], \
 #: with ragged lengths (splits past a slot's length, a length-0 slot) and
 #: with window 1000 (splits wholly outside the window), which split over
 #: pages and merge; and the engine's shape for the LM preset's export (12
-#: query heads over 4 KV heads)
+#: query heads over 4 KV heads) and for granite-moe-3b (24 over 8, G = 3)
 PAGED_CASES = [
     (3, 8, 2, 32, 16, 8, 6, 0, 0.0, None),
     (2, 4, 4, 64, 8, 4, 8, 0, 30.0, None),
@@ -2536,6 +2570,7 @@ PAGED_CASES = [
      (1, 17, 300, 4096, 0, 2048, 4095, 16)),
     (8, 32, 4, 64, 16, 256, 2048, 1000, 0.0, (4096,) * 8),
     (8, 12, 4, 64, 16, 16, 128, 0, 0.0, (0, 24, 33, 48, 16, 0, 40, 31)),
+    (8, 24, 8, 64, 16, 16, 128, 0, 0.0, (0, 24, 33, 48, 16, 0, 40, 31)),
 ]
 PAGED_MAIN, PAGED_LONG, PAGED_LM = PAGED_CASES[4], PAGED_CASES[5], \
     PAGED_CASES[8]
@@ -2700,7 +2735,14 @@ def phase_attention_timing(dev) -> dict:
     timed = {}
     for label, case, iters in (("main", FLASH_MAIN, 10),
                                ("long", FLASH_LONG, 2),
-                               ("lm", FLASH_LM, 10)):
+                               ("lm", FLASH_LM, 10),
+                               ("zamba2", FLASH_ZAMBA2, 2),
+                               ("d112_s1", FLASH_CASES[13], 20),
+                               ("d112_s1000", FLASH_CASES[14], 5),
+                               ("d112_gqa", FLASH_CASES[15], 10),
+                               ("d112_noncausal", FLASH_CASES[16], 10),
+                               ("granite", FLASH_CASES[17], 10),
+                               ("vlm", FLASH_CASES[18], 10)):
         q, k, v, kw = _flash_inputs(case, torch.float32, dev, 30)
         b, s, t, h, kh, d, _ = case
         causal, window = kw.get("causal", True), kw.get("window", 0)
@@ -2708,11 +2750,17 @@ def phase_attention_timing(dev) -> dict:
         nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
         bound, by = _bound(nbytes, 4 * d * pairs, PEAK_3XTF32_FLOPS)
         lib_ms = None
-        if not kw.get("softcap") and not window:
+        if not kw.get("softcap"):
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            mask = None
+            if window:   # the band as an explicit boolean mask
+                i = torch.arange(s, device=dev)[:, None]
+                j = torch.arange(t, device=dev)[None, :]
+                mask = (i >= j) & (i - j < window)
             lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True), iters)
-            del qt, kt, vt
+                qt, kt, vt, attn_mask=mask, is_causal=causal and not window,
+                enable_gqa=True), iters)
+            del qt, kt, vt, mask
         row = {"shape": case[:6], "kw": kw,
                "ms": _time_ms(lambda: A.flash_attention(q, k, v, **kw),
                               iters),
@@ -2738,7 +2786,8 @@ def phase_attention_timing(dev) -> dict:
         torch.cuda.empty_cache()
     for label, case, iters in (("main", PAGED_MAIN, 20),
                                ("long", PAGED_LONG, 10),
-                               ("lm", PAGED_LM, 20)):
+                               ("lm", PAGED_LM, 20),
+                               ("granite", PAGED_CASES[9], 20)):
         q, kp, vp, bt, ln, kw = _paged_inputs(case, torch.float32, dev, 40)
         b, h, kh, d, ps = case[:5]
         rows = int(ln.sum())     # visible rows (no window on these shapes)
@@ -2849,10 +2898,10 @@ def _compare_tokens(what, params, cfg, reqs, got, want, dev) -> list:
     return ties
 
 
-def phase_serve(dev, cfg, params, reqs) -> dict:
+def phase_serve(dev, cfg, params, reqs, sequential: bool = True) -> dict:
     """The engine through the paged-decode kernel with exact launch counts,
-    held against the engine without the kernels and against
-    ``sequential_generate``, request by request."""
+    held against the engine without the kernels and (``sequential``)
+    against ``sequential_generate``, request by request."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serve import ServeEngine, sequential_generate
@@ -2895,18 +2944,20 @@ def phase_serve(dev, cfg, params, reqs) -> dict:
                            params, cfg, reqs, got,
                            [o.tokens for o in plain], dev)
     seq = []
-    for r in reqs:
+    for r in reqs if sequential else ():
         prompt = torch.tensor([r.prompt], dtype=torch.int32, device=dev)
         toks = sequential_generate(params, cfg, prompt, gen_len=r.max_new,
                                    cache_len=len(r.prompt) + r.max_new)
         seq.append(tuple(toks[0, len(r.prompt):].tolist()))
-    ties += _compare_tokens("kernel engine vs sequential_generate", params,
-                            cfg, reqs, got, seq, dev)
-    log(f"main serve tokens: kernel engine == use_pallas=False engine == "
-        f"sequential_generate for {len(reqs)} requests"
+    if sequential:
+        ties += _compare_tokens("kernel engine vs sequential_generate",
+                                params, cfg, reqs, got, seq, dev)
+    log(f"main serve tokens: kernel engine == use_pallas=False engine"
+        + (" == sequential_generate" if sequential else "")
+        + f" for {len(reqs)} requests"
         + (f" up to {len(ties)} near-tie(s)" if ties else " (all equal)"))
     return {"launches": counts, "tokens_per_s": n_tok / wall, "steps": steps,
-            "stats": st, "wall_s": wall, "ties": ties}
+            "stats": st, "wall_s": wall, "ties": ties, "tokens": got}
 
 
 def _allocator(dev) -> str:
@@ -3083,6 +3134,9 @@ SSD_CASES = [
 ]
 SSD_MAIN = SSD_CASES[-1]
 SSD_LARGE = (8, 4096, 24, 64, 128, 128, 1e-2)
+#: zamba2-7b's scan in its [1, 4608] prefill (112 heads, P 64, N 64),
+#: timed beside the main shape
+SSD_ZAMBA2 = (1, 4608, 112, 64, 64, 128, 1.0)
 
 #: (case, views, P tiles, N padded): shapes that reach the kernels'
 #: indexing paths which SSD_CASES do not -- P in several column tiles with
@@ -3279,8 +3333,8 @@ def _ssd_cost(case):
 
 def phase_ssd_timing(dev) -> dict:
     """Kernel and plain ms (CUDA graphs) and bound of the SSD scan at the
-    main shape and at [8, 4096] with the same widths, fp32, and each pass's
-    device time under the profiler.  No single PyTorch call computes the
+    main shape, at [8, 4096] with the same widths and at zamba2-7b's
+    shape, fp32, and each pass's device time under the profiler.  No single PyTorch call computes the
     scan: the library column is none."""
     import torch
     from repro_torch.kernels import ref
@@ -3288,7 +3342,8 @@ def phase_ssd_timing(dev) -> dict:
 
     timed = {}
     for label, case, iters in (("main", SSD_MAIN, 10),
-                               ("large", SSD_LARGE, 4)):
+                               ("large", SSD_LARGE, 4),
+                               ("zamba2", SSD_ZAMBA2, 4)):
         x, dt, a, bm, cm, d = _ssd_inputs(case, torch.float32, dev, 80)
         flops, nbytes = _ssd_cost(case)
         bound, by = _bound(nbytes, flops, PEAK_3XTF32_FLOPS)
@@ -4128,6 +4183,838 @@ def phase_scenario(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# lmstack (slice 6b-iii): granite-moe-3b, zamba2-7b and the VLM served
+# ---------------------------------------------------------------------------
+
+#: the three models at their published widths and depths, fresh seeded
+#: inits, served through the entry points a user calls
+LMSTACK_SEED = 0
+MOE_ARCH, ZAMBA2_ARCH, VLM_ARCH = ("granite-moe-3b-a800m", "zamba2-7b",
+                                   "llama-3.2-vision-11b")
+#: zamba2's prefill: past the shared block's 4096-token window, so its
+#: caches become ring buffers; then greedy decode steps from them
+ZAMBA2_PREFILL, ZAMBA2_DECODE = (1, 4608), 32
+#: zamba2's kernel path vs plain path, max |diff| / max |plain| of the
+#: last logits and of every state and cache: MAMBA_TOL's reasoning (1e-6
+#: relative a layer, carried) over 81 Mamba layers and 13 attention blocks
+#: at d_model 3584, four times mamba2-130m's 24 layers: 4e-4
+ZAMBA2_TOL = 4e-4
+#: zamba2's serving CLI (each request's prompt and decode through the
+#: baseline; 4 requests of 8 tokens, not phase 8's 16 of 16: a request is
+#: 81 Mamba and 13 attention layers a token at these widths)
+ZAMBA2_CLI = ("--requests", "4", "--max-new", "8")
+#: ``python -m repro_torch.launch.serve --arch llama-3.2-vision-11b --full
+#: --use-pallas --batch 2 --prompt-len 512 --gen-len 16``
+VLM_ARGV = ("--arch", VLM_ARCH, "--full", "--batch", "2", "--prompt-len",
+            "512", "--gen-len", "16")
+#: the cross blocks' gates for the prefill that makes them work (0 at a
+#: fresh init: a cross block is then the identity)
+VLM_GATE = 0.5
+#: the MoE's capacity factor at which nothing drops whatever the batch:
+#: E / k, so a queue holds every token.  The engine (chunks of 32, decode
+#: batches of 8 slots) and ``sequential_generate`` (the whole prompt, then
+#: one token) call the layer on different token counts, so at the
+#: published 1.25 their capacities, and so the pairs they drop, differ by
+#: design (as in the reference); they are compared at this factor
+MOE_NODROP = 40 / 8
+#: a token's routing is at a near-tie when two neighbours among its first
+#: k+1 router probabilities, sorted, lie within this of each other.  Two
+#: fp32 paths whose hidden states are ~1e-6 relative apart move a
+#: probability of ~1/40 by ~1e-8, so only such a token can be routed
+#: differently by them (a margin of 1000)
+ROUTE_TIE = 1e-5
+
+#: the hold against the JAX package at the published widths, cut in depth:
+#: granite at 2 layers; zamba2 at one period of 6 Mamba layers, the shared
+#: block and 1 tail layer; the VLM at one period (4 dense + 1 cross) with
+#: its gates at VLM_GATE and a numpy image.  A [1, LMSTACK_PROMPT] prompt's
+#: prefill logits and LMSTACK_STEPS decode steps fed the reference's own
+#: greedy tokens, each summarised (``_logit_summary``)
+LMSTACK_CUTS = {
+    MOE_ARCH: {"n_layers": 2},
+    ZAMBA2_ARCH: {"n_layers": 7, "tail_layers": 1},
+    VLM_ARCH: {"n_layers": 5},
+}
+LMSTACK_PROMPT, LMSTACK_STEPS, LMSTACK_INIT_SEED = 64, 4, 0
+#: vocab ids whose logits the summaries keep (those below the vocab)
+LMSTACK_IDS = (0, 1, 2, 3, 5, 8, 13, 21, 34, 55, 89, 144, 233, 377, 610, 987,
+               1597, 2584, 4181, 6765, 10946, 17711, 28657)
+#: the kernel path on the card against the JAX package's plain path on the
+#: CPU: every kept logit and each step's max within this fraction of the
+#: step's max |logit|, each L2 norm within it relatively.  The JAX
+#: package's summaries (``logit_summary``) of the prefill and of each
+#: decode step, from ``python3 scripts/lmstack_ref.py`` (JAX 0.9.0, CPU)
+LMSTACK_REF_RTOL = 1e-4
+LMSTACK_REF = {
+    "granite-moe-3b-a800m": {"steps": [
+        {"argmax": 7941, "max": 4.042235851287842, "gap": 0.13009381294250488,
+         "norm": 222.75414918671936, "ids": [0.4338168501853943,
+         1.1677639484405518, 0.6085978746414185, -0.4426231384277344,
+         -2.2413907051086426, -0.6740031242370605, 1.6853935718536377,
+         -0.5444608926773071, -0.9031731486320496, 0.7189224362373352,
+         -1.7633683681488037, -0.47495752573013306, -0.6938111782073975,
+         1.4334933757781982, -0.27820008993148804, 0.6806487441062927,
+         -1.0267434120178223, -1.197601318359375, 0.01666616089642048,
+         -0.3858315646648407, 0.8927720189094543, 0.5535333752632141,
+         -0.07570365816354752]},
+        {"argmax": 21536, "max": 4.111282825469971, "gap": 0.15941452980041504,
+         "norm": 222.5485191192789, "ids": [0.563388466835022,
+         0.9443179368972778, 1.5122703313827515, -0.03770468011498451,
+         -2.615079164505005, -0.5171949863433838, 1.6739048957824707,
+         -0.43386486172676086, -0.9560986161231995, 0.529414176940918,
+         -1.8325875997543335, 1.4987035989761353, -0.47524869441986084,
+         0.6217191815376282, 0.08918178826570511, 1.5002306699752808,
+         -0.5252648591995239, -1.22169029712677, -0.004886351991444826,
+         -1.25397789478302, 1.0552159547805786, -0.39153164625167847,
+         0.525525689125061]},
+        {"argmax": 10330, "max": 4.282423496246338, "gap": 0.10616016387939453,
+         "norm": 222.89806338464916, "ids": [0.04779990762472153,
+         1.475676417350769, 0.7887775897979736, -0.1208818331360817,
+         -1.7625148296356201, -0.8257974982261658, 1.2608399391174316,
+         -1.2388527393341064, -1.227564811706543, 0.03704047203063965,
+         -1.5725007057189941, 1.0461065769195557, 0.08713459968566895,
+         0.41130274534225464, 0.008975081145763397, 1.1079437732696533,
+         -0.434017539024353, -1.4352123737335205, 0.6211256980895996,
+         -0.8573053479194641, 1.6816514730453491, 0.9375139474868774,
+         0.2516264319419861]},
+        {"argmax": 28206, "max": 4.20757532119751, "gap": 0.2433300018310547,
+         "norm": 222.81604507273158, "ids": [0.5609161257743835,
+         0.571884274482727, 0.6888453960418701, 0.024080539122223854,
+         -1.958909273147583, -1.2517547607421875, 1.379525065422058,
+         -1.2475478649139404, -1.287090539932251, -0.45293551683425903,
+         -2.181828022003174, 0.3641662001609802, -1.7883331775665283,
+         1.3013733625411987, 0.9389112591743469, 1.245737075805664,
+         -0.13179926574230194, -0.9463503360748291, -0.45880141854286194,
+         -0.7919745445251465, -0.29829537868499756, -0.44352662563323975,
+         0.6242026686668396]},
+        {"argmax": 23166, "max": 4.534141540527344, "gap": 0.5990579128265381,
+         "norm": 221.8579534422981, "ids": [-0.27624937891960144,
+         0.8925999999046326, 1.8422437906265259, -0.3300141394138336,
+         -2.486124038696289, -1.1194442510604858, 1.1690725088119507,
+         -1.397897481918335, -1.3560222387313843, -0.699786901473999,
+         -2.6749203205108643, 1.3577057123184204, -1.8836919069290161,
+         0.9193515181541443, 2.0278007984161377, 0.1156373918056488,
+         -0.2287083864212036, -1.605528712272644, 0.0708184689283371,
+         -0.3949587345123291, 0.23516589403152466, -0.6682312488555908,
+         0.22297890484333038]},
+    ]},
+    "zamba2-7b": {"steps": [
+        {"argmax": 27375, "max": 3.8639209270477295, "gap":
+         0.041521310806274414, "norm": 180.25599501420757, "ids":
+         [0.02373177744448185, -0.15684448182582855, -1.1796035766601562,
+         0.11407560855150223, -0.8958643674850464, 0.7159150242805481,
+         0.6198077201843262, -0.8314208984375, 0.4668976962566376,
+         0.7234764099121094, -0.5891366004943848, -0.6227280497550964,
+         1.8946826457977295, -0.8198806047439575, -0.28267258405685425,
+         -0.23657464981079102, -0.17752502858638763, -0.8444255590438843,
+         -1.5794354677200317, 1.3275474309921265, 0.5216608047485352,
+         0.1800132542848587, 0.22203312814235687]},
+        {"argmax": 3493, "max": 4.266878604888916, "gap": 0.09894037246704102,
+         "norm": 178.69639859218628, "ids": [-0.3529205024242401,
+         -0.8769307136535645, -0.7413107752799988, -0.5608378052711487,
+         -1.199480414390564, 0.6099365949630737, -0.10528995841741562,
+         -0.19065912067890167, 0.6912882924079895, -0.33682501316070557,
+         0.8988797068595886, 0.393993616104126, 1.9058483839035034,
+         0.5493656396865845, -0.5118830800056458, -1.2549502849578857,
+         0.5859304070472717, -0.6515659689903259, -0.6781728267669678,
+         0.24317678809165955, -0.7341904640197754, -1.166408658027649,
+         -0.0969700887799263]},
+        {"argmax": 15792, "max": 4.066781520843506, "gap":
+         0.002846240997314453, "norm": 178.46440092945315, "ids":
+         [0.39775779843330383, 0.8721861243247986, 1.0925925970077515,
+         -0.16913607716560364, 2.1103732585906982, -1.0811176300048828,
+         -0.8292067050933838, 0.12555235624313354, 0.2191084623336792,
+         0.7395487427711487, 0.2156975120306015, -1.8930299282073975,
+         -0.8235856294631958, -0.804237425327301, 0.9003240466117859,
+         1.6673731803894043, 0.6743721961975098, -0.23284021019935608,
+         -1.3740555047988892, 2.374398946762085, 1.2178655862808228,
+         -0.23499266803264618, 0.5198113918304443]},
+        {"argmax": 25710, "max": 4.069038391113281, "gap": 0.05536985397338867,
+         "norm": 177.36329995389292, "ids": [0.4102071225643158,
+         -0.9769973754882812, -1.1005010604858398, 1.6707570552825928,
+         0.6990869641304016, 0.4889041483402252, -0.5294325947761536,
+         0.5966285467147827, 0.8559327721595764, 0.14730411767959595,
+         -0.259381502866745, -1.7008799314498901, -0.17716403305530548,
+         -0.9383240938186646, -1.2749216556549072, -0.5853092074394226,
+         -1.7907845973968506, 1.0956653356552124, 1.116344690322876,
+         2.881056785583496, -0.578610897064209, -0.0724346861243248,
+         -0.692703366279602]},
+        {"argmax": 15563, "max": 4.041348457336426, "gap":
+         0.029593944549560547, "norm": 178.11520611674317, "ids":
+         [0.5822663307189941, -0.9504144787788391, -2.0368218421936035,
+         0.6875362396240234, 1.5609132051467896, -0.46436095237731934,
+         -0.6094430088996887, -1.4506293535232544, 0.08573298156261444,
+         0.4449988901615143, 2.450972557067871, -1.2767716646194458,
+         0.27473533153533936, -0.5613285303115845, -1.3431013822555542,
+         0.6359423995018005, 0.9176895022392273, -1.045824646949768,
+         -0.06758055090904236, -0.8322902917861938, 1.6517211198806763,
+         -0.3161458671092987, -0.4554425776004791]},
+    ]},
+    "llama-3.2-vision-11b": {"steps": [
+        {"argmax": 94083, "max": 4.337123394012451, "gap": 0.17180538177490234,
+         "norm": 357.8723608764825, "ids": [-0.6479260921478271,
+         -2.663121461868286, 0.958908200263977, -1.5316293239593506,
+         1.1643402576446533, 0.9789964556694031, 0.9028947353363037,
+         -1.094961404800415, -1.1275949478149414, 0.9606682658195496,
+         -0.8673987984657288, -0.48234298825263977, -1.2119853496551514,
+         -0.7676910161972046, 1.1793009042739868, 0.16673330962657928,
+         0.894627571105957, 0.6635720729827881, 0.043511006981134415,
+         0.40194645524024963, -1.1070334911346436, 0.6572872400283813,
+         0.3620244562625885]},
+        {"argmax": 52491, "max": 4.46672248840332, "gap": 0.2407517433166504,
+         "norm": 358.0825839882025, "ids": [-0.08048862963914871,
+         -1.7727569341659546, 0.41525810956954956, -2.6322851181030273,
+         2.16693115234375, 0.049020104110240936, 1.903626561164856,
+         -0.25551462173461914, -1.7730257511138916, 0.7279111742973328,
+         -0.856531023979187, -0.22427721321582794, -0.8394899368286133,
+         -1.5648601055145264, 1.26499605178833, 0.08464999496936798,
+         0.4023982286453247, -0.40223613381385803, -0.08305267244577408,
+         0.6281812191009521, 0.459412544965744, 2.6770694255828857,
+         -1.8947770595550537]},
+        {"argmax": 93577, "max": 4.632907867431641, "gap": 0.21152782440185547,
+         "norm": 357.5374699704258, "ids": [0.13815660774707794,
+         -2.371467113494873, 1.7980060577392578, -1.582902431488037,
+         1.5747712850570679, -0.8300033807754517, 0.3970271646976471,
+         0.07163260877132416, -2.6401073932647705, 0.44459062814712524,
+         -0.6193920969963074, 1.160721778869629, -1.3470590114593506,
+         -1.2624009847640991, 0.5559188723564148, 0.29455873370170593,
+         -0.3602457046508789, -0.3266570270061493, 0.8440657258033752,
+         1.8725603818893433, -0.392213374376297, 2.0313539505004883,
+         -2.0592081546783447]},
+        {"argmax": 101954, "max": 4.220168590545654, "gap":
+         0.23365497589111328, "norm": 357.2668030595092, "ids":
+         [1.0461851358413696, -1.954432487487793, 1.8384865522384644,
+         -1.3115732669830322, 1.9279415607452393, -0.3209068775177002,
+         0.9028401374816895, 1.144805908203125, -1.2629566192626953,
+         1.0796737670898438, -1.719508409500122, -1.7541084289550781,
+         0.07212135195732117, -0.8292679786682129, -0.1972687989473343,
+         1.3294308185577393, -0.6737215518951416, -0.23074065148830414,
+         -0.1605897694826126, 0.5629621744155884, 0.6795561909675598,
+         0.4217986762523651, -1.8769172430038452]},
+        {"argmax": 81383, "max": 4.028499126434326, "gap":
+         0.023155689239501953, "norm": 358.2102555424151, "ids":
+         [1.7080953121185303, -2.8010449409484863, 1.3112622499465942,
+         -1.88988196849823, 0.1831468641757965, -0.38064536452293396,
+         0.7185935974121094, -0.8168721795082092, -1.8865416049957275,
+         0.33726415038108826, -1.4257787466049194, -0.3875897228717804,
+         0.29516541957855225, -2.2845304012298584, 1.2841018438339233,
+         -1.1311711072921753, 0.9025591611862183, -1.0197110176086426,
+         0.6106358766555786, -1.3352477550506592, -0.8857035636901855,
+         0.8568865656852722, -0.873667299747467]},
+    ]},
+}
+
+#: MoE training: the LM preset on reduced granite-moe-3b, LMSTACK_TRAIN
+#: steps through ``api.run``, one ``qg_step`` a step; the card's losses
+#: against the port's CPU run: (steps held, rtol).  All 20 steps: no
+#: route flips between the two in them (the largest gap read on an H100
+#: is 1.42e-07); a route that flips at a near-tie would part the runs
+#: from that step on, as the chaotic Adam pair's do (ZOO_CHAOTIC)
+LMSTACK_TRAIN = 20
+LMSTACK_TRAIN_HELD = (LMSTACK_TRAIN, 1e-5)
+
+
+def lmstack_cut(arch: str):
+    """``arch`` at its published widths, cut in depth to LMSTACK_CUTS."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), **LMSTACK_CUTS[arch])
+
+
+#: elements a numpy generator draws in one piece of a leaf
+LMSTACK_INIT_PIECE = 1 << 22
+
+
+def lmstack_numpy_init(leaves, seed: int = LMSTACK_INIT_SEED):
+    """One model's init at ``init_lm``'s scales, drawn leaf by leaf with
+    numpy so that both packages can start from it: ``leaves`` is ``[(path,
+    shape)]`` in ``jax.tree`` order, each path ending in the leaf's name;
+    yields fp32 arrays.  Norm weights, biases, ``a_log`` and ``dt_bias``
+    are zeros, ``d_skip`` ones, the cross gates VLM_GATE, ``embed`` N(0, 1)
+    x 0.02, ``conv_w`` x 0.1, every other weight ``[..., d_in, d_out]``
+    N(0, 1) / sqrt(d_in).  Piece ``j`` of leaf ``i`` (LMSTACK_INIT_PIECE
+    elements) is ``Generator.standard_normal`` of its own PCG64 stream,
+    seeded ``SeedSequence(seed, spawn_key=(i, j))``, so the pieces are
+    drawn on every core at once and the values do not depend on how many
+    there are."""
+    import concurrent.futures
+    import os
+
+    import numpy as np
+
+    def piece(flat, i, j, scale):
+        gen = np.random.Generator(np.random.PCG64(
+            np.random.SeedSequence(seed, spawn_key=(i, j))))
+        view = flat[j * LMSTACK_INIT_PIECE:(j + 1) * LMSTACK_INIT_PIECE]
+        gen.standard_normal(out=view, dtype=np.float32)
+        view *= np.float32(scale)
+
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count()) as pool:
+        for i, (path, shape) in enumerate(leaves):
+            name = str(path[-1])
+            if name.startswith(("ln", "b")) or name in (
+                    "final_norm", "a_log", "dt_bias"):
+                yield np.zeros(shape, np.float32)
+                continue
+            if name == "d_skip":
+                yield np.ones(shape, np.float32)
+                continue
+            if name.startswith("gate_"):
+                yield np.full(shape, VLM_GATE, np.float32)
+                continue
+            scale = {"embed": 0.02, "conv_w": 0.1}.get(
+                name, 1.0 / math.sqrt(shape[-2]))
+            out = np.empty(shape, np.float32)
+            flat = out.reshape(-1)
+            n = -(-flat.size // LMSTACK_INIT_PIECE)
+            for f in [pool.submit(piece, flat, i, j, scale)
+                      for j in range(n)]:
+                f.result()
+            yield out
+
+
+def lmstack_inputs(cfg):
+    """The hold's prompt [1, LMSTACK_PROMPT] and, for the VLM, its image
+    [1, n_image_tokens, d_model], drawn with numpy."""
+    import numpy as np
+    rng = np.random.default_rng(LMSTACK_INIT_SEED + 1)
+    prompt = rng.integers(0, cfg.vocab_size, size=(1, LMSTACK_PROMPT),
+                          dtype=np.int32)
+    img = None
+    if cfg.n_image_tokens:
+        img = rng.standard_normal((1, cfg.n_image_tokens, cfg.d_model),
+                                  dtype=np.float32)
+    return prompt, img
+
+
+def logit_summary(logits) -> dict:
+    """One step's logits [Vp] (numpy, fp32), summarised: argmax, max, L2
+    norm (summed in fp64) and the values at LMSTACK_IDS."""
+    import numpy as np
+    x = np.asarray(logits, np.float64)
+    top = np.sort(x)[-2:]
+    return {"argmax": int(np.argmax(x)), "max": float(x.max()),
+            "gap": float(top[1] - top[0]),
+            "norm": float(np.linalg.norm(x)),
+            "ids": [float(x[i]) for i in LMSTACK_IDS if i < len(x)]}
+
+
+def _lmstack_params(cfg, dev):
+    """The numpy init of ``cfg`` as tensors on ``dev``, copied leaf by leaf
+    (the host never holds the whole model)."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_flatten, tree_paths, tree_unflatten
+
+    like = tf.init_lm(None, cfg, device="meta")
+    leaves, treedef = tree_flatten(like)
+    drawn = lmstack_numpy_init([(p, tuple(x.shape)) for p, x in
+                                zip(tree_paths(like), leaves)])
+    return tree_unflatten(treedef, [torch.from_numpy(a).to(dev)
+                                    for a in drawn])
+
+
+def _lmstack_hold(dev) -> dict:
+    """The three cut models on the card, prefill through the kernels, then
+    LMSTACK_STEPS decode steps fed LMSTACK_REF's tokens, held to the JAX
+    package's summaries (LMSTACK_REF_RTOL)."""
+    import torch
+    from repro_torch.models import transformer as tf
+
+    if LMSTACK_REF is None:
+        raise AssertionError("LMSTACK_REF is not pinned; run "
+                             "scripts/lmstack_ref.py")
+    worst = {}
+    for arch in LMSTACK_CUTS:
+        cfg = lmstack_cut(arch)
+        t0 = time.perf_counter()
+        params = _lmstack_params(cfg, dev)
+        draw_s = time.perf_counter() - t0
+        prompt, img = lmstack_inputs(cfg)
+        ref = LMSTACK_REF[arch]
+        toks = torch.from_numpy(prompt).to(dev)
+        image = None if img is None else torch.from_numpy(img).to(dev)
+        logits, cache = tf.prefill(params, toks, cfg, img=image,
+                                   cache_len=LMSTACK_PROMPT + LMSTACK_STEPS,
+                                   use_pallas=True)
+        got = [logit_summary(logits[0].cpu().numpy())]
+        for i, want in enumerate(ref["steps"][:-1]):
+            tok = torch.full((1, 1), want["argmax"], dtype=torch.long,
+                             device=dev)
+            logits, cache = tf.decode_step(params, tok, LMSTACK_PROMPT + i,
+                                           cache, cfg)
+            got.append(logit_summary(logits[0].cpu().numpy()))
+        rel = 0.0
+        for i, (g, w) in enumerate(zip(got, ref["steps"], strict=True)):
+            scale = max(abs(w["max"]), max(abs(v) for v in w["ids"]))
+            diffs = [abs(a - b) for a, b in zip(g["ids"], w["ids"])]
+            diffs.append(abs(g["max"] - w["max"]))
+            step_rel = max(max(diffs) / scale,
+                           abs(g["norm"] - w["norm"]) / w["norm"])
+            rel = max(rel, step_rel)
+            if g["argmax"] != w["argmax"] and w["gap"] >= LOGIT_TOL:
+                raise AssertionError(f"lmstack hold {arch} step {i}: argmax "
+                                     f"{g['argmax']} vs the JAX package's "
+                                     f"{w['argmax']} (top-2 gap "
+                                     f"{w['gap']:.3e})")
+        if not rel <= LMSTACK_REF_RTOL:
+            raise AssertionError(f"lmstack hold {arch}: {rel:.3e} of max "
+                                 f"|logit| from the JAX package's; allowed "
+                                 f"{LMSTACK_REF_RTOL}")
+        worst[arch] = rel
+        log(f"lmstack hold {arch} ({cfg.n_params()} params: "
+            f"{LMSTACK_CUTS[arch]} at the published widths; numpy init drawn "
+            f"and copied in {draw_s:.3f} s): prefill [1, {LMSTACK_PROMPT}] "
+            f"through the kernels and {LMSTACK_STEPS} decode steps within "
+            f"{rel:.3e} of max |logit| of the JAX package's (allowed "
+            f"{LMSTACK_REF_RTOL}); argmax "
+            f"{[g['argmax'] for g in got]}")
+        del params, cache, logits
+        torch.cuda.empty_cache()
+    return worst
+
+
+def _moe_serve(dev) -> dict:
+    """granite-moe-3b through ``python -m repro_torch.serve --arch
+    granite-moe-3b-a800m --full --use-pallas --requests 16`` in code: a
+    paged launch a layer a decode step and no merge; the run twice, token
+    for token; the plain engine; the capacity drops; at MOE_NODROP the
+    engine against ``sequential_generate``; then the [2, 1024] prefill
+    through a flash launch a layer against the chunked path."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import ServeEngine, sequential_generate
+    from repro_torch.serve.__main__ import make_requests
+
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(LMSTACK_SEED)
+    params = tf.init_lm(gen, cfg)
+    reqs = make_requests(SERVE_REQUESTS, cfg.vocab_size, seed=LMSTACK_SEED,
+                         max_new=SERVE_MAX_NEW)
+    out = phase_serve(dev, cfg, params, reqs, sequential=False)
+    if out["launches"].get("paged_decode_merge"):
+        raise AssertionError(f"granite serve: merges {out['launches']}")
+    with moe.recording() as drops:
+        again = ServeEngine(params, cfg, use_pallas=True,
+                            **SERVE_KW).run(reqs)
+    if [o.tokens for o in again] != out["tokens"]:
+        raise AssertionError("granite serve: a second kernel run gave "
+                             "other tokens")
+    routed, dropped = int(drops["routed"]), int(drops["dropped"])
+    log(f"lmstack granite serve: a second kernel run gave the same tokens "
+        f"for all {len(reqs)} requests; {dropped} of its {routed} routed "
+        f"(token, slot) pairs dropped for capacity (factor "
+        f"{cfg.moe.capacity_factor}; {dropped / routed:.4%})")
+    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_NODROP))
+    with moe.recording() as nd:
+        eng = [o.tokens for o in ServeEngine(
+            params, nodrop, use_pallas=True, **SERVE_KW).run(reqs)]
+        seq = []
+        for r in reqs:
+            prompt = torch.tensor([r.prompt], dtype=torch.int32, device=dev)
+            toks = sequential_generate(params, nodrop, prompt,
+                                       gen_len=r.max_new,
+                                       cache_len=len(r.prompt) + r.max_new)
+            seq.append(tuple(toks[0, len(r.prompt):].tolist()))
+    if int(nd["dropped"]):
+        raise AssertionError(f"granite at factor {MOE_NODROP}: "
+                             f"{int(nd['dropped'])} pairs dropped")
+    ties = _compare_tokens("granite kernel engine vs sequential_generate "
+                           f"(factor {MOE_NODROP})", params, nodrop, reqs,
+                           eng, seq, dev)
+    log(f"lmstack granite: at capacity factor {MOE_NODROP} (0 pairs "
+        f"dropped) the kernel engine == sequential_generate for "
+        f"{len(reqs)} requests"
+        + (f" up to {len(ties)} near-tie(s)" if ties else " (all equal)"))
+    pre = _moe_prefill(dev, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    return {"serve": out, "prefill": pre, "dropped": dropped,
+            "routed": routed, "nodrop_ties": ties}
+
+
+def _moe_prefill(dev, cfg, params, shape=PREFILL_SHAPE) -> dict:
+    """granite's [2, 1024] prefill through a flash launch a layer against
+    the chunked path, the MoE's routes recorded in both.  The MoE is
+    discontinuous where a token's ranked top-k ties: there two paths 1e-6
+    apart in the hidden state may route it differently, and the model
+    parts from that layer on.  So: where every route agrees, logits and
+    every layer's K/V within PREFILL_TOL; where one parts, every rerouted
+    token at a near-tie (ROUTE_TIE) and the K/V of the layers up to it
+    (computed before its MoE) within PREFILL_TOL, the rest reported."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    rng = np.random.default_rng(SERVE_SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           size=shape)).to(dev)
+    tf.prefill(params, tokens, cfg, use_pallas=True)        # warm-up
+    torch.cuda.synchronize(dev)
+    ops.reset_launch_counts()
+    with moe.recording(routes=True) as rk:
+        t0 = time.perf_counter()
+        logits, cache = tf.prefill(params, tokens, cfg, use_pallas=True)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    _expect_launches("granite prefill", counts,
+                     {"flash_attention": cfg.n_layers})
+    with moe.recording(routes=True) as rp:
+        t0 = time.perf_counter()
+        want, want_cache = tf.prefill(params, tokens, cfg)
+        torch.cuda.synchronize(dev)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    c, w = cache["blocks"][0], want_cache["blocks"][0]
+    kv = [max(float((c["k"][i] - w["k"][i]).abs().max()),
+              float((c["v"][i] - w["v"][i]).abs().max()))
+          for i in range(cfg.n_layers)]
+    logit_err = float((logits - want).abs().max())
+    flip = next((i for i, (a, b) in enumerate(zip(rk["routes"],
+                                                   rp["routes"]))
+                 if not (torch.equal(a["expert_idx"], b["expert_idx"])
+                         and torch.equal(a["valid"], b["valid"]))), None)
+    held = kv if flip is None else kv[:flip + 1]
+    if not torch.isfinite(logits).all() or max(held) > PREFILL_TOL or (
+            flip is None and logit_err > PREFILL_TOL):
+        raise AssertionError(f"granite prefill: flash vs chunked K/V "
+                             f"{held}, logits {logit_err} (first parted "
+                             f"route: layer {flip}); allowed {PREFILL_TOL}")
+    tie = None
+    if flip is not None:
+        a, b = rk["routes"][flip], rp["routes"][flip]
+        moved = (a["expert_idx"] != b["expert_idx"]).any(dim=-1)
+        gaps = torch.maximum(a["gap"], b["gap"])[moved]
+        tie = (int(moved.sum()), float(gaps.max()) if len(gaps) else None)
+        if not len(gaps) or tie[1] >= ROUTE_TIE:
+            raise AssertionError(f"granite prefill: layer {flip}'s MoE "
+                                 f"routes {tie[0]} token(s) differently, "
+                                 f"top-k gap up to {tie[1]} (a near-tie is "
+                                 f"< {ROUTE_TIE})")
+    log(f"lmstack granite prefill tokens {list(shape)}: flash {ms:.4f} ms, "
+        f"chunked {plain_ms:.4f} ms (host clock); "
+        + ("every route of the 32 MoE layers equal in both paths; max abs "
+           f"diff logits {logit_err:.3e}, K/V {max(kv):.3e}"
+           if flip is None else
+           f"routes equal up to layer {flip}, where {tie[0]} token(s) sit "
+           f"at a near-tie (ranked top-k gap up to {tie[1]:.3e} < "
+           f"{ROUTE_TIE}) and take other experts; K/V of layers 0..{flip} "
+           f"within {max(held):.3e}; after it (reported, not held) K/V "
+           f"{max(kv):.3e}, logits {logit_err:.3e}")
+        + f" (allowed {PREFILL_TOL}); launches {counts}")
+    del want, want_cache, cache
+    wall, parts = _profile_kernels(
+        dev, lambda: tf.prefill(params, tokens, cfg, use_pallas=True), 1)
+    busy = sum(parts.values())
+    flash = sum(v for k, v in parts.items() if k.startswith("flash_tc"))
+    log(f"lmstack granite prefill under the profiler: wall {wall:.4f} ms, "
+        f"device kernel time {busy:.4f} ms ({100 * busy / wall:.2f}% busy), "
+        f"flash_attention {flash:.4f} ms")
+    return {"launches": counts, "kv": kv, "logits": logit_err, "flip": flip,
+            "tie": tie, "ms": ms, "plain_ms": plain_ms, "busy_ms": busy,
+            "wall_ms": wall}
+
+
+def _zamba2(dev) -> dict:
+    """zamba2-7b: the [1, 4608] prefill through 81 launches of each scan
+    kernel and 13 flash launches against the plain path (logits, every
+    Mamba state, the shared block's ring-buffer caches); ZAMBA2_DECODE
+    greedy steps from the kernel prefill's caches, no launch, against
+    ``sequential_generate``; the serving CLI's baseline with and without
+    ``--use-pallas``; the engine's refusal."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import ServeEngine, sequential_generate
+    from repro_torch.serve.__main__ import main as serve_main
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    cfg = get_config(ZAMBA2_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(LMSTACK_SEED)
+    params = tf.init_lm(gen, cfg)
+    rng = np.random.default_rng(LMSTACK_SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           size=ZAMBA2_PREFILL)).to(dev)
+    tf.prefill(params, tokens[:, :256], cfg, use_pallas=True)   # warm-up
+    tf.prefill(params, tokens[:, :256], cfg, use_pallas=False)
+    torch.cuda.synchronize(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = tf.prefill(params, tokens, cfg, use_pallas=True)
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    n_shared = cfg.n_periods
+    _expect_launches("zamba2 prefill", counts,
+                     {**_ssd_launches(cfg.n_layers),
+                      "flash_attention": n_shared})
+    t0 = time.perf_counter()
+    want, want_cache = tf.prefill(params, tokens, cfg, use_pallas=False)
+    torch.cuda.synchronize(dev)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    errs = {"logits": _rel_err(logits, want)}
+    for path, g, w in zip(tree_paths(cache), tree_leaves(cache),
+                          tree_leaves(want_cache)):
+        name = "/".join(map(str, path))
+        if g.dtype == torch.int32:
+            if not torch.equal(g, w):
+                raise AssertionError(f"zamba2 prefill: {name} differs")
+            continue
+        kind = name.split("/")[0] + "." + str(path[-1])
+        errs[kind] = max(errs.get(kind, 0.0), _rel_err(g, w))
+    ring = cache["shared_attn"]["k"].shape
+    if ring[2] != cfg.window or not torch.equal(
+            cache["shared_attn"]["slot_pos"][0].sort().values.cpu(),
+            torch.arange(ZAMBA2_PREFILL[1] - cfg.window, ZAMBA2_PREFILL[1],
+                         dtype=torch.int32)):
+        raise AssertionError(f"zamba2 prefill: shared caches {tuple(ring)} "
+                             "are not the last window's ring buffer")
+    if not torch.isfinite(logits).all() or max(errs.values()) > ZAMBA2_TOL:
+        raise AssertionError(f"zamba2 prefill: kernel vs plain path {errs}; "
+                             f"allowed {ZAMBA2_TOL}")
+    log(f"lmstack zamba2 prefill {cfg.name} ({cfg.n_params()} params) "
+        f"tokens {list(ZAMBA2_PREFILL)}: kernel path {ms:.4f} ms, plain path "
+        f"{plain_ms:.4f} ms (host clock, one call each); relative error "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (allowed {ZAMBA2_TOL}); shared caches {tuple(ring)}, ring "
+        f"buffers of the last {cfg.window} positions; launches {counts}")
+    del want, want_cache
+
+    ops.reset_launch_counts()
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    out, step_logits = [tok], [logits]
+    s = ZAMBA2_PREFILL[1]
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for i in range(ZAMBA2_DECODE):
+        lg, cache = tf.decode_step(params, tok, s + i, cache, cfg)
+        tok = torch.argmax(lg, dim=-1)[:, None]
+        out.append(tok)
+        step_logits.append(lg)
+    torch.cuda.synchronize(dev)
+    dec_ms = (time.perf_counter() - t0) * 1e3 / ZAMBA2_DECODE
+    _expect_launches("zamba2 decode", ops.launch_counts(), {})
+    got = torch.cat(out, dim=1)[0]
+    del cache
+    seq = sequential_generate(params, cfg, tokens, gen_len=ZAMBA2_DECODE + 1,
+                              cache_len=s + ZAMBA2_DECODE + 1)[0, s:]
+    ties = []
+    diff = (got != seq).nonzero().flatten()
+    if len(diff):
+        i = int(diff[0])
+        top = step_logits[i][0].float().topk(2).values
+        gap = float(top[0] - top[1])
+        if gap >= LOGIT_TOL:
+            raise AssertionError(f"zamba2 decode: parts from "
+                                 f"sequential_generate at token {i} with "
+                                 f"top-2 gap {gap:.3e} >= {LOGIT_TOL}")
+        ties.append((0, i, gap))
+    log(f"lmstack zamba2 decode: {ZAMBA2_DECODE} greedy steps from the "
+        f"kernel prefill's caches, {dec_ms:.4f} ms a step (host clock), 0 "
+        f"launches; tokens == sequential_generate's"
+        + (f" up to a near-tie at {ties[0][1]} (gap {ties[0][2]:.3e})"
+           if ties else " (all equal)"))
+    try:
+        ServeEngine(params, cfg)
+    except NotImplementedError as e:
+        log(f"lmstack zamba2 engine: refused as the reference's is ({e})")
+    else:
+        raise AssertionError("zamba2: the paged engine accepted it")
+    del params, logits, step_logits
+    torch.cuda.empty_cache()
+
+    rows = {}
+    n_req = int(ZAMBA2_CLI[1])
+    for extra, calls in (((), 0), (("--use-pallas",), n_req)):
+        ops.reset_launch_counts()
+        rows[extra] = serve_main(["--arch", ZAMBA2_ARCH, "--full",
+                                  "--baseline", *ZAMBA2_CLI, *extra])
+        want_counts = _ssd_launches(calls * cfg.n_layers)
+        if calls:
+            want_counts["flash_attention"] = calls * n_shared
+        _expect_launches(f"zamba2 serve --baseline {' '.join(extra)}",
+                         ops.launch_counts(), want_counts)
+        log(f"lmstack zamba2 serve --full --baseline {' '.join(ZAMBA2_CLI)} "
+            f"{' '.join(extra)}: {rows[extra]['tokens_per_s']:.2f} tokens/s, "
+            f"{rows[extra]['wall_s']:.4f} s; launches {ops.launch_counts()}")
+        torch.cuda.empty_cache()
+    return {"launches": counts, "errs": errs, "ms": ms, "plain_ms": plain_ms,
+            "decode_ms": dec_ms, "ties": ties, "serve": rows}
+
+
+def _vlm(dev) -> dict:
+    """The VLM through ``python -m repro_torch.launch.serve ... --full
+    --use-pallas --batch 2 --prompt-len 512 --gen-len 16`` in code (the
+    sequential path with a [2, 1601, 4096] image stub: a flash launch a
+    dense layer in the prefill), tokens equal to the run without
+    ``--use-pallas``; then a prefill with every gate at VLM_GATE, kernel
+    path against plain path, so that the cross blocks do work."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    cfg = get_config(VLM_ARCH)
+    n_dense = cfg.n_periods * cfg.period.count("dense")
+    runs, launches = {}, {}
+    for extra in (("--use-pallas",), ()):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        runs[extra] = launch_serve.main([*VLM_ARGV, *extra])
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches[extra] = ops.launch_counts()
+        _expect_launches(f"vlm launch.serve {' '.join(extra)}",
+                         launches[extra],
+                         {"flash_attention": n_dense} if extra else {})
+        log(f"lmstack vlm launch.serve {' '.join(VLM_ARGV)} "
+            f"{' '.join(extra)}: {wall:.4f} s with the init (host clock); "
+            f"launches {launches[extra]}")
+        torch.cuda.empty_cache()
+    kernel_toks, plain_toks = runs[("--use-pallas",)], runs[()]
+    del runs
+    # the launcher's model and image, drawn again from its seed (0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tf.init_lm(gen, cfg)
+    ties = []
+    for r in range(kernel_toks.shape[0]):
+        diff = (kernel_toks[r] != plain_toks[r]).nonzero().flatten()
+        if not len(diff):
+            continue
+        i = int(diff[0])
+        img = launch_serve.image_stub(cfg, 2, 0, dev)[r:r + 1]
+        lg, _ = tf.prefill(params, plain_toks[r:r + 1, :i], cfg, img=img)
+        top = lg[0].topk(2).values
+        gap = float(top[0] - top[1])
+        if gap >= LOGIT_TOL:
+            raise AssertionError(f"vlm: row {r} parts at position {i} with "
+                                 f"top-2 gap {gap:.3e} >= {LOGIT_TOL}")
+        ties.append((r, i, gap))
+    log(f"lmstack vlm tokens: --use-pallas == without for both rows of "
+        f"{tuple(kernel_toks.shape)} (512 prompt + 16 greedy tokens)"
+        + (f" up to near-ties {ties}" if ties else " (all equal)"))
+    launches = launches[("--use-pallas",)]
+    for blk, kind in zip(params["blocks"], cfg.period):
+        if kind == "cross":
+            blk["gate_attn"].fill_(VLM_GATE)
+            blk["gate_mlp"].fill_(VLM_GATE)
+    tokens = kernel_toks[:, :512]
+    img = launch_serve.image_stub(cfg, 2, LMSTACK_SEED + 1, dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = tf.prefill(params, tokens, cfg, img=img, use_pallas=True)
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    _expect_launches("vlm gated prefill", counts,
+                     {"flash_attention": n_dense})
+    t0 = time.perf_counter()
+    want, want_cache = tf.prefill(params, tokens, cfg, img=img)
+    torch.cuda.synchronize(dev)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    errs = {"logits": float((logits - want).abs().max())}
+    for path, g, w in zip(tree_paths(cache), tree_leaves(cache),
+                          tree_leaves(want_cache)):
+        if g.dtype == torch.int32:
+            continue
+        key = f"blocks[{path[1]}].{path[-1]}"
+        errs[key] = max(errs.get(key, 0.0), float((g - w).abs().max()))
+    worst = max(errs.values())
+    off, _, _ = tf.forward(params, tokens[:1, :64], cfg, mode="train",
+                           img=img[:1])
+    for blk in params["blocks"]:
+        if "gate_attn" in blk:
+            blk["gate_attn"].zero_()
+            blk["gate_mlp"].zero_()
+    shut, _, _ = tf.forward(params, tokens[:1, :64], cfg, mode="train",
+                            img=img[:1])
+    moved = float((off - shut).abs().max())
+    if not torch.isfinite(logits).all() or worst > PREFILL_TOL or \
+            not moved > 0:
+        raise AssertionError(f"vlm gated prefill: flash vs chunked {errs} "
+                             f"(allowed {PREFILL_TOL}); gates 0.5 vs 0 "
+                             f"moved the logits by {moved}")
+    log(f"lmstack vlm prefill [2, 512] with every gate at {VLM_GATE} and a "
+        f"[2, {cfg.n_image_tokens}, {cfg.d_model}] image: flash {ms:.4f} ms, "
+        f"chunked {plain_ms:.4f} ms (host clock); max abs diff logits "
+        f"{errs['logits']:.3e}, K/V and image K/V "
+        f"{max(v for k, v in errs.items() if k != 'logits'):.3e} (allowed "
+        f"{PREFILL_TOL}); the gates move the logits by {moved:.3e}; "
+        f"launches {counts}")
+    del params, cache, want, want_cache, logits
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_launches": counts, "errs": errs,
+            "ms": ms, "plain_ms": plain_ms, "ties": ties}
+
+
+def _moe_train(dev) -> dict:
+    """The LM preset on reduced granite-moe-3b, LMSTACK_TRAIN steps through
+    ``api.run`` on the card (one ``qg_step`` a step, no other kernel,
+    finite losses ending below the first) and on the CPU, held over
+    LMSTACK_TRAIN_HELD."""
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.kernels import ops
+
+    spec = api.presets.get(LM_PRESET).override(
+        "model.kwargs=" + json.dumps({"arch": MOE_ARCH, "reduced": True}),
+        f"loop.steps={LMSTACK_TRAIN}", "loop.log_every=1")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = api.run(spec, device=dev, log_fn=lambda *_: None)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    _expect_launches("lmstack moe train", counts,
+                     {"qg_step": LMSTACK_TRAIN})
+    losses = [r["loss"] for r in res.history]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"lmstack moe train: losses {losses}")
+    cpu = api.run(spec, device="cpu", log_fn=lambda *_: None)
+    cpu_losses = [r["loss"] for r in cpu.history]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)]
+    steps, rtol = LMSTACK_TRAIN_HELD
+    if max(gaps[:steps]) > rtol:
+        raise AssertionError(f"lmstack moe train: card vs CPU {gaps} over "
+                             f"the first {steps} steps; allowed {rtol}")
+    log(f"lmstack moe train {LM_PRESET} on reduced {MOE_ARCH}: "
+        f"{LMSTACK_TRAIN} steps in {wall:.3f} s, loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f}; card vs CPU relative gap by step "
+        f"{[f'{g:.2e}' for g in gaps]} (held {rtol} over {steps}); "
+        f"launches {counts}")
+    return {"launches": counts, "losses": losses, "gaps": gaps}
+
+
+def phase_lmstack(dev) -> dict:
+    """Slice 6b-iii: the hold against the JAX package at the published
+    widths (LMSTACK_REF); granite-moe-3b served and prefilled; zamba2-7b
+    prefilled, decoded and served; the VLM served and prefilled; MoE
+    training.  One model resident at a time."""
+    out = {"hold": _lmstack_hold(dev), "moe": _moe_serve(dev),
+           "zamba2": _zamba2(dev), "vlm": _vlm(dev),
+           "train": _moe_train(dev)}
+    launches = {}
+    for counts in (out["moe"]["serve"]["launches"],
+                   out["moe"]["prefill"]["launches"],
+                   out["zamba2"]["launches"], out["vlm"]["launches"]):
+        _add_counts(launches, counts)
+    out["launches"] = launches
+    log(f"lmstack launches (granite's serving run and prefill, zamba2's "
+        f"prefill, the VLM's launch.serve): {launches}")
+    return out
+
+
 def sass_mma_counts(lib: Path) -> dict:
     """``(HMMA, all)`` instructions per kernel in ``lib``'s SASS (HMMA: the
     tensor-core products), by ``cuobjdump -sass`` from the toolkit that
@@ -4195,7 +5082,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"build   {lib}: {line.strip()}")
     # the scan's chunk and output passes: fp32/bf16 x 16/32 columns a warp
-    check_on_tensor_cores("attention", ("flash_tc",))
+    # flash: fp32/bf16 x head_dim 32/64/112/128
+    check_on_tensor_cores("attention", ("flash_tc",), 8)
     check_on_tensor_cores("ssd_scan", SSD_PRODUCT_KERNELS, 8)
 
     # 2. kernels against their plain versions, then their times
@@ -4250,6 +5138,12 @@ def main() -> int:
     # 10. slice 8a's main path: the three 1024-node presets through the
     # two-kernel path, the churn scenario's masks against the JAX package's
     scen_out = phase_scenario(dev)
+    torch.cuda.empty_cache()
+
+    # 11. slice 6b-iii's main paths: granite-moe-3b served through the
+    # paged kernels, zamba2-7b prefilled through the scan and flash at
+    # head_dim 112, the VLM served, each held against the JAX package
+    lmstack_out = phase_lmstack(dev)
 
     smi = _card()
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -4349,6 +5243,15 @@ def main() -> int:
     for row in kernels:
         if lm_launches.get(row["name"]):
             row["lm_launches"] = lm_launches[row["name"]]
+    for row in kernels:  # slice 6b-iii's main paths
+        if lmstack_out["launches"].get(row["name"]):
+            row["lmstack_launches"] = lmstack_out["launches"][row["name"]]
+        for label in {"flash_attention": ("zamba2", "granite", "vlm"),
+                      "paged_decode_attention": ("granite",)}.get(
+                          row["name"], ()):
+            row[label] = {k: att_timed[(row["name"], label)][k]
+                          for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")}
     t = ssd_timed["main"]
     kernels.append({
         "name": "ssd_scan", "route": "cuda", "source": csrc + "ssd_scan.cu",
@@ -4357,7 +5260,11 @@ def main() -> int:
         "pass_launches": {k: mamba_out["launches"][k] for k in SSD_KERNELS},
         "max_abs_err": ssd_worst["float32"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": None})
+        "bound_by": t["bound_by"], "library_ms": None,
+        "lmstack_launches": lmstack_out["launches"]["ssd_scan"],
+        "zamba2": {k: ssd_timed["zamba2"][k]
+                   for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Model/loss plugins for the declarative experiment layer.
 
 Port of ``repro/api/models.py``: the MLP, ResNet-20 and the transformer
-LM (any ``configs/`` arch whose block kinds the port runs).  A plugin is a
+LM (any ``configs/`` arch).  A plugin is a
 factory ``factory(spec, task) -> ModelBundle`` registered under a name.
 Where the reference writes one node's functions and vmaps them, the port's
 work on the node-stacked layout directly:
@@ -184,29 +184,48 @@ def _transformer(spec, task) -> ModelBundle:
     ``(tokens [n, B, S+1],)``: inputs are the first S positions, labels the
     last S.  Training runs the plain chunked attention under autograd (the
     flash kernel has no backward), as the reference trains without
-    ``use_pallas``; there is no eval protocol."""
+    ``use_pallas``; the MoE balance loss enters each node's loss through
+    ``train_loss``, and a VLM sees a numpy image stub drawn from the task's
+    seed, as in the reference.  There is no eval protocol."""
     from repro_torch.models import transformer as tf
 
     kw = _pop_kwargs(spec, _TRANSFORMER_KW)
     cfg = resolve_transformer_config(spec.model)
-    tf.check_ported(cfg)
     fwd_kw = {}
     if kw["chunk"] is not None:
         fwd_kw["chunk"] = int(kw["chunk"])
     if kw["ssd_chunk"] is not None:
         fwd_kw["ssd_chunk"] = int(kw["ssd_chunk"])
 
+    # the VLM's image embeddings: a stub drawn as the reference draws it
+    # (bit-equal), shared by every node and batch row
+    img = None
+    if cfg.n_image_tokens:
+        rng = np.random.default_rng(task.seed)
+        img = torch.from_numpy(rng.normal(
+            size=(cfg.n_image_tokens, cfg.d_model)).astype(np.float32))
+
     def init_fn(generator):
         return tf.init_lm(generator, cfg), {}
 
-    def node_loss(p, toks):
-        return tf.train_loss(p, {"tokens": toks[:, :-1],
-                                 "labels": toks[:, 1:]}, cfg, **fwd_kw)
+    def node_loss(p, toks, *image):
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if image:
+            batch["image_embeds"] = image[0].expand(toks.shape[0],
+                                                    *image[0].shape)
+        return tf.train_loss(p, batch, cfg, **fwd_kw)
 
-    per_node = torch.func.vmap(node_loss)
+    per_node = torch.func.vmap(node_loss, in_dims=(0, 0) + (None,) * (
+        img is not None))
+    on_device = {}
 
     def loss_fn(params, ms, batch):
         (toks,) = batch
-        return per_node(params, toks.long()), ({}, {})
+        image = ()
+        if img is not None:
+            if toks.device not in on_device:
+                on_device[toks.device] = img.to(toks.device)
+            image = (on_device[toks.device],)
+        return per_node(params, toks.long(), *image), ({}, {})
 
     return ModelBundle(init_fn, loss_fn, eval_fn=None)

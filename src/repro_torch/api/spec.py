@@ -7,8 +7,9 @@ losslessly.  ``validate()`` accepts the subset that the port runs today:
 every registry topology (the generated graphs too), every optimizer and
 explicit stage chain, dense gossip (plain or compressed) on the vmap
 runtime, the scenario engine, the MLP and ResNet-20 on classification
-data, the transformer LM (dense, local/global and Mamba-2 blocks) on
-``lm_domains`` data, checkpoints and telemetry.  Anything outside it raises
+data, the transformer LM (every configured arch: dense, local/global,
+MoE, Mamba-2, the zamba2 hybrid and the VLM) on ``lm_domains`` data,
+checkpoints and telemetry.  Anything outside it raises
 ``NotImplementedError`` naming the slice of the port that brings it;
 malformed values raise ``ValueError`` as in the reference.
 """
@@ -390,15 +391,10 @@ class ExperimentSpec:
             err("model", f"model {self.model.name!r} consumes "
                 f"{' | '.join(allowed)} data, not dataset={d.dataset!r}")
         if self.model.name == "transformer":
-            from repro_torch.models.transformer import check_ported
             try:
-                cfg = resolve_transformer_config(self.model)
+                resolve_transformer_config(self.model)
             except (ValueError, TypeError) as e:
                 err("model.kwargs", str(e))
-            try:
-                check_ported(cfg)
-            except NotImplementedError as e:
-                raise NotImplementedError(f"{where}.model: {e}") from None
         return self
 
 

@@ -25,8 +25,9 @@ enough blocks to put four on each SM at such lengths, and one split (no
 merge) at the serving engine's 256-token slots.
 
 Both take fp32 or bf16 (``TypeError`` on any other dtype) and compute in
-fp32; flash takes head_dim 32, 64 or 128, paged decode 16, 32, 64 or 128
-(``ValueError`` on any other).  Every wrapper checks its arguments (dtype,
+fp32; flash takes head_dim 32, 64, 112 (zamba2's shared block) or 128,
+paged decode 16, 32, 64 or 128 (``ValueError`` on any other: its P.V puts
+D/32 dims on a lane, and no paged path serves head_dim 112).  Every wrapper checks its arguments (dtype,
 shapes, then device, contiguity and 16-byte alignment: CUDA tensors only),
 allocates its output and scratch with ``torch.empty`` and launches on the
 current stream; ``kernels/ops.py`` routes CPU tensors to the plain versions
@@ -53,8 +54,8 @@ LAUNCHES = {"flash_attention": 0, "paged_decode_attention": 0,
             "paged_decode_merge": 0}
 
 #: head dims the flash kernel is instantiated for (reduced configs,
-#: TinyLlama, Gemma-2)
-FLASH_HEAD_DIMS = (32, 64, 128)
+#: TinyLlama and granite, zamba2's shared block, Gemma-2 and the VLM)
+FLASH_HEAD_DIMS = (32, 64, 112, 128)
 #: head dims the paged-decode kernel is instantiated for (the reference's
 #: test cases, reduced configs, TinyLlama, Gemma-2)
 PAGED_HEAD_DIMS = (16, 32, 64, 128)

@@ -41,6 +41,13 @@
 //     products (32 rather than 64 keys: fewer registers, measured faster).
 //     Rows are padded by 16 bytes, so the fragment reads of K (row g,
 //     column t) and of V (row 2t, column g) fall in 32 distinct banks.
+//     At D = 112 (zamba2's shared block) the fp32 pitch is 116 words,
+//     116 = 20 mod 32: K's rows g = 0..7 start on banks 0, 20, 8, 28,
+//     16, 4, 24, 12, plus t in 0..3, and V's rows 2t on 0, 8, 16, 24,
+//     plus g in 0..7, so both still cover 32 distinct banks; in bf16 the
+//     pitch is 60 words and two lanes share each word read.  A tile pair
+//     is 2 * 2 * 32 * 116 * 4 = 59,392 B there, past the default 48 KB
+//     (the launcher raises the limit, as at D = 128).
 //     Keys past T are zero-filled.
 //   * The online softmax runs on the accumulator fragments: a thread holds
 //     two rows (g, g+8) and columns 2t, 2t+1 of each 8-key block; row max
@@ -117,6 +124,11 @@ constexpr int kFaRows = kFaWarps * 16;     // 64 query rows per block
 constexpr int kFaStages = 2;  // K/V tiles in the ring (a deeper one
                               // measured no faster)
 
+__host__ __device__ constexpr int largest_divisor_upto8(int n) {
+  return n % 8 == 0 ? 8 : n % 7 == 0 ? 7 : n % 6 == 0 ? 6 : n % 5 == 0 ? 5
+       : n % 4 == 0 ? 4 : n % 3 == 0 ? 3 : n % 2 == 0 ? 2 : 1;
+}
+
 template <class T, int D>
 struct FlashShape {
   static constexpr int KT = 32;   // keys per tile
@@ -138,7 +150,9 @@ __global__ void __launch_bounds__(kFaThreads)
   constexpr int CPR = Sh::CPR, EPC = 16 / static_cast<int>(sizeof(T));
   constexpr int NK = KT / 8;  // 8-key blocks of a tile
   constexpr int ND = D / 8;   // 8-dim blocks of a head
-  constexpr int NV = ND < 8 ? ND : 8;  // 8-dim blocks per P V pass
+  // 8-dim blocks per P V pass: the largest divisor of ND up to 8, so the
+  // passes tile the head exactly (8 at D 64 and 128, 4 at 32, 7 at 112)
+  constexpr int NV = largest_divisor_upto8(ND);
   constexpr bool kExact = sizeof(T) == 2;  // bf16: exact in TF32
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);  // [stages][KT][PITCH]
@@ -321,7 +335,7 @@ __global__ void __launch_bounds__(kFaThreads)
       for (int i = 0; i < 4; ++i) split_tf32(pa[i], ah[i], al[i]);
       const T* v0 = vt + (8 * j + 2 * t) * PITCH;
       const T* v1 = v0 + PITCH;
-      // eight 8-dim tiles at a time (registers for their splits at D 128)
+      // NV 8-dim tiles at a time (registers for their splits at D 128)
 #pragma unroll
       for (int n0 = 0; n0 < ND; n0 += NV) {
         float vb[NV][2];
@@ -385,6 +399,9 @@ cudaError_t dispatch_flash(const void* q, const void* k, const void* v,
     case 64:
       return launch_flash<T, 64>(q, k, v, o, B, S, Tk, H, KH, causal, window,
                                  softcap, scale, stream);
+    case 112:
+      return launch_flash<T, 112>(q, k, v, o, B, S, Tk, H, KH, causal,
+                                  window, softcap, scale, stream);
     case 128:
       return launch_flash<T, 128>(q, k, v, o, B, S, Tk, H, KH, causal,
                                   window, softcap, scale, stream);
@@ -711,7 +728,7 @@ cudaError_t dispatch_paged(const void* q, const void* kp, const void* vp,
 extern "C" {
 
 // o [B,S,H,D] = attention of q [B,S,H,D] over k/v [B,T,KH,D]; dtype 0 is
-// fp32, 1 is bf16; D in {32, 64, 128}.
+// fp32, 1 is bf16; D in {32, 64, 112, 128}.
 int attn_flash_forward(const void* q, const void* k, const void* v, void* o,
                        int B, int S, int Tk, int H, int KH, int D, int causal,
                        int window, float softcap, float scale, int dtype,

@@ -4,7 +4,8 @@ Port of ``repro/launch/serve.py``.  Routes through the continuous-batching
 engine (``repro_torch.serve``) by default: requests are admitted into
 in-flight decode slots over a paged KV cache.  ``--sequential`` (or a
 temperature above 0) runs the one-batch dense-cache path (prefill +
-decode_step), which is also the engine's parity baseline.
+decode_step), which is also the engine's parity baseline; a VLM config
+(``n_image_tokens``) always takes it, with a stub image.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \
@@ -14,9 +15,15 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --full --use-pallas
 
-The prompts are drawn with numpy from ``--seed`` (the reference draws them
-with ``jax.random``, so the two launchers' prompts differ); the default
-device is ``cuda``.
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llama-3.2-vision-11b --full --use-pallas --batch 2 \
+      --prompt-len 512 --gen-len 16
+
+The prompts and a VLM's image stub are drawn with numpy from ``--seed``
+(the reference draws them with ``jax.random``, so the two launchers'
+inputs differ); the default device is ``cuda``.  ``--use-pallas`` runs the
+engine's attention kernels, or the sequential path's prefill through the
+kernels.
 """
 from __future__ import annotations
 
@@ -35,13 +42,27 @@ from ..serve import (Request, ServeEngine, load_serving_checkpoint,
 
 def generate(params, cfg, prompts, *, gen_len: int, cache_len: int,
              img=None, temperature: float = 0.0, seed: int = 0,
-             chunk: int = 256):
+             chunk: int = 256, use_pallas: bool = False):
     """prompts [B, S] -> tokens [B, S+gen_len]; the loop lives in
-    ``repro_torch.serve.sequential_generate``."""
+    ``repro_torch.serve.sequential_generate`` (``use_pallas``: its prefill
+    through the kernels)."""
     return sequential_generate(params, cfg, prompts, gen_len=gen_len,
                                cache_len=cache_len, img=img,
                                temperature=temperature, seed=seed,
-                               chunk=chunk)
+                               chunk=chunk, use_pallas=use_pallas)
+
+
+def image_stub(cfg, batch: int, seed: int, device) -> torch.Tensor | None:
+    """The VLM's stub image embeddings ``[batch, n_image_tokens,
+    d_model]``, standard normal, drawn with numpy from ``seed`` (the
+    reference draws them with ``jax.random``); None for a text-only
+    config."""
+    if not cfg.n_image_tokens:
+        return None
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(
+        (batch, cfg.n_image_tokens, cfg.d_model),
+        dtype=np.float32)).to(device)
 
 
 def main(argv=None):
@@ -69,7 +90,8 @@ def main(argv=None):
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=32)
     ap.add_argument("--use-pallas", action="store_true",
-                    help="the attention kernels (on CUDA tensors)")
+                    help="the kernels (on CUDA tensors): the engine's "
+                         "attention, or the sequential path's prefill")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -87,12 +109,17 @@ def main(argv=None):
 
     print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "
           f"gen={args.gen_len} device={dev}")
-    if args.sequential or args.temperature > 0:
-        # the engine is greedy; temperature rides the sequential path
+    if args.sequential or args.temperature > 0 or cfg.n_image_tokens:
+        # the engine is greedy and text-only: temperature and the VLM ride
+        # the sequential path
+        img = image_stub(cfg, args.batch, args.seed, dev)
         t0 = time.time()
         toks = generate(params, cfg, prompts, gen_len=args.gen_len,
-                        cache_len=args.prompt_len + args.gen_len,
-                        temperature=args.temperature, seed=args.seed)
+                        cache_len=args.prompt_len + args.gen_len, img=img,
+                        temperature=args.temperature, seed=args.seed,
+                        use_pallas=args.use_pallas)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
         dt = time.time() - t0
         n_new = args.batch * args.gen_len
         print(f"[sequential] {n_new} tokens in {dt:.2f}s "

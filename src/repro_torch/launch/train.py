@@ -4,11 +4,11 @@ Port of ``repro/launch/train.py``.  The CLI flags assemble one declarative
 ``ExperimentSpec`` (or start from a preset with ``--preset``), and the one
 ``repro_torch.api.run`` assembly path wires partition, topology, optimizer,
 gossip and loop from it.  Any spec field is reachable with ``--set
-section.key=value``.  It trains the reduced variant of an architecture
-whose block kinds the port runs (dense, local/global, Mamba-2) on
-synthetic non-i.i.d. LM data with the full decentralized stack; an arch
-with another kind raises ``NotImplementedError`` naming its slice.  The
-reference's TPU mesh modes come with slices 8 and 9 of the port.
+section.key=value``.  It trains the reduced variant of any configured
+architecture (dense, local/global, MoE, Mamba-2, the zamba2 hybrid, the
+VLM with its stub image) on synthetic non-i.i.d. LM data with the full
+decentralized stack.  The reference's TPU mesh modes come with slices 8b
+and 9 of the port.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \

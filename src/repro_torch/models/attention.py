@@ -1,16 +1,15 @@
-"""Attention: GQA self-attention (full / sliding-window / softcap / qkv-bias)
-and KV-cache decode.
+"""Attention: GQA self-attention (full / sliding-window / softcap / qkv-bias),
+cross-attention (VLM) and KV-cache decode.
 
 Port of ``repro/models/attention.py``: ``init_attention``, ``_proj``,
-``qkv``, ``chunked_attention`` (the online-softmax math), ``decode_attention``
-(its fp32 path) and ``paged_attention``.  Layouts are the reference's: q
-``[B, S, H, D]``, k/v ``[B, T, K, D]``, GQA by head groups ``H = K * G``.
+``qkv``, ``chunked_attention`` (the online-softmax math),
+``decode_attention`` (fp32, and ``lowp`` over a low-precision cache),
+``paged_attention`` and ``cross_attention``.  Layouts are the reference's:
+q ``[B, S, H, D]``, k/v ``[B, T, K, D]``, GQA by head groups ``H = K * G``.
 These are the non-kernel paths (``use_pallas=False``); the kernels
 (``flash_attention``, ``paged_decode_attention``) sit behind
-``repro_torch.kernels.ops``.  Not yet ported: ``cross_attention`` (the VLM
-blocks), the ``lowp`` form of ``decode_attention``, the query-chunked
-sliding-window variant and the scan controls (``remat``/``unroll``/
-``repeat_kv``).
+``repro_torch.kernels.ops``.  Not ported: the query-chunked sliding-window
+variant and the TPU scan controls (``remat``/``unroll``/``repeat_kv``).
 """
 from __future__ import annotations
 
@@ -20,7 +19,7 @@ from ..kernels.ref import attn_scale
 from . import layers
 
 __all__ = ["NEG_INF", "init_attention", "qkv", "chunked_attention",
-           "decode_attention", "paged_attention"]
+           "decode_attention", "paged_attention", "cross_attention"]
 
 NEG_INF = -2.0e38
 
@@ -116,14 +115,22 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
 # ---------------------------------------------------------------------------
 
 def decode_attention(q, k_cache, v_cache, cur_pos, *, window: int = 0,
-                     softcap: float = 0.0, k_pos=None):
+                     softcap: float = 0.0, k_pos=None, lowp: bool = False):
     """q [B,1,H,D]; k/v_cache [B,T,K,D]; ``cur_pos`` the new token's
     position (0-d int tensor); ``k_pos`` [T] per-slot positions of a ring
-    buffer (-1 = empty).  The reference's fp32 path."""
+    buffer (-1 = empty).
+
+    ``lowp`` is the reference's form for a low-precision (bf16) cache:
+    ``q * scale`` and the softmax weights are rounded to the cache's dtype
+    before their products, which accumulate in fp32.  A product of two
+    bf16 values is exact in fp32, so products taken in fp32 after that
+    rounding are the reference's; only the summation order differs."""
     b, _, h, d = q.shape
     t, kh = k_cache.shape[1], k_cache.shape[2]
     g = h // kh
     qf = q.reshape(b, 1, kh, g, d).float() * attn_scale(d)
+    if lowp:
+        qf = qf.to(k_cache.dtype).float()
     sc = torch.einsum("bskgd,btkd->bskgt", qf, k_cache.float())
     if softcap:
         sc = layers.softcap(sc, softcap)
@@ -136,6 +143,8 @@ def decode_attention(q, k_cache, v_cache, cur_pos, *, window: int = 0,
         mask &= k_pos > cur_pos - window
     sc = torch.where(mask[None, None, None, None, :], sc, NEG_INF)
     p = torch.softmax(sc, dim=-1)
+    if lowp:
+        p = p.to(v_cache.dtype).float()
     out = torch.einsum("bskgt,btkd->bskgd", p, v_cache.float())
     return out.reshape(b, 1, h, d).to(q.dtype)
 
@@ -169,3 +178,24 @@ def paged_attention(q, k, v, q_pos, *, window: int = 0, softcap: float = 0.0):
     out = torch.einsum("bskgt,btkd->bskgd", p, v.float())
     return out.reshape(b, c, h, d).to(q.dtype)
 
+
+
+# ---------------------------------------------------------------------------
+# cross attention (VLM) -- queries from text, K/V from image embeddings
+# ---------------------------------------------------------------------------
+
+def cross_attention(params: dict, x, kv_src, n_heads: int, n_kv_heads: int,
+                    head_dim: int):
+    """x [B,S,d] text hidden; kv_src [B,T,d] image embeddings -> [B,S,d]:
+    non-causal chunked attention over all T image keys, in KV chunks of
+    ``min(1024, T)`` (a shorter last chunk where T is not a multiple)."""
+    b, s, _ = x.shape
+    t = kv_src.shape[1]
+    q = _proj(x, params["wq"], params.get("bq")).reshape(b, s, n_heads,
+                                                         head_dim)
+    k = _proj(kv_src, params["wk"], params.get("bk")).reshape(
+        b, t, n_kv_heads, head_dim)
+    v = _proj(kv_src, params["wv"], params.get("bv")).reshape(
+        b, t, n_kv_heads, head_dim)
+    out = chunked_attention(q, k, v, causal=False, chunk=min(1024, t))
+    return out.reshape(b, s, n_heads * head_dim) @ params["wo"]

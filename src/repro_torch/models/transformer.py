@@ -1,24 +1,37 @@
-"""Decoder LM: the forward stack of the ported block kinds and the paged
+"""Decoder LM covering all ten configured architectures, and the paged
 serving step.
 
-Port of ``repro/models/transformer.py`` for the block kinds
+Port of ``repro/models/transformer.py``.  A model is a repeating *period*
+of block kinds (``configs.base.ModelConfig``):
 
     dense   self-attention (full causal) + SwiGLU MLP
     local   self-attention with sliding window
     global  full self-attention (alias of dense; used in alternating patterns)
+    moe     self-attention + mixture-of-experts FFN (optional dense residual;
+            ``models/moe.py``)
     mamba   Mamba-2 SSD mixer (no MLP; ``models/ssm.py``)
+    cross   gated cross-attention to image embeddings + gated MLP (VLM);
+            both gates are 0-d fp32 params through ``tanh``, 0 at init
 
-A model is a repeating *period* of block kinds (``configs.base.ModelConfig``);
-parameters and caches keep the reference's layout -- one entry of
+zamba2's *shared block* is one ``dense``-shaped param set
+(``params["shared_attn"]``) applied at the end of every period (never after
+the tail layers), with one KV cache per use site stacked over the periods
+like the backbone caches (a ring buffer of ``window`` rows when the config
+has a window).  ``tail_layers`` extra blocks of kind ``period[0]`` follow
+the periods.
+
+Parameters and caches keep the reference's layout -- one entry of
 ``params["blocks"]`` per period position, each leaf stacked over the periods
 -- and the port loops over the periods where the reference scans.  Four
 modes: ``train`` (tokens -> logits at every position), ``prefill`` (tokens
--> last logits + KV caches / Mamba states), ``decode`` (one token + caches
--> logits) and ``paged`` (a chunk of tokens per serving slot against the
-paged KV pool, the continuous-batching serving path: every slot carries its
-own absolute position, K/V are written into fixed-size pages addressed by a
-per-slot block table, and attention reads the slot's pages back; attention
-stacks only, as in the reference).
+-> last logits + KV caches / Mamba states / image K/V), ``decode`` (one
+token + caches -> logits) and ``paged`` (a chunk of tokens per serving slot
+against the paged KV pool, the continuous-batching serving path: every slot
+carries its own absolute position, K/V are written into fixed-size pages
+addressed by a per-slot block table, and attention reads the slot's pages
+back; attention stacks only, as in the reference: ``dense``, ``local``,
+``global`` and ``moe``, where the MoE layer keeps the chunk's padded rows
+out of its capacity queues through ``PageInfo.token_mask``).
 
 Where the reference returns new caches (its arrays are immutable; the
 engine donates the pools), the port writes the decode caches, the Mamba
@@ -28,16 +41,15 @@ final-state output (the kernel's under ``use_pallas``) and its conv state
 from the raw conv input, where the reference recomputes both through a
 second jnp pass (its ``_mamba_prefill_state``).
 
-``train_loss`` is the mean token cross-entropy of a ``train`` forward (plus
-its auxiliary loss), the loss of decentralized LM training; it is a plain
-function of the params dict, so the training plugin (``api/models.py``)
-maps it over the node axis with ``torch.func.vmap``.
+``train_loss`` is the mean token cross-entropy of a ``train`` forward plus
+its auxiliary loss (the MoE balance loss, summed over the blocks), the
+loss of decentralized LM training; it is a plain function of the params
+dict, so the training plugin (``api/models.py``) maps it over the node axis
+with ``torch.func.vmap``.
 
-Not yet ported: the ``moe`` and ``cross`` kinds and the zamba2 shared block
-(they raise ``NotImplementedError`` naming their slice), and the TPU mesh
-and scan controls (``cache_constraint``, ``act_spec``,
-``head_spec``, ``moe_expert_spec``, ``repeat_kv``, ``remat``, ``unroll``,
-``skip_masked_chunks``, ``decode_lowp``).
+Not ported: the TPU mesh and scan controls (``cache_constraint``,
+``act_spec``, ``head_spec``, ``moe_expert_spec``, ``repeat_kv``, ``remat``,
+``unroll``, ``skip_masked_chunks``).
 """
 from __future__ import annotations
 
@@ -49,37 +61,15 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
 from ..tree import tree_flatten, tree_map, tree_unflatten
-from . import attention, layers, ssm
+from . import attention, layers, moe, ssm
 
 __all__ = ["ATTN_KINDS", "RunCtx", "PageInfo", "init_lm", "init_cache",
-           "init_paged_cache", "supports_paged", "check_ported",
-           "apply_block", "forward", "train_loss", "prefill", "decode_step",
-           "paged_step"]
+           "init_paged_cache", "supports_paged", "apply_block", "forward",
+           "train_loss", "prefill", "decode_step", "paged_step"]
 
+#: the block kinds with a self-attention KV cache, which paged serving
+#: takes (``mamba`` keeps an O(1) state, ``cross`` the image's K/V)
 ATTN_KINDS = ("dense", "local", "global", "moe")
-
-#: what the port cannot run yet, and the slice that brings it
-_LATER = {
-    "moe": "block kind 'moe' (the MoE layer) comes with the rest of slice 6",
-    "cross": "block kind 'cross' (VLM cross-attention) comes with the rest "
-             "of slice 6",
-    "shared_attn": "the zamba2 shared attention block comes with the rest "
-                   "of slice 6",
-}
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"repro_torch: {_LATER[what]}")
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the slice that brings it if
-    ``cfg`` has a part the port cannot run yet."""
-    if cfg.shared_attn_every:
-        raise _not_ported("shared_attn")
-    for kind in cfg.period:
-        if kind in _LATER:
-            raise _not_ported(kind)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,10 +77,12 @@ class RunCtx:
     cfg: ModelConfig
     mode: str                       # train | prefill | decode | paged
     pos: Any = None                 # decode: 0-d int tensor, current position
+    img: Any = None                 # vlm: [B, T_img, d] image embeddings
     chunk: int = 1024               # attention KV-chunk size
     ssd_chunk: int = 128            # Mamba-2 SSD chunk size
     cache_len: int = 0              # prefill: total KV capacity (>= seq len)
     use_pallas: bool = False
+    decode_lowp: bool = False       # decode attention: cache-dtype operands
     pages: Any = None               # paged mode: PageInfo
 
 
@@ -138,24 +130,37 @@ def _init_block(gen, kind: str, cfg: ModelConfig, device, dtype) -> dict:
     if kind == "mamba":
         return {"ln": torch.zeros(d, **kw),
                 "mixer": ssm.init_mamba(gen, d, cfg.ssm, **kw)}
-    if kind not in ("dense", "local", "global"):
-        raise _not_ported(kind)
-    return {"ln1": torch.zeros(d, **kw),
-            "attn": attention.init_attention(
-                gen, d, cfg.n_heads, cfg.n_kv_heads, hd,
-                qkv_bias=cfg.qkv_bias, **kw),
-            "ln2": torch.zeros(d, **kw),
-            "mlp": layers.init_mlp(gen, d, cfg.d_ff, **kw)}
+    if kind == "cross":
+        gate = dict(device=device, dtype=torch.float32)
+        return {"ln1": torch.zeros(d, **kw),
+                "xattn": attention.init_attention(
+                    gen, d, cfg.n_heads, cfg.n_kv_heads, hd, **kw),
+                "gate_attn": torch.zeros((), **gate),
+                "ln2": torch.zeros(d, **kw),
+                "mlp": layers.init_mlp(gen, d, cfg.d_ff, **kw),
+                "gate_mlp": torch.zeros((), **gate)}
+    if kind not in ATTN_KINDS:
+        raise ValueError(f"unknown block kind {kind!r}")
+    p = {"ln1": torch.zeros(d, **kw),
+         "attn": attention.init_attention(
+             gen, d, cfg.n_heads, cfg.n_kv_heads, hd,
+             qkv_bias=cfg.qkv_bias, **kw),
+         "ln2": torch.zeros(d, **kw)}
+    if kind == "moe":
+        p["moe"] = moe.init_moe(gen, d, cfg.d_ff, cfg.moe, **kw)
+    else:
+        p["mlp"] = layers.init_mlp(gen, d, cfg.d_ff, **kw)
+    return p
 
 
 def init_lm(gen, cfg: ModelConfig, dtype=torch.float32, *,
             device=None) -> dict:
     """Parameters in the reference's structure (``embed``, ``final_norm``,
     ``lm_head`` unless tied, ``blocks`` a tuple over the period of trees
-    stacked over ``n_periods``, ``tail`` a tuple), drawn from the
-    ``torch.Generator`` ``gen`` on its device (``device`` overrides it;
-    ``device="meta"`` with ``gen=None`` builds the shapes only)."""
-    check_ported(cfg)
+    stacked over ``n_periods``, ``tail`` a tuple, and zamba2's
+    ``shared_attn``), drawn from the ``torch.Generator`` ``gen`` on its
+    device (``device`` overrides it; ``device="meta"`` with ``gen=None``
+    builds the shapes only)."""
     device = torch.device(device if device is not None else gen.device)
     kw = dict(device=device, dtype=dtype)
     vp = cfg.vocab_padded
@@ -171,6 +176,8 @@ def init_lm(gen, cfg: ModelConfig, dtype=torch.float32, *,
         for kind in cfg.period)
     params["tail"] = tuple(_init_block(gen, cfg.period[0], cfg, device, dtype)
                            for _ in range(cfg.tail_layers))
+    if cfg.shared_attn_every:
+        params["shared_attn"] = _init_block(gen, "dense", cfg, device, dtype)
     return params
 
 
@@ -188,9 +195,11 @@ def _empty_block_cache(kind, cfg, lead, batch, cache_len, dtype, device):
     if kind == "mamba":
         return ssm.init_mamba_state(batch, cfg.d_model, cfg.ssm, dtype,
                                     device=device, lead=lead)
-    if kind not in ("dense", "local", "global"):
-        raise _not_ported(kind)
     hd = cfg.resolved_head_dim
+    if kind == "cross":
+        shape = (*lead, batch, cfg.n_image_tokens, cfg.n_kv_heads, hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
     length = _attn_cache_len(kind, cfg, cache_len)
     shape = (*lead, batch, length, cfg.n_kv_heads, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -201,19 +210,30 @@ def _empty_block_cache(kind, cfg, lead, batch, cache_len, dtype, device):
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype=torch.float32, *, device="cuda") -> dict:
-    """Dense per-batch KV caches (zero Mamba states for mamba layers) for
-    :func:`decode_step`, in :func:`prefill`'s structure (each period
-    position stacked over ``n_periods``)."""
+    """Dense per-batch KV caches (zero Mamba states for mamba layers, zero
+    image K/V for cross layers) for :func:`decode_step`, in
+    :func:`prefill`'s structure (each period position stacked over
+    ``n_periods``; zamba2's shared block one cache per use site, stacked
+    alike)."""
+    cache = {"blocks": tuple(
+                 _empty_block_cache(kind, cfg, (cfg.n_periods,), batch,
+                                    cache_len, dtype, device)
+                 for kind in cfg.period),
+             "tail": tuple(
+                 _empty_block_cache(cfg.period[0], cfg, (), batch, cache_len,
+                                    dtype, device)
+                 for _ in range(cfg.tail_layers))}
     if cfg.shared_attn_every:
-        raise _not_ported("shared_attn")
-    return {"blocks": tuple(
-                _empty_block_cache(kind, cfg, (cfg.n_periods,), batch,
-                                   cache_len, dtype, device)
-                for kind in cfg.period),
-            "tail": tuple(
-                _empty_block_cache(cfg.period[0], cfg, (), batch, cache_len,
-                                   dtype, device)
-                for _ in range(cfg.tail_layers))}
+        cache["shared_attn"] = _empty_block_cache(
+            _shared_kind(cfg), cfg, (cfg.n_periods,), batch, cache_len,
+            dtype, device)
+    return cache
+
+
+def _shared_kind(cfg: ModelConfig) -> str:
+    """The shared block attends as a ``local`` layer when the config has a
+    window, else as a ``dense`` one."""
+    return "local" if cfg.window else "dense"
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
@@ -321,7 +341,8 @@ def _self_attn(p, x, kind: str, ctx: RunCtx, cache):
             torch.int32))
         out = attention.decode_attention(
             q, cache["k"], cache["v"], ctx.pos, window=window,
-            softcap=cfg.attn_softcap, k_pos=cache["slot_pos"])
+            softcap=cfg.attn_softcap, k_pos=cache["slot_pos"],
+            lowp=ctx.decode_lowp)
         new_cache = cache
     else:
         pos = torch.arange(s, device=x.device)[None, :]
@@ -340,10 +361,47 @@ def _self_attn(p, x, kind: str, ctx: RunCtx, cache):
     return out @ p["wo"], new_cache
 
 
+def _cross_block(p, x, ctx: RunCtx, cache):
+    """Gated cross-attention to the image embeddings, then the gated MLP.
+    Prefill keeps the image's K/V as the block's cache; a decode step's
+    query attends every image key of that cache (no positions: the image
+    sits wholly before the text)."""
+    cfg = ctx.cfg
+    hd = cfg.resolved_head_dim
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    new_cache = None
+    if ctx.mode == "decode":
+        b = x.shape[0]
+        q = attention._proj(h, p["xattn"]["wq"]).reshape(b, 1, cfg.n_heads,
+                                                         hd)
+        out = attention.decode_attention(q, cache["k"], cache["v"],
+                                         cache["k"].shape[1] - 1)
+        out = out.reshape(b, 1, cfg.n_heads * hd) @ p["xattn"]["wo"]
+        new_cache = cache
+    else:
+        if ctx.img is None:
+            raise ValueError(f"{cfg.name}: a cross block needs the image "
+                             f"embeddings (img [B, {cfg.n_image_tokens}, "
+                             f"{cfg.d_model}])")
+        out = attention.cross_attention(p["xattn"], h, ctx.img, cfg.n_heads,
+                                        cfg.n_kv_heads, hd)
+        if ctx.mode == "prefill":
+            b, t, _ = ctx.img.shape
+            new_cache = {
+                "k": attention._proj(ctx.img, p["xattn"]["wk"]).reshape(
+                    b, t, cfg.n_kv_heads, hd),
+                "v": attention._proj(ctx.img, p["xattn"]["wv"]).reshape(
+                    b, t, cfg.n_kv_heads, hd)}
+    x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * out
+    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    m = layers.swiglu(h, p["mlp"]["gate"], p["mlp"]["up"], p["mlp"]["down"])
+    return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * m, new_cache
+
+
 def apply_block(kind: str, p, x, ctx: RunCtx, cache):
     """One block; returns ``(x, aux_loss, new_cache)`` as the reference.
-    No ported kind has an auxiliary loss (the MoE balance loss comes with
-    the MoE layer), so ``aux_loss`` is 0.0."""
+    ``aux_loss`` is the MoE balance loss (a 0-d tensor) for ``moe`` and
+    0.0 for every other kind."""
     cfg = ctx.cfg
     if ctx.mode == "paged" and kind not in ATTN_KINDS:
         raise NotImplementedError(
@@ -362,14 +420,33 @@ def apply_block(kind: str, p, x, ctx: RunCtx, cache):
                                   use_pallas=ctx.use_pallas)
             new_cache = cache
         return x + out, 0.0, new_cache
-    if kind not in ("dense", "local", "global"):
-        raise _not_ported(kind)
+    if kind == "cross":
+        x, new_cache = _cross_block(p, x, ctx, cache)
+        return x, 0.0, new_cache
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     out, new_cache = _self_attn(p["attn"], h, kind, ctx, cache)
     x = x + out
     h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    if kind == "moe":
+        # a paged chunk's rows past each slot's n_valid are junk: keep them
+        # out of the capacity queues
+        tm = ctx.pages.token_mask if ctx.mode == "paged" else None
+        y, aux = moe.moe_ffn(p["moe"], h, cfg.moe, token_mask=tm)
+        return x + y, aux, new_cache
     y = layers.swiglu(h, p["mlp"]["gate"], p["mlp"]["up"], p["mlp"]["down"])
     return x + y, 0.0, new_cache
+
+
+def _shared_attn_block(p, x, ctx: RunCtx, cache):
+    """zamba2's shared block: one param set, applied at the end of every
+    period with that use site's KV cache."""
+    cfg = ctx.cfg
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    out, new_cache = _self_attn(p["attn"], h, _shared_kind(cfg), ctx, cache)
+    x = x + out
+    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + layers.swiglu(h, p["mlp"]["gate"], p["mlp"]["up"],
+                             p["mlp"]["down"]), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -398,8 +475,10 @@ def _unstack(tree, n: int) -> list:
 
 def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
             cache=None, pos=None, chunk: int = 1024, ssd_chunk: int = 128,
-            cache_len: int = 0, use_pallas: bool = False, pages=None):
-    """The shared forward pass.  Returns ``(logits, aux_loss, new_cache)``.
+            cache_len: int = 0, use_pallas: bool = False,
+            decode_lowp: bool = False, pages=None):
+    """The shared forward pass.  Returns ``(logits, aux_loss, new_cache)``;
+    ``img`` [B, T_img, d] feeds the cross blocks (train and prefill).
 
     train:   tokens [B,S] -> logits [B,S,Vp], aux, None
     prefill: tokens [B,S] -> logits [B,Vp] (last pos), aux, cache
@@ -407,40 +486,52 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
     paged:   tokens [B,C] -> logits [B,Vp] (per-slot last valid), aux, pages
              (written in place)
     """
-    if img is not None:
-        raise _not_ported("cross")
-    if cfg.shared_attn_every:
-        raise _not_ported("shared_attn")
     if mode not in ("train", "prefill", "decode", "paged"):
         raise ValueError(f"unknown forward mode {mode!r}")
-    ctx = RunCtx(cfg=cfg, mode=mode, pos=pos, chunk=chunk,
+    ctx = RunCtx(cfg=cfg, mode=mode, pos=pos, img=img, chunk=chunk,
                  ssd_chunk=ssd_chunk, cache_len=cache_len,
-                 use_pallas=use_pallas, pages=pages)
+                 use_pallas=use_pallas, decode_lowp=decode_lowp, pages=pages)
     x = _embed(params, tokens, cfg)
     reads_cache = mode in ("decode", "paged")
+    shared_p = params.get("shared_attn")
     made = [[] for _ in cfg.period]
+    made_shared = []
+    auxes = []
     periods = [_unstack(bp, cfg.n_periods) for bp in params["blocks"]]
     for i in range(cfg.n_periods):
         for j, kind in enumerate(cfg.period):
             # period i of the stacked params and caches, as views
             c = (tree_map(lambda t: t[i], cache["blocks"][j]) if reads_cache
                  else None)
-            x, _, nc = apply_block(kind, periods[j][i], x, ctx, c)
+            x, aux, nc = apply_block(kind, periods[j][i], x, ctx, c)
             made[j].append(nc)
+            if kind == "moe":
+                auxes.append(aux)
+        if shared_p is not None:
+            c = (tree_map(lambda t: t[i], cache["shared_attn"])
+                 if reads_cache else None)
+            x, nc = _shared_attn_block(shared_p, x, ctx, c)
+            made_shared.append(nc)
     tail_caches = []
     for i, tp in enumerate(params["tail"]):
         c = cache["tail"][i] if reads_cache else None
-        x, _, nc = apply_block(cfg.period[0], tp, x, ctx, c)
+        x, aux, nc = apply_block(cfg.period[0], tp, x, ctx, c)
         tail_caches.append(nc)
+        if cfg.period[0] == "moe":
+            auxes.append(aux)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for aux in auxes:
+        aux_total = aux_total + aux
 
     if mode == "train":
         return _logits(params, x, cfg), aux_total, None
     if mode == "prefill":
-        new_cache = {"blocks": tuple(
-                         tree_map(lambda *ls: torch.stack(ls), *m)
-                         for m in made),
+        def stack(m):
+            return tree_map(lambda *ls: torch.stack(ls), *m)
+        new_cache = {"blocks": tuple(stack(m) for m in made),
                      "tail": tuple(tail_caches)}
+        if shared_p is not None:
+            new_cache["shared_attn"] = stack(made_shared)
         return _logits(params, x[:, -1], cfg), aux_total, new_cache
     if mode == "paged":
         x_last = x[torch.arange(x.shape[0], device=x.device), pages.last_idx]
@@ -449,8 +540,9 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
 
 
 def train_loss(params, batch, cfg: ModelConfig, **kw):
-    """batch: ``{tokens [B,S], labels [B,S]}`` -> 0-d loss: the mean token
-    cross-entropy over the valid vocab, plus the auxiliary loss."""
+    """batch: ``{tokens [B,S], labels [B,S], (image_embeds [B,T,d])}`` ->
+    0-d loss: the mean token cross-entropy over the valid vocab, plus the
+    auxiliary loss."""
     logits, aux, _ = forward(params, batch["tokens"], cfg, mode="train",
                              img=batch.get("image_embeds"), **kw)
     return layers.cross_entropy(logits, batch["labels"],

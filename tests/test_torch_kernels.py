@@ -1088,7 +1088,12 @@ def test_attention_wrappers_check_dtype_and_shapes_before_building():
         tA.paged_decode_attention(q[:, :1], q, q,
                                   torch.zeros(2, 1, dtype=torch.int32),
                                   torch.ones(1, dtype=torch.int32))
-    assert tA.FLASH_HEAD_DIMS == (32, 64, 128)
+    q112 = torch.randn(1, 4, 4, 112)   # zamba2's: flash only, never paged
+    with pytest.raises(ValueError, match="head_dim 112"):
+        tA.paged_decode_attention(q112[:, :1], q112, q112,
+                                  torch.zeros(1, 1, dtype=torch.int32),
+                                  torch.ones(1, dtype=torch.int32))
+    assert tA.FLASH_HEAD_DIMS == (32, 64, 112, 128)
     assert tA.PAGED_HEAD_DIMS == (16, 32, 64, 128)
 
 

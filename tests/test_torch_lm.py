@@ -384,33 +384,38 @@ def test_paged_step_with_no_kept_row_leaves_the_pool_unchanged():
 
 @pytest.mark.parametrize("arch,what", [
     ("granite-moe-3b-a800m", "moe"), ("llama-3.2-vision-11b", "cross"),
-    ("zamba2-7b", "shared attention"),
+    ("zamba2-7b", "shared_attn"),
 ])
 def test_unported_kinds_raise_naming_their_slice(arch, what):
+    """The kinds the port once refused (the MoE layer, the VLM's cross
+    blocks, zamba2's shared block) now build and run: the reduced
+    ``init_lm`` holds the part, ``supports_paged`` agrees with the
+    reference, and a train forward gives finite logits."""
     cfg = get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match=what):
-        ttf.init_lm(torch.Generator().manual_seed(0), cfg)
+    params = ttf.init_lm(torch.Generator().manual_seed(0), cfg)
+    if what == "shared_attn":
+        assert set(params["shared_attn"]) == {"ln1", "attn", "ln2", "mlp"}
+    else:
+        assert what in cfg.period
+        blk = params["blocks"][cfg.period.index(what)]
+        assert ("moe" in blk) if what == "moe" else ("xattn" in blk)
     assert ttf.supports_paged(cfg) == jtf.supports_paged(
         jget_config(arch, reduced=True))
-
-
-#: configs whose block kinds the port does not run yet, and the kind named
-_UNPORTED = {"granite-moe-3b-a800m": "moe", "arctic-480b": "moe",
-             "llama-3.2-vision-11b": "cross", "zamba2-7b": "shared attention"}
+    img = (torch.randn(1, cfg.n_image_tokens, cfg.d_model)
+           if cfg.n_image_tokens else None)
+    logits, aux, _ = ttf.forward(params, torch.zeros(1, 4, dtype=torch.long),
+                                 cfg, mode="train", img=img)
+    assert torch.isfinite(logits).all() and torch.isfinite(aux)
 
 
 @pytest.mark.parametrize("arch", sorted(JARCHS))
 def test_supports_paged_and_init_lm_match_reference(arch):
     """Every config: ``supports_paged`` as the reference's, and the reduced
-    ``init_lm`` either the reference's shapes and dtypes or a
-    ``NotImplementedError`` naming the kind still to port."""
+    ``init_lm`` the reference's shapes and dtypes (the MoE, cross and
+    shared-block configs included)."""
     cfg, jcfg = get_config(arch, reduced=True), jget_config(arch,
                                                             reduced=True)
     assert ttf.supports_paged(cfg) == jtf.supports_paged(jcfg)
-    if arch in _UNPORTED:
-        with pytest.raises(NotImplementedError, match=_UNPORTED[arch]):
-            ttf.init_lm(None, cfg, device="meta")
-        return
     want = jax.eval_shape(lambda: jtf.init_lm(jax.random.PRNGKey(0), jcfg))
     got = ttf.init_lm(None, cfg, device="meta")
     assert [(tuple(x.shape), str(x.dtype).split(".")[1])

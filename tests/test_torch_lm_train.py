@@ -149,10 +149,20 @@ def test_train_loss_and_grads_match_reference_per_node(arch, fwd_kw):
 
 
 def test_unported_block_kind_is_refused_at_validate():
+    """The MoE arch, once refused at validate, now validates and builds the
+    plugin: each node's loss is finite and carries the balance loss."""
     spec = tapi.presets.get(PRESET).override("model.kwargs=" + json.dumps(
-        {"arch": "granite-moe-3b-a800m", "reduced": True}))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        spec.validate()
+        {"arch": "granite-moe-3b-a800m", "reduced": True}), *SMALL_SET[1:])
+    assert spec.validate() is spec
+    task = tdata.build_task(spec, 4)
+    bundle = tmodels.MODELS["transformer"](spec, task)
+    one, _ = bundle.init_fn(torch.Generator().manual_seed(0))
+    assert "moe" in one["blocks"][0]
+    leaves, treedef = tree_flatten(one)
+    params = tree_unflatten(treedef, [torch.stack([x] * 4) for x in leaves])
+    (toks,) = next(task.make_iter())
+    loss, _ = bundle.loss_fn(params, {}, (_t(toks),))
+    assert loss.shape == (4,) and torch.isfinite(loss).all()
 
 
 # ---------------------------------------------------------------------------
@@ -318,8 +328,10 @@ def test_launcher_trains_reduced_arch_and_refuses_mesh(tmp_path):
     assert (tmp_path / "run.npz").exists()
     with pytest.raises(SystemExit, match="slices 8 and 9"):
         tlaunch.main(["--mesh", "single", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tlaunch.main(["--arch", "granite-moe-3b-a800m", "--device", "cpu"])
+    history = tlaunch.main(["--arch", "granite-moe-3b-a800m", "--nodes", "2",
+                            "--steps", "1", "--batch", "1", "--seq-len",
+                            "8", "--device", "cpu"])
+    assert len(history) == 1 and np.isfinite(history[-1]["loss"])
 
 
 def test_reference_lm_state_carries_across_as_tuples():

@@ -83,8 +83,7 @@ _LM = ("model.name=transformer", "data.dataset=lm_domains")
     ("overlap=delayed_1", "slice 8"),
     ("runtime=sharded", "slice 8"),
     ("gossip.schedule=ring_ppermute", "slice 8"),
-    (_LM + ('model.kwargs={"arch": "granite-moe-3b-a800m", '
-            '"reduced": true}',), "slice 6"),
+    (_LM + ("gossip.schedule=ring_ppermute",), "slice 8b"),
     (("scenario.enabled=true", "scenario.dropout=0.1", "runtime=hybrid"),
      "slice 8b"),
     ("gossip.schedule=sparse_ppermute", "slice 8b"),
