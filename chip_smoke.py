@@ -198,7 +198,25 @@ line) if anything goes wrong:
             prefill with the gates at 0.5, kernel against plain path; the
             LM preset on reduced granite trained 20 steps (one ``qg_step``
             a step) against the port's CPU run.  Flash at head_dim 112 is
-            also held (FLASH_CASES) and timed (``zamba2``) in phase 2.
+            also held (FLASH_CASES) and timed (``zamba2``) in phase 2;
+12. runtimes slice 8b's main paths over a one-rank NCCL group (d = 1:
+            the sharded/hybrid code, every sparse phase local gathers):
+            ``n1024_ring``, ``n1024_powerlaw`` and ``n1024_churn`` with
+            ``runtime=hybrid`` through ``api.run(spec, mesh=)``, 40
+            ``fused_halfstep`` + 40 ``fused_qg_buffer`` each and no
+            ``qg_step``, accuracy in N1024_BAND and ordered, the churn
+            fractions equal to N1024_CHURN_FRACS at every step, the
+            histories within N1024_CPU_RTOL of vmap runs over their first
+            N1024_CPU_STEPS steps, N1024_MESSAGES wire messages a step,
+            the hybrid mix
+            timed beside the dense one; the quickstart pair with
+            ``overlap=delayed_1`` on vmap and hybrid (150 steps, the
+            init capture's launch, DELAYED_ACC, card vs CPU, hybrid vs
+            vmap, telemetry's ``staleness_gap`` / ``gossip_wait_ms`` with
+            the history unchanged, a checkpoint cut at 10 of 20 and resumed
+            bit-equal with ``mix_buf``); exp16 on hybrid with no host sync
+            (CUDA sync debugging 'error'); CHOCO top-k on hybrid
+            (``comm.backend=auto``); each loop profiled.
 
 Imports nothing of JAX nor of the JAX package.  The second-to-last lines
 are the card's name and power limit and a JSON ``kernels`` line; the last
@@ -1566,18 +1584,19 @@ CONV_KERNEL = re.compile(r"conv|cudnn|xmma|wgrad|dgrad|fprop|implicit",
 
 
 def phase_profile(dev, label: str, spec, steps: int = 150,
-                  task=None) -> dict | None:
+                  task=None, mesh=None) -> dict | None:
     """Device time by kernel and host time by op over the ``steps``-step
     training loop of one run of ``spec`` (a measurement: printed, and
     written to build/chip_smoke/profile_<label>.json); returns wall and
     device ms, the convolutions' device ms and ``qg_step``'s (ms,
-    launches).  ``task``: the spec's data, built already."""
+    launches).  ``task``: the spec's data, built already; ``mesh``: the
+    node mesh of a sharded or hybrid run."""
     import torch
     from repro_torch import api
     from repro_torch.train import run_training_scanned
     from torch.profiler import ProfilerActivity, profile
 
-    ex = api.build(spec, device=dev, task=task)
+    ex = api.build(spec, device=dev, task=task, mesh=mesh)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2205,14 +2224,16 @@ def _cut_at(step):
     return log_fn
 
 
-def _resume_pair(what, spec, dev, cut_at, check_full=None) -> str:
+def _resume_pair(what, spec, dev, cut_at, check_full=None,
+                 mesh=None) -> str:
     """``spec`` run whole with a final checkpoint, and run with
     ``loop.checkpoint_every=cut_at`` and interrupted after that checkpoint,
     then resumed from it, all through ``api.run`` as the CLI's
     ``--checkpoint``/``--resume`` run it; the two final checkpoints
     (params, opt, model and comm state, counter, generator state) compared
     key by key.  ``check_full(npz)`` adds its own reading of the whole
-    run's checkpoint.  Returns a description of the comparison."""
+    run's checkpoint; ``mesh``: the node mesh of a sharded or hybrid run.
+    Returns a description of the comparison."""
     import json as _json
     import numpy as np
     from repro_torch import api
@@ -2221,10 +2242,11 @@ def _resume_pair(what, spec, dev, cut_at, check_full=None) -> str:
     full, cut, resumed = (str(OUT / f"ckpt_{what}_{p}.npz")
                           for p in ("full", "cut", "resumed"))
     quiet = lambda *_: None
-    api.run(spec, device=dev, checkpoint_path=full, log_fn=quiet)
+    api.run(spec, device=dev, checkpoint_path=full, log_fn=quiet, mesh=mesh)
     try:
         api.run(spec.override(f"loop.checkpoint_every={cut_at}"),
-                device=dev, checkpoint_path=cut, log_fn=_cut_at(cut_at))
+                device=dev, checkpoint_path=cut, log_fn=_cut_at(cut_at),
+                mesh=mesh)
     except _Cut:
         pass
     else:
@@ -2235,7 +2257,7 @@ def _resume_pair(what, spec, dev, cut_at, check_full=None) -> str:
         raise AssertionError(f"{what} resume: cut checkpoint at step {step}, "
                              f"want {cut_at}")
     api.run(spec, device=dev, resume=cut, checkpoint_path=resumed,
-            log_fn=quiet)
+            log_fn=quiet, mesh=mesh)
     with np.load(full) as a, np.load(resumed) as b:
         same = _same_checkpoints(what, a, b)
         if check_full is not None:
@@ -5015,6 +5037,358 @@ def phase_lmstack(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# runtimes (slice 8b): the hybrid backend over a one-rank NCCL group, and
+# the delayed gossip
+# ---------------------------------------------------------------------------
+
+#: the quickstart pair with overlap=delayed_1: the JAX package's final test
+#: accuracy at seed 0, 1 and 2 (``PYTHONPATH=src JAX_PLATFORMS=cpu python3
+#: scripts/delayed_ref.py``, JAX 0.9.0 on the CPU); the card's runs are held
+#: within ACC_ATOL of seed 0's (the port's init is a torch draw)
+DELAYED_ACC = {
+    "quickstart_ring16_alpha0.1_qg": (0.983612060546875, 0.98712158203125,
+                                      0.98931884765625),
+    "quickstart_ring16_alpha0.1_dsgdm": (0.93194580078125,
+                                         0.934173583984375,
+                                         0.9395751953125)}
+DELAYED_STEPS = 150
+#: point-to-point messages a step of the n1024 presets' compiled node
+#: schedules (the JAX package's compiler gives the same,
+#: tests/test_torch_gossip_schedule.py)
+N1024_MESSAGES = {"n1024_ring": 2048, "n1024_powerlaw": 6118}
+#: hybrid (d = 1) against vmap: the sparse schedule sums a node's
+#: neighbours round by round, the vmap mix is a cuBLAS product of the
+#: [n, n] matrix, so the two part by rounding, which training then carries
+#: (the same cause as card vs CPU, and the same bounds): the delayed
+#: quickstart pair over its 150 steps within CPU_RTOL / CPU_ATOL; the
+#: n1024 presets over their first N1024_CPU_STEPS steps within
+#: N1024_CPU_RTOL, the whole run reported (on n1024_powerlaw the final
+#: loss, 0.026, read 1.83e-03 apart after 40 steps, on an H100)
+HYBRID_RTOL, HYBRID_ATOL = CPU_RTOL, CPU_ATOL
+#: exp16 on the hybrid backend, steps under CUDA sync debugging "error"
+#: after two warm-up steps (the NCCL communicator's set-up)
+EXP16_SYNC_STEPS = 8
+#: the compressed run on the hybrid backend (item 12): CHOCO top-k with the
+#: kernel compressors, held to the JAX package's COMPRESSED["topk"] band
+TOPK_HYBRID_STEPS = 150
+
+
+def _one_rank_nccl():
+    """A one-rank NCCL group (a ``file://`` store under build/) and its node
+    mesh: the sharded and hybrid code paths on the one card."""
+    from repro_torch.launch import distributed, mesh
+    store = OUT / "nccl_store"
+    OUT.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    dev = distributed.initialize(f"file://{store}", 1, 0, backend="nccl",
+                                 timeout_s=120)
+    return dev, mesh.make_node_mesh(1)
+
+
+def _hybrid_mix_ms(dev, node_mesh, preset) -> dict:
+    """The hybrid mix of one step of ``preset`` at its full size (the
+    compiled rounds as local gathers at d = 1): device ms a call (a CUDA
+    graph of 10 calls) and the device activities of one eager call (the
+    profiler)."""
+    import torch
+    from repro_torch import api
+    from torch.profiler import ProfilerActivity, profile
+
+    ex = api.build(api.presets.get(preset).override("runtime=hybrid"),
+                   device=dev, mesh=node_mesh)
+    rt = ex.trainer._runtime
+    w = ex.trainer._mixing[0]
+    mix = rt._mix_impl(w, 0)
+    params = ex.state.params
+    ms = _time_ms(lambda: mix(w, params), 10)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mix(w, params)
+        torch.cuda.synchronize(dev)
+    acts = sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    rounds = ex.trainer._resolved.schedule.max_rounds
+    del ex, params
+    return {"ms": ms, "activities": acts, "rounds": rounds}
+
+
+def _n1024_hybrid(dev, node_mesh, scen_out, out) -> None:
+    """The three n1024 presets on the hybrid backend at d = 1, 40 steps
+    each through ``api.run(spec, mesh=)``: the launches, N1024_BAND and
+    its order, the churn fractions at every step (chunks of 10), the
+    history against a vmap run of the same spec (N1024_CPU_RTOL over the
+    first N1024_CPU_STEPS steps, the rest reported), the wire messages;
+    the mix timed beside the dense one (the scenario phase's)."""
+    from repro_torch import api
+    from repro_torch.kernels import ops
+
+    quiet = lambda *_: None
+    res = {}
+    for preset in N1024_PRESETS:
+        spec = api.presets.get(preset).override("loop.log_every=1")
+        if preset == "n1024_churn":
+            spec = spec.override("loop.chunk=10")
+        vm = api.run(spec.override("runtime=vmap"), device=dev,
+                     log_fn=quiet).history
+        spec = spec.override("runtime=hybrid")
+        ops.reset_launch_counts()
+        r = api.run(spec, device=dev, mesh=node_mesh, log_fn=quiet)
+        counts = ops.launch_counts()
+        _expect_launches(f"{preset} hybrid", counts, N1024_LAUNCHES)
+        _add_counts(out["launches"], counts)
+        _finite_run(f"{preset} hybrid", r, N1024_STEPS)
+        res[preset] = r
+        acc = r.final["acc"]
+        lo, hi = N1024_BAND[preset]
+        if not lo <= acc <= hi:
+            raise AssertionError(f"{preset} hybrid: test acc {acc:.4f} "
+                                 f"outside [{lo:.4f}, {hi:.4f}]")
+        held = _history_close(r.history[:N1024_CPU_STEPS],
+                              vm[:N1024_CPU_STEPS], N1024_CPU_RTOL,
+                              CPU_ATOL, f"{preset} hybrid vs vmap")
+        gap = _history_gap(r.history, vm, f"{preset} hybrid vs vmap")
+        msgs = r.wire.get("messages_per_step")
+        want = N1024_MESSAGES["n1024_ring" if spec.topology.name == "ring"
+                              else "n1024_powerlaw"]
+        if msgs != want:
+            raise AssertionError(f"{preset} hybrid: {msgs} wire messages a "
+                                 f"step, want {want}")
+        log(f"runtimes {preset} hybrid d=1: {N1024_STEPS} steps in "
+            f"{r.wall_time_s:.4f} s ({r.wall_time_s / N1024_STEPS * 1e3:.4f}"
+            f" ms/step), test acc {acc:.4f} (vmap "
+            f"{scen_out['results'][preset].final['acc']:.4f}, band "
+            f"[{lo:.4f}, {hi:.4f}]), history vs vmap {held:.3e} over the "
+            f"first {N1024_CPU_STEPS} steps, {gap:.3e} over all "
+            f"{N1024_STEPS} (relative), {msgs:.0f} wire messages a step, "
+            f"launches {counts}")
+        out["results"][f"{preset}_hybrid"] = r
+    acc = {p: r.final["acc"] for p, r in res.items()}
+    if not acc["n1024_powerlaw"] > acc["n1024_churn"] > acc["n1024_ring"]:
+        raise AssertionError(f"runtimes: hybrid accuracies {acc} are not "
+                             "ordered powerlaw > churn > ring")
+    fracs = tuple((h["alive_frac"], h["mix_frac"])
+                  for h in res["n1024_churn"].history)
+    if fracs != N1024_CHURN_FRACS:
+        bad = next(i for i, (a, b) in enumerate(zip(fracs,
+                                                    N1024_CHURN_FRACS))
+                   if a != b)
+        raise AssertionError(f"n1024_churn hybrid: step {bad} fractions "
+                             f"{fracs[bad]}, JAX package "
+                             f"{N1024_CHURN_FRACS[bad]}")
+    log(f"runtimes n1024_churn hybrid: all {N1024_STEPS} steps' alive/mix "
+        "fractions equal the JAX package's exactly (chunks of 10, "
+        f"{res['n1024_churn'].scenario['mask_host_ms_per_step']:.4f} "
+        "ms/step of host time for the masks)")
+    dense = scen_out["timed"]["dense mix"]
+    for preset in ("n1024_ring", "n1024_powerlaw"):
+        m = _hybrid_mix_ms(dev, node_mesh, preset)
+        out["mix"][preset] = m
+        log(f"time runtimes hybrid mix {preset} (d=1, {m['rounds']} rounds,"
+            f" 1024 x 13652): {m['ms']:.6f} ms (CUDA graph of 10 calls), "
+            f"{m['activities']} device activities an eager call; the dense "
+            f"[1024, 1024] mix {dense:.6f} ms (scenario phase)")
+
+
+def _delayed_pair(dev, node_mesh, out) -> None:
+    """The quickstart pair with overlap=delayed_1 for 150 steps on vmap and
+    on hybrid (d = 1): the launches (the init capture runs the chain once),
+    DELAYED_ACC, the card against the port on the CPU, hybrid against
+    vmap, telemetry (staleness_gap, gossip_wait_ms; the history bit-equal
+    to the run without) and a checkpoint cut at step 10 of 20 and resumed
+    bit-equal, ``mix_buf`` included, on both runtimes."""
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    from repro_torch.telemetry import read_jsonl
+
+    quiet = lambda *_: None
+    for preset, ref in DELAYED_ACC.items():
+        base = api.presets.get(preset).override("overlap=delayed_1",
+                                                "loop.log_every=1")
+        qg = "qg" in base.optim.name
+        want = {"fused_halfstep": DELAYED_STEPS + 1}
+        if qg:
+            want["fused_qg_buffer"] = DELAYED_STEPS + 1
+        runs = {}
+        for rt, m in (("vmap", None), ("hybrid", node_mesh)):
+            spec = base.override(f"runtime={rt}")
+            ops.reset_launch_counts()
+            r = api.run(spec, device=dev, mesh=m, log_fn=quiet)
+            counts = ops.launch_counts()
+            _expect_launches(f"{preset} delayed {rt}", counts, want)
+            _add_counts(out["launches"], counts)
+            _finite_run(f"{preset} delayed {rt}", r, DELAYED_STEPS)
+            if abs(r.final["acc"] - ref[0]) > ACC_ATOL:
+                raise AssertionError(
+                    f"{preset} delayed {rt}: test acc {r.final['acc']:.4f} "
+                    f"not within {ACC_ATOL} of the JAX package's {ref[0]}")
+            runs[rt] = r
+            out["results"][f"{preset}_delayed_{rt}"] = r
+            log(f"runtimes {preset} delayed_1 {rt}: {DELAYED_STEPS} steps "
+                f"in {r.wall_time_s:.4f} s ({r.wall_time_s / DELAYED_STEPS * 1e3:.4f}"
+                f" ms/step), test acc {r.final['acc']:.4f} (JAX package "
+                f"{ref}), launches {counts}")
+        gap = _history_close(runs["hybrid"].history, runs["vmap"].history,
+                             HYBRID_RTOL, HYBRID_ATOL,
+                             f"{preset} delayed hybrid vs vmap")
+        cpu = api.run(base.override("runtime=vmap", "optim.fused=kernel"),
+                      device="cpu", log_fn=quiet)
+        cgap = _history_close(runs["vmap"].history, cpu.history, CPU_RTOL,
+                              CPU_ATOL, f"{preset} delayed card vs CPU")
+        log(f"runtimes {preset} delayed_1: hybrid d=1 vs vmap within "
+            f"{gap:.3e} (relative; not bit-equal: the vmap mix is a cuBLAS "
+            f"product, the hybrid one the rounds' sums), card vs CPU "
+            f"within {cgap:.3e}")
+        # telemetry: the overlap's two metrics, the history unchanged
+        for rt, m in (("vmap", None), ("hybrid", node_mesh)):
+            path = OUT / f"metrics_delayed_{rt}.jsonl"
+            spec = base.override(f"runtime={rt}", "telemetry.enabled=true",
+                                 "telemetry.every=10")
+            r = api.run(spec, device=dev, mesh=m, log_fn=quiet,
+                        telemetry_path=str(path))
+            if r.history != runs[rt].history:
+                raise AssertionError(f"{preset} delayed {rt}: telemetry "
+                                     "changed the history")
+            rows = read_jsonl(str(path))
+            if [row["step"] for row in rows] != list(range(0, DELAYED_STEPS,
+                                                         10)) or any(
+                    "staleness_gap" not in row or "gossip_wait_ms" not in row
+                    for row in rows):
+                raise AssertionError(f"{preset} delayed {rt}: telemetry "
+                                     f"rows {rows[:2]}")
+            waits = [row["gossip_wait_ms"] for row in rows]
+            log(f"runtimes {preset} delayed_1 {rt} telemetry every 10: "
+                f"history bit-equal to the run without, staleness_gap "
+                f"{rows[-1]['staleness_gap']:.4e} at step "
+                f"{rows[-1]['step']}, gossip_wait_ms median "
+                f"{statistics.median(waits):.4f} (max {max(waits):.4f})")
+            path.unlink()
+            # checkpoint cut and resumed, mix_buf included
+            short = base.override(f"runtime={rt}", "loop.steps=20",
+                                  "loop.chunk=5")
+            same = _resume_pair(f"delayed_{rt}", short, dev, 10, mesh=m,
+                                check_full=_has_mix_buf)
+            log(f"runtimes {preset} delayed_1 {rt} resume at 10 of 20: "
+                f"{same}")
+
+
+def _has_mix_buf(npz) -> str:
+    n = sum("x:.mix_buf" in k for k in npz.files)
+    if not n:
+        raise AssertionError("delayed checkpoint holds no mix_buf")
+    return f", mix_buf {n}"
+
+
+def _exp16_hybrid_sync_free(dev, node_mesh) -> tuple[int, dict]:
+    """exp16 on the hybrid backend at d = 1: EXP16_SYNC_STEPS steps under
+    CUDA sync debugging 'error' (any host sync raises) after two warm-up
+    steps, each step's phase picked from the host step index; then the
+    run's launches."""
+    import torch
+    from repro_torch import api
+    from repro_torch.kernels import ops
+
+    spec = api.presets.get("exp16_alpha0.1_qg").override("runtime=hybrid")
+    ex = api.build(spec, device=dev, mesh=node_mesh)
+    it = ex.task.make_iter()
+    batches = [ex.trainer.put_batch(next(it))
+               for _ in range(EXP16_SYNC_STEPS + 2)]
+    state = ex.state
+    ops.reset_launch_counts()
+    for t, b in enumerate(batches[:2]):
+        state, _ = ex.trainer.step(state, b, t=t)
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t, b in enumerate(batches[2:], start=2):
+            state, metrics = ex.trainer.step(state, b, t=t)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize(dev)
+    counts = ops.launch_counts()
+    n = EXP16_SYNC_STEPS + 2
+    _expect_launches("exp16 hybrid", counts,
+                     {"fused_halfstep": n, "fused_qg_buffer": n})
+    if int(state.t) != n or not bool(torch.isfinite(metrics["loss"])):
+        raise AssertionError(f"exp16 hybrid: t={int(state.t)}, loss "
+                             f"{float(metrics['loss'])}")
+    return EXP16_SYNC_STEPS, counts
+
+
+def _topk_hybrid(dev, node_mesh, out) -> None:
+    """CHOCO top-k on the hybrid backend at d = 1 with the kernel
+    compressors: the anchors gossiped through the hybrid mix, so the
+    two-kernel path (no choco_exchange), accuracy within ACC_ATOL of the
+    JAX package's."""
+    from repro_torch import api
+    from repro_torch.kernels import ops
+
+    name, _, acc_ref, _, _ = COMPRESSED["topk"]
+    spec = api.presets.get(name).override("comm.backend=auto",
+                                          "runtime=hybrid")
+    ops.reset_launch_counts()
+    r = api.run(spec, device=dev, mesh=node_mesh, log_fn=lambda *_: None)
+    counts = ops.launch_counts()
+    _finite_run("topk hybrid", r, TOPK_HYBRID_STEPS)
+    if counts.get("qg_step") or counts.get("choco_exchange"):
+        raise AssertionError(f"topk hybrid: launches {counts}")
+    if abs(r.final["acc"] - acc_ref) > ACC_ATOL:
+        raise AssertionError(f"topk hybrid: test acc {r.final['acc']:.4f} "
+                             f"not within {ACC_ATOL} of {acc_ref}")
+    _add_counts(out["launches"], counts)
+    out["results"]["topk_hybrid"] = r
+    log(f"runtimes {name} comm.backend=auto hybrid d=1: "
+        f"{r.wall_time_s / TOPK_HYBRID_STEPS * 1e3:.4f} ms/step, test acc "
+        f"{r.final['acc']:.4f} (JAX package {acc_ref}), wire "
+        f"{r.wire['bits_per_node_per_step']:.0f} bits a node a step "
+        f"({r.wire.get('messages_per_step', 0):.0f} messages), launches "
+        f"{counts}")
+
+
+def phase_runtimes(dev, scen_out) -> dict:
+    """Slice 8b's main paths on the card: the sharded/hybrid code over a
+    one-rank NCCL group (d = 1: every sparse phase local gathers; NCCL
+    across ranks waits for a four-card run) and the delayed gossip: the
+    n1024 presets on hybrid, the delayed quickstart pair on vmap and
+    hybrid, exp16 on hybrid with no host sync, CHOCO top-k on hybrid;
+    each loop's ms/step and busy share under the profiler."""
+    from repro_torch import api
+    from repro_torch.launch import distributed
+
+    out = {"launches": {}, "results": {}, "mix": {}, "profile": {}}
+    t0 = time.perf_counter()
+    dev, node_mesh = _one_rank_nccl()
+    try:
+        log(f"runtimes: one-rank NCCL group on {dev} "
+            f"({time.perf_counter() - t0:.3f} s to set up)")
+        _n1024_hybrid(dev, node_mesh, scen_out, out)
+        _delayed_pair(dev, node_mesh, out)
+        steps, counts = _exp16_hybrid_sync_free(dev, node_mesh)
+        _add_counts(out["launches"], counts)
+        log(f"runtimes exp16 hybrid d=1: {steps} steps under CUDA sync "
+            "debugging 'error' (after 2 warm-up steps), no host sync, the "
+            f"phase from the host step index; launches {counts}")
+        _topk_hybrid(dev, node_mesh, out)
+        for label, preset, over in (
+                ("n1024_ring_hybrid", "n1024_ring", ()),
+                ("n1024_powerlaw_hybrid", "n1024_powerlaw", ()),
+                ("n1024_churn_hybrid", "n1024_churn", ()),
+                ("delayed_qg_hybrid", "quickstart_ring16_alpha0.1_qg",
+                 ("overlap=delayed_1",))):
+            spec = api.presets.get(preset).override("runtime=hybrid", *over)
+            out["profile"][label] = phase_profile(
+                dev, label, spec, steps=spec.loop.steps, mesh=node_mesh)
+    finally:
+        distributed.shutdown()
+    if out["launches"].get("qg_step"):
+        raise AssertionError(f"runtimes: qg_step launched "
+                             f"{out['launches']['qg_step']} times")
+    log(f"runtimes launches {json.dumps(out['launches'])} "
+        f"({time.perf_counter() - t0:.1f} s for the phase)")
+    return out
+
+
 def sass_mma_counts(lib: Path) -> dict:
     """``(HMMA, all)`` instructions per kernel in ``lib``'s SASS (HMMA: the
     tensor-core products), by ``cuobjdump -sass`` from the toolkit that
@@ -5144,6 +5518,11 @@ def main() -> int:
     # paged kernels, zamba2-7b prefilled through the scan and flash at
     # head_dim 112, the VLM served, each held against the JAX package
     lmstack_out = phase_lmstack(dev)
+    torch.cuda.empty_cache()
+
+    # 12. slice 8b's main paths: the hybrid backend over a one-rank NCCL
+    # group (the n1024 presets, exp16, CHOCO top-k) and the delayed gossip
+    runtimes_out = phase_runtimes(dev, scen_out)
 
     smi = _card()
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -5243,6 +5622,9 @@ def main() -> int:
     for row in kernels:
         if lm_launches.get(row["name"]):
             row["lm_launches"] = lm_launches[row["name"]]
+    for row in kernels:  # slice 8b's runs (the `runtimes launches` line)
+        if runtimes_out["launches"].get(row["name"]):
+            row["runtimes_launches"] = runtimes_out["launches"][row["name"]]
     for row in kernels:  # slice 6b-iii's main paths
         if lmstack_out["launches"].get(row["name"]):
             row["lmstack_launches"] = lmstack_out["launches"][row["name"]]

@@ -28,7 +28,11 @@ and 5, ResNet-20 and the CV protocol, telemetry and checkpoints; and slice
 run's consensus model exported for serving; and slice 8a, the thousand-node
 scenario engine (``scenario/``: generated graphs, client sampling, churn
 and stragglers with masks bit-equal to the reference's, the masked dense
-gossip and the ``n1024_*`` presets).
+gossip and the ``n1024_*`` presets); and slice 8b, the sparse and block
+gossip schedules (``core/gossip.py``), the sharded and hybrid runtimes
+over a ``torch.distributed`` node axis (``runtime/``, ``launch/mesh.py``,
+``launch/distributed.py``) and the delayed gossip
+(``runtime/overlap.py``).
 
 Entry points (``api.build``, ``api.run``, ``python -m repro_torch.api``
 with ``--export-consensus``, ``python -m repro_torch.serve``, ``python -m

@@ -8,6 +8,8 @@
     print(result.final["acc"], result.device)
 
 The spec is the reference's (``repro.api``), so its JSON loads unchanged.
+``api.run(spec, mesh=node_mesh)`` runs it on the sharded or hybrid runtime
+over a ``torch.distributed`` node axis (``repro_torch.launch.mesh``).
 """
 from . import data, models, presets, spec
 from .build import Experiment, Result, build, run, wire_stats

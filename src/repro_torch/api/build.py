@@ -1,10 +1,15 @@
 """The one assembly path: ``build(spec) -> Experiment`` and
 ``run(spec) -> Result``.
 
-Port of ``repro/api/build.py`` for the slice the spec layer accepts (see
-``api/spec.py``): a registry optimizer, or a ``ChainOptimizer`` from
-``spec.optim.stages``.  Both run on the CUDA device unless the caller passes
-``device="cpu"``; without a CUDA device the default raises.
+Port of ``repro/api/build.py``: a registry optimizer, or a
+``ChainOptimizer`` from ``spec.optim.stages``, on the CUDA device unless the
+caller passes ``device="cpu"`` (without a CUDA device the default raises).
+``mesh`` (a :class:`~repro_torch.launch.mesh.NodeMesh`, a runtime object
+and so not part of the spec) puts the run on the sharded or hybrid backend
+over a ``torch.distributed`` node axis; every rank then calls ``run`` with
+the same spec, holds its block of the nodes and returns the same history.
+A checkpoint holds the whole node-stacked state (gathered, written by rank
+0) and resumes on any backend.
 """
 from __future__ import annotations
 
@@ -86,9 +91,10 @@ def _make_opt(spec: ExperimentSpec):
 
 
 def build(spec: ExperimentSpec, *, device="cuda",
-          task: Task | None = None) -> Experiment:
+          task: Task | None = None, mesh=None) -> Experiment:
     """Validate the spec, then assemble trainer + init state + client data +
-    model bundle on ``device``.  The init draws from a ``torch.Generator``
+    model bundle on ``device`` (with a ``mesh``, the mesh's device; see the
+    module docstring).  The init draws from a ``torch.Generator``
     seeded with ``spec.seed`` (the reference's ``jax.random`` init cannot be
     reproduced; inject it with ``repro_torch.interop`` for parity).
     ``task`` is client data already built for specs of the same data
@@ -127,26 +133,31 @@ def build(spec: ExperimentSpec, *, device="cuda",
     trainer = DecentralizedTrainer(
         bundle.loss_fn, opt, topo, lr_fn=lr_fn, device=dev,
         runtime=spec.runtime, comm=comm, rng_seed=lp.rng_seed or 0,
-        scenario=scenario, telemetry=telemetry_cfg)
+        mesh=mesh, overlap=spec.overlap, scenario=scenario,
+        telemetry=telemetry_cfg, node_axis=spec.gossip.node_axis,
+        gossip_schedule=spec.gossip.schedule)
     gen = torch.Generator().manual_seed(spec.seed)
     state = trainer.init(bundle.init_fn, gen)
     if telemetry_cfg is not None:
         # build-time constants of the 'wire', 'mixing', 'scenario' and
         # 'kernel' collectors, as the reference resolves them
         gap = topo.spectral_gap()
+        ws = wire_stats(trainer, state.params)
         telemetry_cfg.static.update({
             "spectral_gap": gap,
             # consensus distance (a sqrt) contracts by sqrt(lambda_2)
             "rho": float(np.sqrt(max(1.0 - gap, 0.0))),
-            "wire_bits_per_node_per_step":
-                wire_stats(trainer, state.params)["bits_per_node_per_step"],
+            "wire_bits_per_node_per_step": ws["bits_per_node_per_step"],
             "data_mean_tv": float(task.meta["heterogeneity"]["mean_tv"]),
             # the optimizer's analytic bytes for the path it takes
-            # (fused='auto' resolves against the trainer's device)
+            # (fused='auto' resolves against the trainer's device), over
+            # all n nodes whatever this rank holds
             "kernel_bytes_moved": float(T.chain_bytes_moved(
-                opt._stages(), sum(l.numel()
-                                   for l in tree_leaves(state.params)),
-                fused=opt.fused, device=dev))})
+                opt._stages(), ws["params_per_node"] * topo.n,
+                fused=opt.fused, device=trainer.device))})
+        if "messages_per_step" in ws:
+            telemetry_cfg.static["wire_messages_per_step"] = \
+                ws["messages_per_step"]
     return Experiment(spec=spec, trainer=trainer, state=state, task=task,
                       bundle=bundle)
 
@@ -154,20 +165,36 @@ def build(spec: ExperimentSpec, *, device="cuda",
 def wire_stats(trainer: DecentralizedTrainer, params) -> dict:
     """Bits each node puts on the wire per step (one whole-tree
     transmission per mix site).  Dense baseline: the full 32-bit tree per
-    site.  Compressed comm replaces it with the compressor's bits; the
-    anchor gossip is dense ``W @ x`` on one device, which ships no extra
-    message, so its bits are 0 (the reference charges them only under a
-    ppermute schedule, which comes with slice 8b)."""
+    site.  Compressed comm replaces it with the compressor's bits; under a
+    compiled schedule (gossip kind ``ring`` / ``sparse``), which ships the
+    CHOCO/EF anchors whole, one message an edge a site, their bits are
+    charged on top, and ``messages_per_step`` counts the schedule's
+    messages (``GossipSchedule.messages_per_step``).  The dense mix on one
+    device ships no extra message.  Shapes only: ``params`` may be this
+    rank's block."""
     per_node = sum(l[0].numel() for l in tree_leaves(params))
     sites = count_mix_sites(trainer.optimizer, params, trainer._mixing[0])
     dense_bits = 32.0 * per_node * sites
     out = {"mix_sites": int(sites), "params_per_node": int(per_node),
            "dense_bits_per_node_per_step": dense_bits}
+    messages = None
+    resolved = trainer._resolved
+    if resolved.kind in ("ring", "sparse"):
+        from repro_torch.core.gossip import compile_gossip_schedule
+        schedule = (resolved.schedule
+                    or compile_gossip_schedule(trainer.topology))
+        messages = schedule.messages_per_step()
+        out["messages_per_step"] = messages
     if trainer.comm is not None:
         comp_bits = trainer.comm.wire_bits_per_site(params) * sites
+        anchor_bits = 0.0
+        if messages is not None:
+            # a full-width anchor an edge message, over the n senders
+            anchor_bits = 32.0 * per_node * sites * (
+                messages / trainer.topology.n)
         out["compressed_bits_per_node_per_step"] = comp_bits
-        out["anchor_bits_per_node_per_step"] = 0.0
-        out["bits_per_node_per_step"] = comp_bits
+        out["anchor_bits_per_node_per_step"] = anchor_bits
+        out["bits_per_node_per_step"] = comp_bits + anchor_bits
     else:
         out["bits_per_node_per_step"] = dense_bits
     out["ratio_vs_dense"] = dense_bits / max(out["bits_per_node_per_step"],
@@ -193,13 +220,15 @@ def _make_recorder(ex: Experiment, telemetry_path: str = ""):
 def run(spec: ExperimentSpec, *, device="cuda", log_fn=print,
         state: TrainState | None = None, with_state: bool = False,
         checkpoint_path: str = "", resume: str = "",
-        telemetry_path: str = "", task: Task | None = None):
+        telemetry_path: str = "", task: Task | None = None, mesh=None):
     """Build + train + evaluate one spec on ``device``; returns a
     :class:`Result`, or with ``with_state=True`` ``(result, final_state)``
     (for a consensus export or a launcher's own checkpoint).  ``state``
     replaces the built initial state, e.g. the reference's init carried
-    over with ``repro_torch.interop.train_state_from_numpy``; ``task``
-    is passed to :func:`build`.
+    over with ``repro_torch.interop.train_state_from_numpy`` (node-stacked
+    ``[n, ...]``: each rank keeps its rows); ``task`` and ``mesh`` are
+    passed to :func:`build`, and with a mesh the returned state is this
+    rank's block.
 
     ``checkpoint_path`` with ``spec.loop.checkpoint_every`` saves the full
     TrainState (params, opt, model and comm state, step counter) and the
@@ -212,17 +241,19 @@ def run(spec: ExperimentSpec, *, device="cuda", log_fn=print,
     With ``spec.telemetry.enabled`` on-cadence steps run the collectors and
     one row per such step goes to the sink (``telemetry_path`` overrides
     its location); ``Result.telemetry`` holds the recorder's summary."""
-    ex = build(spec, device=device, task=task)
+    ex = build(spec, device=device, task=task, mesh=mesh)
     recorder = _make_recorder(ex, telemetry_path)
     lp = spec.loop
-    state = ex.state if state is None else state
+    state = ex.state if state is None else ex.trainer.finalize_state(state)
     # the reference's loop rng key, kept for its resume (the port has none)
     rng = np.array([0, lp.rng_seed or 0], np.uint32)
     start = 0
     batch_iter = ex.task.make_iter()
     if resume:
         state, rng, meta = restore_train_state(
-            resume, ex.state, generator=ex.trainer._comm_gen)
+            resume, ex.trainer.gather_state(ex.state),
+            generator=ex.trainer._comm_gen)
+        state = ex.trainer.finalize_state(state)
         start = int(meta["step"])
         if start > lp.steps:
             raise ValueError(
@@ -233,8 +264,11 @@ def run(spec: ExperimentSpec, *, device="cuda", log_fn=print,
         log_fn(f"resumed from {resume} at step {start}")
 
     def save(done, st):
-        save_train_state(checkpoint_path, st, rng=rng,
-                         generator=ex.trainer._comm_gen, step=done)
+        # every rank gathers (a collective); rank 0 writes
+        full = ex.trainer.gather_state(st)
+        if mesh is None or mesh.rank == 0:
+            save_train_state(checkpoint_path, full, rng=rng,
+                             generator=ex.trainer._comm_gen, step=done)
 
     ckpt_kw = {}
     if checkpoint_path and lp.checkpoint_every:

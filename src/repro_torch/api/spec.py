@@ -3,15 +3,15 @@
 Port of ``repro/api/spec.py``.  The spec tree is the reference's, field for
 field, so the port loads the reference's JSON unchanged
 (``ExperimentSpec.from_json(reference_spec.to_json())``) and round-trips it
-losslessly.  ``validate()`` accepts the subset that the port runs today:
-every registry topology (the generated graphs too), every optimizer and
-explicit stage chain, dense gossip (plain or compressed) on the vmap
-runtime, the scenario engine, the MLP and ResNet-20 on classification
-data, the transformer LM (every configured arch: dense, local/global,
-MoE, Mamba-2, the zamba2 hybrid and the VLM) on ``lm_domains`` data,
-checkpoints and telemetry.  Anything outside it raises
-``NotImplementedError`` naming the slice of the port that brings it;
-malformed values raise ``ValueError`` as in the reference.
+losslessly.  ``validate()`` applies the reference's rules: every registry
+topology (the generated graphs too), every optimizer and explicit stage
+chain, dense, sparse and ring gossip schedules (plain or compressed) on
+the vmap, sharded and hybrid runtimes, delayed gossip, the scenario
+engine, the MLP and ResNet-20 on classification data, the transformer LM
+(every configured arch) on ``lm_domains`` data, checkpoints and
+telemetry; a malformed value or an unsupported combination raises
+``ValueError`` with the reference's text.  The mesh the sharded and hybrid
+runtimes need is an argument of ``build``/``run``, not part of the spec.
 """
 from __future__ import annotations
 
@@ -93,9 +93,10 @@ class CommSpec:
 
 @dataclasses.dataclass(frozen=True)
 class GossipSpec:
-    """Collective schedule for the mix.  The port runs the dense
-    contraction (``'auto'`` | ``'dense'``); the ppermute schedules come
-    with slice 8b."""
+    """Collective schedule for the mix (``core/gossip.py``): ``'auto'``
+    (dense without a mesh, the compiled schedule with one), ``'dense'``,
+    ``'ring_ppermute'`` (a ring only) or ``'sparse_ppermute'``; the
+    ``node_axis`` of the mesh carries the node index."""
 
     schedule: str = "auto"            # auto | dense | ring_ppermute | sparse_ppermute
     node_axis: str = "data"
@@ -168,9 +169,9 @@ class ScenarioSpec:
     state, mixing renormalizes around it) with probability ``dropout`` per
     ``churn_window`` steps, and straggles (updates locally but misses the
     round's gossip) with probability ``straggler``.  Runs on the vmap
-    runtime with dense gossip, uncompressed comm and symmetric mixing
-    matrices only: ``validate`` and the trainer raise on other
-    combinations."""
+    runtime with dense gossip or on the hybrid runtime, with uncompressed
+    comm and symmetric mixing matrices only: ``validate`` and the trainer
+    raise on other combinations."""
 
     enabled: bool = False
     seed: int = 0
@@ -194,8 +195,8 @@ class ExperimentSpec:
 
     name: str = ""
     seed: int = 0                     # init + data/partition seed
-    runtime: str = "auto"             # auto | vmap (sharded, hybrid: 8b)
-    overlap: str = "none"             # none (delayed_1: slice 8b)
+    runtime: str = "auto"             # auto | vmap | sharded | hybrid
+    overlap: str = "none"             # none | delayed_1
     data: DataSpec = dataclasses.field(default_factory=DataSpec)
     topology: TopologySpec = dataclasses.field(default_factory=TopologySpec)
     optim: OptimSpec = dataclasses.field(default_factory=OptimSpec)
@@ -243,26 +244,21 @@ class ExperimentSpec:
 
     # -- eager cross-field validation ----------------------------------------
     def validate(self) -> "ExperimentSpec":
-        """Raise ``ValueError`` on an invalid field and
-        ``NotImplementedError`` on a valid one the port does not run yet;
-        return self so ``spec.validate()`` chains."""
+        """Raise ``ValueError`` on an invalid field or combination; return
+        self so ``spec.validate()`` chains."""
         from repro_torch.api.models import (MODEL_DATASETS, MODELS,
                                             resolve_transformer_config)
         from repro_torch.comm.compressors import BACKENDS, make_compressor
         from repro_torch.core import topology as topo_lib
+        from repro_torch.core.gossip import GOSSIP_SCHEDULES
         from repro_torch.core.optim import OPTIMIZERS
         from repro_torch.core.transforms import FUSED_MODES, STAGES
-        from repro_torch.runtime import RUNTIMES
+        from repro_torch.runtime import OVERLAPS, RUNTIMES
 
         where = f"ExperimentSpec{f'[{self.name}]' if self.name else ''}"
 
         def err(field: str, msg: str):
             raise ValueError(f"{where}.{field}: {msg}")
-
-        def later(field: str, what: str, slice_no: str):
-            raise NotImplementedError(
-                f"{where}.{field}: {what} is not ported yet; it comes with "
-                f"slice {slice_no} of the port")
 
         try:
             topo = topo_lib.get_topology(self.topology.name, self.topology.n)
@@ -287,8 +283,7 @@ class ExperimentSpec:
         if self.optim.fused not in FUSED_MODES:
             err("optim.fused", f"must be one of {FUSED_MODES}, got "
                 f"{self.optim.fused!r}")
-        # comm (make_compressor lists the valid forms), runtime, gossip
-        # schedule, overlap
+        # comm (make_compressor lists the valid forms)
         try:
             make_compressor(self.comm.compressor)
         except ValueError as e:
@@ -299,16 +294,37 @@ class ExperimentSpec:
         if self.comm.backend not in BACKENDS:
             err("comm.backend", f"must be 'jnp', 'pallas' or 'auto', got "
                 f"{self.comm.backend!r}")
+        # runtime (the mesh is a build(..., mesh=) argument; the backends
+        # check the axis against n on the actual mesh)
         if self.runtime not in RUNTIMES:
             err("runtime", f"unknown runtime {self.runtime!r}; valid: "
                 f"{' | '.join(RUNTIMES)}")
-        if self.runtime not in ("auto", "vmap"):
-            later("runtime", f"runtime {self.runtime!r}", "8b")
+        # overlap: the trainer checks again, for direct trainer users
+        if self.overlap not in OVERLAPS:
+            err("overlap", f"unknown overlap {self.overlap!r}; valid: "
+                f"{' | '.join(OVERLAPS)}")
         if self.overlap != "none":
-            later("overlap", f"overlap {self.overlap!r}", "8b")
-        if self.gossip.schedule not in ("auto", "dense"):
-            later("gossip.schedule", f"schedule {self.gossip.schedule!r}",
-                  "8b")
+            if self.comm.compressor != "dense":
+                err("overlap", "delayed gossip with compressed comm is not "
+                    "supported (the CHOCO replica exchange defines its own "
+                    "buffer protocol); set comm.compressor='dense'")
+            if self.scenario.enabled and (
+                    self.scenario.participation < 1.0
+                    or self.scenario.dropout > 0.0
+                    or self.scenario.straggler > 0.0):
+                err("overlap", "delayed gossip with scenario fault "
+                    "injection is not supported (stale buffers of dropped "
+                    "nodes would re-inject discarded state); disable the "
+                    "scenario")
+        # gossip schedule: the mesh-dependent checks run at build
+        if self.gossip.schedule not in GOSSIP_SCHEDULES:
+            err("gossip.schedule", f"unknown schedule "
+                f"{self.gossip.schedule!r}; valid: "
+                f"{' | '.join(GOSSIP_SCHEDULES)}")
+        if self.gossip.schedule == "ring_ppermute" and topo.name != "ring":
+            err("gossip.schedule",
+                "ring_ppermute mixes with a ring schedule only; use "
+                f"'sparse_ppermute' for topology={topo.name!r}")
         # data
         d = self.data
         if d.dataset not in ("classification", "lm_domains"):
@@ -362,8 +378,8 @@ class ExperimentSpec:
         if tl.sink not in SINKS:
             err("telemetry.sink", f"unknown sink {tl.sink!r}; have "
                 f"{sorted(SINKS)}")
-        # scenario: field ranges here; the n/comm/symmetry cross-checks
-        # live in DecentralizedTrainer, as in the reference
+        # scenario: field ranges here; the runtime/gossip/comm/symmetry
+        # cross-checks live in DecentralizedTrainer, as in the reference
         sc = self.scenario
         if not 0.0 < sc.participation <= 1.0:
             err("scenario.participation", f"must be in (0, 1], got "
@@ -382,6 +398,9 @@ class ExperimentSpec:
                 err("scenario", "fault injection with compressed comm is "
                     "not supported (CHOCO/EF replicas assume full "
                     "participation); set comm.compressor='dense'")
+            if self.runtime == "sharded":
+                err("scenario", "fault injection runs on runtime='hybrid' "
+                    "or 'vmap', not 'sharded'")
         # model
         if self.model.name not in MODELS:
             err("model.name", f"unknown model plugin {self.model.name!r}; "

@@ -67,15 +67,15 @@ class DecentralizedOptimizer:
         return T.chain_init(self._stages(), params)
 
     def step(self, params, grads, state, *, w=None, lr=None, t=0,
-             n_nodes=None):
+             n_nodes=None, mesh=None):
         """One chained step.  ``lr`` and ``t`` may be tensors on the params'
         device (the trainer passes them so) or plain numbers; ``n_nodes``
-        is ``StepCtx.n_nodes``."""
+        and ``mesh`` are ``StepCtx.n_nodes`` and ``StepCtx.mesh``."""
         dev = tree_leaves(params)[0].device
         lr = torch.as_tensor(self.lr if lr is None else lr,
                              dtype=torch.float32, device=dev).reshape(1)
         ctx = T.StepCtx(w=w, lr=lr, t=torch.as_tensor(t, device=dev),
-                        mix_fn=self.mix_fn, n_nodes=n_nodes)
+                        mix_fn=self.mix_fn, n_nodes=n_nodes, mesh=mesh)
         sv = T.StepVars(grads=grads, update=grads, params=params,
                         params_pre_mix=params)
         sv, new_state = T.chain_apply(self._stages(), ctx, sv, state,

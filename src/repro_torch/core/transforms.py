@@ -90,13 +90,17 @@ class StepCtx:
     params' device (the schedule value), ``t`` the 0-d int step counter
     there too: neither is ever read back by the host.  ``n_nodes`` is the
     global node count for the node-reducing stages (None: the leaves'
-    leading-axis size)."""
+    leading-axis size); ``mesh`` the node axis
+    (``repro_torch.launch.mesh.NodeMesh``) when the leaves are this rank's
+    block of the nodes, which those stages then reduce over (None: the
+    leaves hold every node)."""
 
     w: Any                      # mixing matrix for this round (None if local)
     lr: Any                     # resolved learning rate eta_t
     t: Any                      # step counter
     mix_fn: MixFn               # the gossip hook
     n_nodes: Optional[int] = None
+    mesh: Any = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -482,7 +486,7 @@ def slow_outer(slow_beta: float, slow_alpha: float, tau: int, *,
         do_outer = (ctx.t + 1) % tau == 0
         n = tree_leaves(sv.params)[0].shape[0]
         avg = tree_map(lambda a: a.expand((n,) + a.shape[1:]),
-                       gossip.node_mean(sv.params))
+                       gossip.node_mean(sv.params, mesh=ctx.mesh))
         slow_m_new = tree_map(
             lambda sm, x0, xt: slow_beta * sm + (x0 - xt) / eta,
             st["slow_m"], st["anchor"], avg)

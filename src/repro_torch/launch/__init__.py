@@ -1,1 +1,2 @@
-"""Launchers of the port: so far ``launch/serve.py``."""
+"""Launchers of the port: ``launch/serve.py`` and ``launch/train.py``, and
+the multi-rank set-up (``distributed.py``, ``mesh.py``)."""

@@ -7,8 +7,10 @@ gossip and loop from it.  Any spec field is reachable with ``--set
 section.key=value``.  It trains the reduced variant of any configured
 architecture (dense, local/global, MoE, Mamba-2, the zamba2 hybrid, the
 VLM with its stub image) on synthetic non-i.i.d. LM data with the full
-decentralized stack.  The reference's TPU mesh modes come with slices 8b
-and 9 of the port.
+decentralized stack.  A multi-rank run over ``torch.distributed`` goes
+through ``api.run(spec, mesh=)`` (``launch/distributed.py``,
+``launch/mesh.py``); the reference's TPU mesh modes of this launcher come
+with slice 9 of the port.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \

@@ -15,7 +15,9 @@ Port of ``repro/scenario``:
 The masks are drawn on the host with numpy (bit-equal to the reference's
 ``jax.random`` draws), a chunk of steps in one vectorised call, and reach
 the device with the chunk's batches: a step reads nothing back to the
-host.  The scenario runs on the vmap runtime with dense masked gossip.
+host.  The scenario runs on the vmap runtime with dense masked gossip
+and on the hybrid runtime, whose ranks draw only the nodes their block
+rounds read (``ids=``).
 """
 from __future__ import annotations
 
@@ -84,9 +86,9 @@ class ScenarioContext:
                 key, t, self.n, self.straggler, ids=ids))
         return u, m
 
-    def stacked_masks(self, t) -> np.ndarray:
-        """``masks(t)`` as one float32 array ``[..., 2, n]`` (update mask,
-        then mix mask): what the training loops copy to the device with a
-        chunk's batches."""
-        u, m = self.masks(t)
+    def stacked_masks(self, t, ids=None) -> np.ndarray:
+        """``masks(t, ids)`` as one float32 array ``[..., 2, n]`` (update
+        mask, then mix mask; ``[..., 2, len(ids)]`` with ``ids``): what the
+        training loops copy to the device with a chunk's batches."""
+        u, m = self.masks(t, ids=ids)
         return np.stack((u, m), axis=-2)

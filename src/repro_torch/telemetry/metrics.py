@@ -9,19 +9,20 @@ Its outputs are fully node-reduced scalars on the step's device, and its
 key set is fixed for a run (it may depend on the optimizer's state
 structure, one alignment key per momentum buffer, never on values), so
 every on-cadence step emits the same row.  Collectors read the ctx and
-mutate nothing.  Node reductions go through the ctx's ``node_mean`` and
-``node_max``, as in the reference, where the sharded backend swaps them for
-collectives; on the port's node-stacked layout they are plain reductions
-over axis 0.
+mutate nothing.  Node reductions go through the ctx's ``node_mean``,
+``node_sum`` and ``node_max``, as in the reference: on the node-stacked
+layout they are plain reductions over axis 0; with a ``mesh`` (the sharded
+and hybrid backends, whose leaves hold this rank's block of the nodes)
+they reduce over the ranks, a per-node value gathered to ``[n]`` first, so
+that every rank emits the vmap row.
 
 ``METRICS`` is the registry a :class:`MetricsSpec` selects from;
 :func:`resolve_config` turns the ``TelemetrySpec`` fields into the
 :class:`TelemetryConfig` the trainer threads into its runtime.  Under a
 scenario (``CollectorCtx.alive``) ``grad_norms`` covers the participating
 nodes only and ``scenario`` adds ``alive_frac``; without one both emit
-what they emit without it.  The overlap pipeline comes with slice 8b of
-the port; until then ``staleness`` emits nothing, as the reference's does
-without an overlap.
+what they emit without it.  Under ``overlap='delayed_1'`` ``staleness``
+emits ``staleness_gap``, and nothing without the overlap.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_flatten, tree_leaves
 
 __all__ = [
     "CollectorCtx", "MetricsSpec", "TelemetryConfig", "METRICS",
@@ -69,16 +70,27 @@ class CollectorCtx:
     static: dict
     device: Any = None
     alive: Any = None
+    mesh: Any = None               # node axis of block-sharded leaves
+    mix_buf_old: Any = None        # overlap: exchange buffers in and out
+    mix_buf_new: Any = None
     _flat: dict = dataclasses.field(default_factory=dict, repr=False)
 
     # -- node reductions and shared per-node helpers -------------------------
+    def _all(self, x: torch.Tensor) -> torch.Tensor:
+        """A per-node ``[b]`` quantity as the ``[n]`` one, node order."""
+        return x if self.mesh is None else self.mesh.gather_nodes(x)
+
     def node_mean(self, x: torch.Tensor) -> torch.Tensor:
         """Mean over nodes of a per-node ``[n]`` quantity."""
-        return torch.mean(x)
+        return torch.mean(self._all(x))
 
     def node_max(self, x: torch.Tensor) -> torch.Tensor:
         """Max over nodes of a per-node ``[n]`` quantity."""
-        return torch.max(x)
+        return torch.max(self._all(x))
+
+    def node_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """A sum over this device's nodes, summed over all nodes."""
+        return x if self.mesh is None else self.mesh.all_reduce(x)
 
     def flat(self, tree) -> torch.Tensor:
         """A node-stacked tree's leaves side by side, fp32 ``[n, P]``: one
@@ -97,12 +109,20 @@ class CollectorCtx:
         f = self.flat(tree)
         return torch.sum(f * f, dim=-1)
 
+    def col_mean(self, f: torch.Tensor) -> torch.Tensor:
+        """The node mean ``[1, P]`` of a flat ``[n, P]`` (``[b, P]``)."""
+        if self.mesh is None:
+            return torch.mean(f, dim=0, keepdim=True)
+        return self.node_sum(torch.sum(f, dim=0, keepdim=True)) \
+            / self.n_nodes
+
     def consensus(self, tree) -> torch.Tensor:
         """``core.gossip.consensus_distance`` of ``tree``, over its flat
         form."""
         f = self.flat(tree)
-        dev = f - torch.mean(f, dim=0, keepdim=True)
-        return torch.sqrt(torch.sum(dev * dev) / (f.shape[0] * f.shape[1]))
+        dev = f - self.col_mean(f)
+        return torch.sqrt(self.node_sum(torch.sum(dev * dev))
+                          / (self.n_nodes * f.shape[1]))
 
     def node_std(self, x: torch.Tensor) -> torch.Tensor:
         """Std over nodes of a per-node scalar array."""
@@ -137,9 +157,9 @@ def _grad_norms(ctx: CollectorCtx) -> dict:
                 "grad_norm_std": ctx.node_std(norms),
                 "grad_norm_max": ctx.node_max(norms)}
     a = ctx.alive.to(torch.float32)
-    cnt = torch.clamp(torch.sum(a), min=1.0)
-    mean = torch.sum(a * norms) / cnt
-    m2 = torch.sum(a * norms ** 2) / cnt
+    cnt = torch.clamp(ctx.node_sum(torch.sum(a)), min=1.0)
+    mean = ctx.node_sum(torch.sum(a * norms)) / cnt
+    m2 = ctx.node_sum(torch.sum(a * norms ** 2)) / cnt
     return {"grad_norm_mean": mean,
             "grad_norm_std": torch.sqrt(torch.clamp(m2 - mean ** 2,
                                                     min=0.0)),
@@ -154,7 +174,7 @@ def _alignment(ctx: CollectorCtx) -> dict:
     ``align_<stage>`` key each, node-averaged: the paper's diagnostic (local
     momentum decorrelates from the global direction under heterogeneity;
     the quasi-global buffer stays aligned)."""
-    g_bar = torch.mean(ctx.flat(ctx.grads), dim=0, keepdim=True)
+    g_bar = ctx.col_mean(ctx.flat(ctx.grads))
     g_bar_sq = torch.sum(g_bar * g_bar)
     out = {}
     for stage, st in sorted(ctx.opt_state_new.items()):
@@ -187,14 +207,16 @@ def _comm_buffers(ctx: CollectorCtx) -> dict:
 
 
 def _wire(ctx: CollectorCtx) -> dict:
-    """Bits on the wire per node and step (``api.build.wire_stats``),
-    replayed into every row so that a stream describes itself.  (The
-    reference also counts messages a step under a ppermute schedule, which
-    comes with slice 8b.)"""
+    """Bits on the wire per node and step (``api.build.wire_stats``), and
+    under a compiled schedule its point-to-point messages a step, replayed
+    into every row so that a stream describes itself."""
     s = ctx.static
     if "wire_bits_per_node_per_step" not in s:
         return {}
-    return {"wire_bits_per_node": ctx.const(s["wire_bits_per_node_per_step"])}
+    out = {"wire_bits_per_node": ctx.const(s["wire_bits_per_node_per_step"])}
+    if "wire_messages_per_step" in s:
+        out["wire_messages_per_step"] = ctx.const(s["wire_messages_per_step"])
+    return out
 
 
 def _kernel(ctx: CollectorCtx) -> dict:
@@ -237,13 +259,32 @@ def _scenario(ctx: CollectorCtx) -> dict:
         # the sum of 0/1 values times 1/n, as XLA computes the reference's
         # node mean: the step's alive_frac, bit for bit
         a = ctx.alive.to(torch.float32)
-        out["alive_frac"] = torch.sum(a) * (1.0 / a.shape[0])
+        out["alive_frac"] = ctx.node_sum(torch.sum(a)) * (1.0 / ctx.n_nodes)
     return out
 
 
 def _staleness(ctx: CollectorCtx) -> dict:
-    """The overlap pipeline's staleness gap; the pipeline comes with slice
-    8b, and without it the collector emits nothing, as the reference's."""
+    """The overlap's staleness: the RMS gap between the params each node
+    will exchange next round (its stale buffer) and the fresh params it
+    holds, normalized as the consensus distance.  Emits nothing without the
+    overlap; a site whose tree is not params-shaped (a tracker buffer) is
+    skipped."""
+    sites = ctx.mix_buf_new
+    if not sites:
+        return {}
+    pleaves, pdef = tree_flatten(ctx.params_new)
+    for site in sites:
+        sleaves, sdef = tree_flatten(site)
+        if sdef != pdef or any(a.shape != b.shape
+                               for a, b in zip(sleaves, pleaves)):
+            continue
+        sq, cnt = 0.0, 0
+        for a, b in zip(sleaves, pleaves):
+            sq = sq + torch.sum((a.to(torch.float32)
+                                 - b.to(torch.float32)) ** 2)
+            cnt += a[0].numel()
+        gap = torch.sqrt(ctx.node_sum(sq) / (ctx.n_nodes * max(cnt, 1)))
+        return {"staleness_gap": gap}
     return {}
 
 

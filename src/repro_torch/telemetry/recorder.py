@@ -19,12 +19,14 @@ step's metrics through :meth:`TelemetryRecorder.consume` (or
 Consumed values stay on the device until :meth:`flush` (called by
 :meth:`summary` and :meth:`close`), which copies each buffered step or
 chunk to the host in one transfer: a copy per chunk during the run would
-make the host wait for the device every chunk.
+make the host wait for the device every chunk.  A value the loop timed on
+the host (the overlap's ``gossip_wait_ms``) rides along as it is.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.telemetry.metrics import TM_PREFIX, TelemetryConfig
@@ -83,13 +85,21 @@ class TelemetryRecorder:
         ``close`` do."""
         with span("tm/flush"):
             for start, k, tm in self._pending:
-                keys = list(tm)
-                host = torch.stack([tm[key].reshape(-1) for key in keys]
-                                   ).cpu().tolist()
+                # device values in one transfer; the host-timed probes
+                # (``gossip_wait_ms``) are already on the host
+                keys = [key for key, v in tm.items()
+                        if isinstance(v, torch.Tensor)]
+                host = dict(zip(keys, torch.stack(
+                    [tm[key].reshape(-1) for key in keys]).cpu().tolist()
+                    if keys else []))
+                for key, v in tm.items():
+                    if key not in host:
+                        host[key] = np.asarray(v, np.float64).reshape(
+                            -1).tolist()
                 for j in range(max(k, 1)):
                     if k == 0 or (start + j) % self.config.every == 0:
-                        self._emit(start + j, {key: row[j] for key, row in
-                                               zip(keys, host)})
+                        self._emit(start + j, {key: host[key][j]
+                                               for key in tm})
             self._pending.clear()
 
     # -- internals -----------------------------------------------------------

@@ -6,9 +6,11 @@ a tuple or list entry and ``x:.<field>`` for a dataclass field (the
 reference's spelling of a pytree path), beside a ``__meta__`` JSON string
 ``{"step": ..., "extra": {...}}``.  A full-TrainState checkpoint holds
 ``{"state": TrainState, "rng": key}``: params, opt state, model state (BN's
-running statistics), compressed-gossip state and the step counter, and the
+running statistics), compressed-gossip state, the delayed gossip's
+in-flight exchange buffers (``mix_buf``) and the step counter, and the
 reference's loop rng key.  A file saved by either package loads in the
-other.
+other.  It always holds the node-stacked ``[n, ...]`` state: a sharded or
+hybrid run gathers its ranks' blocks to write it (``api.run``).
 
 The port has no loop rng (``train/trainer.py``); it keeps the reference's
 key as it read it (or the key of the loop seed, ``[0, seed]``) so that the

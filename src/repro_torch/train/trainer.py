@@ -10,7 +10,17 @@ execution backend (``repro_torch.runtime``):
 
 Where the reference fuses a chunk of steps under ``lax.scan``, the port
 runs them as a Python loop over one host-to-device copy of the chunk's
-batches (a CUDA graph of the chunk is later work).  The reference's per-step
+batches (a CUDA graph of the chunk is later work).
+
+With a ``mesh`` (``repro_torch.launch.mesh.NodeMesh``, a
+``torch.distributed`` node axis) the trainer runs on the sharded or hybrid
+backend: each rank holds its block of the nodes, copies only its rows of
+each batch (the same batch in every process) and gossips through the
+compiled schedule (``gossip_schedule``).  ``overlap='delayed_1'`` mixes
+the one-step-stale exchange buffers (``TrainState.mix_buf``, captured at
+:meth:`DecentralizedTrainer.init`) on any backend.  A schedule that
+changes from step to step picks its phase from the loops' host step
+index.  The reference's per-step
 rng is dropped: no ported model draws random numbers in its loss.  The
 compressors that draw (random-k, QSGD) draw from the trainer's own
 ``torch.Generator`` on its device, seeded with ``rng_seed``; a checkpoint
@@ -60,6 +70,8 @@ class TrainState:
     model_state: Any        # [n, ...], never gossiped
     t: torch.Tensor         # 0-d int32 step counter, on the device
     comm_state: Any = None  # compressed-gossip sites: one dict per mix call
+    mix_buf: Any = None     # overlap='delayed_1': the in-flight exchange
+                            # buffers, one tree per topology mix site
 
 
 def lr_schedule(base_lr: float, *, total_steps: int, warmup: int = 0,
@@ -98,9 +110,14 @@ class DecentralizedTrainer:
     :class:`~repro_torch.scenario.ScenarioContext` (or None: full
     participation); a non-trivial one needs uncompressed comm, its ``n``
     equal to the topology's and symmetric mixing, as in the reference.
-    ``mesh`` and ``overlap`` are the reference's options that slice 8b of
-    the port brings; set to anything but their defaults they raise
-    ``NotImplementedError``."""
+
+    ``mesh`` is a :class:`~repro_torch.launch.mesh.NodeMesh` whose
+    ``node_axis`` carries the nodes: ``runtime='auto'`` then picks the
+    sharded backend (axis size n) or the hybrid one (a size that divides
+    n), and the trainer's device is the mesh's.  ``gossip_schedule`` is one
+    of ``gossip.GOSSIP_SCHEDULES``; ``overlap`` one of
+    ``runtime.OVERLAPS``.  Every unsupported combination raises
+    ``ValueError`` here, with the reference's text."""
 
     loss_fn: Callable
     optimizer: DecentralizedOptimizer
@@ -114,20 +131,58 @@ class DecentralizedTrainer:
     overlap: str = "none"
     scenario: Any = None
     telemetry: Any = None
+    node_axis: str = "data"
+    gossip_schedule: str = "auto"
 
     def __post_init__(self):
+        from repro_torch.core import gossip
+        from repro_torch.launch.mesh import NodeMesh
+        from repro_torch.runtime import make_runtime, resolve_runtime
+
         if getattr(self.optimizer, "fused", "off") not in FUSED_MODES:
             raise ValueError(
                 f"optimizer.fused must be one of {FUSED_MODES}, got "
                 f"{self.optimizer.fused!r}")
-        for option, value, default in (("mesh", self.mesh, None),
-                                       ("overlap", self.overlap, "none")):
-            if value != default:
-                raise NotImplementedError(
-                    f"trainer option {option}={value!r} is not ported yet: "
-                    "it comes with slice 8b of the port")
-        self._validate_scenario()
         self.device = resolve_device(self.device)
+        if self.mesh is not None:
+            if not isinstance(self.mesh, NodeMesh):
+                raise TypeError(
+                    "mesh must be a repro_torch.launch.mesh.NodeMesh "
+                    "(make_node_mesh() after launch.distributed."
+                    f"initialize()), got {type(self.mesh).__name__}")
+            if self.mesh.device.type != self.device.type:
+                raise ValueError(
+                    f"the mesh's ranks run on {self.mesh.device}, the "
+                    f"trainer was asked for {self.device}")
+            self.device = self.mesh.device
+        n = self.topology.n
+        kind = resolve_runtime(self.runtime, mesh=self.mesh,
+                               node_axis=self.node_axis, n=n)
+        if kind == "hybrid":
+            # the node-granular resolver would refuse the mesh (its size is
+            # not n); the hybrid backend block-compiles the schedule, and
+            # _resolved keeps the node rounds for the wire accounting
+            if self.gossip_schedule == "ring_ppermute":
+                raise ValueError(
+                    "gossip_schedule='ring_ppermute' is the one-node-per-"
+                    "device special case; runtime='hybrid' uses 'auto' | "
+                    "'sparse_ppermute' | 'dense'")
+            if self.gossip_schedule not in gossip.GOSSIP_SCHEDULES:
+                raise ValueError(
+                    f"unknown gossip schedule {self.gossip_schedule!r}; "
+                    f"valid: {' | '.join(gossip.GOSSIP_SCHEDULES)}")
+            if self.gossip_schedule == "dense" or n == 1:
+                self._resolved = gossip.ResolvedGossip("dense")
+            else:
+                self._resolved = gossip.ResolvedGossip(
+                    "sparse", gossip.compile_gossip_schedule(self.topology),
+                    self.mesh, self.node_axis)
+        else:
+            self._resolved = gossip.resolve_gossip(
+                self.topology, schedule=self.gossip_schedule, mesh=self.mesh,
+                node_axis=self.node_axis if self.mesh is not None else None)
+        self._validate_scenario(kind)
+        self._validate_overlap()
         if self.lr_fn is None:
             lr = torch.full((1,), self.optimizer.lr, dtype=torch.float32,
                             device=self.device)
@@ -142,8 +197,7 @@ class DecentralizedTrainer:
                 device=self.device).manual_seed(self.rng_seed)
         self._masks_ahead = None   # (first step, host masks [b, 2, n])
         self.mask_host_s = 0.0     # host time of the scenario's draws
-        from repro_torch.runtime import make_runtime
-        self._runtime = make_runtime(self, self.runtime)
+        self._runtime = make_runtime(self)
 
     @property
     def _scenario(self):
@@ -152,7 +206,7 @@ class DecentralizedTrainer:
         sc = self.scenario
         return None if sc is None or sc.trivial else sc
 
-    def _validate_scenario(self) -> None:
+    def _validate_scenario(self, kind: str) -> None:
         """The reference's eager checks of the participation/fault model,
         with its texts."""
         sc = self.scenario
@@ -167,6 +221,12 @@ class DecentralizedTrainer:
                 "scenario fault injection with compressed comm is not "
                 "supported: CHOCO/EF replica states assume every node "
                 "completes every round; run uncompressed (comm=None)")
+        if kind == "sharded" or (kind == "vmap"
+                                 and self._resolved.kind != "dense"):
+            raise ValueError(
+                "scenario fault injection runs on runtime='hybrid' (block-"
+                "sparse masked gossip) or runtime='vmap' with dense gossip;"
+                f" got runtime={kind!r}, gossip={self._resolved.kind!r}")
         mix = np.asarray(self.topology.mixing)
         if not np.allclose(mix, np.swapaxes(mix, 1, 2), atol=1e-8):
             raise ValueError(
@@ -175,10 +235,31 @@ class DecentralizedTrainer:
                 f"stays doubly stochastic; topology {self.topology.name!r} "
                 "is asymmetric (e.g. one-peer exponential)")
 
+    def _validate_overlap(self) -> None:
+        """The reference's eager checks of the delayed-gossip pipeline."""
+        from repro_torch.runtime import OVERLAPS
+        if self.overlap not in OVERLAPS:
+            raise ValueError(
+                f"overlap={self.overlap!r} is not one of {OVERLAPS}")
+        if self.overlap == "none":
+            return
+        if self.comm is not None:
+            raise ValueError(
+                "overlap='delayed_1' with compressed comm is not supported: "
+                "the CHOCO replica exchange already defines its own buffer "
+                "protocol; run uncompressed (comm=None)")
+        if self.scenario is not None and not getattr(
+                self.scenario, "trivial", False):
+            raise ValueError(
+                "overlap='delayed_1' with scenario fault injection is not "
+                "supported: the stale exchange buffers of dropped nodes "
+                "would re-inject discarded state; run scenario=None")
+
     def scenario_masks(self, start: int, k: int, until: int = 0):
         """The scenario's masks of steps ``start .. start + k - 1`` as a
-        host array ``[k, 2, n]`` (update mask, mix mask), or None without
-        a scenario that masks.  Drawn ``MASK_BLOCK`` steps (at least
+        host array ``[k, 2, n]`` (update mask, mix mask; on the hybrid
+        backend over its ``mask_ids``), or None without a scenario that
+        masks.  Drawn ``MASK_BLOCK`` steps (at least
         ``k``, none from step ``until`` on if it is given) at a time and
         kept until a step outside the block is asked; the draws' host time
         adds up in ``mask_host_s``."""
@@ -192,7 +273,9 @@ class DecentralizedTrainer:
             stop = start + max(k, MASK_BLOCK)
             if until:
                 stop = max(start + k, min(stop, until))
-            ahead = (start, sc.stacked_masks(np.arange(start, stop)))
+            ahead = (start, sc.stacked_masks(
+                np.arange(start, stop),
+                ids=getattr(self._runtime, "mask_ids", None)))
             self._masks_ahead = ahead
         out = ahead[1][start - ahead[0]:start - ahead[0] + k]
         self.mask_host_s += time.perf_counter() - t0
@@ -203,15 +286,17 @@ class DecentralizedTrainer:
         """One step's host batch (``k`` None) or ``k`` steps' stacked
         ``[k, n, ...]``, with the scenario's masks of the steps from
         ``start`` (drawn ahead up to step ``until``, see
-        :meth:`scenario_masks`), onto the device in one :meth:`put_batch`:
+        :meth:`scenario_masks`), onto the device, one copy an array:
         ``(batch, masks)``, the masks ``[2, n]`` (``[k, 2, n]``) or
         None."""
         masks = self.scenario_masks(start, 1 if k is None else k, until)
+        batch = self.put_batch(batch, lead=0 if k is None else 1)
         if masks is None:
-            return self.put_batch(batch), None
-        *dev, dev_masks = self.put_batch(
-            (*batch, masks[0] if k is None else masks))
-        return tuple(dev), dev_masks
+            return batch, None
+        return batch, self._put_masks(masks[0] if k is None else masks)
+
+    def _put_masks(self, masks: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(masks)).to(self.device)
 
     def _setup(self, params) -> None:
         """Keep the params' treedef (a run's structure is fixed) and
@@ -228,53 +313,101 @@ class DecentralizedTrainer:
     # -- init ---------------------------------------------------------------
     def init(self, init_fn, generator: torch.Generator) -> TrainState:
         """``init_fn(generator) -> (params, model_state)`` for one node; every
-        node starts from the same x^0 (the paper's setup)."""
+        node starts from the same x^0 (the paper's setup).  On the sharded
+        and hybrid backends the state holds this rank's nodes only.  Under
+        the overlap, ``mix_buf`` is captured here: the tree each topology
+        mix site would contract on the first step."""
         params, mstate = init_fn(generator)
-        n = self.topology.n
+        rows = getattr(self._runtime, "_b", self.topology.n)
         stack = lambda tree: tree_map(
-            lambda x: x.to(self.device).expand(n, *x.shape).clone(), tree)
+            lambda x: x.to(self.device).expand(rows, *x.shape).clone(), tree)
         params_n = stack(params)
-        comm_state = None
+        comm_state = mix_buf = None
         if self.comm is not None:
             comm_state = self.comm.init_state(self.optimizer, params_n,
                                               self._mixing[0])
+        if self.overlap != "none":
+            from repro_torch.runtime.overlap import \
+                capture_topology_mix_sites
+            mix_buf = capture_topology_mix_sites(
+                self.optimizer, params_n, self._mixing[0],
+                mesh=self._runtime.mesh)
         return TrainState(params=params_n,
                           opt_state=self.optimizer.init(params_n),
                           model_state=stack(mstate),
                           t=torch.zeros((), dtype=torch.int32,
                                         device=self.device),
-                          comm_state=comm_state)
+                          comm_state=comm_state, mix_buf=mix_buf)
+
+    def finalize_state(self, state: TrainState) -> TrainState:
+        """A node-stacked ``[n, ...]`` state (a checkpoint's, the
+        reference's init) in the backend's layout: this rank's rows on the
+        sharded and hybrid backends, as it is on vmap."""
+        return self._runtime.finalize_state(state)
+
+    def gather_state(self, state: TrainState) -> TrainState:
+        """The node-stacked ``[n, ...]`` form of ``state`` (what a
+        checkpoint holds); a collective on the sharded and hybrid
+        backends, which every rank calls."""
+        return self._runtime.gather_state(state)
 
     # -- steps ---------------------------------------------------------------
+    def _host_t(self, state, t, masks):
+        """The host step index where a step needs one (a schedule that
+        changes from step to step, a scenario's draw): ``t``, or
+        ``state.t`` read once."""
+        if t is None and (self._runtime.uses_host_t
+                          or (masks is None and self._scenario is not None)):
+            t = int(state.t)
+        return t
+
     def step(self, state: TrainState, batch, collect: bool = False,
-             masks=None):
+             masks=None, t: Optional[int] = None):
         """One decentralized step on device tensors (see :meth:`put_batch`);
         returns (new state, metrics as 0-d device tensors).  ``collect``
         also runs the telemetry collectors (``tm.`` metrics).  ``masks``:
         the scenario's ``[2, n]`` masks of this step on the device (see
-        :meth:`put_steps`); None under a scenario that masks reads
-        ``state.t`` once and draws them."""
+        :meth:`put_steps`); ``t``: the step's index on the host, by which a
+        compiled schedule that changes from step to step picks its phase.
+        Without them, a scenario that masks or such a schedule reads
+        ``state.t`` once."""
         self._setup(state.params)
+        t = self._host_t(state, t, masks)
         if masks is None and self._scenario is not None:
-            masks = self.put_batch(
-                (self.scenario_masks(int(state.t), 1)[0],))[0]
-        return self._runtime.step(state, batch, collect, masks)
+            masks = self._put_masks(self.scenario_masks(t, 1)[0])
+        return self._runtime.step(
+            state, batch, collect, masks,
+            t if self._runtime.uses_host_t else None)
 
     def step_chunk(self, state: TrainState, batches, collect: bool = False,
-                   masks=None):
-        """``k`` steps over batches stacked ``[k, n, ...]``; metrics come
-        back stacked ``[k]``.  ``collect`` collects on every step.
-        ``masks``: the scenario's ``[k, 2, n]``, as for :meth:`step`."""
+                   masks=None, t: Optional[int] = None):
+        """``k`` steps over batches stacked ``[k, n, ...]`` from host step
+        ``t``; metrics come back stacked ``[k]``.  ``collect`` collects on
+        every step.  ``masks``: the scenario's ``[k, 2, n]``, as for
+        :meth:`step`."""
         self._setup(state.params)
+        t = self._host_t(state, t, masks)
         if masks is None and self._scenario is not None:
-            k = batches[0].shape[0]
-            masks = self.put_batch(
-                (self.scenario_masks(int(state.t), k),))[0]
-        return self._runtime.step_chunk(state, batches, collect, masks)
+            masks = self._put_masks(
+                self.scenario_masks(t, batches[0].shape[0]))
+        return self._runtime.step_chunk(
+            state, batches, collect, masks,
+            t if self._runtime.uses_host_t else None)
 
-    def put_batch(self, batch):
-        """One host batch (a tuple of numpy arrays) onto the device."""
-        return self._runtime.put_batch(batch)
+    def put_batch(self, batch, lead: int = 0):
+        """One host batch (a tuple of numpy arrays, the same in every
+        process) onto the device: this rank's rows of it on the sharded and
+        hybrid backends (``lead``: the node axis, 1 for a chunk)."""
+        return self._runtime.put_batch(batch, lead)
+
+    def probe_metrics(self, state: TrainState, batch, t: Optional[int] = None,
+                      chunked: bool = False) -> dict:
+        """The overlap's ``tm.gossip_wait_ms`` for this step (host-timed,
+        state unchanged); {} unless ``overlap`` is on.  Call before the
+        step."""
+        self._setup(state.params)
+        return self._runtime.probe_metrics(
+            state, batch, t if self._runtime.uses_host_t else None, chunked)
 
     def evaluate(self, state: TrainState, eval_fn, batches) -> dict:
         """Each node's model on the full eval set: each metric's mean over
@@ -322,9 +455,10 @@ def run_training(trainer: DecentralizedTrainer, state: TrainState,
     for i, batch in zip(range(step_offset, total), batch_iter):
         collect = telemetry is not None and telemetry.wants(i)
         batch, masks = trainer.put_steps(batch, i, until=total)
-        state, metrics = trainer.step(state, batch, collect, masks)
+        probe = trainer.probe_metrics(state, batch, i) if collect else {}
+        state, metrics = trainer.step(state, batch, collect, masks, t=i)
         if telemetry is not None:
-            metrics = telemetry.consume(i, metrics)
+            metrics = telemetry.consume(i, {**metrics, **probe})
         _record_step(history, i, total, log_every, log_fn,
                      lambda: {k: float(v) for k, v in metrics.items()})
         if checkpoint_fn and checkpoint_every \
@@ -374,9 +508,15 @@ def run_training_scanned(trainer: DecentralizedTrainer, state: TrainState,
             k, until=step_offset + steps)
         collect = (telemetry is not None
                    and telemetry.wants_chunk(step_offset + done, k))
-        state, metrics = trainer.step_chunk(state, stacked, collect, masks)
+        probe = (trainer.probe_metrics(state, stacked, step_offset + done,
+                                       chunked=True) if collect else {})
+        state, metrics = trainer.step_chunk(state, stacked, collect, masks,
+                                            t=step_offset + done)
         if telemetry is not None:
-            metrics = telemetry.consume_chunk(step_offset + done, metrics)
+            # a host probe value stands for every step of the chunk
+            metrics = telemetry.consume_chunk(step_offset + done, {
+                **metrics, **{mk: np.full((k,), mv, np.float32)
+                              for mk, mv in probe.items()}})
 
         host: dict = {}  # chunk metrics, fetched once and only if needed
 

@@ -79,22 +79,47 @@ def test_port_loads_reference_spec_json(preset):
 _LM = ("model.name=transformer", "data.dataset=lm_domains")
 
 
-@pytest.mark.parametrize("override,match", [
-    ("overlap=delayed_1", "slice 8"),
-    ("runtime=sharded", "slice 8"),
-    ("gossip.schedule=ring_ppermute", "slice 8"),
-    (_LM + ("gossip.schedule=ring_ppermute",), "slice 8b"),
-    (("scenario.enabled=true", "scenario.dropout=0.1", "runtime=hybrid"),
-     "slice 8b"),
-    ("gossip.schedule=sparse_ppermute", "slice 8b"),
-    (_LM + ("overlap=delayed_1",), "slice 8b"),
-    ("runtime=hybrid", "slice 8"),
-])
-def test_spec_outside_the_slice_names_its_slice(override, match):
-    spec = tapi.presets.get(PRESETS[0])
+#: the ids these cases had while they asserted the slice-8b refusals
+_SLICE_8B_IDS = [
+    "overlap=delayed_1-slice 8", "runtime=sharded-slice 8",
+    "gossip.schedule=ring_ppermute-slice 8", "override3-slice 8b",
+    "override4-slice 8b", "gossip.schedule=sparse_ppermute-slice 8b",
+    "override6-slice 8b", "runtime=hybrid-slice 8"]
+
+
+@pytest.mark.parametrize("override,expect", [
+    ("overlap=delayed_1", None),
+    ("runtime=sharded", "needs a mesh"),
+    ("gossip.schedule=ring_ppermute", "needs mesh"),
+    (_LM + ("gossip.schedule=ring_ppermute", "topology.name=torus"),
+     "ring_ppermute mixes with a ring schedule only"),
+    (("scenario.enabled=true", "scenario.dropout=0.1", "runtime=sharded"),
+     "not 'sharded'"),
+    ("gossip.schedule=sparse_ppermute", "needs mesh"),
+    (_LM + ("overlap=delayed_1", "comm.compressor=topk:0.01"),
+     "compressed comm"),
+    ("runtime=hybrid", "needs a mesh"),
+], ids=_SLICE_8B_IDS)
+def test_spec_outside_the_slice_names_its_slice(override, expect):
+    """Slice 8b ported these options (they raised ``NotImplementedError``
+    naming it); each input now meets the reference's own rule: a valid
+    spec validates in both packages, a mesh-dependent one builds only with
+    a mesh ("needs a mesh" / "needs mesh + node_axis"), and an invalid
+    combination is the reference's ``ValueError``."""
     overrides = (override,) if isinstance(override, str) else override
-    with pytest.raises(NotImplementedError, match=match):
-        spec.override(*overrides).validate()
+    spec = tapi.presets.get(PRESETS[0]).override(*overrides)
+    ref = japi.ExperimentSpec.from_json(spec.to_json())
+    if expect is None or "mesh" in expect:
+        assert spec.validate() is spec
+        ref.validate()
+        if expect:
+            with pytest.raises(ValueError, match=expect):
+                tapi.build(spec, device="cpu")
+        return
+    with pytest.raises(ValueError, match=expect):
+        spec.validate()
+    with pytest.raises(ValueError, match=expect):
+        ref.validate()
 
 
 def test_spec_rejects_invalid_values():

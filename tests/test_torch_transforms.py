@@ -198,9 +198,23 @@ def test_chain_validation():
                                           ("overlap", "delayed_1"),
                                           ("runtime", "sharded")])
 def test_trainer_refuses_unported_options(option, value):
-    with pytest.raises(NotImplementedError, match="slice"):
-        TTrainer(_t_loss, toptim.make_optimizer("dsgd"), ttopo.ring(N),
-                 device="cpu", **{option: value})
+    """Slice 8b ported these options (they raised ``NotImplementedError``);
+    each now meets the reference's rule: a mesh must be a ``NodeMesh``,
+    the sharded and hybrid runtimes need a mesh, and the delayed gossip
+    builds but refuses compressed comm."""
+    from repro_torch.comm import make_comm
+    make = lambda **kw: TTrainer(_t_loss, toptim.make_optimizer("dsgd"),
+                                 ttopo.ring(N), device="cpu", **kw)
+    if option == "mesh":
+        exc, match, extra = TypeError, "NodeMesh", {}
+    elif option == "runtime":
+        exc, match, extra = ValueError, "needs a mesh", {}
+    else:
+        assert make(overlap=value).overlap == value
+        exc, match, extra = (ValueError, "compressed comm",
+                             {"comm": make_comm("topk:0.5")})
+    with pytest.raises(exc, match=match):
+        make(**{option: value}, **extra)
 
 
 def test_lr_schedule_matches_reference():
