@@ -216,7 +216,20 @@ line) if anything goes wrong:
             the history unchanged, a checkpoint cut at 10 of 20 and resumed
             bit-equal with ``mix_buf``); exp16 on hybrid with no host sync
             (CUDA sync debugging 'error'); CHOCO top-k on hybrid
-            (``comm.backend=auto``); each loop profiled.
+            (``comm.backend=auto``); each loop profiled;
+13. launch  slice 9's main path: ``launch/steps.build_train_step`` on
+            TinyLlama-1.1B at its published size (fp32, 2 nodes of a ring,
+            [1, 1024] a node, remat 'full') for 3 steps from a seeded init,
+            with exactly one ``qg_step`` launch a plan slice a step and no
+            ``fused_halfstep`` / ``fused_qg_buffer``; ms/step, peak memory
+            and the ratio to the roofline bound of the same StepConfig
+            (``launch/roofline.py`` under ``H100``); the dry run's per-rank
+            bytes equal to the card's tensors' and its ``meta`` flop count
+            equal to the card's plus the kernel's mix; step 1 against the
+            unfused chain (HIST_RTOL / HIST_ATOL, leaf by leaf); remat
+            'none' bit-equal with its peak; a bf16 step with no launch (the
+            dtype rule); the prefill and decode builders at [1, 2048] and 8
+            tokens against the direct model calls.
 
 Imports nothing of JAX nor of the JAX package.  The second-to-last lines
 are the card's name and power limit and a JSON ``kernels`` line; the last
@@ -5389,6 +5402,347 @@ def phase_runtimes(dev, scen_out) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 13. launch: slice 9's step builders on TinyLlama-1.1B at its published size
+
+#: the launch phase's StepConfig: TinyLlama-1.1B at its published widths
+#: and depth (1.100e9 parameters, d_model 2048, 22 layers), LAUNCH_NODES
+#: nodes of a ring on the card, LAUNCH_SEQ tokens a sequence and
+#: LAUNCH_BATCH sequences in all, fp32 (the kernel route of the dtype rule)
+LAUNCH_ARCH = "tinyllama-1.1b"
+#: its published size: (parameters, d_model, layers)
+LAUNCH_SIZE = (1_100_046_336, 2048, 22)
+LAUNCH_SEQ, LAUNCH_BATCH, LAUNCH_NODES, LAUNCH_STEPS = 1024, 2, 2, 3
+LAUNCH_SEED = 0
+#: the prefill and decode builders: a [1, LAUNCH_PROMPT] prompt, then
+#: LAUNCH_DECODE greedy tokens
+LAUNCH_PROMPT, LAUNCH_DECODE = 2048, 8
+
+
+def _timed(fn, *args):
+    """``(fn(*args), ms)``: wall time between two device syncs."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _launch_inputs(dev, sc):
+    """``sc.n_nodes`` seeded node inits, stacked, and a numpy batch of
+    next-token pairs (int32, as ``steps.train_batch_specs``)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_map
+
+    gen = torch.Generator(device=dev).manual_seed(LAUNCH_SEED)
+    nodes = [tf.init_lm(gen, sc.cfg) for _ in range(sc.n_nodes)]
+    params = tree_map(lambda *ls: torch.stack(ls), *nodes)
+    del nodes
+    rng = np.random.default_rng(LAUNCH_SEED)
+    toks = rng.integers(0, sc.cfg.vocab_size, dtype=np.int32, size=(
+        sc.n_nodes, sc.shape.global_batch // sc.n_nodes,
+        sc.shape.seq_len + 1))
+    batch = {"tokens": torch.from_numpy(toks[..., :-1].copy()).to(dev),
+             "labels": torch.from_numpy(toks[..., 1:].copy()).to(dev)}
+    return params, batch
+
+
+def _nbytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _launch_hold_unfused(dev, sc, params, batch, host1) -> float:
+    """Step 1 of the kernel route against the same step through the
+    unfused chain (``fused='off'``), held within HIST_RTOL / HIST_ATOL.
+    The chain acts leaf by leaf (weight decay, the heavyball, the dense mix
+    of the leaf's rows, the QG refresh), so it runs one leaf at a time here:
+    the whole fp32 chain at this width holds ~66 GB of temporaries (the dry
+    run's count), beyond the card beside the step's arguments.  The
+    gradients are the step's own half (``steps.node_grads``), whose mean
+    loss must be the step's bit for bit.  Returns the largest abs error."""
+    import dataclasses
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.tree import tree_leaves
+
+    xs1, ms1, loss1 = host1
+    losses, grads = steps.node_grads(sc, params, batch)
+    if not torch.equal(torch.mean(losses), loss1):
+        raise AssertionError(f"launch: node_grads' mean loss "
+                             f"{torch.mean(losses).item()} is not the "
+                             f"step's {loss1.item()}")
+    opt = dataclasses.replace(steps.make_opt(sc), fused="off")
+    w = torch.as_tensor(steps.step_topology(sc).w(0), dtype=torch.float32,
+                        device=dev)
+    worst = 0.0
+    with torch.no_grad():
+        for i, (x, g) in enumerate(zip(tree_leaves(params),
+                                       tree_leaves(grads))):
+            tree = {"x": x}
+            new_p, new_o = opt.step(tree, {"x": g}, opt.init(tree), w=w,
+                                    lr=sc.lr, t=0)
+            for what, got, want in (("x", new_p["x"], xs1[i]),
+                                    ("m_hat", tree_leaves(new_o)[0],
+                                     ms1[i])):
+                want = want.to(dev)
+                err = (got - want).abs()
+                worst = max(worst, err.max().item())
+                bad = err > HIST_ATOL + HIST_RTOL * want.abs()
+                if bool(bad.any()):
+                    raise AssertionError(
+                        f"launch: leaf {i} {what}, kernel step vs unfused "
+                        f"chain: {int(bad.sum())} entries beyond HIST_RTOL "
+                        f"/ HIST_ATOL, max abs {err.max().item():.3e}")
+    return worst
+
+
+def _launch_remat(dev, sc, params, batch, host1, base) -> dict:
+    """One step with ``remat='none'`` from the same inputs: params,
+    optimizer state and loss bit-equal to the ``'full'`` step 1
+    (``host1``); its peak over the arguments."""
+    import dataclasses
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.tree import tree_leaves
+
+    sc_none = dataclasses.replace(sc, remat="none")
+    opt0 = steps.make_opt(sc_none).init(params)
+    torch.cuda.reset_peak_memory_stats(dev)
+    (p, o, loss), ms = _timed(steps.build_train_step(sc_none), params, opt0,
+                              batch)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    xs1, ms1, loss1 = host1
+    same = torch.equal(loss, loss1) and all(
+        torch.equal(a, b.to(dev)) for a, b in zip(
+            tree_leaves(p) + tree_leaves(o), xs1 + ms1))
+    if not same:
+        raise AssertionError("launch: remat='none' step is not bit-equal "
+                             "to remat='full' step 1")
+    return {"peak_over_args": peak, "ms": ms}
+
+
+def _launch_serve(dev, cfg, params) -> dict:
+    """``build_prefill_step`` at [1, LAUNCH_PROMPT], then LAUNCH_DECODE
+    ``build_decode_step`` calls, greedy, against the direct ``tf.prefill``
+    / ``tf.decode_step`` calls: the same tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_map
+
+    one = tree_map(lambda t: t[0], params)
+    sp = steps.StepConfig(cfg, InputShape(
+        "smoke_prefill", LAUNCH_PROMPT + LAUNCH_DECODE, 1, "prefill"),
+        n_nodes=1, param_dtype=torch.float32)
+    rng = np.random.default_rng(LAUNCH_SEED + 1)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(1, LAUNCH_PROMPT), dtype=np.int32)).to(dev)
+    direct = (
+        lambda p, t: tf.prefill(p, t, cfg, chunk=sp.chunk,
+                                ssd_chunk=sp.ssd_chunk,
+                                cache_len=sp.shape.seq_len),
+        lambda p, t, pos, c: tf.decode_step(p, t, pos, c, cfg))
+    runs = {}
+    for label, (prefill, decode) in (
+            ("builders", (steps.build_prefill_step(sp),
+                          steps.build_decode_step(sp))),
+            ("direct", direct)):
+        (logits, cache), prefill_ms = _timed(prefill, one, prompt)
+        toks, decode_ms = [], []
+        for j in range(LAUNCH_DECODE):
+            tok = torch.argmax(logits, -1, keepdim=True)
+            toks.append(int(tok[0, 0]))
+            (logits, cache), dt = _timed(decode, one, tok,
+                                         LAUNCH_PROMPT + j, cache)
+            decode_ms.append(dt)
+        runs[label] = {"tokens": toks, "prefill_ms": prefill_ms,
+                       "decode_ms": statistics.median(decode_ms)}
+        del cache
+    if runs["builders"]["tokens"] != runs["direct"]["tokens"]:
+        raise AssertionError(f"launch: builder tokens {runs['builders']} "
+                             f"vs direct {runs['direct']}")
+    return runs
+
+
+def phase_launch(dev) -> dict:
+    """Slice 9's main path on the card: the launch tooling's step builders
+    on TinyLlama-1.1B at its published size.  The fp32 train step
+    (``steps.build_train_step``, 2 nodes of a ring, remat 'full') for
+    LAUNCH_STEPS steps from a seeded init, with exactly one ``qg_step``
+    launch a plan slice a step and no ``fused_halfstep`` /
+    ``fused_qg_buffer``; step 1 held against the unfused chain; ms/step and
+    the peak memory beside the roofline bound of the same StepConfig under
+    ``roofline.H100``; the dry run's bytes and flop count against the
+    card's; remat 'none' bit-equal; a bf16 step (no kernel, the dtype
+    rule); the prefill and decode builders against the direct calls."""
+    import dataclasses
+    import math as _math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import ops, qg_update as K
+    from repro_torch.launch import dryrun, roofline, sharding, steps
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.tree import tree_leaves, tree_map
+
+    smi = _card()
+    t_phase = time.perf_counter()
+    cfg = get_config(LAUNCH_ARCH)
+    if (cfg.n_params(), cfg.d_model, cfg.n_layers) != LAUNCH_SIZE:
+        raise AssertionError(f"launch: {LAUNCH_ARCH} is not at its "
+                             f"published size: {cfg}")
+    sc = steps.StepConfig(cfg, InputShape(
+        "smoke_train", seq_len=LAUNCH_SEQ, global_batch=LAUNCH_BATCH,
+        kind="train"), n_nodes=LAUNCH_NODES, param_dtype=torch.float32)
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    log(f"launch [{smi}]: before the phase {torch.cuda.memory_allocated(dev)}"
+        f" B allocated, device free {free} of {total} B")
+    params, batch = _launch_inputs(dev, sc)
+    opt0 = steps.make_opt(sc).init(params)
+    plan = K.qg_step_plan([(leaf[0].numel(), [0] * 5)
+                           for leaf in tree_leaves(params)])
+    step = steps.build_train_step(sc)
+    out = {"card": smi}
+
+    # 1. the fp32 kernel path, counted
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    state, ms, losses, host1, peak1 = (params, opt0), [], [], None, None
+    for i in range(LAUNCH_STEPS):
+        (p, o, loss), dt = _timed(step, *state, batch)
+        ms.append(dt)
+        losses.append(loss.item())
+        if i == 0:
+            peak1 = torch.cuda.max_memory_allocated(dev)
+            host1 = ([t.cpu() for t in tree_leaves(p)],
+                     [t.cpu() for t in tree_leaves(o)], loss.clone())
+            del opt0
+        state = (p, o)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    _expect_launches("launch fp32", counts,
+                     {"qg_step": LAUNCH_STEPS * len(plan)})
+    out["launches"] = counts
+    if not all(_math.isfinite(v) for v in losses):
+        raise AssertionError(f"launch: losses {losses}")
+
+    # 2. the dry run against the card: bytes, flops, memory
+    meta = dryrun.trace_step(sc, sharding.make_plan(
+        MeshShape((("data", 1),)), n_nodes=1))
+    terms = roofline.roofline_terms(
+        {"flops": meta["flops"], "bytes_accessed": meta["bytes_accessed"],
+         "collective_bytes": 0.0}, hw=roofline.H100, dtype=sc.param_dtype)
+    whole = sharding.make_plan(MeshShape((("data", 1),)), n_nodes=1)
+    two = sharding.make_plan(MeshShape((("data", LAUNCH_NODES),)),
+                             n_nodes=LAUNCH_NODES)
+    p_meta = steps.params_shape(sc, node_stacked=True)
+    specs = {"params": p_meta, "opt_state": steps.opt_state_shape(sc, p_meta),
+             "batch": steps.train_batch_specs(sc)}
+    card = {"params": _nbytes(params), "opt_state": _nbytes(state[1]),
+            "batch": _nbytes(batch)}
+    for k, tree in specs.items():
+        got = sharding.bytes_per_rank(whole, tree)
+        per_node = sharding.bytes_per_rank(two, tree)
+        if got != card[k] or LAUNCH_NODES * per_node != card[k]:
+            raise AssertionError(f"launch: bytes_per_rank({k}) {got} (one "
+                                 f"node a rank: {per_node}) vs {card[k]} B "
+                                 "on the card")
+    del state, p, o
+    opt0 = steps.make_opt(sc).init(params)
+    (_, card_flops, card_bytes) = roofline.trace_cost(step, params, opt0,
+                                                      batch)
+    mix = roofline.mix_flops(LAUNCH_NODES, sum(
+        leaf[0].numel() for leaf in tree_leaves(params)))
+    if card_flops + mix != meta["flops"]:
+        raise AssertionError(f"launch: flop count on meta {meta['flops']} "
+                             f"vs the card's {card_flops} + the kernel's "
+                             f"mix {mix}")
+    del opt0
+    warm = statistics.mean(ms[1:])
+    out.update(ms=ms, warm_ms=warm, peak=peak, peak1=peak1, base=base,
+               bound_s=terms["step_s_lower_bound"], terms=terms,
+               ratio=warm / 1e3 / terms["step_s_lower_bound"],
+               meta=meta, card_flops=card_flops, card_bytes=card_bytes,
+               bytes=card)
+    log(f"launch [{smi}] fp32 {LAUNCH_ARCH} {LAUNCH_NODES} nodes x "
+        f"[{LAUNCH_BATCH // LAUNCH_NODES}, {LAUNCH_SEQ}], remat full: "
+        f"{LAUNCH_STEPS} steps, ms/step {[round(v, 3) for v in ms]} (warm "
+        f"{warm:.3f}), losses {losses}; launches {counts} (qg_step plan "
+        f"{len(plan)} launch a step)")
+    log(f"launch [{smi}] roofline (H100, fp32 at 67 TFLOP/s, TF32 off): "
+        f"compute {terms['compute_s']:.6f} s, memory "
+        f"{terms['memory_s']:.6f} s, bound {terms['step_s_lower_bound']:.6f}"
+        f" s ({terms['bottleneck']}); measured/bound {out['ratio']:.3f}")
+    log(f"launch [{smi}] memory: max_memory_allocated {peak} B over "
+        f"{LAUNCH_STEPS} steps, {peak1} B in step 1, {base} B allocated "
+        f"before; the dry run's argument {meta['argument']} B, its "
+        f"MemTracker temp {meta['temp']} B on meta (the unfused chain: "
+        f"meta takes no kernel) vs the card's step-1 peak over its "
+        f"arguments {peak1 - base} B")
+    log(f"launch [{smi}] bytes_per_rank = card nbytes {card}; flops meta "
+        f"{meta['flops']:.0f} = card {card_flops:.0f} + qg_step's mix "
+        f"{mix:.0f}; bytes accessed meta {meta['bytes_accessed']:.0f}, "
+        f"card (kernel route) {card_bytes:.0f}")
+
+    # 3. step 1 against the unfused chain, leaf by leaf
+    out["unfused_max_abs"] = _launch_hold_unfused(dev, sc, params, batch,
+                                                  host1)
+    log(f"launch [{smi}] step 1 vs the unfused chain: max abs "
+        f"{out['unfused_max_abs']:.3e} (HIST_RTOL {HIST_RTOL}, HIST_ATOL "
+        f"{HIST_ATOL})")
+
+    # 4. remat 'none' bit-equal, its peak beside 'full''s
+    out["remat"] = _launch_remat(dev, sc, params, batch, host1, base)
+    out["remat"]["full_peak_over_args"] = peak1 - base
+    log(f"launch [{smi}] remat: 'none' bit-equal to 'full'; step peak over "
+        f"the arguments none {out['remat']['peak_over_args']} B vs full "
+        f"{peak1 - base} B; none {out['remat']['ms']:.3f} ms vs full step 1 "
+        f"{ms[0]:.3f} ms")
+    del host1
+
+    # 5. the prefill and decode builders
+    out["serve"] = _launch_serve(dev, cfg, params)
+    for label, r in out["serve"].items():
+        log(f"launch [{smi}] {label}: prefill [1, {LAUNCH_PROMPT}] "
+            f"{r['prefill_ms']:.3f} ms, decode median {r['decode_ms']:.3f} "
+            f"ms, tokens {r['tokens']}")
+
+    # 6. bf16: the dtype rule builds the chain unfused: no kernel launch
+    # (the fp32 params go first: the bf16 chain's temporaries are large)
+    sc16 = dataclasses.replace(sc, param_dtype=torch.bfloat16)
+    p16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+    del params
+    opt16 = steps.make_opt(sc16)
+    if opt16.fused != "off":
+        raise AssertionError(f"launch: bf16 optimizer fused={opt16.fused}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    (_, _, loss16), ms16 = _timed(steps.build_train_step(sc16), p16,
+                                  opt16.init(p16), batch)
+    _expect_launches("launch bf16", ops.launch_counts(), {})
+    if not _math.isfinite(loss16.item()):
+        raise AssertionError(f"launch: bf16 loss {loss16.item()}")
+    out["bf16"] = {"ms": ms16, "loss": loss16.item(),
+                   "peak": torch.cuda.max_memory_allocated(dev)}
+    del p16
+    log(f"launch [{smi}] bf16 step: 0 launches, loss {loss16.item():.6f}, "
+        f"{ms16:.3f} ms (first call), peak {out['bf16']['peak']} B")
+    del batch
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"launch launches {json.dumps({k: v for k, v in counts.items() if v})}"
+        f" ({out['seconds']:.1f} s for the phase)")
+    return out
+
+
 def sass_mma_counts(lib: Path) -> dict:
     """``(HMMA, all)`` instructions per kernel in ``lib``'s SASS (HMMA: the
     tensor-core products), by ``cuobjdump -sass`` from the toolkit that
@@ -5523,6 +5877,11 @@ def main() -> int:
     # 12. slice 8b's main paths: the hybrid backend over a one-rank NCCL
     # group (the n1024 presets, exp16, CHOCO top-k) and the delayed gossip
     runtimes_out = phase_runtimes(dev, scen_out)
+    torch.cuda.empty_cache()
+
+    # 13. slice 9's main path: the launch tooling's step builders on
+    # TinyLlama-1.1B at its published size, held against the dry run
+    launch_out = phase_launch(dev)
 
     smi = _card()
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -5634,6 +5993,8 @@ def main() -> int:
             row[label] = {k: att_timed[(row["name"], label)][k]
                           for k in ("ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")}
+    for row in kernels:  # slice 9's launch phase (the fp32 train steps)
+        row["launch_launches"] = launch_out["launches"].get(row["name"], 0)
     t = ssd_timed["main"]
     kernels.append({
         "name": "ssd_scan", "route": "cuda", "source": csrc + "ssd_scan.cu",
@@ -5643,6 +6004,7 @@ def main() -> int:
         "max_abs_err": ssd_worst["float32"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
+        "launch_launches": launch_out["launches"].get("ssd_scan", 0),
         "lmstack_launches": lmstack_out["launches"]["ssd_scan"],
         "zamba2": {k: ssd_timed["zamba2"][k]
                    for k in ("ms", "plain_ms", "bound_ms", "bound_by",

@@ -25,7 +25,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-__all__ = ["NodeMesh", "make_node_mesh"]
+__all__ = ["NodeMesh", "MeshShape", "make_node_mesh"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -86,6 +86,28 @@ class NodeMesh:
         dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM,
                                  "max": dist.ReduceOp.MAX}[op],
                         group=self.group)
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """The shape of a node axis and nothing else: what the launch tooling
+    (``launch/steps.py``, ``launch/sharding.py``, the dry run) reads of a
+    mesh, with no process group behind it.  ``axes`` is ``((name,
+    size), ...)``; ``shape`` reads as a :class:`NodeMesh`'s and a JAX
+    mesh's, ``size`` is the rank count."""
+
+    axes: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(self.axes)
+
+    @property
+    def size(self) -> int:
+        out = 1
+        for _, n in self.axes:
+            out *= n
         return out
 
 

@@ -9,8 +9,9 @@ architecture (dense, local/global, MoE, Mamba-2, the zamba2 hybrid, the
 VLM with its stub image) on synthetic non-i.i.d. LM data with the full
 decentralized stack.  A multi-rank run over ``torch.distributed`` goes
 through ``api.run(spec, mesh=)`` (``launch/distributed.py``,
-``launch/mesh.py``); the reference's TPU mesh modes of this launcher come
-with slice 9 of the port.
+``launch/mesh.py``).  This launcher has no ``--mesh`` flag, as the
+reference's has none: the full-size steps over a mesh of ranks are traced
+by ``python -m repro_torch.launch.dryrun --mesh single|multi|both``.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
@@ -94,15 +95,8 @@ def main(argv=None):
                          "flags")
     ap.add_argument("--set", dest="overrides", action="append", default=[],
                     metavar="KEY=VALUE", help="dotted spec override")
-    ap.add_argument("--mesh", default="",
-                    help="the reference's TPU mesh modes (single|multi): "
-                         "not ported, they come with slices 8 and 9")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise SystemExit(f"--mesh {args.mesh}: multi-device runtimes and "
-                         "the mesh launch tooling are not ported yet; they "
-                         "come with slices 8 and 9 of the port")
 
     spec = presets.get(args.preset) if args.preset else build_spec(args)
     if args.overrides:

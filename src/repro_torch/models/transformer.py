@@ -47,9 +47,14 @@ loss of decentralized LM training; it is a plain function of the params
 dict, so the training plugin (``api/models.py``) maps it over the node axis
 with ``torch.func.vmap``.
 
-Not ported: the TPU mesh and scan controls (``cache_constraint``,
-``act_spec``, ``head_spec``, ``moe_expert_spec``, ``repeat_kv``, ``remat``,
-``unroll``, ``skip_masked_chunks``).
+``remat="full"`` recomputes each period of a ``train`` forward in the
+backward (``_PeriodRemat``, a ``torch.autograd.Function`` that
+``torch.func.vmap`` and ``grad`` compose with), as the reference
+checkpoints its scan body; the tail layers keep their activations, as the
+reference's do.  Not ported: the TPU mesh and scan controls
+(``cache_constraint``, ``act_spec``, ``head_spec``, ``moe_expert_spec``,
+``repeat_kv``, ``unroll``, ``skip_masked_chunks``; ``launch/steps.py``
+states what each does on one card).
 """
 from __future__ import annotations
 
@@ -63,9 +68,14 @@ from ..kernels import ops as kops
 from ..tree import tree_flatten, tree_map, tree_unflatten
 from . import attention, layers, moe, ssm
 
-__all__ = ["ATTN_KINDS", "RunCtx", "PageInfo", "init_lm", "init_cache",
-           "init_paged_cache", "supports_paged", "apply_block", "forward",
-           "train_loss", "prefill", "decode_step", "paged_step"]
+__all__ = ["ATTN_KINDS", "REMAT_MODES", "RunCtx", "PageInfo", "init_lm",
+           "init_cache", "init_paged_cache", "supports_paged", "apply_block",
+           "forward", "train_loss", "prefill", "decode_step", "paged_step"]
+
+#: ``forward(remat=)``: ``"full"`` recomputes each period of a ``train``
+#: forward in its backward (the reference's ``jax.checkpoint`` of the scan
+#: body), ``"none"`` keeps every activation; the values are the same
+REMAT_MODES = ("none", "full")
 
 #: the block kinds with a self-attention KV cache, which paged serving
 #: takes (``mamba`` keeps an O(1) state, ``cross`` the image's K/V)
@@ -473,10 +483,80 @@ def _unstack(tree, n: int) -> list:
     return [tree_unflatten(treedef, [p[i] for p in parts]) for i in range(n)]
 
 
+def _period_train(ctx: RunCtx, x, block_params, shared_p):
+    """One period of a ``train`` forward: ``(x, [moe aux losses])``."""
+    auxes = []
+    for j, kind in enumerate(ctx.cfg.period):
+        x, aux, _ = apply_block(kind, block_params[j], x, ctx, None)
+        if kind == "moe":
+            auxes.append(aux)
+    if shared_p is not None:
+        x, _ = _shared_attn_block(shared_p, x, ctx, None)
+    return x, auxes
+
+
+def _period_args(treedef, leaves) -> tuple:
+    """``(block_params, shared_p, img)`` back from :func:`_period_remat`'s
+    leaves."""
+    parts = tree_unflatten(treedef, list(leaves))
+    return parts["blocks"], parts.get("shared"), parts.get("img")
+
+
+class _PeriodRemat(torch.autograd.Function):
+    """A period whose backward recomputes it: the forward keeps only its
+    inputs (the residual stream, the period's params and the image
+    embeddings a cross block reads), and the backward runs the period again
+    under ``torch.func.vjp``.  The reference's ``jax.checkpoint`` of its
+    scan body; it composes with ``torch.func.vmap``/``grad``
+    (``torch.utils.checkpoint`` does not: they refuse saved-tensor hooks
+    and reentrant functions).  Every tensor the period reads is an input,
+    never a closure: a closed-over tensor of an outer ``vmap`` level is
+    gone when the backward runs."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def _period(run: RunCtx, treedef, x, leaves):
+        blocks, shared, img = _period_args(treedef, leaves)
+        y, auxes = _period_train(dataclasses.replace(run, img=img), x,
+                                 blocks, shared)
+        return (y, *auxes)
+
+    @staticmethod
+    def forward(run, treedef, x, *leaves):
+        return _PeriodRemat._period(run, treedef, x, leaves)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.run, ctx.treedef = inputs[0], inputs[1]
+        ctx.save_for_backward(*inputs[2:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        x, *leaves = ctx.saved_tensors
+        _, vjp = torch.func.vjp(
+            lambda x, *leaves: _PeriodRemat._period(ctx.run, ctx.treedef, x,
+                                                    leaves), x, *leaves)
+        return (None, None, *vjp(tuple(grads)))
+
+
+def _period_remat(ctx: RunCtx, x, block_params, shared_p):
+    """:func:`_period_train` through :class:`_PeriodRemat`."""
+    parts = {"blocks": block_params}
+    if shared_p is not None:
+        parts["shared"] = shared_p
+    if ctx.img is not None:
+        parts["img"] = ctx.img
+    leaves, treedef = tree_flatten(parts)
+    y, *auxes = _PeriodRemat.apply(dataclasses.replace(ctx, img=None),
+                                   treedef, x, *leaves)
+    return y, auxes
+
+
 def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
             cache=None, pos=None, chunk: int = 1024, ssd_chunk: int = 128,
             cache_len: int = 0, use_pallas: bool = False,
-            decode_lowp: bool = False, pages=None):
+            decode_lowp: bool = False, pages=None, remat: str = "none"):
     """The shared forward pass.  Returns ``(logits, aux_loss, new_cache)``;
     ``img`` [B, T_img, d] feeds the cross blocks (train and prefill).
 
@@ -498,7 +578,15 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
     made_shared = []
     auxes = []
     periods = [_unstack(bp, cfg.n_periods) for bp in params["blocks"]]
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat must be one of {REMAT_MODES}, got "
+                         f"{remat!r}")
     for i in range(cfg.n_periods):
+        if remat == "full" and mode == "train":
+            x, period_aux = _period_remat(
+                ctx, x, tuple(pj[i] for pj in periods), shared_p)
+            auxes.extend(period_aux)
+            continue
         for j, kind in enumerate(cfg.period):
             # period i of the stacked params and caches, as views
             c = (tree_map(lambda t: t[i], cache["blocks"][j]) if reads_cache
