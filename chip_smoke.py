@@ -229,7 +229,20 @@ line) if anything goes wrong:
             unfused chain (HIST_RTOL / HIST_ATOL, leaf by leaf); remat
             'none' bit-equal with its peak; a bf16 step with no launch (the
             dtype rule); the prefill and decode builders at [1, 2048] and 8
-            tokens against the direct model calls.
+            tokens against the direct model calls;
+14. shard   slice 10's main path: the same step through
+            ``build_train_step(sc, mesh=)`` on a ('data', 'model') mesh of
+            (1, 1) over a one-rank NCCL group, every weight and m_hat
+            stored as the rank's block and gathered on use
+            (``sharding.Placement``), 3 steps bit-equal to phase 13's
+            (losses and the final state), one ``qg_step`` a step, ms/step
+            beside the bound of the same layout's ``meta`` trace, whose
+            per-rank argument equals the card's bytes; ``remat_attention``
+            step 1 bit-equal, its peak and a warm step's time; zamba2-7b
+            fp32 at published widths, ``build_prefill_step`` at [1,
+            SHARD_PREFILL] with ``skip_masked_chunks`` off and on (no
+            kernel), logits within SHARD_LOGIT_RTOL of max |logit|,
+            argmax equal.
 
 Imports nothing of JAX nor of the JAX package.  The second-to-last lines
 are the card's name and power limit and a JSON ``kernels`` line; the last
@@ -5640,21 +5653,24 @@ def phase_launch(dev) -> dict:
     terms = roofline.roofline_terms(
         {"flops": meta["flops"], "bytes_accessed": meta["bytes_accessed"],
          "collective_bytes": 0.0}, hw=roofline.H100, dtype=sc.param_dtype)
-    whole = sharding.make_plan(MeshShape((("data", 1),)), n_nodes=1)
-    two = sharding.make_plan(MeshShape((("data", LAUNCH_NODES),)),
-                             n_nodes=LAUNCH_NODES)
-    p_meta = steps.params_shape(sc, node_stacked=True)
-    specs = {"params": p_meta, "opt_state": steps.opt_state_shape(sc, p_meta),
-             "batch": steps.train_batch_specs(sc)}
+    whole = steps.Layout.make(sc, MeshShape((("data", 1),)), kind="train")
+    two = steps.Layout.make(sc, MeshShape((("data", LAUNCH_NODES),)),
+                            kind="train")
     card = {"params": _nbytes(params), "opt_state": _nbytes(state[1]),
             "batch": _nbytes(batch)}
-    for k, tree in specs.items():
-        got = sharding.bytes_per_rank(whole, tree)
-        per_node = sharding.bytes_per_rank(two, tree)
+    for k in card:
+        got = sharding.bytes_per_rank(whole.plan, whole.shapes[k],
+                                      whole.specs[k])
+        per_node = sharding.bytes_per_rank(two.plan, two.shapes[k],
+                                           two.specs[k])
         if got != card[k] or LAUNCH_NODES * per_node != card[k]:
             raise AssertionError(f"launch: bytes_per_rank({k}) {got} (one "
                                  f"node a rank: {per_node}) vs {card[k]} B "
                                  "on the card")
+    # the final state on the host: the shard phase holds its own to it
+    out["host3"] = ([t.cpu() for t in tree_leaves(state[0])],
+                    [t.cpu() for t in tree_leaves(state[1])])
+    out["losses"] = losses
     del state, p, o
     opt0 = steps.make_opt(sc).init(params)
     (_, card_flops, card_bytes) = roofline.trace_cost(step, params, opt0,
@@ -5706,7 +5722,7 @@ def phase_launch(dev) -> dict:
         f"the arguments none {out['remat']['peak_over_args']} B vs full "
         f"{peak1 - base} B; none {out['remat']['ms']:.3f} ms vs full step 1 "
         f"{ms[0]:.3f} ms")
-    del host1
+    out["host1"] = host1
 
     # 5. the prefill and decode builders
     out["serve"] = _launch_serve(dev, cfg, params)
@@ -5739,6 +5755,232 @@ def phase_launch(dev) -> dict:
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     log(f"launch launches {json.dumps({k: v for k, v in counts.items() if v})}"
+        f" ({out['seconds']:.1f} s for the phase)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 14. shard: slice 10's sharded launch state and the attention chunk knobs
+
+#: zamba2-7b (window 4096) at its published widths: a [1, SHARD_PREFILL]
+#: prefill through ``build_prefill_step`` with ``skip_masked_chunks`` off
+#: and on (four windows long: the query-chunked path skips 3/4 of the
+#: key chunks of its attention)
+SHARD_ARCH, SHARD_WINDOW, SHARD_PREFILL = "zamba2-7b", 4096, 16384
+#: skip_masked_chunks on vs off: max |logit difference| over max |logit|,
+#: the plain path's tolerance (PERF.md section 2); the two sum each softmax
+#: over other key spans
+SHARD_LOGIT_RTOL = 1e-4
+
+
+def _held_bitwise(what, tree, host) -> None:
+    """``tree``'s leaves (on the card) equal the host copies ``host`` bit
+    for bit."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    leaves = tree_leaves(tree)
+    if len(leaves) != len(host):
+        raise AssertionError(f"{what}: {len(leaves)} leaves vs {len(host)}")
+    for i, (a, b) in enumerate(zip(leaves, host)):
+        a = a.cpu()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: leaf {i} is not bit-equal, max "
+                                 f"abs {(a - b).abs().max().item()}")
+
+
+def _shard_train(dev, sc, launch_out, smi) -> dict:
+    """TinyLlama-1.1B's fp32 train step on a ('data', 'model') mesh of
+    (1, 1) over the one-rank NCCL group: every weight and buffer stored as
+    the rank's block and gathered (one NCCL all-gather a leaf) on use,
+    LAUNCH_STEPS steps bit-equal to the launch phase's mesh=None steps
+    (losses and the final state), with its ``qg_step`` launches; the
+    ``remat_attention`` step bit-equal to step 1; times, peaks and the
+    roofline bound of the same layout's ``meta`` trace."""
+    import dataclasses
+    import statistics as st
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, roofline, sharding, steps
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    mesh = make_debug_mesh((1, 1), ("data", "model"))
+    step = steps.build_train_step(sc, mesh=mesh)
+    lay = step.layout
+    if lay.placement is None or lay.plan.node_axis is not None:
+        raise AssertionError(f"shard: the (1, 1) mesh's plan {lay.plan} has "
+                             "no placement, or puts the nodes on an axis")
+    params, batch = _launch_inputs(dev, sc)
+    opt0 = steps.make_opt(sc).init(params)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    state, ms, losses, peak1 = (params, opt0), [], [], None
+    del opt0
+    for i in range(LAUNCH_STEPS):
+        (p, o, loss), dt = _timed(step, *state, batch)
+        ms.append(dt)
+        losses.append(loss.item())
+        if i == 0:
+            peak1 = torch.cuda.max_memory_allocated(dev)
+        state = (p, o)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    _expect_launches("shard fp32", counts,
+                     {"qg_step": launch_out["launches"]["qg_step"]})
+    if losses != launch_out["losses"]:
+        raise AssertionError(f"shard: losses {losses} vs the mesh=None "
+                             f"steps' {launch_out['losses']}")
+    host3 = launch_out.pop("host3")
+    _held_bitwise("shard: params after the last step", state[0], host3[0])
+    _held_bitwise("shard: optimizer state after the last step", state[1],
+                  host3[1])
+    card = _nbytes(state[0]) + _nbytes(state[1]) + _nbytes(batch)
+    del host3, state, p, o
+
+    meta = dryrun.trace_step(sc, sharding.make_plan(
+        make_debug_mesh((1, 1), ("data", "model"), device="meta"),
+        n_nodes=sc.n_nodes))
+    if meta["argument"] != card:
+        raise AssertionError(f"shard: the dry run's per-rank argument "
+                             f"{meta['argument']} vs the card's {card} B")
+    terms = roofline.roofline_terms(
+        {"flops": meta["flops"], "bytes_accessed": meta["bytes_accessed"],
+         "collective_bytes": 0.0}, hw=roofline.H100, dtype=sc.param_dtype)
+    warm = st.mean(ms[1:])
+    out = {"launches": counts, "ms": ms, "warm_ms": warm, "peak": peak,
+           "peak1": peak1, "base": base, "bound_s":
+           terms["step_s_lower_bound"], "bound_by": terms["bottleneck"],
+           "ratio": warm / 1e3 / terms["step_s_lower_bound"],
+           "gathered_bytes": lay.placement.tally.bytes,
+           "meta_wire": meta["wire"], "losses": losses}
+    log(f"shard [{smi}] fp32 {LAUNCH_ARCH} on a ('data', 'model') mesh of "
+        f"(1, 1), one-rank NCCL group, {LAUNCH_NODES} nodes x "
+        f"[{LAUNCH_BATCH // LAUNCH_NODES}, {LAUNCH_SEQ}], remat full: ms/step "
+        f"{[round(v, 3) for v in ms]} (warm {warm:.3f}) vs bound "
+        f"{terms['step_s_lower_bound'] * 1e3:.3f} ms ({terms['bottleneck']}"
+        f"; measured/bound {out['ratio']:.3f}); losses {losses} bit-equal to "
+        f"mesh=None; the final params and m_hat bit-equal; launches {counts}")
+    log(f"shard [{smi}] memory: max_memory_allocated {peak} B over "
+        f"{LAUNCH_STEPS} steps, {peak1} B in step 1 ({peak1 - base} B over "
+        f"its arguments); {base} B allocated before; gathered "
+        f"{lay.placement.tally.bytes} B in {LAUNCH_STEPS} steps (all-gathers "
+        "of one rank: copies)")
+
+    # remat_attention: the same step 1, bit for bit
+    host1 = launch_out.pop("host1")
+    step_ra = steps.build_train_step(
+        dataclasses.replace(sc, remat_attention=True), mesh=mesh)
+    opt0 = steps.make_opt(sc).init(params)
+    torch.cuda.reset_peak_memory_stats(dev)
+    (p, o, loss), ms_ra = _timed(step_ra, params, opt0, batch)
+    peak_ra = torch.cuda.max_memory_allocated(dev)
+    if loss.item() != losses[0]:
+        raise AssertionError(f"shard: remat_attention loss {loss.item()} vs "
+                             f"{losses[0]}")
+    _held_bitwise("shard: remat_attention params", p, host1[0])
+    _held_bitwise("shard: remat_attention m_hat", o, host1[1])
+    del host1, opt0
+    # a second step, warm, for its time beside the warm steps above
+    _, ms_ra2 = _timed(step_ra, p, o, batch)
+    out["remat_attention"] = {"ms": ms_ra, "warm_ms": ms_ra2,
+                              "peak": peak_ra, "peak_off": peak1}
+    log(f"shard [{smi}] remat_attention: step 1 bit-equal to off; "
+        f"{ms_ra:.3f} ms (step 1) and {ms_ra2:.3f} ms (step 2) vs "
+        f"{ms[0]:.3f} / {ms[1]:.3f} ms off; step-1 peak {peak_ra} B vs "
+        f"{peak1} B off")
+    del p, o, params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _shard_prefill(dev, smi) -> dict:
+    """zamba2-7b at its published widths, fp32: ``build_prefill_step`` at
+    [1, SHARD_PREFILL] with ``skip_masked_chunks`` off and on (the plain
+    attention and SSD paths: no kernel), last logits within
+    SHARD_LOGIT_RTOL of max |logit| and the same argmax; host-clock times
+    and peaks."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config(SHARD_ARCH)
+    if cfg.window != SHARD_WINDOW or SHARD_PREFILL < 2 * cfg.window:
+        raise AssertionError(f"shard: {SHARD_ARCH} window {cfg.window}, "
+                             f"prefill {SHARD_PREFILL}")
+    gen = torch.Generator(device=dev).manual_seed(LAUNCH_SEED)
+    params = tf.init_lm(gen, cfg)
+    rng = np.random.default_rng(LAUNCH_SEED + 2)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(1, SHARD_PREFILL), dtype=np.int32)).to(dev)
+    sp = steps.StepConfig(cfg, InputShape("shard_prefill", SHARD_PREFILL, 1,
+                                          "prefill"),
+                          n_nodes=1, param_dtype=torch.float32)
+    runs = {}
+    ops.reset_launch_counts()
+    for skip in (False, True):
+        fn = steps.build_prefill_step(dataclasses.replace(
+            sp, skip_masked_chunks=skip))
+        torch.cuda.reset_peak_memory_stats(dev)
+        (logits, cache), dt = _timed(fn, params, tokens)
+        runs[skip] = {"ms": dt, "peak": torch.cuda.max_memory_allocated(dev),
+                      "logits": logits.float()}
+        del cache
+    _expect_launches("shard prefill", ops.launch_counts(), {})
+    a, b = runs[False].pop("logits"), runs[True].pop("logits")
+    if not bool(torch.isfinite(a).all() and torch.isfinite(b).all()):
+        raise AssertionError("shard: zamba2 logits are not finite")
+    err = ((a - b).abs().max() / a.abs().max()).item()
+    same_argmax = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+    out = {"runs": runs, "rel_err": err, "argmax_equal": same_argmax,
+           "params_bytes": _nbytes(params)}
+    log(f"shard [{smi}] {SHARD_ARCH} fp32 prefill [1, {SHARD_PREFILL}] "
+        f"(window {cfg.window}): skip_masked_chunks off "
+        f"{runs[False]['ms']:.1f} ms (peak {runs[False]['peak']} B), on "
+        f"{runs[True]['ms']:.1f} ms (peak {runs[True]['peak']} B); logits "
+        f"max |diff| / max |logit| {err:.3e} (SHARD_LOGIT_RTOL "
+        f"{SHARD_LOGIT_RTOL}), argmax equal {same_argmax}; params "
+        f"{out['params_bytes']} B")
+    if err > SHARD_LOGIT_RTOL or not same_argmax:
+        raise AssertionError(f"shard: skip_masked_chunks moved the logits "
+                             f"by {err:.3e} of max |logit| (argmax equal "
+                             f"{same_argmax})")
+    del params, a, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_shard(dev, launch_out) -> dict:
+    """Slice 10's main path on the card: the launch tooling's step on a
+    ('data', 'model') mesh with the sharded state (``sharding.Placement``:
+    each weight stored as the rank's block and gathered on use), over a
+    one-rank NCCL group (the cross-rank gathers are held on the CPU under
+    gloo), bit-equal to the launch phase's mesh=None step; the same step
+    with ``remat_attention``; zamba2-7b's prefill with ``skip_masked_chunks``
+    off and on.  A failed gather or a refused shape raises."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import distributed, steps
+
+    smi = _card()
+    t_phase = time.perf_counter()
+    sc = steps.StepConfig(get_config(LAUNCH_ARCH), InputShape(
+        "smoke_train", seq_len=LAUNCH_SEQ, global_batch=LAUNCH_BATCH,
+        kind="train"), n_nodes=LAUNCH_NODES, param_dtype=torch.float32)
+    dev, _ = _one_rank_nccl()
+    try:
+        out = _shard_train(dev, sc, launch_out, smi)
+        out["zamba2"] = _shard_prefill(dev, smi)
+    finally:
+        distributed.shutdown()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"shard launches {json.dumps({k: v for k, v in out['launches'].items() if v})}"
         f" ({out['seconds']:.1f} s for the phase)")
     return out
 
@@ -5882,6 +6124,12 @@ def main() -> int:
     # 13. slice 9's main path: the launch tooling's step builders on
     # TinyLlama-1.1B at its published size, held against the dry run
     launch_out = phase_launch(dev)
+    torch.cuda.empty_cache()
+
+    # 14. slice 10's main path: the same step with the sharded state on a
+    # ('data', 'model') mesh, remat_attention, and zamba2's prefill with
+    # skip_masked_chunks
+    shard_out = phase_shard(dev, launch_out)
 
     smi = _card()
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -5995,6 +6243,8 @@ def main() -> int:
                                     "bound_by", "library_ms")}
     for row in kernels:  # slice 9's launch phase (the fp32 train steps)
         row["launch_launches"] = launch_out["launches"].get(row["name"], 0)
+    for row in kernels:  # slice 10's shard phase (the sharded train steps)
+        row["shard_launches"] = shard_out["launches"].get(row["name"], 0)
     t = ssd_timed["main"]
     kernels.append({
         "name": "ssd_scan", "route": "cuda", "source": csrc + "ssd_scan.cu",
@@ -6005,6 +6255,7 @@ def main() -> int:
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
         "launch_launches": launch_out["launches"].get("ssd_scan", 0),
+        "shard_launches": shard_out["launches"].get("ssd_scan", 0),
         "lmstack_launches": lmstack_out["launches"]["ssd_scan"],
         "zamba2": {k: ssd_timed["zamba2"][k]
                    for k in ("ms", "plain_ms", "bound_ms", "bound_by",

@@ -7,21 +7,27 @@ Port of ``repro/launch/dryrun.py``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
-      --shape all --mesh both
+      --shape all --mesh production
+  ... --mesh both                # the node-only meshes, single and multi
   ... --gossip sparse_ppermute   # the compiled schedule's wire bytes
 
-Meshes are ranks of one node each over the 'data' axis (H100s under NCCL,
-``launch/mesh.NodeMesh``): ``single`` is the reference's 16-wide data axis,
-``multi`` 32 ranks (the two pods' data ranks).  The reference's pods as
-clients, with FSDP inside a pod, has no counterpart (the port has no FSDP
-and no 'model' axis).  A train step decentralizes over the ranks when a
-node's params, m_hat and grads fit a card (``steps.choose_n_nodes`` under
-``steps.H100_NODE_BUDGET``), else it is QHM on one rank.
+Meshes (H100s under NCCL, ``launch/mesh.py``; shapes only here):
+``production`` is the reference's ``(16, 16)`` ``('data', 'model')`` mesh
+and ``production_multipod`` its ``(2, 16, 16)`` ``('pod', 'data',
+'model')`` one (``mesh.make_production_mesh``); ``single`` and ``multi``
+are 16 and 32 ranks of one 'data' axis.  A train step decentralizes over
+'data' when a node's params, m_hat and grads, stored over its 'model'
+ranks, fit a card (``steps.choose_n_nodes`` under
+``steps.H100_NODE_BUDGET``), over 'pod' on the multipod mesh, else it is
+QHM with the weights stored over every axis.  Each rank stores its block
+of every weight, buffer and cache (``launch/sharding.py``) and gathers a
+weight whole just before its use.
 
-Per combo this traces:
+Per combo this traces (one rank's blocks, ``meta`` tensors):
   full   the step at full depth: proves it builds, and gives the per-rank
-         memory (``argument`` exact from ``sharding.bytes_per_rank``;
-         ``temp`` the peak of what the step allocates, by
+         memory (``argument``: the rank's blocks and its batch, exact from
+         ``sharding.bytes_per_rank``; ``temp`` the peak of what the step
+         allocates, gathered weights included, by
          ``torch.distributed._tools.mem_tracker.MemTracker`` on ``meta``
          tensors, which reads the same peak as under ``FakeTensorMode``
          and traces faster; ``fits`` tests argument + temp against the
@@ -29,7 +35,10 @@ Per combo this traces:
   probe1/probe2  the 1- and 2-period steps, whose counts
          (``roofline.trace_cost``) extrapolate linearly to the full depth.
 The trace of a node-stacked step holds every node; a rank holds one, so its
-flops, bytes and temp are the trace's over the node count.
+flops, bytes and temp are the trace's over the node count.  The flops split
+into ``replicated`` (the forward and backward, which every rank of a node
+computes whole) and ``sharded`` (the gossip mix over the rank's blocks);
+the wire adds the weights' gathers (``all-gather``).
 
 Artifacts: experiments/dryrun_torch/<arch>__<shape>__<mesh>[__<gossip>].json,
 with the reference's keys, ``memory`` / ``fits`` and the StepConfig knobs
@@ -55,14 +64,17 @@ from repro_torch.comm import count_mix_sites
 from repro_torch.configs import ARCHS, INPUT_SHAPES, get_config
 from repro_torch.core import gossip
 from repro_torch.launch import roofline, sharding, steps
-from repro_torch.launch.mesh import MeshShape
-from repro_torch.tree import tree_flatten
+from repro_torch.launch.mesh import MeshShape, make_production_mesh
+from repro_torch.tree import tree_flatten, tree_map
 
 __all__ = ["MESHES", "probe_cfg", "trace_step", "run_combo", "main"]
 
-#: the dry run's meshes: ranks of one node each over the 'data' axis
+#: the dry run's meshes, shapes only
 MESHES = {"single": MeshShape((("data", 16),)),
-          "multi": MeshShape((("data", 32),))}
+          "multi": MeshShape((("data", 32),)),
+          "production": make_production_mesh(device="meta"),
+          "production_multipod": make_production_mesh(multi_pod=True,
+                                                      device="meta")}
 
 
 def probe_cfg(cfg, k: int):
@@ -82,57 +94,90 @@ def _peak(mt: MemTracker) -> int:
                    mt.get_tracker_snapshot("peak").values()))
 
 
+def _whole(tree):
+    """Specs that keep every dim of ``tree``'s leaves whole."""
+    return tree_map(lambda t: (None,) * t.dim(), tree)
+
+
 def trace_step(sc: steps.StepConfig, plan: sharding.ShardingPlan, *,
                memory: bool = True) -> dict:
-    """Trace one step of ``sc`` on ``meta``: a rank's ``flops``,
+    """Trace one step of ``sc`` on ``meta`` on ``plan.mesh``'s layout
+    (``steps.Layout``): a rank's ``flops`` (and their ``flops_split``),
     ``bytes_accessed``, ``wire`` (bytes by collective kind) and, with
     ``memory``, its ``argument`` / ``output`` / ``temp`` bytes."""
     kind = sc.shape.kind
+    layout = steps.Layout.make(sc, plan.mesh, kind=kind, keep_nodes=True)
+    lp = layout.plan
+
+    def local(what):
+        return sharding.shard_tree(lp, layout.specs[what],
+                                   layout.shapes[what], skip=layout.keep)
+
     if kind == "train":
-        params = steps.params_shape(sc, node_stacked=True)
-        args = (params, steps.opt_state_shape(sc, params),
-                steps.train_batch_specs(sc))
-        fn = steps.build_train_step(sc, mesh=plan.mesh,
-                                    node_axis=plan.node_axis)
+        args = (local("params"), local("opt_state"),
+                layout.shapes["batch"])
+        held = [(layout.shapes[w], layout.specs[w])
+                for w in ("params", "opt_state", "batch")]
+        fn = steps.build_train_step(sc, mesh=lp.mesh,
+                                    node_axis=lp.node_axis)
     elif kind == "prefill":
-        params = steps.params_shape(sc, node_stacked=False)
         ispecs = steps.prefill_specs(sc)
-        args = (params, ispecs["tokens"]) + (
+        inputs = (ispecs["tokens"],) + (
             (ispecs["img"],) if "img" in ispecs else ())
-        fn = steps.build_prefill_step(sc)
+        args = (local("params"),) + inputs
+        held = [(layout.shapes["params"], layout.specs["params"]),
+                (inputs, _whole(inputs))]
+        fn = steps.build_prefill_step(sc, mesh=lp.mesh)
     else:
-        params = steps.params_shape(sc, node_stacked=False)
         d = steps.decode_specs(sc)
-        args = (params, d["token"], d["pos"], d["cache"])
-        fn = steps.build_decode_step(sc)
+        args = (local("params"), d["token"], d["pos"], local("cache"))
+        held = [(layout.shapes["params"], layout.specs["params"]),
+                (layout.shapes["cache"], layout.specs["cache"]),
+                ((d["token"], d["pos"]), _whole((d["token"], d["pos"])))]
+        fn = steps.build_decode_step(sc, mesh=lp.mesh)
     mt = MemTracker()
     with mt:
         out, flops, nbytes = roofline.trace_cost(fn, *args)
-    per = plan.node_count      # a rank's share of the node-stacked trace
+    per = lp.node_count      # a rank's share of the node-stacked trace
     rec = {"flops": flops / per, "bytes_accessed": nbytes / per,
            "wire": {}}
+    placement = fn.layout.placement
+    gathered = placement.tally.bytes / per if placement else 0
+    sharded = 0.0
+    if kind == "train" and sc.n_nodes > 1:
+        # the mix over the rank's blocks: the one flop count that shrinks
+        # with the weight axes
+        sharded = roofline.mix_flops(sc.n_nodes, sum(
+            leaf[0].numel() for leaf in tree_flatten(args[0])[0])) / per
+    rec["flops_split"] = {"replicated": rec["flops"] - sharded,
+                          "sharded": sharded}
     if memory:
         # outputs written in place (a decode step's caches) are arguments
         ins = {id(t) for t in tree_flatten(args)[0]}
         fresh = [t for t in tree_flatten(out)[0]
                  if isinstance(t, torch.Tensor) and id(t) not in ins]
-        rec.update(argument=sum(sharding.bytes_per_rank(plan, a)
-                                for a in args),
-                   output=sharding.bytes_per_rank(plan, tuple(fresh)),
+        rec.update(argument=sum(sharding.bytes_per_rank(lp, tree, specs)
+                                for tree, specs in held),
+                   output=sum(t.numel() * t.element_size()
+                              for t in fresh) // per,
                    temp=_peak(mt) // per)
     if kind == "train" and sc.n_nodes > 1:
         topo = steps.step_topology(sc)
-        node = steps.params_shape(sc, node_stacked=False)
         resolved = gossip.resolve_gossip(
-            topo, schedule=sc.gossip_schedule, mesh=plan.mesh,
-            node_axis=plan.node_axis)
+            topo, schedule=sc.gossip_schedule, mesh=lp.mesh,
+            node_axis=lp.node_axis)
         sched = (None if resolved.kind == "dense" else
                  resolved.schedule or gossip.compile_gossip_schedule(topo))
+        # a node's blocks on this rank: what its gossip sends
         rec["wire"] = roofline.wire_bytes(
-            resolved.kind, n=sc.n_nodes, node_bytes=_nbytes(node),
+            resolved.kind, n=sc.n_nodes,
+            node_bytes=_nbytes(args[0]) // sc.n_nodes,
             sites=count_mix_sites(steps.make_opt(sc), args[0],
                                   torch.as_tensor(topo.w(0))),
             messages_per_step=sched.messages_per_step() if sched else None)
+    if gathered:
+        rec["wire"]["all-gather"] = rec["wire"].get("all-gather", 0.0) + \
+            gathered
     return rec
 
 
@@ -263,8 +308,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dryrun")
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
-    ap.add_argument("--mesh", default="single", choices=["single", "multi",
-                                                         "both"])
+    ap.add_argument("--mesh", default="single",
+                    choices=["both", *MESHES])
     ap.add_argument("--gossip", default="dense",
                     choices=["dense", "ring_ppermute", "sparse_ppermute"])
     ap.add_argument("--out", default="experiments/dryrun_torch")

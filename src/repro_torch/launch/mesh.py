@@ -1,11 +1,13 @@
-"""The node axis over a ``torch.distributed`` process group.
+"""Meshes of ranks: the node axis, and named axes over a
+``torch.distributed`` process group.
 
-Port of ``repro/launch/mesh.py``'s role: where the reference lays the node
-index over a JAX mesh axis, the port lays it over the ranks of a process
-group, one rank a card (or a CPU process under gloo).  :class:`NodeMesh`
-carries the group, this process's rank, the world size, the axis name and
-the rank's device, and offers the collectives the sparse and block gossip
-executors (``core/gossip.py``) and the sharded and hybrid runtimes use:
+Port of ``repro/launch/mesh.py``: where the reference lays its axes over a
+JAX device mesh, the port lays them over the ranks of a process group, one
+rank a card (or a CPU process under gloo).  :class:`NodeMesh` is one axis:
+the group, this process's rank in it, its size, the axis name and the
+rank's device, with the collectives the sparse and block gossip executors
+(``core/gossip.py``), the sharded and hybrid runtimes and the sharded
+launch state (``launch/sharding.py``) use:
 
 * ``post`` -- point-to-point sends and receives in one
   ``dist.batch_isend_irecv`` (the counterpart of ``jax.lax.ppermute``);
@@ -16,16 +18,29 @@ Build one with :func:`make_node_mesh` after
 :func:`repro_torch.launch.distributed.initialize`.  Its ``shape`` is
 ``{axis_name: size}``, as a JAX mesh's, so the runtime-selection rules read
 it as the reference reads a mesh.
+
+:class:`RankMesh` names several axes over the whole group, the reference's
+``('data', 'model')`` and ``('pod', 'data', 'model')`` meshes
+(:func:`make_production_mesh`, :func:`make_debug_mesh`): the ranks laid out
+row-major over the shape (process-major, as the reference's
+``_device_grid``: rank ``r`` sits at ``numpy.unravel_index(r, shape)``, so
+'model' varies fastest), each axis a :class:`NodeMesh` over the subgroup of
+ranks that differ only along it.  On the ``meta`` device a mesh is its
+shape alone (:class:`MeshShape`, no process group): what the dry run
+traces a 256- or 512-rank mesh with.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["NodeMesh", "MeshShape", "make_node_mesh"]
+__all__ = ["NodeMesh", "MeshShape", "RankMesh", "make_node_mesh",
+           "make_mesh", "make_production_mesh", "make_debug_mesh"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -43,6 +58,13 @@ class NodeMesh:
     def shape(self) -> dict:
         """``{axis_name: size}``, the form of a JAX mesh's ``shape``."""
         return {self.axis_name: self.size}
+
+    def axis(self, name: str) -> "NodeMesh":
+        """This mesh, which is its one axis ``name``."""
+        if name != self.axis_name:
+            raise KeyError(f"a node mesh has the one axis "
+                           f"{self.axis_name!r}, not {name!r}")
+        return self
 
     def _global(self, rank: int) -> int:
         """The default group's rank of this group's ``rank`` (the
@@ -79,6 +101,22 @@ class NodeMesh:
         g = self.all_gather(x)
         return g.reshape((g.shape[0] * g.shape[1],) + tuple(g.shape[2:]))
 
+    def all_gather_dim(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``x`` joined along ``dim`` in rank order, by one
+        ``all_gather_into_tensor``; a new contiguous tensor."""
+        x = x.contiguous()
+        # the blocks one after another along dim 0 (the layout every
+        # backend takes)
+        out = x.new_empty((self.size * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=self.group)
+        dim = dim % x.dim()
+        if dim == 0:
+            return out
+        shape = list(x.shape)
+        shape[dim] *= self.size
+        return out.view((self.size,) + tuple(x.shape)).movedim(
+            0, dim).reshape(shape)
+
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """A new tensor: ``x`` summed (``op='sum'``) or maxed (``'max'``)
         over the ranks."""
@@ -91,11 +129,11 @@ class NodeMesh:
 
 @dataclasses.dataclass(frozen=True)
 class MeshShape:
-    """The shape of a node axis and nothing else: what the launch tooling
+    """The shape of a mesh and nothing else: what the launch tooling
     (``launch/steps.py``, ``launch/sharding.py``, the dry run) reads of a
-    mesh, with no process group behind it.  ``axes`` is ``((name,
-    size), ...)``; ``shape`` reads as a :class:`NodeMesh`'s and a JAX
-    mesh's, ``size`` is the rank count."""
+    mesh, with no process group behind it (a ``meta`` trace).  ``axes`` is
+    ``((name, size), ...)``; ``shape`` reads as a :class:`RankMesh`'s and a
+    JAX mesh's, ``size`` is the rank count."""
 
     axes: tuple
 
@@ -109,6 +147,41 @@ class MeshShape:
         for _, n in self.axes:
             out *= n
         return out
+
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(name for name, _ in self.axes)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RankMesh:
+    """Named axes over every rank of the default group (this process is
+    global ``rank`` on ``device``): ``axes`` is ``((name, size), ...)``,
+    ``coords`` this rank's index along each, ``groups`` each axis's
+    :class:`NodeMesh` (the ranks that share every other coordinate).
+    ``shape`` and ``axis_names`` read as a JAX mesh's."""
+
+    axes: tuple
+    rank: int
+    device: torch.device
+    coords: dict
+    groups: dict
+
+    @property
+    def shape(self) -> dict:
+        return dict(self.axes)
+
+    @property
+    def size(self) -> int:
+        return math.prod(n for _, n in self.axes)
+
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(name for name, _ in self.axes)
+
+    def axis(self, name: str) -> NodeMesh:
+        """The :class:`NodeMesh` of axis ``name`` through this rank."""
+        return self.groups[name]
 
 
 def make_node_mesh(size: int | None = None, *,
@@ -139,3 +212,63 @@ def make_node_mesh(size: int | None = None, *,
               if dist.get_backend() == "nccl" else torch.device("cpu"))
     return NodeMesh(group=None, rank=dist.get_rank(), size=world,
                     device=device, axis_name=axis_name)
+
+
+def make_mesh(shape, axes, *, device=None):
+    """A mesh of ``shape`` with axis names ``axes`` over the default
+    process group, whose ranks must number ``prod(shape)``; the ranks are
+    laid out row-major (process-major), the rank's device is its card
+    under NCCL and the CPU under gloo.  Every rank makes the same subgroups
+    in the same order, so every rank must call this.  ``device="meta"``
+    gives the shape alone (:class:`MeshShape`), with no process group."""
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes) or len(set(axes)) != len(axes):
+        raise ValueError(f"a mesh needs one distinct name an axis: shape "
+                         f"{shape}, axes {axes}")
+    if device is not None and torch.device(device).type == "meta":
+        return MeshShape(tuple(zip(axes, shape)))
+    n = math.prod(shape)
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"a mesh of {shape} needs a torch.distributed process group of "
+            f"{n} ranks: call repro_torch.launch.distributed.initialize("
+            f"coordinator=, num_processes={n}, process_id=) in every "
+            "process first (or pass device='meta' for the shape alone)")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world != n:
+        raise RuntimeError(
+            f"mesh {shape} needs {n} ranks, the process group has {world} "
+            f"-- start {n} processes, each with repro_torch.launch."
+            f"distributed.initialize(num_processes={n}, process_id=<its "
+            "rank>)")
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    grid = np.arange(n).reshape(shape)
+    coords = dict(zip(axes, (int(c) for c in np.unravel_index(rank, shape))))
+    groups = {}
+    for k, name in enumerate(axes):
+        for line in np.moveaxis(grid, k, -1).reshape(-1, shape[k]):
+            ranks = [int(r) for r in line]
+            # the whole group needs no subgroup (and a one-rank world has
+            # only this one)
+            group = None if len(ranks) == world else dist.new_group(ranks)
+            if rank in ranks:
+                groups[name] = NodeMesh(group=group, rank=ranks.index(rank),
+                                        size=shape[k], device=device,
+                                        axis_name=name)
+    return RankMesh(axes=tuple(zip(axes, shape)), rank=rank, device=device,
+                    coords=coords, groups=groups)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The reference's production meshes: ``(16, 16)`` over ``('data',
+    'model')``, or ``(2, 16, 16)`` over ``('pod', 'data', 'model')`` with
+    ``multi_pod``; :func:`make_mesh`'s rules."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device=device)
+
+
+def make_debug_mesh(shape=(2, 2), axes=("data", "model"), *, device=None):
+    """A small mesh for tests (gloo ranks on the CPU, or ``meta``)."""
+    return make_mesh(shape, axes, device=device)

@@ -13,7 +13,8 @@ as the reference's.  A port record's ``memory_analysis`` is per rank
 ``launch/dryrun.py``), so the dry-run table's memory column shows those,
 and the roofline table's ``temp`` column reads the same string.
 ``memory_table`` (``--what memory``) is the port's own: a rank's bytes,
-``fits`` and the roofline bound, single and multi side by side.  Records
+``fits`` and the roofline bound, single and multi side by side (or the
+meshes ``--mesh`` names, comma-separated: ``--mesh production``).  Records
 are partial by design: a dry run that failed before the roofline or the
 memory still leaves a JSON artifact, so every lookup here tolerates
 missing optional keys (``roofline``, ``memory_analysis``, ``n_chips``, ...)
@@ -217,7 +218,10 @@ def main(argv=None):
                              "both", "all", "memory"],
                     help="'memory': the port's per-rank table "
                          "(memory_table); the others as the reference's")
-    ap.add_argument("--mesh", default="single")
+    ap.add_argument("--mesh", default=None,
+                    help="the roofline table's mesh (default single); "
+                         "--what memory: the meshes side by side, "
+                         "comma-separated (default single,multi)")
     ap.add_argument("--gossip", default=None)
     ap.add_argument("--bench-serve", default="BENCH_serve.json",
                     metavar="PATH", help="serve bench JSON for --what "
@@ -231,12 +235,13 @@ def main(argv=None):
     recs = load(args.dir)
     parts = []
     if args.what in ("roofline", "both", "all"):
-        parts.append(roofline_table(recs, mesh=args.mesh,
+        parts.append(roofline_table(recs, mesh=args.mesh or "single",
                                     gossip=args.gossip))
     if args.what in ("dryrun", "both", "all"):
         parts.append(dryrun_table(recs))
     if args.what == "memory":
-        parts.append(memory_table(recs))
+        parts.append(memory_table(recs, meshes=tuple(
+            (args.mesh or "single,multi").split(","))))
     if args.what in ("serve", "all"):
         parts.append(serve_table(args.bench_serve))
     if args.what in ("kernels", "all"):

@@ -1,40 +1,81 @@
-"""Layout rules for the launch tooling: which leaves a rank holds, and how
-many bytes that is.
+"""Layout rules for the launch tooling: which block of each leaf a rank
+holds, how many bytes that is, and the sharded state that stores those
+blocks and gathers them on use.
 
-Port of ``repro/launch/sharding.py``, the node axis only.  The reference
-places a node axis ('data' in a pod, or 'pod' across pods) and shards every
-weight over a 'model' axis (tensor parallelism) and, where the nodes ride
-on 'pod', over 'data' as well (FSDP).  The port runs one node a rank over a
-``torch.distributed`` group (``launch/mesh.NodeMesh``, or its shape alone,
-``MeshShape``): a node-stacked leaf ``[n, ...]`` puts row ``r`` on rank
-``r``, and everything else is whole on every rank.  A plan that needs a
-'model' axis, FSDP, ``tie_break_last`` or ``shard_features`` raises,
-naming the tensor or data parallelism the port does not have.
+Port of ``repro/launch/sharding.py``.  The placement rules are the
+reference's, leaf by leaf (``param_specs`` / ``cache_specs`` give the same
+spec for every leaf on the same mesh shape):
 
-Specs are per-leaf tuples in ``runtime/sharded.node_leaf_spec``'s form
-(``("data", None, ...)`` for a node-stacked leaf, ``()`` for a whole one),
-so the runtimes and the dry run read one rule.  The reference's ``named``
-(``NamedSharding`` over a JAX mesh) has no counterpart: a rank's block is
-cut by the runtimes, not by a sharding annotation.
+* the greedy divisibility rule (:func:`_greedy_spec`): each weight axis
+  ('model', then the FSDP axes) goes to the largest still-free dim (after
+  the node and layer axes) that it divides at least twice over;
+  ``tie_break_last`` prefers the last dim on a size tie (square weights);
+* MoE expert stacks pin 'model' on the expert axis when it divides;
+* the node axis rides 'data' in a pod, or 'pod' across pods, where 'data'
+  shards the weights too (FSDP); ``n_nodes=1`` shards them over every
+  axis (QHM);
+* caches put the batch on the data axes (else the longest divisible dim)
+  and, with ``shard_features``, 'model' on the last divisible dim.
+
+Specs are tuples in the form of a JAX ``PartitionSpec``: an entry per dim,
+an axis name, a tuple of names, or None.  A mesh is a
+``launch/mesh.RankMesh`` (ranks), a ``NodeMesh`` (one axis) or a
+``MeshShape`` (the shape alone, for a ``meta`` trace).
+
+The port's extensions, each where the reference's rules have no case:
+a mesh without a 'model' axis places no weight axis (the node-only meshes
+of the dry run); a node count that no axis carries on a mesh whose other
+axes are all 1 keeps the node stack whole on every rank (``mesh=None``'s
+layout, on a one-rank 'model' group).  And the batch: the port computes a
+node's whole batch on every rank of that node, so :func:`batch_specs`
+places only the node axis, where the reference spreads a node's batch over
+its data axes.
+
+The sharded state (:class:`Placement`): each rank stores only its block of
+every weight, optimizer buffer and cache, cut along the dims these specs
+name (:func:`shard_tree`).  Before each use in the forward the model
+all-gathers the full tensor (:class:`_GatherOnUse`, one
+``all_gather_into_tensor`` a leaf and axis) and drops it after: the
+gradient of a stored block is its slice of the full gradient, taken in the
+gather's backward with no reduction, since every rank of a node computes
+the same forward on the same batch.  The values are the unsharded ones bit
+for bit; only storage is split (the reference's GSPMD also splits the
+compute over 'model', which the port does not).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
-from repro_torch.runtime.sharded import node_leaf_spec
-from repro_torch.tree import tree_flatten, tree_map
+import torch
 
-__all__ = ["ShardingPlan", "make_plan", "param_specs", "batch_specs",
-           "cache_specs", "bytes_per_rank"]
+from repro_torch.tree import tree_flatten, tree_map, tree_paths, \
+    tree_unflatten
+
+from .mesh import MeshShape
+
+__all__ = ["ShardingPlan", "NamedSharding", "Placement", "make_plan",
+           "param_specs", "batch_specs", "cache_specs", "named",
+           "bytes_per_rank", "local_shape", "shard_tree", "gather_tree",
+           "weight_axes"]
 
 PyTree = Any
+
+_EXPERT_KEYS = ("w_gate", "w_up", "w_down")
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardingPlan:
     mesh: Any
-    node_axis: Optional[str]       # 'data' | None (one node: no node axis)
+    node_axis: Optional[str]       # 'data' | 'pod' | None
+    fsdp_axes: tuple = ()          # axes sharding the weights beside 'model'
+
+    @property
+    def data_axes(self) -> tuple:
+        """Mesh axes that carry the (per-node) batch in the reference."""
+        names = [a for a in dict(self.mesh.shape) if a != self.node_axis]
+        return tuple(a for a in names if a != "model")
 
     @property
     def node_count(self) -> int:
@@ -43,82 +84,437 @@ class ShardingPlan:
             else 1
 
 
-def _refuse_axes(axes: dict) -> None:
-    if "pod" in axes:
-        raise ValueError(
-            "a 'pod' axis puts one node on a pod and shards its weights over "
-            "the pod's data axis (FSDP, data parallelism inside a node); "
-            "the port runs one node a rank and has no FSDP")
-    if axes.get("model", 1) != 1:
-        raise ValueError(
-            f"a 'model' axis of {axes['model']} shards every weight over "
-            "its ranks (tensor parallelism); the port has none")
-
-
 def make_plan(mesh, *, n_nodes: int) -> ShardingPlan:
-    """``data`` carries the node axis when ``n_nodes`` equals its size;
-    ``n_nodes <= 1`` gives no node axis (each rank that runs the step
-    holds all of it)."""
+    """The reference's plan: one node (QHM) shards the weights over every
+    axis; ``n_nodes`` equal to the 'pod' axis puts the nodes there with
+    FSDP over 'data'; equal to 'data' puts them there ('pod' then shards
+    the weights).  A mesh whose axes other than 'model' are all 1 keeps any
+    node count whole on every rank."""
     axes = dict(mesh.shape)
-    _refuse_axes(axes)
     if n_nodes <= 1:
-        return ShardingPlan(mesh, None)
+        return ShardingPlan(mesh, None,
+                            tuple(a for a in axes if a != "model"))
+    if "pod" in axes and n_nodes == axes["pod"]:
+        return ShardingPlan(mesh, "pod", ("data",))
     if n_nodes == axes.get("data"):
-        return ShardingPlan(mesh, "data")
+        return ShardingPlan(mesh, "data", ("pod",) if "pod" in axes else ())
+    if all(size == 1 for a, size in axes.items() if a != "model"):
+        return ShardingPlan(mesh, None, ())
     raise ValueError(f"n_nodes={n_nodes} does not match any mesh axis of "
                      f"{axes}")
 
 
-def _node_spec(plan: ShardingPlan, leaf) -> tuple:
-    if plan.node_axis is None:
-        return ()
-    return node_leaf_spec(leaf, n=plan.node_count, axis_name=plan.node_axis)
+def weight_axes(plan: ShardingPlan) -> tuple:
+    """The axes that shard weights on ``plan``'s mesh ('model' and the
+    FSDP axes that the mesh has)."""
+    axes = dict(plan.mesh.shape)
+    return tuple(a for a in ("model", *plan.fsdp_axes) if a in axes)
+
+
+def _greedy_spec(shape, axis_order, mesh_shape, skip_leading=0,
+                 pinned=None, tie_break_last=False) -> tuple:
+    """Assign mesh axes to dims greedily by size: each axis of
+    ``axis_order`` to the largest unassigned dim past ``skip_leading``
+    that it divides with at least two blocks; ``tie_break_last`` takes the
+    last of equal sizes (output-dim parallelism for square weights)."""
+    assign: dict[int, str] = dict(pinned or {})
+    used_dims = set(assign)
+    for ax in axis_order:
+        if ax in assign.values():
+            continue
+        size = mesh_shape[ax]
+        best = None
+        for i in range(skip_leading, len(shape)):
+            if i in used_dims:
+                continue
+            if shape[i] % size == 0 and shape[i] >= 2 * size:
+                better = best is None or shape[i] > shape[best] or (
+                    tie_break_last and shape[i] == shape[best])
+                if better:
+                    best = i
+        if best is not None:
+            assign[best] = ax
+            used_dims.add(best)
+    return tuple(assign.get(i) for i in range(len(shape)))
+
+
+def _keyed_map(fn, tree):
+    """``fn(path, leaf)`` over ``tree``'s leaves, in the tree's shape."""
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [fn(path, leaf) for path, leaf in
+                                    zip(tree_paths(tree), leaves)])
 
 
 def param_specs(plan: ShardingPlan, params_shape: PyTree, *,
                 node_stacked: bool = False,
                 tie_break_last: bool = False) -> PyTree:
-    """Per-leaf specs of a params (or opt-state) tree: the node axis on
-    dim 0 of a node-stacked leaf, every other dim whole.
-    ``tie_break_last`` picks the 'model' dim of square weights in the
-    reference; there is no 'model' axis here, so ``True`` raises."""
-    if tie_break_last:
-        raise ValueError("tie_break_last places the 'model' axis (tensor "
-                         "parallelism), which the port does not have")
-    if not node_stacked:
-        return tree_map(lambda leaf: (), params_shape)
-    return tree_map(lambda leaf: _node_spec(plan, leaf), params_shape)
+    """Per-leaf specs of a params (or optimizer-state) tree."""
+    mesh_shape = dict(plan.mesh.shape)
+    order = weight_axes(plan)
+    model = mesh_shape.get("model")
+
+    def spec_for(keys, leaf):
+        skip = 0
+        pinned = {}
+        if node_stacked:
+            skip = 1  # node axis (size n_nodes, possibly 1)
+            if plan.node_axis:
+                pinned[0] = plan.node_axis
+        if "blocks" in keys:
+            skip += 1  # stacked layer axis stays unsharded
+        shape = tuple(leaf.shape)
+        # expert parallelism: experts axis (first after skips) -> 'model'
+        if model and any(k in keys for k in _EXPERT_KEYS) \
+                and len(shape) > skip:
+            e = shape[skip]
+            if e % model == 0 and e >= model:
+                pinned[skip] = "model"
+        return _greedy_spec(shape, order, mesh_shape, skip_leading=skip,
+                            pinned=pinned, tie_break_last=tie_break_last)
+
+    return _keyed_map(spec_for, params_shape)
 
 
 def batch_specs(plan: ShardingPlan, batch_shape: PyTree) -> PyTree:
-    """Batches ``[n_nodes, per_node_batch, ...]`` put node ``r``'s rows on
-    rank ``r``; a batch without the node axis is whole on its rank (the
-    reference shards it over the data axes, data parallelism the port does
-    not have)."""
-    return tree_map(lambda leaf: _node_spec(plan, leaf), batch_shape)
+    """Batches ``[n_nodes, per_node_batch, ...]``: the node axis on dim 0
+    where the plan has one, every other dim whole (each rank of a node
+    computes the node's whole batch)."""
+    def spec_for(leaf):
+        spec = [None] * len(leaf.shape)
+        if plan.node_axis and leaf.shape and \
+                leaf.shape[0] == plan.node_count:
+            spec[0] = plan.node_axis
+        return tuple(spec)
+
+    return tree_map(spec_for, batch_shape)
 
 
 def cache_specs(plan: ShardingPlan, cache_shape: PyTree, *,
-                shard_features: bool = False) -> PyTree:
-    """KV caches and SSM states are whole on the serving rank.
-    ``shard_features`` shards their feature dims over 'model' in the
-    reference; ``True`` raises here."""
-    if shard_features:
-        raise ValueError("shard_features shards the caches over the 'model' "
-                         "axis (tensor parallelism), which the port does "
-                         "not have")
-    return tree_map(lambda leaf: (), cache_shape)
+                shard_features: bool = True) -> PyTree:
+    """KV caches ``[(layers), B, T, K, D]`` / SSM states: the batch over
+    the data axes where it divides (else the next dim it divides twice
+    over), and with ``shard_features`` 'model' on the last divisible dim
+    (feature dims before the cache's length: sharding T would gather the
+    whole cache every decode step in the reference)."""
+    mesh_shape = dict(plan.mesh.shape)
+    daxes = plan.data_axes
+    d_total = math.prod(mesh_shape[a] for a in daxes)
+    model = mesh_shape.get("model")
+    dspec = daxes if len(daxes) > 1 else (daxes[0] if daxes else None)
+
+    def spec_for(keys, leaf):
+        shape = tuple(leaf.shape)
+        skip = 1 if "blocks" in keys or "shared_attn" in keys else 0
+        spec = [None] * len(shape)
+        used = set()
+        if len(shape) > skip and shape[skip] % d_total == 0 and \
+                shape[skip] >= d_total and daxes:
+            spec[skip] = dspec
+            used.add(skip)
+        else:
+            for i in range(skip + 1, len(shape)):
+                if i not in used and shape[i] % d_total == 0 and \
+                        shape[i] >= 2 * d_total and daxes:
+                    spec[i] = dspec
+                    used.add(i)
+                    break
+        if not shard_features or not model:
+            return tuple(spec)
+        for i in range(len(shape) - 1, skip, -1):
+            if i in used:
+                continue
+            if shape[i] % model == 0 and shape[i] >= model:
+                spec[i] = "model"
+                break
+        return tuple(spec)
+
+    return _keyed_map(spec_for, cache_shape)
 
 
-def bytes_per_rank(plan: ShardingPlan, tree: PyTree) -> int:
-    """Bytes one rank holds of ``tree`` (tensors, ``meta`` ones included),
-    by the specs above: a leaf that carries the node axis holds one row of
-    it, any other all of itself."""
-    total = 0
-    for leaf in tree_flatten(tree)[0]:
-        nbytes = leaf.numel() * leaf.element_size()
-        spec = _node_spec(plan, leaf)
-        if spec:
-            nbytes //= leaf.shape[spec.index(plan.node_axis)]
-        total += nbytes
-    return int(total)
+# ---------------------------------------------------------------------------
+# a rank's blocks
+# ---------------------------------------------------------------------------
+
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _axis_size(mesh, axis: str) -> int:
+    return dict(mesh.shape)[axis]
+
+
+def _coord(mesh, axis: str) -> int:
+    """This rank's index along ``axis`` (0 on a shape-only mesh)."""
+    if isinstance(mesh, MeshShape):
+        return 0
+    return mesh.axis(axis).rank
+
+
+def _block_index(mesh, axes) -> int:
+    """The rank's block along a dim split over ``axes`` (row-major: the
+    first axis outermost)."""
+    index = 0
+    for a in axes:
+        index = index * _axis_size(mesh, a) + _coord(mesh, a)
+    return index
+
+
+def _without(spec: tuple, skip) -> tuple:
+    return tuple(None if set(_entry_axes(e)) & set(skip) else e
+                 for e in spec)
+
+
+def local_shape(mesh, spec: tuple, shape) -> tuple:
+    """The shape of a rank's block of a leaf of ``shape`` under ``spec``."""
+    out = list(shape)
+    for i, entry in enumerate(spec):
+        for axis in _entry_axes(entry):
+            out[i] //= _axis_size(mesh, axis)
+    return tuple(out)
+
+
+def _cut(mesh, spec: tuple, x: torch.Tensor) -> torch.Tensor:
+    """The rank's block of ``x`` (a view), dims counted from the end so
+    that ``x`` may carry extra leading dims."""
+    for i, entry in enumerate(spec):
+        axes = _entry_axes(entry)
+        if axes:
+            d = i - len(spec)
+            block = x.shape[d] // math.prod(_axis_size(mesh, a)
+                                            for a in axes)
+            x = x.narrow(d, _block_index(mesh, axes) * block, block)
+    return x
+
+
+def _all_gather(x: torch.Tensor, dim: int, mesh, axis: str,
+                tally=None) -> torch.Tensor:
+    """The blocks of ``x`` over ``axis`` joined along ``dim``: one
+    ``all_gather_into_tensor``; on ``meta`` (or a shape-only mesh) the
+    joined shape alone.  ``tally`` (a :class:`Tally`) adds the bytes this
+    rank receives."""
+    size = _axis_size(mesh, axis)
+    if tally is not None:
+        tally.bytes += x.numel() * x.element_size() * (size - 1)
+    if isinstance(mesh, MeshShape) or x.device.type == "meta":
+        shape = list(x.shape)
+        shape[dim] *= size
+        return x.new_empty(shape)
+    return mesh.axis(axis).all_gather_dim(x, dim)
+
+
+def _gather(mesh, spec: tuple, x: torch.Tensor, tally=None) -> torch.Tensor:
+    """The whole of a leaf from the rank's block ``x`` under ``spec`` (the
+    inner axis of a shared dim first)."""
+    for i, entry in reversed(list(enumerate(spec))):
+        for axis in reversed(_entry_axes(entry)):
+            x = _all_gather(x, i - len(spec), mesh, axis, tally)
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh, the reference's ``jax.sharding.NamedSharding``:
+    :meth:`shard` cuts this rank's block of a whole tensor
+    (:func:`gather_tree` joins blocks back)."""
+
+    mesh: Any
+    spec: tuple
+
+    def shard(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``x``: ``x`` itself where the block is all
+        of it, else a contiguous copy (a ``meta`` block for ``meta``)."""
+        out = _cut(self.mesh, self.spec, x)
+        if tuple(out.shape) == tuple(x.shape):
+            return x
+        return out.clone(memory_format=torch.contiguous_format)
+
+
+def _is_spec(node) -> bool:
+    return isinstance(node, tuple) and all(
+        e is None or isinstance(e, str) or (
+            isinstance(e, tuple) and all(isinstance(a, str) for a in e))
+        for e in node)
+
+
+def named(plan: ShardingPlan, specs: PyTree) -> PyTree:
+    """A :class:`NamedSharding` for each spec of ``specs`` (a tuple whose
+    entries are axis names, tuples of names or None is a spec)."""
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if _is_spec(node):
+            return NamedSharding(plan.mesh, node)
+        return tuple(walk(v) for v in node)
+
+    return walk(specs)
+
+
+def shard_tree(plan: ShardingPlan, specs: PyTree, tree: PyTree, *,
+               shapes: PyTree = None, skip=()) -> PyTree:
+    """This rank's blocks of ``tree`` under ``specs`` (the axes in ``skip``
+    left whole).  With ``shapes`` (the global tree, ``meta`` tensors) a
+    leaf of its global shape is cut and a leaf already of its block's
+    shape kept; any other shape raises.  Without, every leaf is global."""
+    def cut(x, spec, like):
+        spec = _without(spec, skip)
+        if like is not None and tuple(x.shape) != tuple(like.shape):
+            block = local_shape(plan.mesh, spec, like.shape)
+            if tuple(x.shape) == block:
+                return x
+            raise ValueError(
+                f"a leaf of shape {tuple(x.shape)} is neither the global "
+                f"{tuple(like.shape)} nor its block {block} under {spec}")
+        return NamedSharding(plan.mesh, spec).shard(x)
+
+    if shapes is None:
+        return tree_map(lambda x, spec: cut(x, spec, None), tree, specs)
+    return tree_map(cut, tree, specs, shapes)
+
+
+def gather_tree(plan: ShardingPlan, specs: PyTree, tree: PyTree, *,
+                skip=()) -> PyTree:
+    """The global tree from this rank's blocks (a collective)."""
+    return tree_map(lambda x, spec: _gather(plan.mesh, _without(spec, skip),
+                                            x), tree, specs)
+
+
+def bytes_per_rank(plan: ShardingPlan, tree: PyTree, specs: PyTree) -> int:
+    """Bytes one rank stores of ``tree`` (tensors, ``meta`` ones included)
+    laid out by ``specs``: each leaf's bytes over the product of the sizes
+    of the axes its spec names."""
+    def nbytes(leaf, spec):
+        parts = math.prod(_axis_size(plan.mesh, a) for e in spec
+                          for a in _entry_axes(e))
+        return leaf.numel() * leaf.element_size() // parts
+
+    return int(sum(tree_flatten(tree_map(nbytes, tree, specs))[0]))
+
+
+# ---------------------------------------------------------------------------
+# the sharded state: store blocks, gather on use
+# ---------------------------------------------------------------------------
+
+class Tally:
+    """Bytes received by a placement's gathers (an object, not a list: the
+    autograd function's arguments pass through ``torch.func``'s pytree
+    handling, which would copy a container)."""
+
+    def __init__(self):
+        self.bytes = 0
+
+
+class _GatherOnUse(torch.autograd.Function):
+    """``x``'s blocks over ``axis`` joined along ``dim`` (counted from the
+    end); the backward keeps this rank's slice of the full gradient, with
+    no reduction: every rank of the axis computed the same gradient.
+    ``torch.func.vmap`` over the node axis runs it on the whole node stack
+    at once (one collective a leaf, not one a node)."""
+
+    @staticmethod
+    def forward(x, dim, mesh, axis, tally):
+        return _all_gather(x, dim, mesh, axis, tally)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, dim, mesh, axis, _ = inputs
+        ctx.dim, ctx.block = dim, x.shape[dim]
+        ctx.index = _coord(mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad.narrow(ctx.dim, ctx.index * ctx.block, ctx.block),
+                None, None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, dim, mesh, axis, tally):
+        if in_dims[0] is None:
+            return _GatherOnUse.apply(x, dim, mesh, axis, tally), None
+        return _GatherOnUse.apply(x.movedim(in_dims[0], 0), dim, mesh, axis,
+                                  tally), 0
+
+
+@dataclasses.dataclass(frozen=True)
+class _LeafAxes:
+    """One leaf's sharded dims, ``((dim, (axis, ...)), ...)`` with dims
+    counted from the end: a view that drops the leaf's leading node and
+    layer axes gathers along the same dims."""
+
+    dims: tuple
+
+    @property
+    def spec(self) -> tuple:
+        out = [None] * (max((-d for d, _ in self.dims), default=0))
+        for d, axes in self.dims:
+            out[d] = axes
+        return tuple(out)
+
+
+def _leaf_axes(spec: tuple, skip) -> _LeafAxes:
+    return _LeafAxes(tuple((i - len(spec), _entry_axes(e)) for i, e in
+                           enumerate(_without(spec, skip)) if e))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Placement:
+    """A step's sharded state on ``mesh``: which dims of each params leaf
+    (``params``) and cache leaf (``cache``) the rank stores a block of.
+    The model calls :meth:`gather_params` on a block's params just before
+    it uses them and drops what it gathered after; a decode step gathers
+    each layer's cache (:meth:`gather_cache`), writes it in place and puts
+    the rank's block back (:meth:`store_cache`); a prefill cuts each new
+    cache to the rank's block (:meth:`cut_cache`).  ``key`` is the path of
+    the subtree in the params or cache tree, ``("blocks", j)`` for the
+    ``j``-th period position (a period's view of a stacked leaf gathers as
+    the leaf).  ``tally`` counts the bytes the rank's gathers receive."""
+
+    mesh: Any
+    params: Any = None
+    cache: Any = None
+    tally: Tally = dataclasses.field(default_factory=Tally)
+
+    @staticmethod
+    def make(plan: ShardingPlan, *, params=None, param_specs=None,
+             cache=None, cache_specs=None) -> "Placement":
+        """From the global trees (``meta`` tensors) and their specs; the
+        node axis is never gathered."""
+        skip = (plan.node_axis,) if plan.node_axis else ()
+
+        def axes(tree, specs):
+            if tree is None:
+                return None
+            return tree_map(lambda x, spec: _leaf_axes(spec, skip), tree,
+                            specs)
+
+        return Placement(plan.mesh, axes(params, param_specs),
+                         axes(cache, cache_specs))
+
+    @staticmethod
+    def _at(tree, key):
+        for k in key:
+            tree = tree[k]
+        return tree
+
+    def gather_params(self, tree, *key):
+        def one(x, leaf):
+            for d, axes in reversed(leaf.dims):
+                for axis in reversed(axes):
+                    x = _GatherOnUse.apply(x, d, self.mesh, axis,
+                                           self.tally)
+            return x
+
+        return tree_map(one, tree, self._at(self.params, key))
+
+    def gather_cache(self, tree, *key):
+        return tree_map(lambda x, leaf: _gather(self.mesh, leaf.spec, x,
+                                                self.tally),
+                        tree, self._at(self.cache, key))
+
+    def cut_cache(self, tree, *key):
+        return tree_map(lambda x, leaf: _cut(self.mesh, leaf.spec, x)
+                        .contiguous(), tree, self._at(self.cache, key))
+
+    def store_cache(self, blocks, full, *key) -> None:
+        tree_map(lambda b, x, leaf: b.copy_(_cut(self.mesh, leaf.spec, x)),
+                 blocks, full, self._at(self.cache, key))

@@ -14,6 +14,17 @@ The builders are closures over a :class:`StepConfig`; the spec functions
 give the inputs as ``meta`` tensors (shapes and dtypes, nothing allocated),
 which the dry run (``launch/dryrun.py``) traces.
 
+With a mesh (``launch/mesh.RankMesh``, a ``NodeMesh``, or a ``MeshShape``
+for a ``meta`` trace) the builders lay the state out by
+``launch/sharding.py``'s plan: each rank stores its block of every weight
+and optimizer buffer (and cache), and the model gathers each block's
+weights just before it uses them (``sharding.Placement``).  The steps take
+global trees (each leaf cut to the rank's block) or the blocks, and return
+the blocks; ``sharding.gather_tree`` joins them (a built step's
+``layout`` attribute is its :class:`Layout`, None without a mesh).  The optimizer runs on the
+blocks: it is elementwise along every dim but the node axis, over which the
+gossip mixes as before.  The values are the unsharded step's bit for bit.
+
 Per-node gradients are ``torch.autograd.grad`` of the node losses' sum (the
 loss mapped over the node axis with ``torch.func.vmap``; node i's loss
 depends on node i's params only, so the sum differentiates to exact
@@ -30,14 +41,19 @@ The TPU knobs of the reference's ``StepConfig``, one rule each:
   period in the backward (``models/transformer.py``'s ``_PeriodRemat``);
   ``"none"`` keeps the activations.  The values are the same bit for bit;
   only the peak memory and the flops move.
-* ``unroll``, ``cache_shard_features``, ``pin_decode_cache``,
-  ``shard_tie_break_last``, ``shard_activations``, ``megatron_attn``,
-  ``repeat_kv`` and ``pin_moe_dispatch`` (:data:`IGNORED_KNOBS`) steer XLA's
-  scan and its sharding over a ``model`` axis.  On one card they change no
-  value and no launch: they are accepted and do nothing, and every dry-run
-  record lists them under ``"ignored"``.
-* ``remat_attention`` and ``skip_masked_chunks`` change what the attention
-  computes in the reference; the port has neither, so ``True`` raises.
+* ``unroll``, ``pin_decode_cache``, ``shard_activations``,
+  ``megatron_attn``, ``repeat_kv`` and ``pin_moe_dispatch``
+  (:data:`IGNORED_KNOBS`) steer XLA's scan and how it splits the compute
+  over a ``model`` axis, which the port does not split (it splits the
+  storage only).  They change no value and no launch: they are accepted
+  and do nothing, and every dry-run record lists them under
+  ``"ignored"``.
+* ``shard_tie_break_last`` and ``cache_shard_features`` pick the dims the
+  weights and caches are stored by (``sharding.param_specs`` /
+  ``cache_specs``), as in the reference.
+* ``remat_attention`` (train) and ``skip_masked_chunks`` (train and
+  prefill) reach the plain attention as in the reference
+  (``models/attention.chunked_attention``).
 * ``decode_lowp`` reaches ``tf.decode_step`` as in the reference.
 * ``param_dtype`` also picks the optimizer's route (:func:`make_opt`).
 """
@@ -54,16 +70,17 @@ from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core import gossip, topology as topo_lib
 from repro_torch.core.optim import make_optimizer
 from repro_torch.models import transformer as tf
-from repro_torch.runtime.sharded import node_leaf_spec
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
+from . import sharding
+from .mesh import MeshShape
 from .roofline import H100
 
 __all__ = ["HBM_BYTES", "NODE_BUDGET", "H100_HBM_BYTES", "H100_NODE_BUDGET",
            "IGNORED_KNOBS", "StepConfig", "choose_n_nodes",
            "train_batch_specs", "params_shape", "opt_state_shape",
            "prefill_specs", "decode_specs", "make_opt", "step_topology",
-           "train_loss_fn", "node_grads", "build_train_step",
+           "train_loss_fn", "node_grads", "Layout", "build_train_step",
            "build_prefill_step", "build_decode_step"]
 
 PyTree = Any
@@ -78,10 +95,9 @@ NODE_BUDGET = 14e9
 H100_HBM_BYTES = H100.hbm_bytes
 H100_NODE_BUDGET = 64e9
 
-#: StepConfig fields that steer XLA (scan unrolling, sharding over a
-#: 'model' axis) and change nothing on one card
-IGNORED_KNOBS = ("unroll", "cache_shard_features", "pin_decode_cache",
-                 "shard_tie_break_last", "shard_activations",
+#: StepConfig fields that steer XLA (scan unrolling, the compute split over
+#: a 'model' axis) and change nothing in the port
+IGNORED_KNOBS = ("unroll", "pin_decode_cache", "shard_activations",
                  "megatron_attn", "repeat_kv", "pin_moe_dispatch")
 
 
@@ -114,13 +130,7 @@ class StepConfig:
     pin_moe_dispatch: bool = False
 
 
-def _refuse_unported(sc: StepConfig) -> None:
-    for knob in ("remat_attention", "skip_masked_chunks"):
-        if getattr(sc, knob):
-            raise ValueError(
-                f"StepConfig.{knob}=True has no counterpart in the port: its "
-                "attention computes every chunk and keeps what autograd "
-                f"saves; set {knob}=False")
+def _check(sc: StepConfig) -> None:
     if sc.remat not in tf.REMAT_MODES:
         raise ValueError(f"StepConfig.remat must be one of "
                          f"{tf.REMAT_MODES}, got {sc.remat!r}")
@@ -130,30 +140,23 @@ def choose_n_nodes(cfg: ModelConfig, mesh, *, budget: float = NODE_BUDGET,
                    param_bytes: int = 2) -> int:
     """Decentralization arity for a mesh (DESIGN.md §5 feasibility table).
 
-    ``mesh`` is a ``launch/mesh.NodeMesh`` or a ``MeshShape``; its
-    ``data`` axis carries the node index, one node a rank.  The port has
-    no 'model' axis and no FSDP, so a node's x + m_hat + grads
-    (``param_bytes`` each) all sit on its rank: ``n`` nodes when they fit
-    ``budget``, else one (QHM).  ``budget`` is the reference's v5e figure
-    by default; the dry run passes :data:`H100_NODE_BUDGET`.  A 'pod'
-    axis (pods as clients, FSDP over each pod's data axis) raises."""
+    ``mesh`` is a ``launch/mesh.RankMesh``, a ``NodeMesh`` or a
+    ``MeshShape``.  A 'pod' axis makes each pod a node (hierarchical pods
+    as clients); else the ``data`` axis carries the nodes when a node's x
+    + m_hat + grads (``param_bytes`` each), stored over its 'model' ranks,
+    fit ``budget``, and one node (QHM) runs otherwise.  ``budget`` is the
+    reference's v5e figure by default; the dry run passes
+    :data:`H100_NODE_BUDGET`."""
     axes = dict(mesh.shape)
     if "pod" in axes:
-        raise ValueError(
-            "a 'pod' axis makes each pod one node with its weights sharded "
-            "over the pod's data axis (FSDP); the port has no FSDP: one "
-            "node a rank over the 'data' axis")
-    if axes.get("model", 1) != 1:
-        raise ValueError(
-            f"a 'model' axis of {axes['model']} shards each node's weights "
-            "(tensor parallelism); the port has none: one node a rank")
+        return axes["pod"]
     if "data" not in axes:
         warnings.warn(
             f"mesh axes {sorted(axes)} have no 'data' axis to carry the "
             "node index; falling back to n_nodes=1 (pure local QHM)")
         return 1
     n = axes["data"]
-    per_rank = cfg.n_params() * param_bytes * 3
+    per_rank = cfg.n_params() * param_bytes * 3 / axes.get("model", 1)
     return n if per_rank <= budget else 1
 
 
@@ -243,14 +246,18 @@ def step_topology(sc: StepConfig) -> topo_lib.Topology:
 # step functions
 # ---------------------------------------------------------------------------
 
-def train_loss_fn(sc: StepConfig):
+def train_loss_fn(sc: StepConfig, placement=None):
     """One node's loss ``loss(params, batch) -> 0-d``: ``tf.train_loss``
-    at the StepConfig's chunks and ``remat``."""
+    at the StepConfig's chunks, ``remat`` and attention knobs; with a
+    ``placement`` the params are the rank's blocks."""
     cfg = sc.cfg
 
     def loss_fn(p, batch):
         return tf.train_loss(p, batch, cfg, chunk=sc.chunk,
-                             ssd_chunk=sc.ssd_chunk, remat=sc.remat)
+                             ssd_chunk=sc.ssd_chunk, remat=sc.remat,
+                             skip_masked_chunks=sc.skip_masked_chunks,
+                             remat_attention=sc.remat_attention,
+                             placement=placement)
 
     return loss_fn
 
@@ -259,7 +266,7 @@ def node_grads(sc: StepConfig, params, batch):
     """``(losses [n], grads)`` of node-stacked ``params`` on ``batch``:
     the train step's gradient half, as :func:`build_train_step` takes
     it."""
-    _refuse_unported(sc)
+    _check(sc)
     return _node_grads(train_loss_fn(sc), params, batch)
 
 
@@ -291,26 +298,94 @@ class _OnDevice:
         return self._made[key]
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class Layout:
+    """A step's state on a mesh (``sharding.make_plan``'s plan): the specs
+    of its trees, their global shapes (``meta``) and the ``placement``
+    that gathers the weights on use (None where no axis shards a weight).
+    ``keep`` names the axes a rank holds whole although the specs name
+    them: the vmap runtime holds every node on each rank."""
+
+    plan: Any
+    specs: dict
+    shapes: dict
+    placement: Any
+    keep: tuple = ()
+
+    @staticmethod
+    def make(sc: StepConfig, mesh, *, kind: str,
+             keep_nodes: bool = False) -> "Layout":
+        """``kind``: 'train' (node-stacked params, optimizer state and
+        batch), 'prefill' or 'decode' (params, and the caches)."""
+        n_nodes = sc.n_nodes if kind == "train" else 1
+        plan = sharding.make_plan(mesh, n_nodes=n_nodes)
+        tie = sc.shard_tie_break_last
+        if kind == "train":
+            p = params_shape(sc, node_stacked=True)
+            o = opt_state_shape(sc, p)
+            shapes = {"params": p, "opt_state": o,
+                      "batch": train_batch_specs(sc)}
+            specs = {"params": sharding.param_specs(
+                         plan, p, node_stacked=True, tie_break_last=tie),
+                     "opt_state": sharding.param_specs(
+                         plan, o, node_stacked=True, tie_break_last=tie),
+                     "batch": sharding.batch_specs(plan, shapes["batch"])}
+        else:
+            p = params_shape(sc, node_stacked=False)
+            shapes = {"params": p, "cache": decode_specs(sc)["cache"]}
+            specs = {"params": sharding.param_specs(plan, p,
+                                                    tie_break_last=tie),
+                     "cache": sharding.cache_specs(
+                         plan, shapes["cache"],
+                         shard_features=sc.cache_shard_features)}
+        placement = None
+        if sharding.weight_axes(plan):
+            placement = sharding.Placement.make(
+                plan, params=p, param_specs=specs["params"],
+                cache=shapes.get("cache"), cache_specs=specs.get("cache"))
+        keep = (plan.node_axis,) if keep_nodes and plan.node_axis else ()
+        return Layout(plan, specs, shapes, placement, keep)
+
+    def local(self, what: str, tree):
+        """This rank's blocks of the ``what`` tree (global or blocks)."""
+        return sharding.shard_tree(self.plan, self.specs[what], tree,
+                                   shapes=self.shapes[what], skip=self.keep)
+
+
 def build_train_step(sc: StepConfig, *, mesh=None,
                      node_axis: str | None = None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     mean loss)`` on node-stacked trees (``[n, ...]``; with
-    ``runtime='sharded'`` see :func:`_build_sharded_train_step`)."""
-    _refuse_unported(sc)
+    ``runtime='sharded'`` see :func:`_build_sharded_train_step`).  With a
+    ``mesh`` the trees are laid out by its plan (:class:`Layout`); the vmap
+    runtime holds every node on each rank, so a real mesh whose axes carry
+    the nodes needs ``runtime='sharded'``."""
+    _check(sc)
     topo = step_topology(sc)
     # the builder's step is phase-static (it passes t=0), so time-varying
     # topologies contribute their first phase here
     w_np = np.asarray(topo.w(0), np.float32)
     w_on = _OnDevice(lambda dev: torch.as_tensor(w_np, device=dev))
     opt = make_opt(sc)
-    loss_fn = train_loss_fn(sc)
+    layout = None
+    if mesh is not None:
+        layout = Layout.make(sc, mesh, kind="train",
+                             keep_nodes=sc.runtime == "vmap")
+    loss_fn = train_loss_fn(sc, layout.placement if layout else None)
 
     if sc.runtime == "sharded":
         return _build_sharded_train_step(sc, topo, w_on, loss_fn, opt,
-                                         mesh=mesh, node_axis=node_axis)
+                                         mesh=mesh, node_axis=node_axis,
+                                         layout=layout)
     if sc.runtime != "vmap":
         raise ValueError(f"StepConfig.runtime must be 'vmap' or 'sharded', "
                          f"got {sc.runtime!r}")
+    if layout is not None and layout.plan.node_count > 1 \
+            and not isinstance(mesh, MeshShape):
+        raise ValueError(
+            f"runtime='vmap' holds all {sc.n_nodes} nodes on each rank, "
+            f"but the mesh's {layout.plan.node_axis!r} axis carries one "
+            "node a rank: build with runtime='sharded'")
 
     # schedule selection lives in ONE resolver shared with the trainer; the
     # dense kind keeps the optimizer's gossip.mix_dense (the hook the fused
@@ -325,6 +400,9 @@ def build_train_step(sc: StepConfig, *, mesh=None,
         plan_on = _OnDevice(lambda dev: bsched.on_rank(0, dev))
 
     def train_step(params, opt_state, batch):
+        if layout is not None:
+            params = layout.local("params", params)
+            opt_state = layout.local("opt_state", opt_state)
         dev = tree_flatten(params)[0][0].device
         w = w_on(dev)
         step_opt = opt
@@ -338,25 +416,30 @@ def build_train_step(sc: StepConfig, *, mesh=None,
                                                 w=w, lr=sc.lr, t=0)
         return new_params, new_opt, torch.mean(losses)
 
+    train_step.layout = layout
     return train_step
 
 
 def _build_sharded_train_step(sc: StepConfig, topo, w_on, loss_fn, opt, *,
-                              mesh, node_axis):
-    """The sharded-runtime variant: one node a rank over a
-    ``launch/mesh.NodeMesh`` (DESIGN.md §9).  Each rank computes only its
-    own node: per-node grad, the transform chain, and the compiled gossip
-    rounds over the process group (``gossip.make_local_mix_fn``).
+                              mesh, node_axis, layout):
+    """The sharded-runtime variant: one node a rank of the mesh's
+    ``node_axis`` (DESIGN.md §9; a ``launch/mesh.NodeMesh``, or that axis
+    of a ``RankMesh``).  Each rank computes only its own node: per-node
+    grad, the transform chain, and the compiled gossip rounds over the
+    axis's group (``gossip.make_local_mix_fn``).
 
-    ``train_step`` takes node-stacked trees, global (a leaf with ``n``
-    rows, which it cuts to this rank's row by
-    ``runtime/sharded.node_leaf_spec``, the runtimes' layout rule) or this
-    rank's block (``[1, ...]``), and returns this rank's block of the new params and opt state and the loss
-    averaged over the ranks; ``mesh.gather_nodes`` stacks a block back to
-    ``[n, ...]``."""
+    ``train_step`` takes node-stacked trees, global (each leaf cut to this
+    rank's block by the layout: its row of the node axis, its block of the
+    weight axes) or this rank's blocks, and returns this rank's blocks of
+    the new params and opt state and the loss averaged over the nodes;
+    ``sharding.gather_tree`` joins blocks back to ``[n, ...]``."""
     if mesh is None or node_axis is None:
         raise ValueError("StepConfig.runtime='sharded' needs mesh= and "
                          "node_axis=")
+    if layout.plan.node_axis != node_axis:
+        raise ValueError(
+            f"runtime='sharded': {sc.n_nodes} nodes ride the mesh's "
+            f"{layout.plan.node_axis!r} axis, not {node_axis!r}")
     n = topo.n
     if dict(mesh.shape).get(node_axis) != n:
         raise ValueError(
@@ -371,57 +454,79 @@ def _build_sharded_train_step(sc: StepConfig, topo, w_on, loss_fn, opt, *,
     else:                         # 'ring' carries no schedule
         schedule = gossip.compile_gossip_schedule(topo)
 
-    def local(tree):
-        return tree_map(
-            lambda l: (l[mesh.rank:mesh.rank + 1]
-                       if node_leaf_spec(l, n=n, axis_name=node_axis)
-                       else l), tree)
+    nodes = mesh.axis(node_axis)
 
     def train_step(params, opt_state, batch):
-        params, opt_state, batch = local(params), local(opt_state), \
-            local(batch)
+        params = layout.local("params", params)
+        opt_state = layout.local("opt_state", opt_state)
+        batch = layout.local("batch", batch)
         w = w_on(tree_flatten(params)[0][0].device)
         losses, grads = _node_grads(loss_fn, params, batch)
-        mix = gossip.make_local_mix_fn(schedule, mesh=mesh, w_ref=w, t=0)
+        mix = gossip.make_local_mix_fn(schedule, mesh=nodes, w_ref=w, t=0)
         with torch.no_grad():
             new_params, new_opt = dataclasses.replace(opt, mix_fn=mix).step(
                 params, grads, opt_state, w=w, lr=sc.lr, t=0, n_nodes=n,
-                mesh=mesh)
-        loss = mesh.all_reduce(torch.mean(losses)) / n
+                mesh=nodes)
+        loss = nodes.all_reduce(torch.mean(losses)) / n
         return new_params, new_opt, loss
 
+    train_step.layout = layout
     return train_step
 
 
+def _serve_layout(sc: StepConfig, mesh, kind: str):
+    if mesh is None:
+        return None, None
+    layout = Layout.make(sc, mesh, kind=kind)
+    return layout, layout.placement
+
+
 def build_prefill_step(sc: StepConfig, *, mesh=None):
-    """``prefill_step(params, tokens, img=None) -> (last logits, caches)``;
-    ``mesh`` is accepted as the reference's and shards nothing."""
-    _refuse_unported(sc)
+    """``prefill_step(params, tokens, img=None) -> (last logits, caches)``.
+    With a ``mesh`` the params are global or the rank's blocks and the
+    caches come back as the rank's blocks (``sharding.cache_specs``); every
+    rank computes the whole batch."""
+    _check(sc)
     cfg = sc.cfg
+    layout, placement = _serve_layout(sc, mesh, "prefill")
 
     def prefill_step(params, tokens, img=None):
+        if layout is not None:
+            params = layout.local("params", params)
         return tf.prefill(params, tokens, cfg, img=img, chunk=sc.chunk,
                           ssd_chunk=sc.ssd_chunk,
-                          cache_len=sc.shape.seq_len)
+                          cache_len=sc.shape.seq_len,
+                          skip_masked_chunks=sc.skip_masked_chunks,
+                          placement=placement)
 
+    prefill_step.layout = layout
     return prefill_step
 
 
-def build_decode_step(sc: StepConfig, *, cache_constraint=None):
+def build_decode_step(sc: StepConfig, *, cache_constraint=None, mesh=None):
     """``decode_step(params, token, pos, cache) -> (logits, cache)``, the
-    cache written in place.  ``cache_constraint`` (the reference's
-    sharding pin on the decode write) has no meaning on one card: a
+    cache written in place (with a ``mesh``: the rank's blocks, as the
+    prefill step returns them; each layer's cache is gathered, written and
+    its block put back).  ``cache_constraint`` (the reference's sharding
+    pin on the decode write, an XLA layout hint) has no counterpart: a
     non-None value raises."""
-    _refuse_unported(sc)
+    _check(sc)
     if cache_constraint is not None:
         raise ValueError(
-            "cache_constraint pins the KV cache's sharding over a TPU mesh; "
-            "the port keeps a cache whole on one card and has no sharding "
+            "cache_constraint pins the KV cache's layout for XLA; the port "
+            "stores a cache by sharding.cache_specs (a mesh= and "
+            "StepConfig.cache_shard_features) and has no sharding "
             "constraint: pass None")
     cfg = sc.cfg
+    layout, placement = _serve_layout(sc, mesh, "decode")
 
     def decode_step(params, token, pos, cache):
+        if layout is not None:
+            params = layout.local("params", params)
+            cache = layout.local("cache", cache)
         return tf.decode_step(params, token, pos, cache, cfg,
-                              decode_lowp=sc.decode_lowp)
+                              decode_lowp=sc.decode_lowp,
+                              placement=placement)
 
+    decode_step.layout = layout
     return decode_step

@@ -2,14 +2,17 @@
 cross-attention (VLM) and KV-cache decode.
 
 Port of ``repro/models/attention.py``: ``init_attention``, ``_proj``,
-``qkv``, ``chunked_attention`` (the online-softmax math),
-``decode_attention`` (fp32, and ``lowp`` over a low-precision cache),
-``paged_attention`` and ``cross_attention``.  Layouts are the reference's:
-q ``[B, S, H, D]``, k/v ``[B, T, K, D]``, GQA by head groups ``H = K * G``.
-These are the non-kernel paths (``use_pallas=False``); the kernels
-(``flash_attention``, ``paged_decode_attention``) sit behind
-``repro_torch.kernels.ops``.  Not ported: the query-chunked sliding-window
-variant and the TPU scan controls (``remat``/``unroll``/``repeat_kv``).
+``qkv``, ``chunked_attention`` (the online-softmax math, with the
+reference's two chunk knobs: ``skip_masked_chunks`` takes sliding-window
+self-attention by query chunks, each over the KV span it can see, O(S *
+window) work instead of O(S^2); ``remat_chunks`` recomputes each KV
+chunk's scores in the backward), ``decode_attention`` (fp32, and ``lowp``
+over a low-precision cache), ``paged_attention`` and ``cross_attention``.
+Layouts are the reference's: q ``[B, S, H, D]``, k/v ``[B, T, K, D]``, GQA
+by head groups ``H = K * G``.  These are the non-kernel paths
+(``use_pallas=False``); the kernels (``flash_attention``,
+``paged_decode_attention``) sit behind ``repro_torch.kernels.ops``.  Not
+ported: the TPU scan controls (``unroll``/``repeat_kv``).
 """
 from __future__ import annotations
 
@@ -65,18 +68,82 @@ def qkv(params: dict, x: torch.Tensor, n_heads: int, n_kv_heads: int,
 # chunked (flash-style) attention -- train / prefill
 # ---------------------------------------------------------------------------
 
+def _one_chunk(acc, m, l, qf, kb, vb, start: int, causal: bool,
+               window: int, softcap: float):
+    """One KV chunk (keys ``start .. start + C - 1``) of the online
+    softmax: ``(acc, m, l)`` -> their values after the chunk."""
+    s, c = qf.shape[1], kb.shape[1]
+    q_pos = torch.arange(s, device=qf.device)
+    k_pos = torch.arange(start, start + c, device=qf.device)
+    sc = torch.einsum("bskgd,bckd->bskgc", qf, kb)
+    if softcap:
+        sc = layers.softcap(sc, softcap)
+    mask = torch.ones(s, c, dtype=torch.bool, device=qf.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window:
+        mask &= q_pos[:, None] - k_pos[None, :] < window
+    bmask = mask[None, :, None, None, :]
+    sc = torch.where(bmask, sc, NEG_INF)
+    m_new = torch.maximum(m, sc.amax(dim=-1))
+    # zero fully-masked chunks explicitly: exp(NEG_INF - NEG_INF) == 1
+    p = torch.where(bmask, torch.exp(sc - m_new[..., None]), 0.0)
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum("bskgc,bckd->bskgd", p, vb)
+    return acc, m_new, l
+
+
+class _ChunkRemat(torch.autograd.Function):
+    """:func:`_one_chunk` whose backward recomputes it: the forward saves
+    only its inputs, not the chunk's ``[B, S, K, G, C]`` fp32 scores and
+    weights, and the backward runs the chunk again under
+    ``torch.func.vjp`` (the reference's ``jax.checkpoint`` of its scan
+    body; ``torch.utils.checkpoint`` does not compose with
+    ``torch.func``).  The same operations as the plain chunk, so the
+    values and gradients are the same bits."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(acc, m, l, qf, kb, vb, opts):
+        return _one_chunk(acc, m, l, qf, kb, vb, *opts)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.opts = inputs[-1]
+        ctx.save_for_backward(*inputs[:-1])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        _, vjp = torch.func.vjp(
+            lambda *t: _one_chunk(*t, *ctx.opts), *ctx.saved_tensors)
+        return (*vjp(tuple(grads)), None)
+
+
 def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                      softcap: float = 0.0, chunk: int = 1024):
+                      softcap: float = 0.0, chunk: int = 1024,
+                      skip_masked_chunks: bool = False,
+                      remat_chunks: bool = False):
     """Online-softmax attention over KV chunks of ``chunk`` keys; GQA via
-    head groups.  q [B,S,H,D], k/v [B,T,K,D] -> [B,S,H,D] in q's dtype."""
+    head groups.  q [B,S,H,D], k/v [B,T,K,D] -> [B,S,H,D] in q's dtype.
+
+    ``skip_masked_chunks`` takes causal sliding-window self-attention
+    (``window``, ``S == T`` a multiple of the chunk) by query chunks
+    (:func:`_windowed_attention_qchunked`), the reference's condition;
+    elsewhere it changes nothing.  ``remat_chunks`` recomputes each KV
+    chunk in the backward (:class:`_ChunkRemat`)."""
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     assert h % kh == 0
     g = h // kh
     chunk = min(chunk, t)
+    if skip_masked_chunks and window and causal and s == t \
+            and t % chunk == 0:
+        return _windowed_attention_qchunked(q, k, v, window=window,
+                                            softcap=softcap, chunk=chunk)
     n_chunks = -(-t // chunk)
     qf = q.reshape(b, s, kh, g, d).float() * attn_scale(d)
-    q_pos = torch.arange(s, device=q.device)
     acc = torch.zeros(b, s, kh, g, d, dtype=torch.float32, device=q.device)
     m = torch.full((b, s, kh, g), NEG_INF, dtype=torch.float32,
                    device=q.device)
@@ -86,28 +153,56 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
         # masked, so a shorter chunk is the same sum
         kb = k[:, c * chunk:(c + 1) * chunk].float()
         vb = v[:, c * chunk:(c + 1) * chunk].float()
-        k_pos = torch.arange(c * chunk, c * chunk + kb.shape[1],
-                             device=q.device)
-        sc = torch.einsum("bskgd,bckd->bskgc", qf, kb)
-        if softcap:
-            sc = layers.softcap(sc, softcap)
-        mask = torch.ones(s, kb.shape[1], dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= q_pos[:, None] >= k_pos[None, :]
-        if window:
-            mask &= q_pos[:, None] - k_pos[None, :] < window
-        bmask = mask[None, :, None, None, :]
-        sc = torch.where(bmask, sc, NEG_INF)
-        m_new = torch.maximum(m, sc.amax(dim=-1))
-        # zero fully-masked chunks explicitly: exp(NEG_INF - NEG_INF) == 1
-        p = torch.where(bmask, torch.exp(sc - m_new[..., None]), 0.0)
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bskgc,bckd->bskgd", p,
-                                                   vb)
-        m = m_new
+        opts = (c * chunk, causal, window, softcap)
+        if remat_chunks:
+            acc, m, l = _ChunkRemat.apply(acc, m, l, qf, kb, vb, opts)
+        else:
+            acc, m, l = _one_chunk(acc, m, l, qf, kb, vb, *opts)
     out = acc / torch.clamp_min(l[..., None], 1e-30)
     return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def _windowed_attention_qchunked(q, k, v, *, window: int, softcap: float,
+                                 chunk: int):
+    """Causal sliding-window attention that touches only the keys each
+    query chunk can see: query chunk ``i`` attends over the span
+    ``[i*chunk - w*chunk, (i+1)*chunk)``, ``w = ceil(window / chunk)``,
+    with K/V padded on the left so every span is in bounds (the padded
+    keys masked).  One softmax a query chunk over ``(w + 1) * chunk``
+    keys: O(S * window) work instead of O(S^2).  ``S`` must be a multiple
+    of ``min(chunk, S)``."""
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"query-chunked windowed attention needs the "
+                         f"length {s} to be a multiple of the chunk {chunk}")
+    w_chunks = max(1, -(-window // chunk))
+    span = (w_chunks + 1) * chunk
+    pad = w_chunks * chunk
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, pad, 0))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, pad, 0))
+    scale = attn_scale(d)
+    outs = []
+    for i in range(s // chunk):
+        qb = q[:, i * chunk:(i + 1) * chunk].reshape(
+            b, chunk, kh, g, d).float() * scale
+        kb = kp[:, i * chunk:i * chunk + span].float()
+        vb = vp[:, i * chunk:i * chunk + span].float()
+        q_pos = i * chunk + torch.arange(chunk, device=q.device)
+        k_pos = i * chunk - pad + torch.arange(span, device=q.device)
+        sc = torch.einsum("bskgd,bckd->bskgc", qb, kb)
+        if softcap:
+            sc = layers.softcap(sc, softcap)
+        mask = ((q_pos[:, None] >= k_pos[None, :])
+                & (q_pos[:, None] - k_pos[None, :] < window)
+                & (k_pos[None, :] >= 0))
+        sc = torch.where(mask[None, :, None, None, :], sc, NEG_INF)
+        p = torch.softmax(sc, dim=-1)
+        out = torch.einsum("bskgc,bckd->bskgd", p, vb)
+        outs.append(out.reshape(b, chunk, h, d))
+    return torch.cat(outs, dim=1).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -51,10 +51,17 @@ with ``torch.func.vmap``.
 backward (``_PeriodRemat``, a ``torch.autograd.Function`` that
 ``torch.func.vmap`` and ``grad`` compose with), as the reference
 checkpoints its scan body; the tail layers keep their activations, as the
-reference's do.  Not ported: the TPU mesh and scan controls
+reference's do.  ``skip_masked_chunks`` and ``remat_attention`` reach the
+plain attention as in the reference (``attention.chunked_attention``).
+
+A ``placement`` (``launch/sharding.Placement``) runs the forward on a
+rank's blocks of the params and caches: each block's params are gathered
+just before the block uses them (inside ``_PeriodRemat``, so its backward
+gathers them again), a decode step gathers each layer's cache and puts the
+rank's block back after writing it, and a prefill keeps the rank's block
+of each new cache.  Not ported: the TPU mesh and scan controls
 (``cache_constraint``, ``act_spec``, ``head_spec``, ``moe_expert_spec``,
-``repeat_kv``, ``unroll``, ``skip_masked_chunks``; ``launch/steps.py``
-states what each does on one card).
+``repeat_kv``, ``unroll``; ``launch/steps.py`` states what each does).
 """
 from __future__ import annotations
 
@@ -94,6 +101,9 @@ class RunCtx:
     use_pallas: bool = False
     decode_lowp: bool = False       # decode attention: cache-dtype operands
     pages: Any = None               # paged mode: PageInfo
+    skip_masked_chunks: bool = False  # windowed attention by query chunks
+    remat_attention: bool = False   # recompute attention chunks in backward
+    placement: Any = None           # launch/sharding.Placement: gather on use
 
 
 @dataclasses.dataclass(frozen=True)
@@ -364,7 +374,9 @@ def _self_attn(p, x, kind: str, ctx: RunCtx, cache):
         else:
             out = attention.chunked_attention(
                 q, k, v, causal=True, window=window,
-                softcap=cfg.attn_softcap, chunk=ctx.chunk)
+                softcap=cfg.attn_softcap, chunk=ctx.chunk,
+                skip_masked_chunks=ctx.skip_masked_chunks,
+                remat_chunks=ctx.remat_attention)
         if ctx.mode == "prefill":
             new_cache = _prefill_cache(k, v, kind, ctx)
     out = out.reshape(out.shape[0], out.shape[1], cfg.n_heads * hd)
@@ -449,28 +461,61 @@ def apply_block(kind: str, p, x, ctx: RunCtx, cache):
 
 def _shared_attn_block(p, x, ctx: RunCtx, cache):
     """zamba2's shared block: one param set, applied at the end of every
-    period with that use site's KV cache."""
+    period with that use site's KV cache; ``(x, 0.0, new_cache)`` as
+    :func:`apply_block`."""
     cfg = ctx.cfg
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     out, new_cache = _self_attn(p["attn"], h, _shared_kind(cfg), ctx, cache)
     x = x + out
     h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + layers.swiglu(h, p["mlp"]["gate"], p["mlp"]["up"],
-                             p["mlp"]["down"]), new_cache
+                             p["mlp"]["down"]), 0.0, new_cache
 
 
 # ---------------------------------------------------------------------------
 # full model passes
 # ---------------------------------------------------------------------------
 
-def _embed(params, tokens, cfg):
-    return params["embed"][tokens]
+def _use(ctx: RunCtx, tree, *key):
+    """``tree`` (params at ``key`` in the params tree) as the model uses
+    it: gathered from the rank's blocks under a placement."""
+    if ctx.placement is None:
+        return tree
+    return ctx.placement.gather_params(tree, *key)
 
 
-def _logits(params, x, cfg: ModelConfig):
-    h = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+def _embed(params, tokens, ctx: RunCtx):
+    # an embedding, not ``embed[tokens]``: an index's backward accumulates
+    # repeated tokens into whatever gradient a tied head left first, so its
+    # sums ran in the order the autograd engine reached them
+    return torch.nn.functional.embedding(
+        tokens, _use(ctx, params["embed"], "embed"))
+
+
+def _logits(params, x, ctx: RunCtx):
+    cfg = ctx.cfg
+    h = layers.rms_norm(x, _use(ctx, params["final_norm"], "final_norm"),
+                        cfg.norm_eps)
+    head = (_use(ctx, params["embed"], "embed").T if cfg.tie_embeddings
+            else _use(ctx, params["lm_head"], "lm_head"))
     return layers.softcap((h @ head).float(), cfg.logit_softcap)
+
+
+def _with_cache(ctx: RunCtx, run, cache, *key):
+    """``run(cache)`` -> ``(x, aux, new_cache)`` on a block's cache: under a
+    placement a decode step gathers the cache, writes it in place and puts
+    the rank's block back; a prefill keeps the rank's block of the new
+    cache."""
+    pl = ctx.placement
+    if pl is None or pl.cache is None:
+        return run(cache)
+    if cache is not None:
+        full = pl.gather_cache(cache, *key)
+        x, aux, _ = run(full)
+        pl.store_cache(cache, full, *key)
+        return x, aux, cache
+    x, aux, nc = run(None)
+    return x, aux, (None if nc is None else pl.cut_cache(nc, *key))
 
 
 def _unstack(tree, n: int) -> list:
@@ -487,11 +532,13 @@ def _period_train(ctx: RunCtx, x, block_params, shared_p):
     """One period of a ``train`` forward: ``(x, [moe aux losses])``."""
     auxes = []
     for j, kind in enumerate(ctx.cfg.period):
-        x, aux, _ = apply_block(kind, block_params[j], x, ctx, None)
+        x, aux, _ = apply_block(kind, _use(ctx, block_params[j], "blocks", j),
+                                x, ctx, None)
         if kind == "moe":
             auxes.append(aux)
     if shared_p is not None:
-        x, _ = _shared_attn_block(shared_p, x, ctx, None)
+        x, _, _ = _shared_attn_block(_use(ctx, shared_p, "shared_attn"), x,
+                                     ctx, None)
     return x, auxes
 
 
@@ -511,33 +558,53 @@ class _PeriodRemat(torch.autograd.Function):
     (``torch.utils.checkpoint`` does not: they refuse saved-tensor hooks
     and reentrant functions).  Every tensor the period reads is an input,
     never a closure: a closed-over tensor of an outer ``vmap`` level is
-    gone when the backward runs."""
+    gone when the backward runs.
 
-    generate_vmap_rule = True
+    Under ``torch.func.vmap`` (the node axis of a training step) its own
+    :meth:`vmap` rule applies it once to the whole node stack
+    (``mapped``), running the period under ``torch.func.vmap`` inside
+    both passes.  So its backward runs below the caller's ``vmap``, where
+    a recomputing function nested in the period (the attention's
+    ``remat_chunks``) can run its own ``torch.func.vjp``: under the
+    generated rule, that nesting fails inside ``torch.func``."""
 
     @staticmethod
-    def _period(run: RunCtx, treedef, x, leaves):
-        blocks, shared, img = _period_args(treedef, leaves)
-        y, auxes = _period_train(dataclasses.replace(run, img=img), x,
-                                 blocks, shared)
-        return (y, *auxes)
+    def _period(run: RunCtx, treedef, mapped: bool, x, leaves):
+        def one(x, *leaves):
+            blocks, shared, img = _period_args(treedef, leaves)
+            y, auxes = _period_train(dataclasses.replace(run, img=img), x,
+                                     blocks, shared)
+            return (y, *auxes)
+
+        return torch.func.vmap(one)(x, *leaves) if mapped else one(x,
+                                                                   *leaves)
 
     @staticmethod
-    def forward(run, treedef, x, *leaves):
-        return _PeriodRemat._period(run, treedef, x, leaves)
+    def forward(run, treedef, mapped, x, *leaves):
+        return _PeriodRemat._period(run, treedef, mapped, x, leaves)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.run, ctx.treedef = inputs[0], inputs[1]
-        ctx.save_for_backward(*inputs[2:])
+        ctx.run, ctx.treedef, ctx.mapped = inputs[:3]
+        ctx.save_for_backward(*inputs[3:])
 
     @staticmethod
     def backward(ctx, *grads):
         x, *leaves = ctx.saved_tensors
         _, vjp = torch.func.vjp(
-            lambda x, *leaves: _PeriodRemat._period(ctx.run, ctx.treedef, x,
-                                                    leaves), x, *leaves)
-        return (None, None, *vjp(tuple(grads)))
+            lambda x, *leaves: _PeriodRemat._period(
+                ctx.run, ctx.treedef, ctx.mapped, x, leaves), x, *leaves)
+        return (None, None, None, *vjp(tuple(grads)))
+
+    @staticmethod
+    def vmap(info, in_dims, run, treedef, mapped, x, *leaves):
+        if mapped:
+            raise NotImplementedError("a period maps one node axis")
+        ts = [t.movedim(d, 0) if d is not None
+              else t.expand(info.batch_size, *t.shape)
+              for t, d in zip((x, *leaves), in_dims[3:])]
+        out = _PeriodRemat.apply(run, treedef, True, *ts)
+        return out, tuple(0 for _ in out)
 
 
 def _period_remat(ctx: RunCtx, x, block_params, shared_p):
@@ -549,16 +616,21 @@ def _period_remat(ctx: RunCtx, x, block_params, shared_p):
         parts["img"] = ctx.img
     leaves, treedef = tree_flatten(parts)
     y, *auxes = _PeriodRemat.apply(dataclasses.replace(ctx, img=None),
-                                   treedef, x, *leaves)
+                                   treedef, False, x, *leaves)
     return y, auxes
 
 
 def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
             cache=None, pos=None, chunk: int = 1024, ssd_chunk: int = 128,
             cache_len: int = 0, use_pallas: bool = False,
-            decode_lowp: bool = False, pages=None, remat: str = "none"):
+            decode_lowp: bool = False, pages=None, remat: str = "none",
+            skip_masked_chunks: bool = False, remat_attention: bool = False,
+            placement=None):
     """The shared forward pass.  Returns ``(logits, aux_loss, new_cache)``;
     ``img`` [B, T_img, d] feeds the cross blocks (train and prefill).
+    ``placement`` (``launch/sharding.Placement``): ``params`` and a decode
+    step's ``cache`` are the rank's blocks, and a prefill's cache comes back
+    as the rank's blocks.
 
     train:   tokens [B,S] -> logits [B,S,Vp], aux, None
     prefill: tokens [B,S] -> logits [B,Vp] (last pos), aux, cache
@@ -570,8 +642,10 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
         raise ValueError(f"unknown forward mode {mode!r}")
     ctx = RunCtx(cfg=cfg, mode=mode, pos=pos, img=img, chunk=chunk,
                  ssd_chunk=ssd_chunk, cache_len=cache_len,
-                 use_pallas=use_pallas, decode_lowp=decode_lowp, pages=pages)
-    x = _embed(params, tokens, cfg)
+                 use_pallas=use_pallas, decode_lowp=decode_lowp, pages=pages,
+                 skip_masked_chunks=skip_masked_chunks,
+                 remat_attention=remat_attention, placement=placement)
+    x = _embed(params, tokens, ctx)
     reads_cache = mode in ("decode", "paged")
     shared_p = params.get("shared_attn")
     made = [[] for _ in cfg.period]
@@ -591,19 +665,28 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
             # period i of the stacked params and caches, as views
             c = (tree_map(lambda t: t[i], cache["blocks"][j]) if reads_cache
                  else None)
-            x, aux, nc = apply_block(kind, periods[j][i], x, ctx, c)
+            p = _use(ctx, periods[j][i], "blocks", j)
+            x, aux, nc = _with_cache(
+                ctx, lambda c, kind=kind, p=p: apply_block(kind, p, x, ctx, c),
+                c, "blocks", j)
             made[j].append(nc)
             if kind == "moe":
                 auxes.append(aux)
         if shared_p is not None:
             c = (tree_map(lambda t: t[i], cache["shared_attn"])
                  if reads_cache else None)
-            x, nc = _shared_attn_block(shared_p, x, ctx, c)
+            p = _use(ctx, shared_p, "shared_attn")
+            x, _, nc = _with_cache(
+                ctx, lambda c, p=p: _shared_attn_block(p, x, ctx, c), c,
+                "shared_attn")
             made_shared.append(nc)
     tail_caches = []
     for i, tp in enumerate(params["tail"]):
         c = cache["tail"][i] if reads_cache else None
-        x, aux, nc = apply_block(cfg.period[0], tp, x, ctx, c)
+        p = _use(ctx, tp, "tail", i)
+        x, aux, nc = _with_cache(
+            ctx, lambda c, p=p: apply_block(cfg.period[0], p, x, ctx, c), c,
+            "tail", i)
         tail_caches.append(nc)
         if cfg.period[0] == "moe":
             auxes.append(aux)
@@ -612,7 +695,7 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
         aux_total = aux_total + aux
 
     if mode == "train":
-        return _logits(params, x, cfg), aux_total, None
+        return _logits(params, x, ctx), aux_total, None
     if mode == "prefill":
         def stack(m):
             return tree_map(lambda *ls: torch.stack(ls), *m)
@@ -620,11 +703,11 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
                      "tail": tuple(tail_caches)}
         if shared_p is not None:
             new_cache["shared_attn"] = stack(made_shared)
-        return _logits(params, x[:, -1], cfg), aux_total, new_cache
+        return _logits(params, x[:, -1], ctx), aux_total, new_cache
     if mode == "paged":
         x_last = x[torch.arange(x.shape[0], device=x.device), pages.last_idx]
-        return _logits(params, x_last, cfg), aux_total, cache
-    return _logits(params, x[:, 0], cfg), aux_total, cache
+        return _logits(params, x_last, ctx), aux_total, cache
+    return _logits(params, x[:, 0], ctx), aux_total, cache
 
 
 def train_loss(params, batch, cfg: ModelConfig, **kw):
