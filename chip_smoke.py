@@ -74,7 +74,8 @@ line) if anything goes wrong:
             for bit) and with ``comm.backend=jnp``, and QG and top-k on the
             CPU, and hold the histories against each other;
 4. profile  the QG and the top-k training loops under ``torch.profiler``:
-            device time by kernel, host time by op;
+            device time by kernel, host time by op (every profiled loop
+            PROFILE_STEPS deep, the LM's half that);
 5. zoo      slice 2: ``social32_alpha0.1_qg`` (32 nodes) and
             ``exp16_alpha0.1_qg`` (a W that changes every step) for 150
             steps with one ``qg_step`` a step, accuracy within ACC_ATOL of
@@ -242,7 +243,17 @@ line) if anything goes wrong:
             fp32 at published widths, ``build_prefill_step`` at [1,
             SHARD_PREFILL] with ``skip_masked_chunks`` off and on (no
             kernel), logits within SHARD_LOGIT_RTOL of max |logit|,
-            argmax equal.
+            argmax equal.  Slice 11's main path, the compute split over
+            'model' (``sharding.Split``): the same TinyLlama step with
+            ``megatron_attn``, ``shard_activations`` and
+            ``pin_moe_dispatch`` on the (1, 1) mesh (each collective of
+            one rank), 3 steps bit-equal to ``mesh=None`` with the same
+            knobs, one ``qg_step`` a step, its warm ms/step beside
+            ``mesh=None``'s and the gather-on-use step's and its step-1
+            peak; granite-moe-3b fp32 at published widths,
+            ``build_prefill_step`` at [1, SPLIT_MOE_PREFILL] with the heads
+            and the experts split, logits within SHARD_LOGIT_RTOL of
+            ``mesh=None``'s max |logit|, argmax and routes equal.
 
 Imports nothing of JAX nor of the JAX package.  The second-to-last lines
 are the card's name and power limit and a JSON ``kernels`` line; the last
@@ -1609,7 +1620,13 @@ CONV_KERNEL = re.compile(r"conv|cudnn|xmma|wgrad|dgrad|fprop|implicit",
                          re.IGNORECASE)
 
 
-def phase_profile(dev, label: str, spec, steps: int = 150,
+#: the depth of a training loop run under the profiler (a measurement:
+#: per-step figures; the trace's aggregation on the host grows with the
+#: loop, so a deeper loop costs the run's time budget and shows no more)
+PROFILE_STEPS = 20
+
+
+def phase_profile(dev, label: str, spec, steps: int = PROFILE_STEPS,
                   task=None, mesh=None) -> dict | None:
     """Device time by kernel and host time by op over the ``steps``-step
     training loop of one run of ``spec`` (a measurement: printed, and
@@ -1927,7 +1944,8 @@ def phase_zoo(dev, main_out) -> dict:
                              api.presets.get(preset))
         busy = ("not measured" if prof is None else
                 f"{100 * prof['device_ms'] / prof['wall_ms']:.2f}% busy, "
-                f"{prof['wall_ms'] / 150:.4f} ms/step unlogged")
+                f"{prof['wall_ms'] / PROFILE_STEPS:.4f} ms/step unlogged "
+                f"over {PROFILE_STEPS} steps")
         log(f"zoo {preset}: 150 steps in {res.wall_time_s:.4f} s "
             f"({res.wall_time_s / 150 * 1e3:.4f} ms/step logged every "
             f"step), profiled {busy} [{card}]; test acc {acc:.4f} "
@@ -2540,16 +2558,17 @@ def phase_cifar(dev, main_out) -> dict:
         torch.backends.cudnn.deterministic = False
 
     # 6. where the time goes
-    prof = phase_profile(dev, "cifar", _cifar_spec(), steps=60)
+    prof = phase_profile(dev, "cifar", _cifar_spec())
     if prof is not None:
         step_ms, step_n = prof["qg_step"]
         # x, m, g in, x_new, m_out out, fp32, over every node's params
         bound_us = RESNET20_ELEMS * 16 * 20 / PEAK_BYTES_S * 1e6
-        log(f"cifar profile: {prof['wall_ms'] / 60:.4f} ms/step, "
+        log(f"cifar profile: {prof['wall_ms'] / PROFILE_STEPS:.4f} ms/step, "
             f"{100 * prof['device_ms'] / prof['wall_ms']:.2f}% busy, convs "
             f"(cuDNN's kernels) {prof['conv_ms']:.4f} ms, "
             f"{100 * prof['conv_ms'] / prof['device_ms']:.2f}% of device "
-            f"time; qg_step {step_n} launches, {step_ms / 60 * 1e3:.3f} us "
+            f"time; qg_step {step_n} launches, "
+            f"{step_ms / PROFILE_STEPS * 1e3:.3f} us "
             f"a step ({step_ms / max(step_n, 1) * 1e3:.3f} us each) against "
             f"the step's bytes bound {bound_us:.3f} us [{card}]")
     shown = {k: v for k, v in launches.items() if v}
@@ -3906,8 +3925,9 @@ def phase_lm(dev) -> dict:
             f"{tail} is not below ln V = {math.log(cfg.vocab_size)} and "
             f"the first step's {losses[0]}")
     out["runs"] = runs
-    out["profile"] = phase_profile(dev, "lm", spec.override("loop.steps=20"),
-                                   steps=20, task=task)
+    out["profile"] = phase_profile(
+        dev, "lm", spec.override(f"loop.steps={PROFILE_STEPS // 2}"),
+        steps=PROFILE_STEPS // 2, task=task)
     del task
 
     # the export: the node mean of the final state (from the CLI run's
@@ -5403,8 +5423,8 @@ def phase_runtimes(dev, scen_out) -> dict:
                 ("delayed_qg_hybrid", "quickstart_ring16_alpha0.1_qg",
                  ("overlap=delayed_1",))):
             spec = api.presets.get(preset).override("runtime=hybrid", *over)
-            out["profile"][label] = phase_profile(
-                dev, label, spec, steps=spec.loop.steps, mesh=node_mesh)
+            out["profile"][label] = phase_profile(dev, label, spec,
+                                                  mesh=node_mesh)
     finally:
         distributed.shutdown()
     if out["launches"].get("qg_step"):
@@ -5955,6 +5975,187 @@ def _shard_prefill(dev, smi) -> dict:
     return out
 
 
+#: slice 11's knobs: the heads, the residual's features (with the MLP, the
+#: embedding, the head and the loss) and the experts split over 'model'
+SPLIT_KNOBS = dict(megatron_attn=True, shard_activations=True,
+                   pin_moe_dispatch=True)
+#: granite-moe-3b at its published widths: a [1, SPLIT_MOE_PREFILL] prefill
+#: with the heads and the experts split, against mesh=None
+SPLIT_MOE_ARCH, SPLIT_MOE_PREFILL = "granite-moe-3b-a800m", 2048
+
+
+def _split_train(dev, sc, mesh, gather_out, launch_out, smi) -> dict:
+    """TinyLlama-1.1B's fp32 step with SPLIT_KNOBS on the (1, 1) mesh: the
+    heads, the features and (no experts in a dense model) the vocabulary
+    split over a 'model' axis of one NCCL rank, every collective run.
+    LAUNCH_STEPS steps bit-equal to ``mesh=None``'s with the same knobs
+    (``repeat_kv`` changes K/V's gradient's sum order, so the launch
+    phase's steps are not the comparison), one ``qg_step`` a step; the warm
+    ms/step beside ``mesh=None``'s and the gather-on-use step's
+    (``gather_out``), the step-1 peaks."""
+    import dataclasses
+    import gc
+    import statistics as st
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.tree import tree_leaves
+
+    ssc = dataclasses.replace(sc, **SPLIT_KNOBS)
+    params, batch = _launch_inputs(dev, ssc)
+    runs = {}
+    pauses = []       # the host's garbage-collection pauses, in seconds
+
+    def gc_pause(phase, info, start=[0.0]):
+        if phase == "start":
+            start[0] = time.perf_counter()
+        else:
+            pauses.append(time.perf_counter() - start[0])
+
+    for label, mesh_ in (("mesh=None", None), ("split", mesh)):
+        step = steps.build_train_step(ssc, mesh=mesh_)
+        if label == "split" and (step.split is None or not (
+                step.split.heads and step.split.features
+                and step.split.vocab)):
+            raise AssertionError(f"split: the (1, 1) mesh's split is "
+                                 f"{step.split}")
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        state, ms, losses, peak1 = (params, steps.make_opt(ssc).init(
+            params)), [], [], None
+        pauses.clear()
+        gc.callbacks.append(gc_pause)
+        try:
+            for i in range(LAUNCH_STEPS):
+                (p, o, loss), dt = _timed(step, *state, batch)
+                ms.append(dt)
+                losses.append(loss.item())
+                if i == 0:
+                    peak1 = torch.cuda.max_memory_allocated(dev)
+                state = (p, o)
+        finally:
+            gc.callbacks.remove(gc_pause)
+        counts = ops.launch_counts()
+        _expect_launches(f"split {label}", counts,
+                         {"qg_step": launch_out["launches"]["qg_step"]})
+        runs[label] = {"ms": ms, "warm_ms": st.mean(ms[1:]),
+                       "losses": losses, "launches": counts,
+                       "peak1_over_args": peak1 - base,
+                       "gc_ms": 1e3 * sum(pauses), "gc_pauses": len(pauses)}
+        if label == "mesh=None":
+            host = ([t.cpu() for t in tree_leaves(state[0])],
+                    [t.cpu() for t in tree_leaves(state[1])])
+        else:
+            if losses != runs["mesh=None"]["losses"]:
+                raise AssertionError(f"split: losses {losses} vs mesh=None's "
+                                     f"{runs['mesh=None']['losses']}")
+            _held_bitwise("split: params after the last step", state[0],
+                          host[0])
+            _held_bitwise("split: m_hat after the last step", state[1],
+                          host[1])
+            runs[label]["wire"] = dict(step.split.tally.wire)
+            runs[label]["gathered"] = step.layout.placement.tally.bytes
+        del state, p, o
+    del params, batch, host
+    torch.cuda.empty_cache()
+    out = {"runs": runs, "launches": runs["split"]["launches"],
+           "gather_warm_ms": gather_out["warm_ms"],
+           "launch_warm_ms": launch_out["warm_ms"]}
+    log(f"shard [{smi}] split {LAUNCH_ARCH} fp32 with {SPLIT_KNOBS} on the "
+        f"(1, 1) mesh: {LAUNCH_STEPS} steps bit-equal to mesh=None's (losses "
+        f"{runs['split']['losses']}, the final params and m_hat); launches "
+        f"{runs['split']['launches']}")
+    log(f"shard [{smi}] split warm ms/step {runs['split']['warm_ms']:.3f} "
+        f"({[round(v, 3) for v in runs['split']['ms']]}) vs mesh=None with "
+        f"the knobs {runs['mesh=None']['warm_ms']:.3f} "
+        f"({[round(v, 3) for v in runs['mesh=None']['ms']]}), the "
+        f"gather-on-use step {gather_out['warm_ms']:.3f}, the launch phase's "
+        f"mesh=None step {launch_out['warm_ms']:.3f}; step-1 peak over the "
+        f"arguments split {runs['split']['peak1_over_args']} B vs mesh=None "
+        f"{runs['mesh=None']['peak1_over_args']} B vs gather-on-use "
+        f"{gather_out['peak1'] - gather_out['base']} B; the split's "
+        f"collectives {runs['split']['wire']} B received (one rank: 0), "
+        f"weights gathered {runs['split']['gathered']} B; the host's "
+        f"garbage collection over the {LAUNCH_STEPS} steps: split "
+        f"{runs['split']['gc_ms']:.1f} ms in {runs['split']['gc_pauses']} "
+        f"pauses, mesh=None {runs['mesh=None']['gc_ms']:.1f} ms in "
+        f"{runs['mesh=None']['gc_pauses']}")
+    return out
+
+
+def _split_moe_prefill(dev, mesh, smi) -> dict:
+    """granite-moe-3b fp32 at its published widths: ``build_prefill_step``
+    at [1, SPLIT_MOE_PREFILL] with the heads and the experts split over the
+    (1, 1) mesh against ``mesh=None`` with the same knobs: last logits
+    within SHARD_LOGIT_RTOL of max |logit|, argmax equal, every MoE call's
+    routes equal (``moe.recording``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config(SPLIT_MOE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(LAUNCH_SEED)
+    params = tf.init_lm(gen, cfg)
+    rng = np.random.default_rng(LAUNCH_SEED + 3)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(1, SPLIT_MOE_PREFILL),
+        dtype=np.int32)).to(dev)
+    sp = steps.StepConfig(cfg, InputShape("split_prefill", SPLIT_MOE_PREFILL,
+                                          1, "prefill"),
+                          n_nodes=1, param_dtype=torch.float32,
+                          megatron_attn=True, pin_moe_dispatch=True)
+    runs = {}
+    ops.reset_launch_counts()
+    for label, mesh_ in (("mesh=None", None), ("split", mesh)):
+        fn = steps.build_prefill_step(sp, mesh=mesh_)
+        if label == "split" and (fn.split is None or not (
+                fn.split.heads and fn.split.experts)):
+            raise AssertionError(f"split: {SPLIT_MOE_ARCH}'s split is "
+                                 f"{fn.split}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        with moe.recording(routes=True) as rec:
+            (logits, cache), dt = _timed(fn, params, tokens)
+        runs[label] = {"ms": dt, "peak": torch.cuda.max_memory_allocated(dev),
+                       "logits": logits.float(), "routes": [
+                           (r["expert_idx"], r["valid"])
+                           for r in rec["routes"]]}
+        del cache
+    _expect_launches("split prefill", ops.launch_counts(), {})
+    a, b = runs["mesh=None"].pop("logits"), runs["split"].pop("logits")
+    ra, rb = runs["mesh=None"].pop("routes"), runs["split"].pop("routes")
+    if not bool(torch.isfinite(a).all() and torch.isfinite(b).all()):
+        raise AssertionError("split: granite logits are not finite")
+    err = ((a - b).abs().max() / a.abs().max()).item()
+    same_argmax = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+    same_routes = len(ra) == len(rb) == cfg.n_layers and all(
+        torch.equal(e1, e2) and torch.equal(v1, v2)
+        for (e1, v1), (e2, v2) in zip(ra, rb))
+    out = {"runs": runs, "rel_err": err, "argmax_equal": same_argmax,
+           "routes_equal": same_routes, "moe_calls": len(rb)}
+    log(f"shard [{smi}] split {SPLIT_MOE_ARCH} fp32 prefill [1, "
+        f"{SPLIT_MOE_PREFILL}] with the heads and the experts split: "
+        f"{runs['split']['ms']:.1f} ms (peak {runs['split']['peak']} B) vs "
+        f"mesh=None {runs['mesh=None']['ms']:.1f} ms (peak "
+        f"{runs['mesh=None']['peak']} B); logits max |diff| / max |logit| "
+        f"{err:.3e} (SHARD_LOGIT_RTOL {SHARD_LOGIT_RTOL}), argmax equal "
+        f"{same_argmax}, routes of {len(rb)} MoE calls equal {same_routes}")
+    if err > SHARD_LOGIT_RTOL or not same_argmax or not same_routes:
+        raise AssertionError(f"split: {SPLIT_MOE_ARCH}'s split prefill moved "
+                             f"the logits by {err:.3e} of max |logit| (argmax "
+                             f"equal {same_argmax}, routes equal "
+                             f"{same_routes})")
+    del params, a, b
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_shard(dev, launch_out) -> dict:
     """Slice 10's main path on the card: the launch tooling's step on a
     ('data', 'model') mesh with the sharded state (``sharding.Placement``:
@@ -5967,6 +6168,7 @@ def phase_shard(dev, launch_out) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
     from repro_torch.launch import distributed, steps
+    from repro_torch.launch.mesh import make_debug_mesh
 
     smi = _card()
     t_phase = time.perf_counter()
@@ -5977,11 +6179,20 @@ def phase_shard(dev, launch_out) -> dict:
     try:
         out = _shard_train(dev, sc, launch_out, smi)
         out["zamba2"] = _shard_prefill(dev, smi)
+        t_split = time.perf_counter()
+        mesh = make_debug_mesh((1, 1), ("data", "model"))
+        out["split"] = _split_train(dev, sc, mesh, out, launch_out, smi)
+        out["split"]["granite"] = _split_moe_prefill(dev, mesh, smi)
+        out["split"]["seconds"] = time.perf_counter() - t_split
     finally:
         distributed.shutdown()
     out["seconds"] = time.perf_counter() - t_phase
-    log(f"shard launches {json.dumps({k: v for k, v in out['launches'].items() if v})}"
-        f" ({out['seconds']:.1f} s for the phase)")
+    used = {what: json.dumps({k: v for k, v in counts.items() if v})
+            for what, counts in (("shard", out["launches"]),
+                                 ("split", out["split"]["launches"]))}
+    log(f"shard launches {used['shard']}; split launches {used['split']} "
+        f"({out['seconds']:.1f} s for the phase, "
+        f"{out['split']['seconds']:.1f} s of it the split's)")
     return out
 
 
@@ -6039,6 +6250,14 @@ def main() -> int:
 
     dev = resolve_device("cuda")
     t_start = time.perf_counter()
+    t_mark = [t_start]
+
+    def mark(what: str) -> None:
+        """Log the seconds since the last mark: where the run's time goes."""
+        now = time.perf_counter()
+        log(f"seconds {what}: {now - t_mark[0]:.1f}")
+        t_mark[0] = now
+
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
@@ -6055,33 +6274,40 @@ def main() -> int:
     # flash: fp32/bf16 x head_dim 32/64/112/128
     check_on_tensor_cores("attention", ("flash_tc",), 8)
     check_on_tensor_cores("ssd_scan", SSD_PRODUCT_KERNELS, 8)
+    mark("build")
 
     # 2. kernels against their plain versions, then their times
     worst = phase_kernels(dev)
     att_worst = phase_attention_kernels(dev)
     ssd_worst = phase_ssd_kernels(dev)
+    mark("kernels held")
     timed = phase_timing(dev)
     att_timed = phase_attention_timing(dev)
     ssd_timed = phase_ssd_timing(dev)
     log(f"allocator after the kernel timings: {_allocator(dev)}")
+    mark("kernels timed")
 
     # 3. the main path: the quickstart pair, then the compressed runs
     main_out = phase_main(dev)
     comp_out = phase_compressed(dev)
+    mark("main, compressed")
 
     # 4. where the device time goes
     from repro_torch import api
     phase_profile(dev, "qg", api.presets.get("quickstart_ring16_alpha0.1_qg"))
     phase_profile(dev, "topk", api.presets.get(
         "choco_topk0.01_ring16_qg").override("comm.backend=auto"))
+    mark("profile")
 
     # 5. slice 2: the other optimizers, the social and exponential graphs
     # and the consensus experiments
     phase_zoo(dev, main_out)
+    mark("zoo")
 
     # 6. slices 4 and 5: the CIFAR protocol on ResNet-20, telemetry and
     # checkpoints
     cifar_out = phase_cifar(dev, main_out)
+    mark("cifar")
 
     # 7. slice 7's main path: TinyLlama-1.1B served through the
     # paged-decode kernel, its full-width prefill through the flash kernel,
@@ -6092,6 +6318,7 @@ def main() -> int:
     phase_serve_profile(dev, cfg, params, reqs)
     del params
     torch.cuda.empty_cache()
+    mark("serve, prefill")
 
     # 8. slice 6b-i's main path: mamba2-130m prefilled through the SSD scan
     # kernel, decoded from the state it leaves, and profiled
@@ -6099,37 +6326,44 @@ def main() -> int:
     phase_mamba_profile(dev, mamba_out.pop("cfg"), mamba_out.pop("params"),
                         mamba_out.pop("tokens"))
     torch.cuda.empty_cache()
+    mark("mamba")
 
     # 9. slice 6b-ii's main path: the LM preset trained on 8 nodes, its
     # consensus export, and the export served through the paged kernels
     lm_out = phase_lm(dev)
     torch.cuda.empty_cache()
+    mark("lm")
 
     # 10. slice 8a's main path: the three 1024-node presets through the
     # two-kernel path, the churn scenario's masks against the JAX package's
     scen_out = phase_scenario(dev)
     torch.cuda.empty_cache()
+    mark("scenario")
 
     # 11. slice 6b-iii's main paths: granite-moe-3b served through the
     # paged kernels, zamba2-7b prefilled through the scan and flash at
     # head_dim 112, the VLM served, each held against the JAX package
     lmstack_out = phase_lmstack(dev)
     torch.cuda.empty_cache()
+    mark("lmstack")
 
     # 12. slice 8b's main paths: the hybrid backend over a one-rank NCCL
     # group (the n1024 presets, exp16, CHOCO top-k) and the delayed gossip
     runtimes_out = phase_runtimes(dev, scen_out)
     torch.cuda.empty_cache()
+    mark("runtimes")
 
     # 13. slice 9's main path: the launch tooling's step builders on
     # TinyLlama-1.1B at its published size, held against the dry run
     launch_out = phase_launch(dev)
     torch.cuda.empty_cache()
+    mark("launch")
 
     # 14. slice 10's main path: the same step with the sharded state on a
     # ('data', 'model') mesh, remat_attention, and zamba2's prefill with
-    # skip_masked_chunks
+    # skip_masked_chunks; slice 11's: the compute split over 'model'
     shard_out = phase_shard(dev, launch_out)
+    mark("shard")
 
     smi = _card()
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -6245,6 +6479,9 @@ def main() -> int:
         row["launch_launches"] = launch_out["launches"].get(row["name"], 0)
     for row in kernels:  # slice 10's shard phase (the sharded train steps)
         row["shard_launches"] = shard_out["launches"].get(row["name"], 0)
+    for row in kernels:  # slice 11's split train steps
+        row["split_launches"] = shard_out["split"]["launches"].get(
+            row["name"], 0)
     t = ssd_timed["main"]
     kernels.append({
         "name": "ssd_scan", "route": "cuda", "source": csrc + "ssd_scan.cu",
@@ -6256,6 +6493,7 @@ def main() -> int:
         "bound_by": t["bound_by"], "library_ms": None,
         "launch_launches": launch_out["launches"].get("ssd_scan", 0),
         "shard_launches": shard_out["launches"].get("ssd_scan", 0),
+        "split_launches": shard_out["split"]["launches"].get("ssd_scan", 0),
         "lmstack_launches": lmstack_out["launches"]["ssd_scan"],
         "zamba2": {k: ssd_timed["zamba2"][k]
                    for k in ("ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Milliseconds a training step of the port takes on the card, whole runs,
-and the tokens/s of serving TinyLlama-1.1B.
+the tokens/s of serving TinyLlama-1.1B, and where the time of the launch
+tooling's split train step goes.
 
     python3 scripts/torch_step_time.py [--src DIR] [--reps N] [--label L]
                                        [--runs NAME ...]
@@ -16,6 +17,20 @@ then ``--reps`` runs, each a fresh engine (tokens/s over the engine's run,
 ending in a device sync, and its decode-step p50).  Prints one JSON line
 per run (label, run, ms/step or tokens/s, card) and nothing else on stdout.
 ``--runs`` keeps the named runs only (default: all).
+
+The ``tinyllama_split`` run times the launch tooling's train step on
+TinyLlama-1.1B at its published size (fp32, 2 nodes x [1, 1024], remat
+full; chip_smoke's ``launch`` step) three ways in one process: ``mesh=None``
+with the split's knobs (``megatron_attn``, ``shard_activations``,
+``pin_moe_dispatch``: only ``repeat_kv`` acts there), the compute split over
+'model' on a ``('data', 'model')`` mesh of (1, 1) over a one-rank NCCL group
+with the same knobs, and the gather-on-use step (the knobs off) on that
+mesh.  For each: ``--reps`` steps after one warm-up, each timed between two
+device syncs; one more step timed when it returns to the host and after the
+device sync (a step whose host return is its wall time is host-bound); the
+caching allocator's counters over the timed steps.  Then one split step
+under ``torch.profiler``: its device and host self-time totals and the ops
+that take the most of each.
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed (by
 default this checkout's), so that two commits are timed by the same script
@@ -43,7 +58,12 @@ SERVE_KW = {"n_slots": 8, "page_size": 16, "max_len": 256,
             "prefill_chunk": 32}
 SERVE_REQUESTS, SERVE_MAX_NEW = 16, 16
 SERVE_RUN = "tinyllama_serve"
-RUN_NAMES = [label for label, _, _ in STEP_RUNS] + [SERVE_RUN]
+SPLIT_RUN = "tinyllama_split"
+SPLIT_KNOBS = dict(megatron_attn=True, shard_activations=True,
+                   pin_moe_dispatch=True)
+ALLOCATOR = ("num_alloc_retries", "num_sync_all_streams", "num_device_alloc",
+             "num_device_free")
+RUN_NAMES = [label for label, _, _ in STEP_RUNS] + [SERVE_RUN, SPLIT_RUN]
 
 
 def serve_runs(reps: int):
@@ -70,6 +90,101 @@ def serve_runs(reps: int):
             out.append((sum(len(o.tokens) for o in outs) / wall,
                         eng.stats()["phases"]["decode"]["p50_s"] * 1e3))
     return out
+
+
+def _synced_ms(torch, fn, *args):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _top(rows, key: str, n: int = 8) -> list:
+    """The ``n`` rows of a profile with the most ``key`` (microseconds):
+    ``[name (cut to 80 characters), ms, calls]``."""
+    rows = sorted(rows, key=lambda e: getattr(e, key), reverse=True)[:n]
+    return [[e.key[:80], getattr(e, key) / 1e3, e.count] for e in rows]
+
+
+def split_runs(reps: int):
+    """``(step, record)`` of the ``tinyllama_split`` run's three steps and
+    the split step's profile (module docstring)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import distributed, steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    store = Path(tempfile.mkdtemp()) / "store"
+    dev = distributed.initialize(f"file://{store}", 1, 0, backend="nccl",
+                                 timeout_s=120)
+    sc = steps.StepConfig(get_config("tinyllama-1.1b"), InputShape(
+        "split_train", seq_len=1024, global_batch=2, kind="train"),
+        n_nodes=2, param_dtype=torch.float32, **SPLIT_KNOBS)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tree_map(lambda *ls: torch.stack(ls),
+                      *[tf.init_lm(gen, sc.cfg) for _ in range(2)])
+    toks = np.random.default_rng(0).integers(0, sc.cfg.vocab_size,
+                                             size=(2, 1, 1025),
+                                             dtype=np.int32)
+    batch = {"tokens": torch.from_numpy(toks[..., :-1].copy()).to(dev),
+             "labels": torch.from_numpy(toks[..., 1:].copy()).to(dev)}
+    mesh = make_debug_mesh((1, 1), ("data", "model"))
+    off = dataclasses.replace(sc, **{k: False for k in SPLIT_KNOBS})
+    try:
+        for label, mesh_, s in (("mesh=None", None, sc), ("split", mesh, sc),
+                                ("gather-on-use", mesh, off)):
+            step = steps.build_train_step(s, mesh=mesh_)
+            opt = steps.make_opt(s).init(params)
+            _synced_ms(torch, step, params, opt, batch)       # warm-up
+            before = torch.cuda.memory_stats(dev)
+            ms = [_synced_ms(torch, step, params, opt, batch)[1]
+                  for _ in range(reps)]
+            after = torch.cuda.memory_stats(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(params, opt, batch)
+            host = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            del out
+            yield label, {
+                "ms_per_step": ms, "host_return_ms": host, "wall_ms": wall,
+                "allocator": {k: after.get(k, 0) - before.get(k, 0)
+                              for k in ALLOCATOR}}
+            if label == "split":
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    out = step(params, opt, batch)
+                    torch.cuda.synchronize()
+                del out
+                # the device's rows are its kernels and copies (the
+                # totals of the profiler's own table)
+                ka = prof.key_averages()
+                kernels = [e for e in ka if e.device_type == DeviceType.CUDA
+                           and not e.is_user_annotation]
+                yield "split profile", {
+                    "device_self_ms": sum(e.self_device_time_total
+                                          for e in kernels) / 1e3,
+                    "host_self_ms": sum(e.self_cpu_time_total
+                                        for e in ka) / 1e3,
+                    "top_device": _top(kernels, "self_device_time_total"),
+                    "top_host": _top(ka, "self_cpu_time_total")}
+            del opt, step
+            torch.cuda.empty_cache()
+    finally:
+        distributed.shutdown()
 
 
 def main() -> int:
@@ -111,6 +226,11 @@ def main() -> int:
             "label": args.label, "run": SERVE_RUN, "rep": rep,
             "requests": SERVE_REQUESTS, "tokens_per_s": tps,
             "decode_p50_ms": p50, "card": card}), flush=True)
+    if SPLIT_RUN in args.runs:
+        for step, rec in split_runs(args.reps):
+            print(json.dumps({"label": args.label, "run": SPLIT_RUN,
+                              "step": step, **rec, "card": card}),
+                  flush=True)
     return 0
 
 

@@ -178,6 +178,9 @@ def trace_step(sc: steps.StepConfig, plan: sharding.ShardingPlan, *,
     if gathered:
         rec["wire"]["all-gather"] = rec["wire"].get("all-gather", 0.0) + \
             gathered
+    if fn.split is not None:   # the activations' collectives over 'model'
+        for k, v in fn.split.tally.wire.items():
+            rec["wire"][k] = rec["wire"].get(k, 0.0) + v / per
     return rec
 
 

@@ -12,7 +12,8 @@ launch state (``launch/sharding.py``) use:
 * ``post`` -- point-to-point sends and receives in one
   ``dist.batch_isend_irecv`` (the counterpart of ``jax.lax.ppermute``);
 * ``all_gather`` / ``gather_nodes`` (``jax.lax.all_gather``);
-* ``all_reduce`` (``psum`` / ``pmax``).
+* ``all_reduce`` (``psum`` / ``pmax``), ``reduce_scatter_dim``
+  (``psum_scatter``) and ``all_gather_dim``.
 
 Build one with :func:`make_node_mesh` after
 :func:`repro_torch.launch.distributed.initialize`.  Its ``shape`` is
@@ -116,6 +117,19 @@ class NodeMesh:
         shape[dim] *= self.size
         return out.view((self.size,) + tuple(x.shape)).movedim(
             0, dim).reshape(shape)
+
+    def reduce_scatter_dim(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x`` summed over the ranks, this rank's block along ``dim`` (the
+        ``rank``-th of ``size`` equal blocks), by one reduce-scatter; a new
+        contiguous tensor."""
+        dim = dim % x.dim()
+        # the blocks one after another along dim 0 (the layout every
+        # backend takes)
+        parts = x.movedim(dim, 0).contiguous()
+        out = parts.new_empty((parts.shape[0] // self.size,)
+                              + tuple(parts.shape[1:]))
+        dist.reduce_scatter_tensor(out, parts, group=self.group)
+        return out.movedim(0, dim).contiguous()
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """A new tensor: ``x`` summed (``op='sum'``) or maxed (``'max'``)

@@ -39,8 +39,15 @@ all-gathers the full tensor (:class:`_GatherOnUse`, one
 gradient of a stored block is its slice of the full gradient, taken in the
 gather's backward with no reduction, since every rank of a node computes
 the same forward on the same batch.  The values are the unsharded ones bit
-for bit; only storage is split (the reference's GSPMD also splits the
-compute over 'model', which the port does not).
+for bit.
+
+The compute split (:class:`Split`): the reference's GSPMD also splits the
+compute over 'model' under ``megatron_attn``, ``shard_activations`` and
+``pin_moe_dispatch``; the port does it with explicit collectives (*f*,
+all-reduce, reduce-scatter, all-gather, each an autograd function with
+its own vmap rule) on the stored blocks, and never gathers whole a leaf
+the split computes with.  Its leaves a rank computes with are the ones a
+knob uses; every other leaf is gathered on use as above.
 """
 from __future__ import annotations
 
@@ -50,12 +57,14 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.models import layers
 from repro_torch.tree import tree_flatten, tree_map, tree_paths, \
     tree_unflatten
 
 from .mesh import MeshShape
 
-__all__ = ["ShardingPlan", "NamedSharding", "Placement", "make_plan",
+__all__ = ["ShardingPlan", "NamedSharding", "Placement", "Split", "Tally",
+           "make_plan",
            "param_specs", "batch_specs", "cache_specs", "named",
            "bytes_per_rank", "local_shape", "shard_tree", "gather_tree",
            "weight_axes"]
@@ -296,7 +305,7 @@ def _all_gather(x: torch.Tensor, dim: int, mesh, axis: str,
     rank receives."""
     size = _axis_size(mesh, axis)
     if tally is not None:
-        tally.bytes += x.numel() * x.element_size() * (size - 1)
+        tally.add(x.numel() * x.element_size() * (size - 1))
     if isinstance(mesh, MeshShape) or x.device.type == "meta":
         shape = list(x.shape)
         shape[dim] *= size
@@ -397,12 +406,37 @@ def bytes_per_rank(plan: ShardingPlan, tree: PyTree, specs: PyTree) -> int:
 # ---------------------------------------------------------------------------
 
 class Tally:
-    """Bytes received by a placement's gathers (an object, not a list: the
-    autograd function's arguments pass through ``torch.func``'s pytree
-    handling, which would copy a container)."""
+    """Bytes a rank receives (an object, not a list: the autograd
+    functions' arguments pass through ``torch.func``'s pytree handling,
+    which would copy a container): ``bytes`` by a placement's gathers of
+    weights and caches, ``leaves`` the weights' by leaf path (a tuple of
+    keys from the params root), and ``wire`` a :class:`Split`'s
+    collectives of activations by kind (``all-reduce``, ``reduce-scatter``,
+    ``all-gather``; the ring algorithm's bytes)."""
 
     def __init__(self):
         self.bytes = 0
+        self.leaves = {}
+        self.wire = {}
+
+    def add(self, nbytes, *, leaf=None, kind=None) -> None:
+        if kind is not None:
+            self.wire[kind] = self.wire.get(kind, 0) + nbytes
+            return
+        self.bytes += nbytes
+        if leaf is not None:
+            self.leaves[leaf] = self.leaves.get(leaf, 0) + nbytes
+
+
+class _Count:
+    """What one collective call site adds to a :class:`Tally` (a leaf's
+    gathers, or a kind of the split's collectives)."""
+
+    def __init__(self, tally: Tally, *, leaf=None, kind=None):
+        self.tally, self.leaf, self.kind = tally, leaf, kind
+
+    def add(self, nbytes) -> None:
+        self.tally.add(nbytes, leaf=self.leaf, kind=self.kind)
 
 
 class _GatherOnUse(torch.autograd.Function):
@@ -496,15 +530,34 @@ class Placement:
             tree = tree[k]
         return tree
 
-    def gather_params(self, tree, *key):
-        def one(x, leaf):
+    def gather_params(self, tree, *key, keep=None):
+        """``tree`` (the params at ``key``) whole, from the rank's blocks.
+        ``keep(path)`` (a :class:`Split`'s) names the leaves whose 'model'
+        block the split computes with: those gather their other axes only
+        (the FSDP axes) and stay the rank's block along 'model'."""
+        def one(path, x, leaf):
+            path = key + path
+            count = _Count(self.tally, leaf=path)
+            skip = ("model",) if keep is not None and keep(path) else ()
             for d, axes in reversed(leaf.dims):
                 for axis in reversed(axes):
-                    x = _GatherOnUse.apply(x, d, self.mesh, axis,
-                                           self.tally)
+                    if axis not in skip:
+                        x = _GatherOnUse.apply(x, d, self.mesh, axis, count)
             return x
 
-        return tree_map(one, tree, self._at(self.params, key))
+        leaves, treedef = tree_flatten(tree)
+        axes = tree_flatten(self._at(self.params, key))[0]
+        return tree_unflatten(treedef, [
+            one(path, x, leaf)
+            for path, x, leaf in zip(tree_paths(tree), leaves, axes)])
+
+    def model_dim(self, path) -> Optional[int]:
+        """The dim (counted from the end) of the params leaf at ``path``
+        that 'model' splits alone, or None."""
+        for d, axes in self._at(self.params, path).dims:
+            if axes == ("model",):
+                return d
+        return None
 
     def gather_cache(self, tree, *key):
         return tree_map(lambda x, leaf: _gather(self.mesh, leaf.spec, x,
@@ -518,3 +571,370 @@ class Placement:
     def store_cache(self, blocks, full, *key) -> None:
         tree_map(lambda b, x, leaf: b.copy_(_cut(self.mesh, leaf.spec, x)),
                  blocks, full, self._at(self.cache, key))
+
+
+# ---------------------------------------------------------------------------
+# the compute split over 'model'
+# ---------------------------------------------------------------------------
+
+#: the leaves of a self-attention the heads split computes with
+_ATTN_KEYS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+
+#: the block kinds whose attention, MLP and experts the split divides (a
+#: mamba or cross block runs whole on every rank, its leaves gathered)
+_SPLIT_KINDS = ("dense", "local", "global", "moe")
+
+
+def _on_stack(fn, in_dims, x, *args):
+    """A collective's ``torch.func.vmap`` rule: the node axis moved to the
+    front and one collective for the whole node stack (the collectives'
+    dims count from the end)."""
+    if in_dims[0] is None:
+        return fn.apply(x, *args), None
+    return fn.apply(x.movedim(in_dims[0], 0), *args), 0
+
+
+class _Copy(torch.autograd.Function):
+    """Megatron's *f*: the identity forward into a part that each rank
+    computes for itself (its heads, its features, its experts); the
+    backward sums the ranks' gradients over 'model'."""
+
+    @staticmethod
+    def forward(x, split):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.split = inputs[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.split._sum(grad), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, split):
+        return _on_stack(_Copy, in_dims, x, split)
+
+
+class _AllReduce(torch.autograd.Function):
+    """The ranks' partial sums summed over 'model'; the gradient of each
+    partial sum is the whole sum's (the identity).  ``local``: the sum
+    feeds a part each rank computes for itself, so the backward sums the
+    ranks' gradients first (an all-reduce followed by *f*, in one
+    function)."""
+
+    @staticmethod
+    def forward(x, split, local):
+        return split._sum(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.split, ctx.local = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (ctx.split._sum(grad) if ctx.local else grad), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, split, local):
+        return _on_stack(_AllReduce, in_dims, x, split, local)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """The ranks' partial sums summed over 'model', this rank keeping its
+    block along ``dim``; the backward all-gathers the blocks' gradients
+    (each partial sum's gradient is the whole sum's)."""
+
+    @staticmethod
+    def forward(x, dim, split):
+        return split._scatter(x, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.dim, ctx.split = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.split._gather(grad, ctx.dim), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, dim, split):
+        return _on_stack(_ReduceScatter, in_dims, x, dim, split)
+
+
+class _AllGather(torch.autograd.Function):
+    """The ranks' blocks joined along ``dim`` for a part each rank computes
+    for itself: the backward reduce-scatters the gradient (an all-gather
+    followed by *f*).  A gather whose result every rank uses alike is
+    :class:`_GatherOnUse`, whose backward keeps the rank's slice."""
+
+    @staticmethod
+    def forward(x, dim, split):
+        return split._gather(x, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.dim, ctx.split = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.split._scatter(grad, ctx.dim), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, dim, split):
+        return _on_stack(_AllGather, in_dims, x, dim, split)
+
+
+class _VocabLogSumExp(torch.autograd.Function):
+    """``torch.logsumexp`` over the last dim of logits split over 'model'
+    by vocabulary blocks: the max and the sum of exps reduced over 'model',
+    in ``torch.logsumexp``'s own steps (an infinite max taken as 0), so one
+    rank's result is its bits.  The result is whole on every rank, so the
+    backward is ``torch.logsumexp``'s formula on the rank's block, with no
+    collective."""
+
+    @staticmethod
+    def forward(x, split):
+        m = split._sum(torch.amax(x, dim=-1, keepdim=True), op="max")
+        m = m.masked_fill(m.abs() == float("inf"), 0)
+        s = split._sum(torch.sum(torch.exp(x - m), dim=-1))
+        return torch.log(s) + m[..., 0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, lse = ctx.saved_tensors
+        return grad[..., None] * (x - lse[..., None]).exp(), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, split):
+        return _on_stack(_VocabLogSumExp, in_dims, x, split)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Split:
+    """The compute split over the 'model' axis, the reference's GSPMD
+    layouts (``megatron_attn``, ``shard_activations``,
+    ``pin_moe_dispatch``) as explicit collectives, on a placement's stored
+    blocks.  ``heads``: each rank computes its ``H / M`` heads (K/V
+    repeated to H heads first); ``features``: the residual stream between
+    blocks is the rank's ``D / M`` features, the MLP column- then
+    row-parallel, and with ``vocab`` the embedding and the head split by
+    vocabulary rows; ``experts``: each rank runs its ``E / M`` experts on
+    every token routed to them.  :meth:`make` turns each knob on where the
+    config's dims divide.
+
+    One rule for every product with a weight the rank stores a 'model'
+    block of (:meth:`linear`): a block of output features is column-parallel
+    (the whole input, entered through *f*), a block of input features
+    row-parallel (the input's matching block, partial sums out); a leaf the
+    split does not use is gathered whole on use (:meth:`keep`).  A tensor is
+    ``"R"`` (whole, the same on every rank), ``"S"`` (the rank's block of
+    its last dim) or ``"P"`` (the rank's partial sums); :meth:`to` moves it
+    between the three by the collectives above, each an autograd function
+    with its own vmap rule.  Whatever a rank computes for itself from an
+    ``"R"`` tensor goes through *f* (:meth:`copy`, :meth:`enter`,
+    :meth:`cut`), so every whole tensor's gradient is whole on every rank,
+    as the gathers' backward (:class:`_GatherOnUse`) needs.
+
+    At one rank every collective returns its input's values, so the split
+    step is the unsplit one's bits.  On a ``MeshShape`` (or ``meta``) the
+    collectives give the shapes alone.  ``tally.wire`` counts the bytes
+    each kind of collective receives."""
+
+    placement: Placement
+    cfg: Any
+    heads: bool = False
+    features: bool = False
+    experts: bool = False
+    vocab: bool = False
+    tally: Tally = dataclasses.field(default_factory=Tally)
+    _dims: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    axis = "model"
+
+    @staticmethod
+    def make(placement: Placement, cfg, *, heads: bool = False,
+             features: bool = False,
+             experts: bool = False) -> Optional["Split"]:
+        """The split of ``cfg`` on ``placement``'s mesh, or None where its
+        mesh has no 'model' axis or no knob applies.  ``heads`` needs the
+        heads and the K/V features to divide over 'model', ``features`` the
+        model width, ``experts`` the expert stacks stored on 'model'; the
+        vocabulary split follows ``features`` where the embedding (and an
+        untied head) are stored by vocabulary rows."""
+        m = dict(placement.mesh.shape).get("model")
+        if placement.params is None or not m:
+            return None
+        hd = cfg.resolved_head_dim
+        heads = heads and cfg.n_heads % m == 0 \
+            and (cfg.n_kv_heads * hd) % m == 0
+        features = features and cfg.d_model % m == 0
+        vocab = features and placement.model_dim(("embed",)) == -2 and (
+            cfg.tie_embeddings or placement.model_dim(("lm_head",)) == -1)
+        experts = experts and cfg.moe is not None and any(
+            placement.model_dim(("blocks", j, "moe", "w_gate")) == -3
+            for j, kind in enumerate(cfg.period) if kind == "moe")
+        if not (heads or features or experts):
+            return None
+        return Split(placement, cfg, heads, features, experts, vocab)
+
+    # -- the axis ------------------------------------------------------------
+    @property
+    def size(self) -> int:
+        return _axis_size(self.placement.mesh, self.axis)
+
+    @property
+    def index(self) -> int:
+        return _coord(self.placement.mesh, self.axis)
+
+    @property
+    def residual(self) -> str:
+        """The residual stream's state between blocks."""
+        return "S" if self.features else "R"
+
+    def _kind(self, path):
+        if path[0] == "blocks":
+            return self.cfg.period[path[1]]
+        if path[0] == "tail":
+            return self.cfg.period[0]
+        return "dense" if path[0] == "shared_attn" else None
+
+    def _uses(self, path) -> bool:
+        kind, name = self._kind(path), path[-1]
+        if kind is None:            # embed, lm_head, final_norm
+            return (self.vocab and name in ("embed", "lm_head")) or (
+                self.features and name == "final_norm")
+        if kind not in _SPLIT_KINDS:
+            return False
+        if path[-2] == "attn":
+            return self.heads and name in _ATTN_KEYS
+        if path[-2] in ("mlp", "dense") or name in ("ln1", "ln2"):
+            return self.features
+        return self.experts and path[-2] == "moe" and name in _EXPERT_KEYS \
+            and self.placement.model_dim(path) == -3
+
+    def keep(self, path) -> bool:
+        """Whether the split computes with the rank's 'model' block of the
+        params leaf at ``path`` (else it is gathered whole on use)."""
+        return self.model_dim(path) is not None
+
+    def model_dim(self, path) -> Optional[int]:
+        """The 'model' dim (from the end) of the leaf at ``path`` as the
+        split uses it: None for a leaf gathered whole (resolved once a
+        path)."""
+        if path not in self._dims:
+            d = self.placement.model_dim(path)
+            self._dims[path] = d if d is not None and self._uses(path) \
+                else None
+        return self._dims[path]
+
+    # -- the collectives, on tensors (no autograd) ---------------------------
+    def _shape_only(self, x) -> bool:
+        return isinstance(self.placement.mesh, MeshShape) \
+            or x.device.type == "meta"
+
+    def _count(self, kind, x, share) -> None:
+        self.tally.add(x.numel() * x.element_size() * share, kind=kind)
+
+    def _sum(self, x, op: str = "sum"):
+        m = self.size
+        self._count("all-reduce", x, 2 * (m - 1) / m)
+        if self._shape_only(x):
+            return x.clone()
+        return self.placement.mesh.axis(self.axis).all_reduce(x, op)
+
+    def _scatter(self, x, dim):
+        m = self.size
+        self._count("reduce-scatter", x, (m - 1) / m)
+        if self._shape_only(x):
+            shape = list(x.shape)
+            shape[dim] //= m
+            return x.new_empty(shape)
+        return self.placement.mesh.axis(self.axis).reduce_scatter_dim(x,
+                                                                      dim)
+
+    def _gather(self, x, dim):
+        return _all_gather(x, dim, self.placement.mesh, self.axis,
+                           _Count(self.tally, kind="all-gather"))
+
+    # -- the collectives, under autograd -------------------------------------
+    def copy(self, x):
+        """*f*: ``x`` itself; its gradient summed over 'model'."""
+        return _Copy.apply(x, self)
+
+    def all_reduce(self, x, *, local: bool = False):
+        """The partial sums summed; ``local``: for a part each rank
+        computes for itself (the backward sums the gradients too)."""
+        return _AllReduce.apply(x, self, local)
+
+    def reduce_scatter(self, x, dim: int = -1):
+        return _ReduceScatter.apply(x, dim, self)
+
+    def all_gather(self, x, dim: int = -1, *, local: bool = False):
+        """The blocks joined along ``dim``; ``local``: for a part each rank
+        computes for itself (the backward reduce-scatters), else for a part
+        every rank computes alike (the backward keeps the rank's slice)."""
+        if local:
+            return _AllGather.apply(x, dim, self)
+        return _GatherOnUse.apply(x, dim, self.placement.mesh, self.axis,
+                                  _Count(self.tally, kind="all-gather"))
+
+    def block(self, x, dim: int = -1):
+        """The rank's block of ``x`` along ``dim`` (a view)."""
+        n = x.shape[dim] // self.size
+        return x.narrow(dim, self.index * n, n)
+
+    def cut(self, x, dim: int = -1):
+        """The rank's block of a whole ``x``, through *f*."""
+        return self.block(self.copy(x), dim)
+
+    def logsumexp(self, x):
+        """``torch.logsumexp(x, -1)`` of vocabulary-split logits."""
+        return _VocabLogSumExp.apply(x, self)
+
+    def to(self, x, state: str, want: str, dim: int = -1):
+        """``x`` from ``state`` to ``want`` (``"R"``, ``"S"`` along ``dim``
+        or, as a source only, ``"P"``)."""
+        if state == want:
+            return x
+        if state == "P":
+            return self.all_reduce(x) if want == "R" \
+                else self.reduce_scatter(x, dim)
+        if state == "S":
+            return self.all_gather(x, dim)
+        return self.cut(x, dim)
+
+    def enter(self, x, state: str):
+        """The whole of ``x`` for a part the rank computes for itself."""
+        if state == "S":
+            return self.all_gather(x, local=True)
+        if state == "P":
+            return self.all_reduce(x, local=True)
+        return self.copy(x)
+
+    def linear(self, x, state: str, w, path, inputs: dict | None = None):
+        """``x @ w`` for ``x`` in ``state``, by where the split keeps
+        ``w``'s 'model' block (the leaf at ``path``): ``(y, "S")`` column-
+        parallel, ``(y, "P")`` row-parallel, ``(y, "R")`` for a leaf
+        gathered whole.  ``inputs`` shares the moved ``x`` between the
+        products that read the same one."""
+        d = self.model_dim(path)
+        route = {-1: "S", -2: "P"}.get(d, "R")
+        inputs = {} if inputs is None else inputs
+        if route not in inputs:
+            inputs[route] = (self.enter(x, state) if route == "S" else
+                             self.to(x, state, "S" if route == "P" else "R"))
+        return inputs[route] @ w, route
+
+    def rms_norm(self, x, weight, eps: float):
+        """``layers.rms_norm`` of the residual in its state: over the
+        rank's features, the sum of squares all-reduced."""
+        if not self.features:
+            return layers.rms_norm(x, weight, eps)
+        if weight.shape[-1] != x.shape[-1]:    # a weight gathered whole
+            weight = self.cut(weight)
+        return layers.rms_norm(x, weight, eps, split=self)

@@ -41,12 +41,25 @@ The TPU knobs of the reference's ``StepConfig``, one rule each:
   period in the backward (``models/transformer.py``'s ``_PeriodRemat``);
   ``"none"`` keeps the activations.  The values are the same bit for bit;
   only the peak memory and the flops move.
-* ``unroll``, ``pin_decode_cache``, ``shard_activations``,
-  ``megatron_attn``, ``repeat_kv`` and ``pin_moe_dispatch``
-  (:data:`IGNORED_KNOBS`) steer XLA's scan and how it splits the compute
-  over a ``model`` axis, which the port does not split (it splits the
-  storage only).  They change no value and no launch: they are accepted
-  and do nothing, and every dry-run record lists them under
+* ``megatron_attn``, ``shard_activations`` and ``pin_moe_dispatch``
+  split the train and prefill steps' compute over a mesh's 'model' axis
+  (``sharding.Split``, on the blocks the placement stores): each rank
+  computes its heads (``megatron_attn``; ``wo`` row-parallel), keeps its
+  features of the residual stream between blocks with the MLP column-
+  then row-parallel and the embedding, head and loss split by vocabulary
+  (``shard_activations``), and runs its experts (``pin_moe_dispatch``).
+  Each knob applies where the config's dims divide over 'model'
+  (``Split.make``); off, the weights are gathered whole on use.  At one
+  'model' rank the split step is the unsplit step's bits; across ranks
+  the partial sums are reduced in another order.  A decode step keeps
+  the gathers (the split decode over the stored cache block is later
+  work).
+* ``repeat_kv`` (or ``megatron_attn``) repeats K/V to the head count in
+  the plain attention, with or without a mesh, as in the reference
+  (``attention.chunked_attention``).
+* ``unroll`` and ``pin_decode_cache`` (:data:`IGNORED_KNOBS`) steer XLA's
+  scan and a decode write's layout pin, which have no counterpart: they
+  are accepted and do nothing, and every dry-run record lists them under
   ``"ignored"``.
 * ``shard_tie_break_last`` and ``cache_shard_features`` pick the dims the
   weights and caches are stored by (``sharding.param_specs`` /
@@ -80,8 +93,8 @@ __all__ = ["HBM_BYTES", "NODE_BUDGET", "H100_HBM_BYTES", "H100_NODE_BUDGET",
            "IGNORED_KNOBS", "StepConfig", "choose_n_nodes",
            "train_batch_specs", "params_shape", "opt_state_shape",
            "prefill_specs", "decode_specs", "make_opt", "step_topology",
-           "train_loss_fn", "node_grads", "Layout", "build_train_step",
-           "build_prefill_step", "build_decode_step"]
+           "train_loss_fn", "node_grads", "make_split", "Layout",
+           "build_train_step", "build_prefill_step", "build_decode_step"]
 
 PyTree = Any
 
@@ -95,10 +108,9 @@ NODE_BUDGET = 14e9
 H100_HBM_BYTES = H100.hbm_bytes
 H100_NODE_BUDGET = 64e9
 
-#: StepConfig fields that steer XLA (scan unrolling, the compute split over
-#: a 'model' axis) and change nothing in the port
-IGNORED_KNOBS = ("unroll", "pin_decode_cache", "shard_activations",
-                 "megatron_attn", "repeat_kv", "pin_moe_dispatch")
+#: StepConfig fields that steer XLA alone (scan unrolling, a layout pin on
+#: the decode cache's write) and change nothing in the port
+IGNORED_KNOBS = ("unroll", "pin_decode_cache")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,10 +258,11 @@ def step_topology(sc: StepConfig) -> topo_lib.Topology:
 # step functions
 # ---------------------------------------------------------------------------
 
-def train_loss_fn(sc: StepConfig, placement=None):
+def train_loss_fn(sc: StepConfig, placement=None, split=None):
     """One node's loss ``loss(params, batch) -> 0-d``: ``tf.train_loss``
     at the StepConfig's chunks, ``remat`` and attention knobs; with a
-    ``placement`` the params are the rank's blocks."""
+    ``placement`` the params are the rank's blocks, with a ``split`` the
+    compute is split over 'model'."""
     cfg = sc.cfg
 
     def loss_fn(p, batch):
@@ -257,9 +270,25 @@ def train_loss_fn(sc: StepConfig, placement=None):
                              ssd_chunk=sc.ssd_chunk, remat=sc.remat,
                              skip_masked_chunks=sc.skip_masked_chunks,
                              remat_attention=sc.remat_attention,
-                             placement=placement)
+                             repeat_kv=_repeat_kv(sc), placement=placement,
+                             split=split)
 
     return loss_fn
+
+
+def _repeat_kv(sc: StepConfig) -> bool:
+    return sc.repeat_kv or sc.megatron_attn
+
+
+def make_split(sc: StepConfig, layout):
+    """The compute split of ``sc``'s knobs on ``layout``'s placement
+    (``sharding.Split.make``), or None."""
+    if layout is None or layout.placement is None:
+        return None
+    return sharding.Split.make(layout.placement, sc.cfg,
+                               heads=sc.megatron_attn,
+                               features=sc.shard_activations,
+                               experts=sc.pin_moe_dispatch)
 
 
 def node_grads(sc: StepConfig, params, batch):
@@ -371,12 +400,15 @@ def build_train_step(sc: StepConfig, *, mesh=None,
     if mesh is not None:
         layout = Layout.make(sc, mesh, kind="train",
                              keep_nodes=sc.runtime == "vmap")
-    loss_fn = train_loss_fn(sc, layout.placement if layout else None)
+    split = make_split(sc, layout)
+    loss_fn = train_loss_fn(sc, layout.placement if layout else None, split)
 
     if sc.runtime == "sharded":
-        return _build_sharded_train_step(sc, topo, w_on, loss_fn, opt,
+        step = _build_sharded_train_step(sc, topo, w_on, loss_fn, opt,
                                          mesh=mesh, node_axis=node_axis,
                                          layout=layout)
+        step.split = split
+        return step
     if sc.runtime != "vmap":
         raise ValueError(f"StepConfig.runtime must be 'vmap' or 'sharded', "
                          f"got {sc.runtime!r}")
@@ -416,7 +448,7 @@ def build_train_step(sc: StepConfig, *, mesh=None,
                                                 w=w, lr=sc.lr, t=0)
         return new_params, new_opt, torch.mean(losses)
 
-    train_step.layout = layout
+    train_step.layout, train_step.split = layout, split
     return train_step
 
 
@@ -485,10 +517,12 @@ def build_prefill_step(sc: StepConfig, *, mesh=None):
     """``prefill_step(params, tokens, img=None) -> (last logits, caches)``.
     With a ``mesh`` the params are global or the rank's blocks and the
     caches come back as the rank's blocks (``sharding.cache_specs``); every
-    rank computes the whole batch."""
+    rank holds the whole batch, and the split knobs divide its compute over
+    'model' (:func:`make_split`); the last logits come back whole."""
     _check(sc)
     cfg = sc.cfg
     layout, placement = _serve_layout(sc, mesh, "prefill")
+    split = make_split(sc, layout)
 
     def prefill_step(params, tokens, img=None):
         if layout is not None:
@@ -497,9 +531,10 @@ def build_prefill_step(sc: StepConfig, *, mesh=None):
                           ssd_chunk=sc.ssd_chunk,
                           cache_len=sc.shape.seq_len,
                           skip_masked_chunks=sc.skip_masked_chunks,
-                          placement=placement)
+                          repeat_kv=_repeat_kv(sc), placement=placement,
+                          split=split)
 
-    prefill_step.layout = layout
+    prefill_step.layout, prefill_step.split = layout, split
     return prefill_step
 
 
@@ -528,5 +563,5 @@ def build_decode_step(sc: StepConfig, *, cache_constraint=None, mesh=None):
                               decode_lowp=sc.decode_lowp,
                               placement=placement)
 
-    decode_step.layout = layout
+    decode_step.layout, decode_step.split = layout, None
     return decode_step

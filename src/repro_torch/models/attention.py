@@ -12,7 +12,7 @@ Layouts are the reference's: q ``[B, S, H, D]``, k/v ``[B, T, K, D]``, GQA
 by head groups ``H = K * G``.  These are the non-kernel paths
 (``use_pallas=False``); the kernels (``flash_attention``,
 ``paged_decode_attention``) sit behind ``repro_torch.kernels.ops``.  Not
-ported: the TPU scan controls (``unroll``/``repeat_kv``).
+ported: the TPU scan control ``unroll``.
 """
 from __future__ import annotations
 
@@ -124,7 +124,7 @@ class _ChunkRemat(torch.autograd.Function):
 def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
                       softcap: float = 0.0, chunk: int = 1024,
                       skip_masked_chunks: bool = False,
-                      remat_chunks: bool = False):
+                      remat_chunks: bool = False, repeat_kv: bool = False):
     """Online-softmax attention over KV chunks of ``chunk`` keys; GQA via
     head groups.  q [B,S,H,D], k/v [B,T,K,D] -> [B,S,H,D] in q's dtype.
 
@@ -132,10 +132,18 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
     (``window``, ``S == T`` a multiple of the chunk) by query chunks
     (:func:`_windowed_attention_qchunked`), the reference's condition;
     elsewhere it changes nothing.  ``remat_chunks`` recomputes each KV
-    chunk in the backward (:class:`_ChunkRemat`)."""
+    chunk in the backward (:class:`_ChunkRemat`).  ``repeat_kv`` repeats
+    K/V to the H heads first (head ``i`` reads K/V head ``i // G``), as the
+    reference does: one head dim, which the heads split over 'model'
+    divides.  The values are the same; K/V's gradient sums the G copies
+    after the products, another order than the grouped products' sum."""
     b, s, h, d = q.shape
-    t, kh = k.shape[1], k.shape[2]
+    kh = k.shape[2]
     assert h % kh == 0
+    if repeat_kv and kh != h:
+        k = k.repeat_interleave(h // kh, dim=2)
+        v = v.repeat_interleave(h // kh, dim=2)
+    t, kh = k.shape[1], k.shape[2]
     g = h // kh
     chunk = min(chunk, t)
     if skip_masked_chunks and window and causal and s == t \

@@ -62,10 +62,15 @@ def stack_layers(n: int, init_fn):
 # ---------------------------------------------------------------------------
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
+             eps: float = 1e-6, *, split=None) -> torch.Tensor:
+    """``split`` (``launch/sharding.Split``): ``x`` and ``weight`` are the
+    rank's block of the features, and the mean of squares is the ranks'
+    means summed over 'model' over their count (one rank: the mean)."""
     dtype = x.dtype
     x = x.float()
     var = torch.mean(x * x, dim=-1, keepdim=True)
+    if split is not None:
+        var = split.all_reduce(var, local=True) / split.size
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + weight.float())).to(dtype)
 
@@ -118,15 +123,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  vocab_valid: int | None = None) -> torch.Tensor:
+                  vocab_valid: int | None = None, *,
+                  split=None) -> torch.Tensor:
     """Mean token cross-entropy in fp32; padded vocab rows (>=
     ``vocab_valid``) are masked to the fp32 minimum before the
-    logsumexp."""
+    logsumexp.  ``split`` (``launch/sharding.Split``): ``logits`` are the
+    rank's block of the vocabulary; the logsumexp reduces its max and its
+    sum of exps over 'model', and the gold logit is summed from the rank
+    that holds it, so no rank holds a whole row of logits."""
     logits = logits.float()
-    if vocab_valid is not None and vocab_valid < logits.shape[-1]:
-        pad = torch.arange(logits.shape[-1], device=logits.device) \
+    n = logits.shape[-1]
+    first = 0 if split is None else split.index * n
+    if vocab_valid is not None and vocab_valid < (
+            n if split is None else n * split.size):
+        pad = torch.arange(first, first + n, device=logits.device) \
             >= vocab_valid
         logits = torch.where(pad, torch.finfo(torch.float32).min, logits)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if split is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        return torch.mean(lse - gold)
+    lse = split.logsumexp(logits)
+    local = labels.long() - first
+    inside = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, torch.where(inside, local, 0)[..., None])
+    gold = split.all_reduce(torch.where(inside, gold[..., 0], 0.0))
     return torch.mean(lse - gold)

@@ -104,13 +104,19 @@ def _record(rep, valid, expert_idx, sorted_probs) -> None:
 
 
 def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
-            token_mask=None):
+            token_mask=None, split=None):
     """x: [B, S, d] -> (y [B, S, d], aux_loss 0-d fp32).
 
     ``token_mask`` [B, S] bool (serving): masked-out tokens take no queue
     position, give exactly zero output and stay out of the balance loss,
     so whatever sits in a batch's padded rows cannot change the valid
-    tokens' outputs."""
+    tokens' outputs.
+
+    ``split`` (``launch/sharding.Split``, the experts over 'model'): the
+    expert stacks are the rank's ``E / M`` experts, every rank routes all
+    of ``x``'s tokens (so the capacity and the routes are the unsplit
+    ones), runs its experts' queues and returns its partial sums of ``y``
+    (the slots of its experts), which the caller sums over 'model'."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     n_tok = b * s
@@ -148,16 +154,25 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
     filled = torch.zeros(e * cap + 1, dtype=torch.bool, device=dev).scatter(
         0, slot, torch.ones_like(valid))[:-1]
 
-    xe = tokens.index_select(0, tok_for_slot)                    # [E*C, d]
-    xe = torch.where(filled[:, None], xe, 0.0).reshape(e, cap, d)
+    el, mine, xin, gates = e, valid, tokens, gate_vals
+    if split is not None:   # this rank's experts: queue slots lo .. hi - 1
+        el = e // split.size
+        lo = split.index * el * cap
+        tok_for_slot = tok_for_slot[lo:lo + el * cap]
+        filled = filled[lo:lo + el * cap]
+        mine = valid & (slot >= lo) & (slot < lo + el * cap)
+        slot = torch.where(mine, slot - lo, el * cap)
+        xin, gates = split.copy(tokens), split.copy(gate_vals)
+    xe = xin.index_select(0, tok_for_slot)                       # [E*C, d]
+    xe = torch.where(filled[:, None], xe, 0.0).reshape(el, cap, d)
     h = F.silu(torch.matmul(xe, params["w_gate"])) * torch.matmul(
         xe, params["w_up"])
-    ye = torch.matmul(h, params["w_down"]).reshape(e * cap, d)  # [E*C, d]
+    ye = torch.matmul(h, params["w_down"]).reshape(el * cap, d)  # [E*C, d]
 
     # combine by a gather, in rank order: deterministic on every device
     picked = torch.cat([ye, ye.new_zeros(1, d)]).index_select(0, slot)
-    picked = picked.reshape(n_tok, k, d) * gate_vals.to(ye.dtype)[..., None]
-    picked = torch.where(valid.reshape(n_tok, k)[..., None], picked, 0.0)
+    picked = picked.reshape(n_tok, k, d) * gates.to(ye.dtype)[..., None]
+    picked = torch.where(mine.reshape(n_tok, k)[..., None], picked, 0.0)
     y = picked[:, 0]
     for j in range(1, k):
         y = y + picked[:, j]

@@ -49,7 +49,7 @@ with ``torch.func.vmap``.
 
 ``remat="full"`` recomputes each period of a ``train`` forward in the
 backward (``_PeriodRemat``, a ``torch.autograd.Function`` that
-``torch.func.vmap`` and ``grad`` compose with), as the reference
+``torch.func.vmap`` composes with), as the reference
 checkpoints its scan body; the tail layers keep their activations, as the
 reference's do.  ``skip_masked_chunks`` and ``remat_attention`` reach the
 plain attention as in the reference (``attention.chunked_attention``).
@@ -59,9 +59,20 @@ rank's blocks of the params and caches: each block's params are gathered
 just before the block uses them (inside ``_PeriodRemat``, so its backward
 gathers them again), a decode step gathers each layer's cache and puts the
 rank's block back after writing it, and a prefill keeps the rank's block
-of each new cache.  Not ported: the TPU mesh and scan controls
-(``cache_constraint``, ``act_spec``, ``head_spec``, ``moe_expert_spec``,
-``repeat_kv``, ``unroll``; ``launch/steps.py`` states what each does).
+of each new cache.
+
+A ``split`` (``launch/sharding.Split``, on that placement; train and
+prefill) is the reference's ``head_spec`` / ``act_spec`` /
+``moe_expert_spec`` as explicit collectives over 'model': each rank
+computes its heads (K/V repeated to the head count, ``wo`` row-parallel),
+keeps its features of the residual stream between blocks (the norms'
+sums of squares all-reduced, the MLP column- then row-parallel, the
+embedding, head and loss by vocabulary blocks) and runs its experts, with
+the leaves it computes with used as the rank's blocks; a mamba or cross
+block runs whole on every rank.  ``repeat_kv`` reaches the plain
+attention as in the reference.  Not ported: the XLA controls
+``cache_constraint`` and ``unroll`` (``launch/steps.py`` states what each
+does).
 """
 from __future__ import annotations
 
@@ -103,7 +114,9 @@ class RunCtx:
     pages: Any = None               # paged mode: PageInfo
     skip_masked_chunks: bool = False  # windowed attention by query chunks
     remat_attention: bool = False   # recompute attention chunks in backward
+    repeat_kv: bool = False         # GQA: repeat K/V to the head count
     placement: Any = None           # launch/sharding.Placement: gather on use
+    split: Any = None               # launch/sharding.Split: train / prefill
 
 
 @dataclasses.dataclass(frozen=True)
@@ -340,14 +353,68 @@ def _prefill_cache(k, v, kind, ctx: RunCtx):
     return {"k": kc, "v": vc, "slot_pos": slot_pos}
 
 
-def _self_attn(p, x, kind: str, ctx: RunCtx, cache):
+def _residual(ctx: RunCtx) -> str:
+    """The residual stream's state between blocks: ``"R"`` (whole) unless
+    a split keeps the rank's features (``launch/sharding.Split``)."""
+    return "R" if ctx.split is None else ctx.split.residual
+
+
+def _linear(ctx: RunCtx, x, state: str, w, key, inputs=None):
+    """``x @ w`` for ``x`` in ``state``: ``(y, y's state)``.  The plain
+    product without a split; under one, by the split's rule for the leaf at
+    ``key`` (``Split.linear``: column- or row-parallel on the rank's block,
+    or whole).  ``inputs`` shares the moved ``x`` between products."""
+    if ctx.split is None:
+        return x @ w, "R"
+    return ctx.split.linear(x, state, w, key, inputs)
+
+
+def _to(ctx: RunCtx, x, state: str, want: str):
+    """``x`` from ``state`` to ``want`` under a split (``Split.to``); the
+    identity without one."""
+    return x if ctx.split is None else ctx.split.to(x, state, want)
+
+
+def _norm(ctx: RunCtx, x, w):
+    """``layers.rms_norm`` of the residual in its state (under a split of
+    the features, the sum of squares all-reduced over 'model')."""
+    if ctx.split is None:
+        return layers.rms_norm(x, w, ctx.cfg.norm_eps)
+    return ctx.split.rms_norm(x, w, ctx.cfg.norm_eps)
+
+
+def _self_attn(p, x, kind: str, ctx: RunCtx, cache, key=()):
+    """Self-attention of the normed ``x`` (in the residual's state):
+    ``(out in that state, new cache)``.  Under a split with ``heads`` each
+    rank computes its ``H / M`` heads: q by the split's rule (a
+    row-parallel ``wq`` reduce-scatters onto the heads), K/V whole for the
+    rank's own use (a prefill's cache is whole), then repeated to H heads
+    and cut to the rank's; ``wo`` is row-parallel.  Under a split without
+    it every product is whole on every rank."""
     cfg = ctx.cfg
     hd = cfg.resolved_head_dim
     window = cfg.window if kind == "local" else 0
     if ctx.mode == "paged":
         return _paged_self_attn(p, x, window, ctx, cache)
-    b, s, _ = x.shape
-    q, k, v = attention.qkv(p, x, cfg.n_heads, cfg.n_kv_heads, hd)
+    b, s = x.shape[0], x.shape[1]
+    sp = ctx.split if ctx.split is not None and ctx.split.heads else None
+    xs, inputs = _residual(ctx), {}
+
+    def proj(name, whole: bool = False):
+        """``x @ p[name] + bias`` as [B, S, heads, D]: under the heads
+        split the rank's heads, or with ``whole`` all of them for the
+        rank's own use."""
+        y, state = _linear(ctx, x, xs, p[name], key + (name,), inputs)
+        bias = p.get("b" + name[1])
+        if sp is not None and (bias is not None or not whole):
+            y, state = sp.to(y, state, "S"), "S"
+        if bias is not None:
+            y = y + bias.to(y.dtype)
+        if sp is not None and whole:
+            y = sp.enter(y, state)
+        return y.reshape(b, s, -1, hd)
+
+    q, k, v = proj("wq"), proj("wk", whole=True), proj("wv", whole=True)
     new_cache = None
     if ctx.mode == "decode":
         pos = ctx.pos + torch.zeros((b, 1), dtype=torch.int32,
@@ -368,6 +435,11 @@ def _self_attn(p, x, kind: str, ctx: RunCtx, cache):
         pos = torch.arange(s, device=x.device)[None, :]
         q = layers.apply_rope(q, pos, cfg.rope_theta)
         k = layers.apply_rope(k, pos, cfg.rope_theta)
+        kv = (k, v)                 # a prefill's cache holds every head
+        if sp is not None:
+            g = cfg.n_heads // cfg.n_kv_heads
+            k = sp.block(k.repeat_interleave(g, dim=2), -2)
+            v = sp.block(v.repeat_interleave(g, dim=2), -2)
         if ctx.use_pallas:
             out = kops.flash_attention(q, k, v, causal=True, window=window,
                                        softcap=cfg.attn_softcap)
@@ -376,11 +448,50 @@ def _self_attn(p, x, kind: str, ctx: RunCtx, cache):
                 q, k, v, causal=True, window=window,
                 softcap=cfg.attn_softcap, chunk=ctx.chunk,
                 skip_masked_chunks=ctx.skip_masked_chunks,
-                remat_chunks=ctx.remat_attention)
+                remat_chunks=ctx.remat_attention, repeat_kv=ctx.repeat_kv)
         if ctx.mode == "prefill":
-            new_cache = _prefill_cache(k, v, kind, ctx)
-    out = out.reshape(out.shape[0], out.shape[1], cfg.n_heads * hd)
-    return out @ p["wo"], new_cache
+            new_cache = _prefill_cache(*kv, kind, ctx)
+    out, state = _linear(ctx, out.reshape(b, out.shape[1], -1),
+                         "R" if sp is None else "S", p["wo"], key + ("wo",))
+    return _to(ctx, out, state, xs), new_cache
+
+
+def _mlp(p, h, ctx: RunCtx, key):
+    """``layers.swiglu`` of the normed ``h`` (in the residual's state).
+    Under a split of the features: the features gathered, ``gate`` /
+    ``up`` column-parallel and ``down`` row-parallel, reduce-scattered back
+    onto the features."""
+    xs, inputs = _residual(ctx), {}
+    g, state = _linear(ctx, h, xs, p["gate"], key + ("gate",), inputs)
+    u, _ = _linear(ctx, h, xs, p["up"], key + ("up",), inputs)
+    if state == "P":
+        g, u, state = ctx.split.all_reduce(g), ctx.split.all_reduce(u), "R"
+    y, state = _linear(ctx, torch.nn.functional.silu(g) * u, state,
+                       p["down"], key + ("down",))
+    return _to(ctx, y, state, xs)
+
+
+def _moe(p, h, ctx: RunCtx, key):
+    """The MoE FFN of the normed ``h`` (in the residual's state).  Under a
+    split whose experts are the rank's ``E / M`` (``pin_moe_dispatch``),
+    each rank runs them on the whole batch's routed tokens (the routes and
+    the capacity are the unsplit ones) and the partial sums are reduced
+    over 'model'; under any split the dense residual branch takes
+    :func:`_mlp`'s routes (without one it runs inside ``moe_ffn``)."""
+    mcfg, sp = ctx.cfg.moe, ctx.split
+    xs = _residual(ctx)
+    experts = sp is not None and sp.model_dim(key + ("w_gate",)) == -3
+    # a paged chunk's rows past each slot's n_valid are junk: keep them
+    # out of the capacity queues
+    tm = ctx.pages.token_mask if ctx.mode == "paged" else None
+    y, aux = moe.moe_ffn(
+        p, _to(ctx, h, xs, "R"),
+        mcfg if sp is None else dataclasses.replace(mcfg, dense_ff=0),
+        token_mask=tm, split=sp if experts else None)
+    y = _to(ctx, y, "P" if experts else "R", xs)
+    if sp is not None and mcfg.dense_ff:
+        y = y + _mlp(p["dense"], h, ctx, key + ("dense",))
+    return y, aux
 
 
 def _cross_block(p, x, ctx: RunCtx, cache):
@@ -420,56 +531,55 @@ def _cross_block(p, x, ctx: RunCtx, cache):
     return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * m, new_cache
 
 
-def apply_block(kind: str, p, x, ctx: RunCtx, cache):
+def _mamba_block(p, x, ctx: RunCtx, cache):
+    """The Mamba-2 mixer with its residual: ``(x, new cache)``."""
+    h = layers.rms_norm(x, p["ln"], ctx.cfg.norm_eps)
+    if ctx.mode == "decode":
+        out, new_cache = ssm.mamba_decode(p["mixer"], h, cache, ctx.cfg.ssm)
+    elif ctx.mode == "prefill":
+        out, new_cache = ssm.mamba_prefill(p["mixer"], h, ctx.cfg.ssm,
+                                           chunk=ctx.ssd_chunk,
+                                           use_pallas=ctx.use_pallas)
+    else:
+        out = ssm.mamba_mixer(p["mixer"], h, ctx.cfg.ssm, chunk=ctx.ssd_chunk,
+                              use_pallas=ctx.use_pallas)
+        new_cache = cache
+    return x + out, new_cache
+
+
+def apply_block(kind: str, p, x, ctx: RunCtx, cache, key=()):
     """One block; returns ``(x, aux_loss, new_cache)`` as the reference.
     ``aux_loss`` is the MoE balance loss (a 0-d tensor) for ``moe`` and
-    0.0 for every other kind."""
-    cfg = ctx.cfg
+    0.0 for every other kind.  Under a split (``ctx.split``) ``x`` is in
+    the residual's state, ``key`` is the block's path in the params tree
+    (by which the split finds each leaf's 'model' block), and a mamba or
+    cross block runs whole on every rank."""
     if ctx.mode == "paged" and kind not in ATTN_KINDS:
         raise NotImplementedError(
             f"paged serving supports attention-only stacks; block kind "
             f"{kind!r} (mamba/cross state caches are per-slot, not paged)")
-    if kind == "mamba":
-        h = layers.rms_norm(x, p["ln"], cfg.norm_eps)
-        if ctx.mode == "decode":
-            out, new_cache = ssm.mamba_decode(p["mixer"], h, cache, cfg.ssm)
-        elif ctx.mode == "prefill":
-            out, new_cache = ssm.mamba_prefill(p["mixer"], h, cfg.ssm,
-                                               chunk=ctx.ssd_chunk,
-                                               use_pallas=ctx.use_pallas)
-        else:
-            out = ssm.mamba_mixer(p["mixer"], h, cfg.ssm, chunk=ctx.ssd_chunk,
-                                  use_pallas=ctx.use_pallas)
-            new_cache = cache
-        return x + out, 0.0, new_cache
-    if kind == "cross":
-        x, new_cache = _cross_block(p, x, ctx, cache)
-        return x, 0.0, new_cache
-    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    out, new_cache = _self_attn(p["attn"], h, kind, ctx, cache)
+    if kind in ("mamba", "cross"):
+        xs = _residual(ctx)
+        run = _mamba_block if kind == "mamba" else _cross_block
+        y, new_cache = run(p, _to(ctx, x, xs, "R"), ctx, cache)
+        return _to(ctx, y, "R", xs), 0.0, new_cache
+    h = _norm(ctx, x, p["ln1"])
+    out, new_cache = _self_attn(p["attn"], h, kind, ctx, cache,
+                                key + ("attn",))
     x = x + out
-    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    h = _norm(ctx, x, p["ln2"])
     if kind == "moe":
-        # a paged chunk's rows past each slot's n_valid are junk: keep them
-        # out of the capacity queues
-        tm = ctx.pages.token_mask if ctx.mode == "paged" else None
-        y, aux = moe.moe_ffn(p["moe"], h, cfg.moe, token_mask=tm)
+        y, aux = _moe(p["moe"], h, ctx, key + ("moe",))
         return x + y, aux, new_cache
-    y = layers.swiglu(h, p["mlp"]["gate"], p["mlp"]["up"], p["mlp"]["down"])
-    return x + y, 0.0, new_cache
+    return x + _mlp(p["mlp"], h, ctx, key + ("mlp",)), 0.0, new_cache
 
 
 def _shared_attn_block(p, x, ctx: RunCtx, cache):
     """zamba2's shared block: one param set, applied at the end of every
     period with that use site's KV cache; ``(x, 0.0, new_cache)`` as
     :func:`apply_block`."""
-    cfg = ctx.cfg
-    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    out, new_cache = _self_attn(p["attn"], h, _shared_kind(cfg), ctx, cache)
-    x = x + out
-    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + layers.swiglu(h, p["mlp"]["gate"], p["mlp"]["up"],
-                             p["mlp"]["down"]), 0.0, new_cache
+    return apply_block(_shared_kind(ctx.cfg), p, x, ctx, cache,
+                       ("shared_attn",))
 
 
 # ---------------------------------------------------------------------------
@@ -478,27 +588,48 @@ def _shared_attn_block(p, x, ctx: RunCtx, cache):
 
 def _use(ctx: RunCtx, tree, *key):
     """``tree`` (params at ``key`` in the params tree) as the model uses
-    it: gathered from the rank's blocks under a placement."""
+    it: gathered from the rank's blocks under a placement (under a split,
+    the leaves it computes with keep their 'model' block)."""
     if ctx.placement is None:
         return tree
-    return ctx.placement.gather_params(tree, *key)
+    return ctx.placement.gather_params(
+        tree, *key, keep=ctx.split.keep if ctx.split is not None else None)
 
 
 def _embed(params, tokens, ctx: RunCtx):
+    """The embedding, in the split's residual state under a split: by
+    vocabulary blocks, each rank's lookup masked to its rows and the
+    partial rows summed over 'model'."""
     # an embedding, not ``embed[tokens]``: an index's backward accumulates
     # repeated tokens into whatever gradient a tied head left first, so its
     # sums ran in the order the autograd engine reached them
-    return torch.nn.functional.embedding(
-        tokens, _use(ctx, params["embed"], "embed"))
+    w = _use(ctx, params["embed"], "embed")
+    sp = ctx.split
+    if sp is None or not sp.vocab:
+        return _to(ctx, torch.nn.functional.embedding(tokens, w), "R",
+                   _residual(ctx))
+    local = tokens - sp.index * w.shape[-2]
+    inside = (local >= 0) & (local < w.shape[-2])
+    x = torch.nn.functional.embedding(torch.where(inside, local, 0), w)
+    return sp.to(torch.where(inside[..., None], x, 0.0), "P", sp.residual)
 
 
-def _logits(params, x, ctx: RunCtx):
-    cfg = ctx.cfg
-    h = layers.rms_norm(x, _use(ctx, params["final_norm"], "final_norm"),
-                        cfg.norm_eps)
+def _logits(params, x, ctx: RunCtx, *, whole: bool = True):
+    """The head's fp32 logits.  Under a split with ``vocab`` the head is
+    column-parallel over the vocabulary: the rank's block of the logits,
+    gathered whole unless ``whole`` is False (a train step's loss reads
+    the blocks)."""
+    cfg, sp = ctx.cfg, ctx.split
+    norm = _use(ctx, params["final_norm"], "final_norm")
     head = (_use(ctx, params["embed"], "embed").T if cfg.tie_embeddings
             else _use(ctx, params["lm_head"], "lm_head"))
-    return layers.softcap((h @ head).float(), cfg.logit_softcap)
+    h = _norm(ctx, x, norm)
+    if sp is None or not sp.vocab:
+        return layers.softcap((_to(ctx, h, _residual(ctx), "R") @ head)
+                              .float(), cfg.logit_softcap)
+    logits = layers.softcap((sp.enter(h, sp.residual) @ head).float(),
+                            cfg.logit_softcap)
+    return sp.all_gather(logits) if whole else logits
 
 
 def _with_cache(ctx: RunCtx, run, cache, *key):
@@ -532,8 +663,8 @@ def _period_train(ctx: RunCtx, x, block_params, shared_p):
     """One period of a ``train`` forward: ``(x, [moe aux losses])``."""
     auxes = []
     for j, kind in enumerate(ctx.cfg.period):
-        x, aux, _ = apply_block(kind, _use(ctx, block_params[j], "blocks", j),
-                                x, ctx, None)
+        x, aux, _ = apply_block(kind, _use(ctx, block_params[j], "blocks",
+                                           j), x, ctx, None, ("blocks", j))
         if kind == "moe":
             auxes.append(aux)
     if shared_p is not None:
@@ -553,12 +684,12 @@ class _PeriodRemat(torch.autograd.Function):
     """A period whose backward recomputes it: the forward keeps only its
     inputs (the residual stream, the period's params and the image
     embeddings a cross block reads), and the backward runs the period again
-    under ``torch.func.vjp``.  The reference's ``jax.checkpoint`` of its
-    scan body; it composes with ``torch.func.vmap``/``grad``
-    (``torch.utils.checkpoint`` does not: they refuse saved-tensor hooks
-    and reentrant functions).  Every tensor the period reads is an input,
-    never a closure: a closed-over tensor of an outer ``vmap`` level is
-    gone when the backward runs.
+    under autograd and differentiates it with ``torch.autograd.grad``.  The
+    reference's ``jax.checkpoint`` of its scan body; it composes with
+    ``torch.func.vmap`` (``torch.utils.checkpoint`` does not: it refuses
+    saved-tensor hooks and reentrant functions).  Every tensor the period
+    reads is an input, never a closure: a closed-over tensor of an outer
+    ``vmap`` level is gone when the backward runs.
 
     Under ``torch.func.vmap`` (the node axis of a training step) its own
     :meth:`vmap` rule applies it once to the whole node stack
@@ -566,7 +697,13 @@ class _PeriodRemat(torch.autograd.Function):
     both passes.  So its backward runs below the caller's ``vmap``, where
     a recomputing function nested in the period (the attention's
     ``remat_chunks``) can run its own ``torch.func.vjp``: under the
-    generated rule, that nesting fails inside ``torch.func``."""
+    generated rule, that nesting fails inside ``torch.func``.  The
+    recompute is plain autograd, not ``torch.func.vjp``, because an
+    autograd function inside the period (the gathers, the split's
+    collectives) then costs one vmap level a call, where under
+    ``torch.func.vjp`` each call builds a function class; so a backward
+    under a ``torch.func`` gradient transform is refused (the step
+    builders differentiate with ``torch.autograd.grad``)."""
 
     @staticmethod
     def _period(run: RunCtx, treedef, mapped: bool, x, leaves):
@@ -590,11 +727,20 @@ class _PeriodRemat(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        x, *leaves = ctx.saved_tensors
-        _, vjp = torch.func.vjp(
-            lambda x, *leaves: _PeriodRemat._period(
-                ctx.run, ctx.treedef, ctx.mapped, x, leaves), x, *leaves)
-        return (None, None, None, *vjp(tuple(grads)))
+        if torch._C._are_functorch_transforms_active():
+            raise NotImplementedError(
+                "remat='full' recomputes a period under torch.autograd; "
+                "differentiate the loss with torch.autograd.grad, not a "
+                "torch.func gradient transform")
+        inputs = [t.detach().requires_grad_(True)
+                  for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = _PeriodRemat._period(ctx.run, ctx.treedef, ctx.mapped,
+                                        inputs[0], inputs[1:])
+        pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+        got = torch.autograd.grad([o for o, _ in pairs], inputs,
+                                  [g for _, g in pairs], allow_unused=True)
+        return (None, None, None, *got)
 
     @staticmethod
     def vmap(info, in_dims, run, treedef, mapped, x, *leaves):
@@ -625,12 +771,15 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
             cache_len: int = 0, use_pallas: bool = False,
             decode_lowp: bool = False, pages=None, remat: str = "none",
             skip_masked_chunks: bool = False, remat_attention: bool = False,
-            placement=None):
+            repeat_kv: bool = False, placement=None, split=None):
     """The shared forward pass.  Returns ``(logits, aux_loss, new_cache)``;
     ``img`` [B, T_img, d] feeds the cross blocks (train and prefill).
     ``placement`` (``launch/sharding.Placement``): ``params`` and a decode
     step's ``cache`` are the rank's blocks, and a prefill's cache comes back
-    as the rank's blocks.
+    as the rank's blocks.  ``split`` (``launch/sharding.Split``, on that
+    placement; train and prefill): the compute split over 'model', and a
+    train forward's logits are the rank's vocabulary block where the split
+    divides the vocabulary (``split.vocab``).
 
     train:   tokens [B,S] -> logits [B,S,Vp], aux, None
     prefill: tokens [B,S] -> logits [B,Vp] (last pos), aux, cache
@@ -640,11 +789,16 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
     """
     if mode not in ("train", "prefill", "decode", "paged"):
         raise ValueError(f"unknown forward mode {mode!r}")
+    if split is not None and (mode not in ("train", "prefill")
+                              or split.placement is not placement):
+        raise ValueError(f"a compute split runs train and prefill forwards "
+                         f"on its own placement, not a {mode!r} forward")
     ctx = RunCtx(cfg=cfg, mode=mode, pos=pos, img=img, chunk=chunk,
                  ssd_chunk=ssd_chunk, cache_len=cache_len,
                  use_pallas=use_pallas, decode_lowp=decode_lowp, pages=pages,
                  skip_masked_chunks=skip_masked_chunks,
-                 remat_attention=remat_attention, placement=placement)
+                 remat_attention=remat_attention, repeat_kv=repeat_kv,
+                 placement=placement, split=split)
     x = _embed(params, tokens, ctx)
     reads_cache = mode in ("decode", "paged")
     shared_p = params.get("shared_attn")
@@ -667,8 +821,8 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
                  else None)
             p = _use(ctx, periods[j][i], "blocks", j)
             x, aux, nc = _with_cache(
-                ctx, lambda c, kind=kind, p=p: apply_block(kind, p, x, ctx, c),
-                c, "blocks", j)
+                ctx, lambda c, kind=kind, p=p, j=j: apply_block(
+                    kind, p, x, ctx, c, ("blocks", j)), c, "blocks", j)
             made[j].append(nc)
             if kind == "moe":
                 auxes.append(aux)
@@ -685,8 +839,8 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
         c = cache["tail"][i] if reads_cache else None
         p = _use(ctx, tp, "tail", i)
         x, aux, nc = _with_cache(
-            ctx, lambda c, p=p: apply_block(cfg.period[0], p, x, ctx, c), c,
-            "tail", i)
+            ctx, lambda c, p=p, i=i: apply_block(
+                cfg.period[0], p, x, ctx, c, ("tail", i)), c, "tail", i)
         tail_caches.append(nc)
         if cfg.period[0] == "moe":
             auxes.append(aux)
@@ -695,7 +849,7 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
         aux_total = aux_total + aux
 
     if mode == "train":
-        return _logits(params, x, ctx), aux_total, None
+        return _logits(params, x, ctx, whole=False), aux_total, None
     if mode == "prefill":
         def stack(m):
             return tree_map(lambda *ls: torch.stack(ls), *m)
@@ -716,8 +870,10 @@ def train_loss(params, batch, cfg: ModelConfig, **kw):
     auxiliary loss."""
     logits, aux, _ = forward(params, batch["tokens"], cfg, mode="train",
                              img=batch.get("image_embeds"), **kw)
-    return layers.cross_entropy(logits, batch["labels"],
-                                cfg.vocab_size) + aux
+    split = kw.get("split")
+    return layers.cross_entropy(
+        logits, batch["labels"], cfg.vocab_size,
+        split=split if split is not None and split.vocab else None) + aux
 
 
 def prefill(params, tokens, cfg: ModelConfig, *, img=None, **kw):
