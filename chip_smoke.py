@@ -6156,6 +6156,183 @@ def _split_moe_prefill(dev, mesh, smi) -> dict:
     return out
 
 
+#: slice 12's pinned decode (``pin_decode_cache``): TinyLlama-1.1B fp32 at
+#: full width and depth, one node, a [PIN_BATCH, PIN_PROMPT] prompt through
+#: the prefill builder, then PIN_STEPS greedy decode steps, three ways
+PIN_BATCH, PIN_PROMPT, PIN_STEPS = 8, 1024, 32
+#: the published widths, cut in depth as the lmstack phase cuts them (gemma2
+#: at one period: a local and a global layer): a [PIN_CUT_BATCH,
+#: PIN_CUT_PROMPT] prefill and PIN_CUT_STEPS pinned decode steps
+PIN_CUTS = {"gemma2-27b": {"n_layers": 2},
+            ZAMBA2_ARCH: LMSTACK_CUTS[ZAMBA2_ARCH],
+            VLM_ARCH: LMSTACK_CUTS[VLM_ARCH]}
+PIN_CUT_BATCH, PIN_CUT_PROMPT, PIN_CUT_STEPS = 2, 64, 4
+
+
+def _decode_way(dev, sc, mesh, params, tokens, img, n_steps) -> dict:
+    """A prefill of ``tokens`` through ``build_prefill_step`` and
+    ``n_steps`` greedy decode steps through ``build_decode_step`` (both on
+    ``mesh``): every step's logits (stacked, on the card), the final cache
+    (the rank's blocks), the decode step, its ms a step (host clock
+    between two syncs) and the peak allocated over the run."""
+    import torch
+    from repro_torch.launch import steps
+
+    prefill = steps.build_prefill_step(sc, mesh=mesh)
+    decode = steps.build_decode_step(sc, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    logits, cache = prefill(params, tokens, img)
+    out, ms = [logits], []
+    for i in range(n_steps):
+        token = torch.argmax(logits, -1, keepdim=True)
+        (logits, cache), dt = _timed(decode, params, token,
+                                     tokens.shape[1] + i, cache)
+        out.append(logits)
+        ms.append(dt)
+    return {"logits": torch.stack(out), "cache": cache, "fn": decode,
+            "ms": ms, "peak": torch.cuda.max_memory_allocated(dev),
+            "base": base}
+
+
+def _held_decode(what, got: dict, want: dict) -> None:
+    """Every step's logits and the final cache of ``got`` equal
+    ``want``'s bit for bit (at one rank a block is the whole leaf)."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    if not torch.equal(got["logits"], want["logits"]):
+        err = (got["logits"] - want["logits"]).abs().max().item()
+        raise AssertionError(f"{what}: logits not bit-equal (max abs {err})")
+    a, b = tree_leaves(got["cache"]), tree_leaves(want["cache"])
+    if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{what}: the final cache is not bit-equal")
+
+
+def _pinned_decode(dev, mesh, smi) -> dict:
+    """Slice 12 on the (1, 1) mesh: TinyLlama-1.1B fp32 decoded three ways
+    (mesh=None; gathering each layer's cache, pin off; on the rank's cache
+    blocks, pin on, with SPLIT_KNOBS), every step's logits and the final
+    cache bit-equal across the three, no cache leaf gathered with the pin,
+    no kernel launched (the builders' decode is the plain attention); then
+    gemma2-27b, zamba2-7b and the VLM at published widths (PIN_CUTS), the
+    pinned decode with SPLIT_KNOBS bit-equal to mesh=None."""
+    import dataclasses
+    import numpy as np
+    import statistics as st
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+
+    t0 = time.perf_counter()
+    cfg = get_config(LAUNCH_ARCH)
+    rng = np.random.default_rng(LAUNCH_SEED + 4)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(PIN_BATCH, PIN_PROMPT),
+        dtype=np.int32)).to(dev)
+    sc = steps.StepConfig(cfg, InputShape(
+        "pin_decode", PIN_PROMPT + PIN_STEPS, PIN_BATCH, "decode"),
+        n_nodes=1, param_dtype=torch.float32)
+    params = tf.init_lm(torch.Generator(device=dev).manual_seed(LAUNCH_SEED),
+                        cfg)
+    ways = {"mesh=None": (sc, None),
+            "pin off": (sc, mesh),
+            "pinned": (dataclasses.replace(sc, pin_decode_cache=True,
+                                           **SPLIT_KNOBS), mesh)}
+    ops.reset_launch_counts()
+    runs = {}
+    for label, (sc_, mesh_) in ways.items():
+        runs[label] = _decode_way(dev, sc_, mesh_, params, tokens, None,
+                                  PIN_STEPS)
+    counts = ops.launch_counts()
+    _expect_launches("decode", counts, {})
+    want = runs["mesh=None"]
+    for label in ("pin off", "pinned"):
+        _held_decode(f"decode {label}", runs[label], want)
+    pinned, off = runs["pinned"]["fn"], runs["pin off"]["fn"]
+    tally = pinned.layout.placement.tally
+    if not pinned.pinned or pinned.split is None or off.pinned:
+        raise AssertionError(f"decode: pinned {pinned.pinned}, split "
+                             f"{pinned.split}, pin off {off.pinned}")
+    if tally.caches or not off.layout.placement.tally.caches:
+        raise AssertionError(f"decode: cache leaves gathered with the pin "
+                             f"{tally.caches}, without "
+                             f"{len(off.layout.placement.tally.caches)}")
+    out = {"launches": counts, "runs": {
+        label: {"ms": r["ms"], "warm_ms": st.mean(r["ms"][1:]),
+                "peak": r["peak"], "peak_over_args": r["peak"] - r["base"]}
+        for label, r in runs.items()},
+        "cache_leaves_gathered": {
+            "pinned": len(tally.caches),
+            "pin off": len(off.layout.placement.tally.caches)},
+        "weights_gathered": sorted("/".join(map(str, p)) for p in
+                                   tally.leaves)}
+    tokens_equal = bool(torch.equal(runs["pinned"]["logits"].argmax(-1),
+                                    want["logits"].argmax(-1)))
+    del runs, want, params
+    torch.cuda.empty_cache()
+    r = out["runs"]
+    log(f"shard [{smi}] decode {LAUNCH_ARCH} fp32, one node, prefill "
+        f"[{PIN_BATCH}, {PIN_PROMPT}] then {PIN_STEPS} greedy steps on the "
+        f"(1, 1) mesh: mesh=None, pin off and pinned with {SPLIT_KNOBS} "
+        f"give every step's logits and the final cache bit for bit (tokens "
+        f"equal {tokens_equal}); cache leaves gathered: pinned "
+        f"{out['cache_leaves_gathered']['pinned']} (0 bytes), pin off "
+        f"{out['cache_leaves_gathered']['pin off']} gathers; weights "
+        f"gathered with the pin (their 'data' blocks: the split keeps "
+        f"'model') {out['weights_gathered']}; launches {counts}")
+    log(f"shard [{smi}] decode warm ms/step: mesh=None "
+        f"{r['mesh=None']['warm_ms']:.3f}, pin off {r['pin off']['warm_ms']:.3f}"
+        f", pinned {r['pinned']['warm_ms']:.3f}; max_memory_allocated "
+        + ", ".join(f"{k} {v['peak']} B ({v['peak_over_args']} B over the "
+                    "params)" for k, v in r.items()))
+
+    out["cuts"] = {}
+    for arch, cut in PIN_CUTS.items():
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        params = tf.init_lm(torch.Generator(device=dev).manual_seed(
+            LAUNCH_SEED), cfg)
+        for j, kind in enumerate(cfg.period):
+            if kind == "cross":
+                params["blocks"][j]["gate_attn"].fill_(VLM_GATE)
+                params["blocks"][j]["gate_mlp"].fill_(VLM_GATE)
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, size=(PIN_CUT_BATCH, PIN_CUT_PROMPT),
+            dtype=np.int32)).to(dev)
+        img = None
+        if cfg.n_image_tokens:
+            img = torch.from_numpy(rng.standard_normal(
+                (PIN_CUT_BATCH, cfg.n_image_tokens, cfg.d_model)).astype(
+                    np.float32)).to(dev)
+        sc = steps.StepConfig(cfg, InputShape(
+            "pin_cut", PIN_CUT_PROMPT + PIN_CUT_STEPS, PIN_CUT_BATCH,
+            "decode"), n_nodes=1, param_dtype=torch.float32)
+        ops.reset_launch_counts()
+        want = _decode_way(dev, sc, None, params, toks, img, PIN_CUT_STEPS)
+        got = _decode_way(dev, dataclasses.replace(
+            sc, pin_decode_cache=True, **SPLIT_KNOBS), mesh, params, toks,
+            img, PIN_CUT_STEPS)
+        _expect_launches(f"decode {arch}", ops.launch_counts(), {})
+        _held_decode(f"decode {arch}", got, want)
+        if got["fn"].layout.placement.tally.caches:
+            raise AssertionError(f"decode {arch}: cache leaves gathered")
+        out["cuts"][arch] = {"ms": got["ms"], "mesh_none_ms": want["ms"],
+                             "peak": got["peak"]}
+        log(f"shard [{smi}] decode {arch} {cut} at published widths, fp32: "
+            f"prefill [{PIN_CUT_BATCH}, {PIN_CUT_PROMPT}] and "
+            f"{PIN_CUT_STEPS} pinned steps with {SPLIT_KNOBS} bit-equal to "
+            f"mesh=None (logits, final cache), no cache leaf gathered; ms a "
+            f"step pinned {[round(v, 3) for v in got['ms']]} vs mesh=None "
+            f"{[round(v, 3) for v in want['ms']]}")
+        del params, want, got
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def phase_shard(dev, launch_out) -> dict:
     """Slice 10's main path on the card: the launch tooling's step on a
     ('data', 'model') mesh with the sharded state (``sharding.Placement``:
@@ -6184,15 +6361,19 @@ def phase_shard(dev, launch_out) -> dict:
         out["split"] = _split_train(dev, sc, mesh, out, launch_out, smi)
         out["split"]["granite"] = _split_moe_prefill(dev, mesh, smi)
         out["split"]["seconds"] = time.perf_counter() - t_split
+        out["decode"] = _pinned_decode(dev, mesh, smi)
     finally:
         distributed.shutdown()
     out["seconds"] = time.perf_counter() - t_phase
     used = {what: json.dumps({k: v for k, v in counts.items() if v})
             for what, counts in (("shard", out["launches"]),
-                                 ("split", out["split"]["launches"]))}
-    log(f"shard launches {used['shard']}; split launches {used['split']} "
+                                 ("split", out["split"]["launches"]),
+                                 ("decode", out["decode"]["launches"]))}
+    log(f"shard launches {used['shard']}; split launches {used['split']}; "
+        f"decode launches {used['decode']} "
         f"({out['seconds']:.1f} s for the phase, "
-        f"{out['split']['seconds']:.1f} s of it the split's)")
+        f"{out['split']['seconds']:.1f} s of it the split's, "
+        f"{out['decode']['seconds']:.1f} s the pinned decode's)")
     return out
 
 
@@ -6482,6 +6663,9 @@ def main() -> int:
     for row in kernels:  # slice 11's split train steps
         row["split_launches"] = shard_out["split"]["launches"].get(
             row["name"], 0)
+    for row in kernels:  # slice 12's decode runs (the plain attention)
+        row["decode_launches"] = shard_out["decode"]["launches"].get(
+            row["name"], 0)
     t = ssd_timed["main"]
     kernels.append({
         "name": "ssd_scan", "route": "cuda", "source": csrc + "ssd_scan.cu",
@@ -6494,6 +6678,8 @@ def main() -> int:
         "launch_launches": launch_out["launches"].get("ssd_scan", 0),
         "shard_launches": shard_out["launches"].get("ssd_scan", 0),
         "split_launches": shard_out["split"]["launches"].get("ssd_scan", 0),
+        "decode_launches": shard_out["decode"]["launches"].get("ssd_scan",
+                                                               0),
         "lmstack_launches": lmstack_out["launches"]["ssd_scan"],
         "zamba2": {k: ssd_timed["zamba2"][k]
                    for k in ("ms", "plain_ms", "bound_ms", "bound_by",

@@ -38,7 +38,11 @@ The trace of a node-stacked step holds every node; a rank holds one, so its
 flops, bytes and temp are the trace's over the node count.  The flops split
 into ``replicated`` (the forward and backward, which every rank of a node
 computes whole) and ``sharded`` (the gossip mix over the rank's blocks);
-the wire adds the weights' gathers (``all-gather``).
+the wire adds the weights' and the caches' gathers (``all-gather``) and
+the activations' collectives (a split's, a pinned decode's).  A decode
+under ``--set pin_decode_cache=true`` is built with the reference's
+``cache_constraint`` (``steps.pinned_cache_constraint``) and computes on
+the rank's cache blocks.
 
 Artifacts: experiments/dryrun_torch/<arch>__<shape>__<mesh>[__<gossip>].json,
 with the reference's keys, ``memory`` / ``fits`` and the StepConfig knobs
@@ -134,7 +138,11 @@ def trace_step(sc: steps.StepConfig, plan: sharding.ShardingPlan, *,
         held = [(layout.shapes["params"], layout.specs["params"]),
                 (layout.shapes["cache"], layout.specs["cache"]),
                 ((d["token"], d["pos"]), _whole((d["token"], d["pos"])))]
-        fn = steps.build_decode_step(sc, mesh=lp.mesh)
+        # the reference's lower_decode: under pin_decode_cache, the pin of a
+        # layer's K spec (the decode then computes on the cache blocks)
+        fn = steps.build_decode_step(
+            sc, mesh=lp.mesh, cache_constraint=steps.pinned_cache_constraint(
+                layout) if sc.pin_decode_cache else None)
     mt = MemTracker()
     with mt:
         out, flops, nbytes = roofline.trace_cost(fn, *args)
@@ -178,8 +186,13 @@ def trace_step(sc: steps.StepConfig, plan: sharding.ShardingPlan, *,
     if gathered:
         rec["wire"]["all-gather"] = rec["wire"].get("all-gather", 0.0) + \
             gathered
-    if fn.split is not None:   # the activations' collectives over 'model'
-        for k, v in fn.split.tally.wire.items():
+    # the activations' collectives: the split's over 'model', a pinned
+    # decode's over its cache blocks' axes
+    wires = [fn.split.tally.wire] if fn.split is not None else []
+    if placement is not None:
+        wires.append(placement.tally.wire)
+    for wire in wires:
+        for k, v in wire.items():
             rec["wire"][k] = rec["wire"].get(k, 0.0) + v / per
     return rec
 

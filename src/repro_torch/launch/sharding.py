@@ -48,6 +48,14 @@ all-reduce, reduce-scatter, all-gather, each an autograd function with
 its own vmap rule) on the stored blocks, and never gathers whole a leaf
 the split computes with.  Its leaves a rank computes with are the ones a
 knob uses; every other leaf is gathered on use as above.
+
+The pinned decode (:class:`CacheBlock`, the reference's
+``pin_decode_cache``): a decode step attends over, and writes into, the
+rank's stored block of each cache leaf, with no cache leaf gathered: the
+partial scores summed over the ranks that split the features, a softmax
+across the ranks that split the cache's length, and the outputs (rows,
+heads, features) all-gathered; ``models/transformer.py`` and
+``models/ssm.py`` take the block through the reductions it names.
 """
 from __future__ import annotations
 
@@ -63,8 +71,8 @@ from repro_torch.tree import tree_flatten, tree_map, tree_paths, \
 
 from .mesh import MeshShape
 
-__all__ = ["ShardingPlan", "NamedSharding", "Placement", "Split", "Tally",
-           "make_plan",
+__all__ = ["ShardingPlan", "NamedSharding", "Placement", "CacheBlock",
+           "Split", "Tally", "make_plan", "pinned_cache_spec", "same_layout",
            "param_specs", "batch_specs", "cache_specs", "named",
            "bytes_per_rank", "local_shape", "shard_tree", "gather_tree",
            "weight_axes"]
@@ -410,33 +418,40 @@ class Tally:
     functions' arguments pass through ``torch.func``'s pytree handling,
     which would copy a container): ``bytes`` by a placement's gathers of
     weights and caches, ``leaves`` the weights' by leaf path (a tuple of
-    keys from the params root), and ``wire`` a :class:`Split`'s
-    collectives of activations by kind (``all-reduce``, ``reduce-scatter``,
-    ``all-gather``; the ring algorithm's bytes)."""
+    keys from the params root), ``caches`` the cache leaves' by path (from
+    the cache root), and ``wire`` the collectives of activations by kind
+    (``all-reduce``, ``reduce-scatter``, ``all-gather``; the ring
+    algorithm's bytes): a :class:`Split`'s, and a pinned decode's on the
+    cache blocks (:class:`CacheBlock`)."""
 
     def __init__(self):
         self.bytes = 0
         self.leaves = {}
+        self.caches = {}
         self.wire = {}
 
-    def add(self, nbytes, *, leaf=None, kind=None) -> None:
+    def add(self, nbytes, *, leaf=None, kind=None, cache=None) -> None:
         if kind is not None:
             self.wire[kind] = self.wire.get(kind, 0) + nbytes
             return
         self.bytes += nbytes
         if leaf is not None:
             self.leaves[leaf] = self.leaves.get(leaf, 0) + nbytes
+        if cache is not None:
+            self.caches[cache] = self.caches.get(cache, 0) + nbytes
 
 
 class _Count:
     """What one collective call site adds to a :class:`Tally` (a leaf's
     gathers, or a kind of the split's collectives)."""
 
-    def __init__(self, tally: Tally, *, leaf=None, kind=None):
+    def __init__(self, tally: Tally, *, leaf=None, kind=None, cache=None):
         self.tally, self.leaf, self.kind = tally, leaf, kind
+        self.cache = cache
 
     def add(self, nbytes) -> None:
-        self.tally.add(nbytes, leaf=self.leaf, kind=self.kind)
+        self.tally.add(nbytes, leaf=self.leaf, kind=self.kind,
+                       cache=self.cache)
 
 
 class _GatherOnUse(torch.autograd.Function):
@@ -497,16 +512,20 @@ class Placement:
     The model calls :meth:`gather_params` on a block's params just before
     it uses them and drops what it gathered after; a decode step gathers
     each layer's cache (:meth:`gather_cache`), writes it in place and puts
-    the rank's block back (:meth:`store_cache`); a prefill cuts each new
-    cache to the rank's block (:meth:`cut_cache`).  ``key`` is the path of
-    the subtree in the params or cache tree, ``("blocks", j)`` for the
-    ``j``-th period position (a period's view of a stacked leaf gathers as
-    the leaf).  ``tally`` counts the bytes the rank's gathers receive."""
+    the rank's block back (:meth:`store_cache`), or, pinned to the stored
+    layout (the reference's ``pin_decode_cache``), attends over and writes
+    into the rank's blocks as they are (:meth:`cache_blocks`); a prefill
+    cuts each new cache to the rank's block (:meth:`cut_cache`).  ``key``
+    is the path of the subtree in the params or cache tree, ``("blocks",
+    j)`` for the ``j``-th period position (a period's view of a stacked
+    leaf gathers as the leaf).  ``tally`` counts the bytes the rank's
+    gathers receive."""
 
     mesh: Any
     params: Any = None
     cache: Any = None
     tally: Tally = dataclasses.field(default_factory=Tally)
+    _blocks: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @staticmethod
     def make(plan: ShardingPlan, *, params=None, param_specs=None,
@@ -560,9 +579,23 @@ class Placement:
         return None
 
     def gather_cache(self, tree, *key):
-        return tree_map(lambda x, leaf: _gather(self.mesh, leaf.spec, x,
-                                                self.tally),
-                        tree, self._at(self.cache, key))
+        """``tree`` (the cache at ``key``) whole, each leaf's bytes counted
+        under its path (``tally.caches``)."""
+        leaves, treedef = tree_flatten(tree)
+        axes = tree_flatten(self._at(self.cache, key))[0]
+        return tree_unflatten(treedef, [
+            _gather(self.mesh, leaf.spec, x,
+                    _Count(self.tally, cache=key + path))
+            for path, x, leaf in zip(tree_paths(tree), leaves, axes)])
+
+    def cache_blocks(self, *key) -> dict:
+        """The :class:`CacheBlock` of each leaf of the cache at ``key`` (a
+        layer's leaves by name), made once a key."""
+        if key not in self._blocks:
+            self._blocks[key] = {
+                name: CacheBlock(self, leaf)
+                for name, leaf in self._at(self.cache, key).items()}
+        return self._blocks[key]
 
     def cut_cache(self, tree, *key):
         return tree_map(lambda x, leaf: _cut(self.mesh, leaf.spec, x)
@@ -571,6 +604,87 @@ class Placement:
     def store_cache(self, blocks, full, *key) -> None:
         tree_map(lambda b, x, leaf: b.copy_(_cut(self.mesh, leaf.spec, x)),
                  blocks, full, self._at(self.cache, key))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CacheBlock:
+    """The rank's block of one cache leaf, as a pinned decode step computes
+    on it: which mesh axes store each dim of a layer's view of the leaf
+    (dims counted from the end, the stacked layer axis dropped), where the
+    rank's block starts along each, and the collectives over those axes
+    (counted in the placement's ``tally.wire``).  At one rank every
+    collective returns its input's values."""
+
+    placement: Placement
+    leaf: _LeafAxes
+
+    @property
+    def mesh(self):
+        return self.placement.mesh
+
+    def axes(self, dim: int) -> tuple:
+        """The axes that store ``dim`` (outer first), () for a whole dim."""
+        return dict(self.leaf.dims).get(dim, ())
+
+    def parts(self, dim: int) -> int:
+        """Blocks along ``dim`` (1 for a dim the rank holds whole)."""
+        return math.prod(_axis_size(self.mesh, a) for a in self.axes(dim))
+
+    def start(self, dim: int, length: int) -> int:
+        """The first index of the rank's block along ``dim``, the block
+        ``length`` long."""
+        return _block_index(self.mesh, self.axes(dim)) * length
+
+    def cut(self, x, dim: int, at: Optional[int] = None):
+        """The rank's block along ``dim`` of ``x``, whole along its dim
+        ``at`` (``dim`` by default): a view."""
+        at = dim if at is None else at
+        n = x.shape[at] // self.parts(dim)
+        return x.narrow(at, self.start(dim, n), n) if self.axes(dim) else x
+
+    def join(self, x, dim: int, at: Optional[int] = None):
+        """Every rank's block along ``dim`` joined along ``x``'s dim ``at``
+        (``dim`` by default): an all-gather an axis, the inner first."""
+        at = dim if at is None else at
+        for axis in reversed(self.axes(dim)):
+            x = _all_gather(x, at, self.mesh, axis,
+                            _Count(self.placement.tally, kind="all-gather"))
+        return x
+
+    def reduce(self, x, dim: int, op: str = "sum"):
+        """``x`` summed (or maxed) over the ranks whose blocks along
+        ``dim`` differ: an all-reduce an axis."""
+        for axis in self.axes(dim):
+            m = _axis_size(self.mesh, axis)
+            self.placement.tally.add(
+                x.numel() * x.element_size() * 2 * (m - 1) / m,
+                kind="all-reduce")
+            if isinstance(self.mesh, MeshShape) or x.device.type == "meta":
+                x = x.clone()
+            else:
+                x = self.mesh.axis(axis).all_reduce(x, op)
+        return x
+
+
+def pinned_cache_spec(cache_shape: PyTree, specs: PyTree) -> Optional[tuple]:
+    """The reference's decode pin (``lower_decode`` under
+    ``pin_decode_cache``): the spec of the first stacked attention K leaf
+    (``("blocks", j, "k")``), its layer dim dropped; None where no block
+    keeps a K cache."""
+    held = tree_flatten(tree_map(lambda x, spec: [spec], cache_shape,
+                                 specs))[0]
+    for path, (spec,) in zip(tree_paths(cache_shape), held):
+        if path[-1] == "k" and "blocks" in path:
+            return tuple(spec[1:])
+    return None
+
+
+def same_layout(a, b) -> bool:
+    """Whether two specs name the same axes for every dim (an axis name
+    and a one-name tuple alike)."""
+    if a is None or b is None:
+        return a is None and b is None
+    return tuple(map(_entry_axes, a)) == tuple(map(_entry_axes, b))
 
 
 # ---------------------------------------------------------------------------

@@ -42,25 +42,29 @@ The TPU knobs of the reference's ``StepConfig``, one rule each:
   ``"none"`` keeps the activations.  The values are the same bit for bit;
   only the peak memory and the flops move.
 * ``megatron_attn``, ``shard_activations`` and ``pin_moe_dispatch``
-  split the train and prefill steps' compute over a mesh's 'model' axis
-  (``sharding.Split``, on the blocks the placement stores): each rank
-  computes its heads (``megatron_attn``; ``wo`` row-parallel), keeps its
-  features of the residual stream between blocks with the MLP column-
-  then row-parallel and the embedding, head and loss split by vocabulary
-  (``shard_activations``), and runs its experts (``pin_moe_dispatch``).
+  split the train, prefill and decode steps' compute over a mesh's
+  'model' axis (``sharding.Split``, on the blocks the placement stores):
+  each rank computes its heads (``megatron_attn``; ``wo`` row-parallel),
+  keeps its features of the residual stream between blocks with the MLP
+  column- then row-parallel and the embedding, head and loss split by
+  vocabulary (``shard_activations``), and runs its experts
+  (``pin_moe_dispatch``).
   Each knob applies where the config's dims divide over 'model'
   (``Split.make``); off, the weights are gathered whole on use.  At one
   'model' rank the split step is the unsplit step's bits; across ranks
-  the partial sums are reduced in another order.  A decode step keeps
-  the gathers (the split decode over the stored cache block is later
-  work).
+  the partial sums are reduced in another order.
+* ``pin_decode_cache`` (or a ``cache_constraint`` equal to the stored
+  layout, :func:`build_decode_step`) makes a decode step on a mesh attend
+  over, and write into, the rank's stored cache blocks
+  (``sharding.CacheBlock``), with no K/V, cross or Mamba state leaf
+  gathered; off, each layer's cache is gathered on use, written and its
+  block put back.  At one rank either is ``mesh=None``'s bits.
 * ``repeat_kv`` (or ``megatron_attn``) repeats K/V to the head count in
   the plain attention, with or without a mesh, as in the reference
   (``attention.chunked_attention``).
-* ``unroll`` and ``pin_decode_cache`` (:data:`IGNORED_KNOBS`) steer XLA's
-  scan and a decode write's layout pin, which have no counterpart: they
-  are accepted and do nothing, and every dry-run record lists them under
-  ``"ignored"``.
+* ``unroll`` (:data:`IGNORED_KNOBS`) steers XLA's scan, which has no
+  counterpart: it is accepted and does nothing, and every dry-run record
+  lists it under ``"ignored"``.
 * ``shard_tie_break_last`` and ``cache_shard_features`` pick the dims the
   weights and caches are stored by (``sharding.param_specs`` /
   ``cache_specs``), as in the reference.
@@ -94,7 +98,8 @@ __all__ = ["HBM_BYTES", "NODE_BUDGET", "H100_HBM_BYTES", "H100_NODE_BUDGET",
            "train_batch_specs", "params_shape", "opt_state_shape",
            "prefill_specs", "decode_specs", "make_opt", "step_topology",
            "train_loss_fn", "node_grads", "make_split", "Layout",
-           "build_train_step", "build_prefill_step", "build_decode_step"]
+           "build_train_step", "build_prefill_step",
+           "pinned_cache_constraint", "build_decode_step"]
 
 PyTree = Any
 
@@ -108,9 +113,9 @@ NODE_BUDGET = 14e9
 H100_HBM_BYTES = H100.hbm_bytes
 H100_NODE_BUDGET = 64e9
 
-#: StepConfig fields that steer XLA alone (scan unrolling, a layout pin on
-#: the decode cache's write) and change nothing in the port
-IGNORED_KNOBS = ("unroll", "pin_decode_cache")
+#: StepConfig fields that steer XLA alone (scan unrolling) and change
+#: nothing in the port
+IGNORED_KNOBS = ("unroll",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -538,22 +543,54 @@ def build_prefill_step(sc: StepConfig, *, mesh=None):
     return prefill_step
 
 
+def pinned_cache_constraint(layout: Layout):
+    """The reference's decode pin on ``layout`` (``lower_decode`` under
+    ``pin_decode_cache``): a ``sharding.NamedSharding`` of a layer's K
+    spec, or None where no block keeps a K cache."""
+    spec = sharding.pinned_cache_spec(layout.shapes["cache"],
+                                      layout.specs["cache"])
+    return None if spec is None else sharding.NamedSharding(layout.plan.mesh,
+                                                            spec)
+
+
+def _check_constraint(constraint, layout) -> None:
+    """A ``cache_constraint`` must be the layout the cache is stored by
+    (:func:`pinned_cache_constraint`); any other raises, naming both."""
+    stored = None if layout is None else pinned_cache_constraint(layout)
+    got = getattr(constraint, "spec", constraint)
+    mesh = getattr(constraint, "mesh", None)
+    if stored is not None and sharding.same_layout(got, stored.spec) and (
+            mesh is None or dict(mesh.shape) == dict(stored.mesh.shape)):
+        return
+    raise ValueError(
+        f"cache_constraint {got} (mesh "
+        f"{None if mesh is None else dict(mesh.shape)}) is not the layout "
+        f"the decode cache is stored by: "
+        f"{None if stored is None else stored.spec} (mesh "
+        f"{None if layout is None else dict(layout.plan.mesh.shape)}), a "
+        "layer's K spec under sharding.cache_specs")
+
+
 def build_decode_step(sc: StepConfig, *, cache_constraint=None, mesh=None):
     """``decode_step(params, token, pos, cache) -> (logits, cache)``, the
     cache written in place (with a ``mesh``: the rank's blocks, as the
     prefill step returns them; each layer's cache is gathered, written and
-    its block put back).  ``cache_constraint`` (the reference's sharding
-    pin on the decode write, an XLA layout hint) has no counterpart: a
-    non-None value raises."""
+    its block put back).  Pinned (``sc.pin_decode_cache``, or a
+    ``cache_constraint`` equal to the layout the cache is stored by, which
+    implies the pin; the mesh may come with it, a ``sharding.
+    NamedSharding``), the step attends over and writes into the rank's
+    cache blocks and gathers no cache leaf.  The split knobs divide its
+    weight products over 'model' (:func:`make_split`)."""
     _check(sc)
-    if cache_constraint is not None:
-        raise ValueError(
-            "cache_constraint pins the KV cache's layout for XLA; the port "
-            "stores a cache by sharding.cache_specs (a mesh= and "
-            "StepConfig.cache_shard_features) and has no sharding "
-            "constraint: pass None")
+    if mesh is None and cache_constraint is not None:
+        mesh = getattr(cache_constraint, "mesh", None)
     cfg = sc.cfg
     layout, placement = _serve_layout(sc, mesh, "decode")
+    pin = sc.pin_decode_cache
+    if cache_constraint is not None:
+        _check_constraint(cache_constraint, layout)
+        pin = True
+    split = make_split(sc, layout)
 
     def decode_step(params, token, pos, cache):
         if layout is not None:
@@ -561,7 +598,9 @@ def build_decode_step(sc: StepConfig, *, cache_constraint=None, mesh=None):
             cache = layout.local("cache", cache)
         return tf.decode_step(params, token, pos, cache, cfg,
                               decode_lowp=sc.decode_lowp,
-                              placement=placement)
+                              placement=placement, split=split,
+                              pin_cache=pin)
 
-    decode_step.layout, decode_step.split = layout, None
+    decode_step.layout, decode_step.split = layout, split
+    decode_step.pinned = pin and placement is not None
     return decode_step

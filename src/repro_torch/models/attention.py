@@ -7,7 +7,10 @@ reference's two chunk knobs: ``skip_masked_chunks`` takes sliding-window
 self-attention by query chunks, each over the KV span it can see, O(S *
 window) work instead of O(S^2); ``remat_chunks`` recomputes each KV
 chunk's scores in the backward), ``decode_attention`` (fp32, and ``lowp``
-over a low-precision cache), ``paged_attention`` and ``cross_attention``.
+over a low-precision cache; through ``decode_attention_block``, which a
+pinned decode runs on the rank's block of the cache with the reductions
+over the other ranks as arguments), ``paged_attention`` and
+``cross_attention``.
 Layouts are the reference's: q ``[B, S, H, D]``, k/v ``[B, T, K, D]``, GQA
 by head groups ``H = K * G``.  These are the non-kernel paths
 (``use_pallas=False``); the kernels (``flash_attention``,
@@ -22,7 +25,8 @@ from ..kernels.ref import attn_scale
 from . import layers
 
 __all__ = ["NEG_INF", "init_attention", "qkv", "chunked_attention",
-           "decode_attention", "paged_attention", "cross_attention"]
+           "decode_attention", "decode_attention_block", "paged_attention",
+           "cross_attention"]
 
 NEG_INF = -2.0e38
 
@@ -230,26 +234,53 @@ def decode_attention(q, k_cache, v_cache, cur_pos, *, window: int = 0,
     rounding are the reference's; only the summation order differs."""
     b, _, h, d = q.shape
     t, kh = k_cache.shape[1], k_cache.shape[2]
-    g = h // kh
-    qf = q.reshape(b, 1, kh, g, d).float() * attn_scale(d)
-    if lowp:
-        qf = qf.to(k_cache.dtype).float()
-    sc = torch.einsum("bskgd,btkd->bskgt", qf, k_cache.float())
-    if softcap:
-        sc = layers.softcap(sc, softcap)
+    qf = q.reshape(b, 1, kh, h // kh, d).float() * attn_scale(d)
     if k_pos is None:
         k_pos = torch.arange(t, device=q.device)
-        mask = k_pos <= cur_pos
-    else:
-        mask = (k_pos >= 0) & (k_pos <= cur_pos)
+    out = decode_attention_block(qf, k_cache, v_cache, cur_pos, k_pos,
+                                 window=window, softcap=softcap, lowp=lowp)
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def decode_attention_block(qf, k_block, v_block, cur_pos, k_pos, *,
+                           window: int = 0, softcap: float = 0.0,
+                           lowp: bool = False, sum_scores=None,
+                           over_slots=None):
+    """:func:`decode_attention` on a block of the cache: ``qf`` [B', 1,
+    K', G, D'] the query rows, heads and features that meet the block,
+    already scaled (fp32); ``k_block`` / ``v_block`` [B', T', K', D'];
+    ``k_pos`` [T'] the positions the block's slots hold (-1 = empty).
+    The reductions over the ranks that hold the rest come as arguments:
+    ``sum_scores(s)`` sums the partial scores over the feature blocks
+    (before the softcap and the mask: the softcap is not linear), and
+    ``over_slots(x, op)`` reduces ('max' or 'sum') over the blocks of the
+    slots, with which the softmax runs in two passes (the global max, then
+    the global sum of exps; under ``lowp`` the weights are rounded after
+    both, as the whole softmax's are) and the weighted values are summed.
+    Where the slots are whole (``over_slots`` None) the softmax is
+    ``torch.softmax``, as :func:`decode_attention` takes it, so a block
+    that is the whole cache gives its bits.  Returns [B', 1, K', G, D']
+    fp32."""
+    if lowp:
+        qf = qf.to(k_block.dtype).float()
+    sc = torch.einsum("bskgd,btkd->bskgt", qf, k_block.float())
+    if sum_scores is not None:
+        sc = sum_scores(sc)
+    if softcap:
+        sc = layers.softcap(sc, softcap)
+    mask = (k_pos >= 0) & (k_pos <= cur_pos)
     if window:
         mask &= k_pos > cur_pos - window
     sc = torch.where(mask[None, None, None, None, :], sc, NEG_INF)
-    p = torch.softmax(sc, dim=-1)
+    if over_slots is None:
+        p = torch.softmax(sc, dim=-1)
+    else:
+        e = torch.exp(sc - over_slots(sc.amax(dim=-1, keepdim=True), "max"))
+        p = e / over_slots(e.sum(dim=-1, keepdim=True), "sum")
     if lowp:
-        p = p.to(v_cache.dtype).float()
-    out = torch.einsum("bskgt,btkd->bskgd", p, v_cache.float())
-    return out.reshape(b, 1, h, d).to(q.dtype)
+        p = p.to(v_block.dtype).float()
+    out = torch.einsum("bskgt,btkd->bskgd", p, v_block.float())
+    return out if over_slots is None else over_slots(out, "sum")
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,9 @@ Three implementations with the same semantics:
 
 The decode path carries (conv_state, ssm_state) and costs O(1) per token.
 Where the reference returns a new state, :func:`mamba_decode` writes the
-given one in place and returns it, as the port's KV caches are written.
+given one in place and returns it, as the port's KV caches are written;
+a pinned decode on a mesh updates the rank's blocks of the two states
+(``blocks=``).
 ``SSMConfig`` lives in ``configs/base.py``.  The reference's ``unroll`` (a
 TPU scan control) is not ported.
 """
@@ -129,14 +131,18 @@ def ssd_chunked(x, dt, a, b, c, d_skip, *, chunk: int = 128,
     return y.to(x.dtype), hstate
 
 
-def ssd_decode_step(hstate, xt, dtt, a, bt, ct, d_skip):
-    """One-token state update; hstate [B,H,N,P]."""
+def ssd_decode_step(hstate, xt, dtt, a, bt, ct, d_skip, *, sum_states=None):
+    """One-token state update; hstate [B,H,N,P].  ``sum_states(y)`` sums
+    the readout ``C h`` over the ranks that hold the state's other N
+    blocks (a pinned decode on a block of the state; before the skip
+    term, which every rank has whole)."""
     decay = torch.exp(a * dtt)[..., None, None]
     inject = dtt[..., None, None] * bt[:, None, :, None] * xt[:, :, None, :]
     h_new = decay * hstate.float() + inject
-    yt = (torch.einsum("bhnp,bn->bhp", h_new, ct)
-          + xt * d_skip[None, :, None])
-    return h_new, yt
+    y = torch.einsum("bhnp,bn->bhp", h_new, ct)
+    if sum_states is not None:
+        y = sum_states(y)
+    return h_new, y + xt * d_skip[None, :, None]
 
 
 # ---------------------------------------------------------------------------
@@ -199,25 +205,54 @@ def mamba_prefill(params: dict, x: torch.Tensor, cfg: SSMConfig, *,
 
 
 def mamba_decode(params: dict, x: torch.Tensor, state: dict,
-                 cfg: SSMConfig):
+                 cfg: SSMConfig, *, blocks=None):
     """Decode path.  x: [B,1,d]; state: {conv: [B,K-1,C], ssm: [B,H,N,P]},
-    written in place and returned with the output."""
+    written in place and returned with the output.
+
+    ``blocks`` (a pinned decode on a mesh): ``state`` is the rank's block
+    of each leaf and ``blocks[name]`` its ``launch/sharding.CacheBlock``.
+    Each rank convolves its rows and channels of the conv state and
+    all-gathers the output (an activation, whole on every rank), then
+    updates its block of the SSM state from the whole ``x``, ``B``, ``C``
+    and ``dt`` and all-gathers ``y`` (the readout summed over the ranks
+    that split N); no state leaf is gathered."""
     bsz, _, d_model = x.shape
     di = cfg.d_inner(d_model)
     nh = cfg.n_heads(d_model)
     n = cfg.d_state
     proj = (x @ params["in_proj"])[:, 0]
     z, xbc, dt = _split_proj(proj, di, n, nh)
+    w = params["conv_w"]
+    bc = bs = None
+    if blocks is not None:
+        bc, bs = blocks["conv"], blocks["ssm"]
+        if bc.axes(-2):
+            raise NotImplementedError("a conv state stored by its time dim")
+        xbc, w = bc.cut(bc.cut(xbc, -3, 0), -1), bc.cut(w, -1)
     # rolling conv state
     conv_in = torch.cat([state["conv"], xbc[:, None, :]], dim=1)
-    xbc = F.silu(torch.einsum("bkc,kc->bc", conv_in, params["conv_w"]))
-    xi = xbc[..., :di].reshape(bsz, nh, cfg.head_dim)
-    b = xbc[..., di:di + n]
-    c = xbc[..., di + n:]
+    xbc = F.silu(torch.einsum("bkc,kc->bc", conv_in, w))
+    if bc is not None:
+        xbc = bc.join(bc.join(xbc, -1), -3, 0)
+    xi = xbc[..., :di].reshape(bsz, nh, cfg.head_dim).float()
+    b = xbc[..., di:di + n].float()
+    c = xbc[..., di + n:].float()
     dtv = F.softplus(dt.float() + params["dt_bias"])
     a = -torch.exp(params["a_log"])
-    h_new, yt = ssd_decode_step(state["ssm"], xi.float(), dtv, a, b.float(),
-                                c.float(), params["d_skip"])
+    d_skip = params["d_skip"]
+    sum_states = None
+    if bs is not None:
+        # the block's rows, heads, N and P of every operand
+        xi = bs.cut(bs.cut(bs.cut(xi, -4, 0), -3, 1), -1)
+        dtv = bs.cut(bs.cut(dtv, -4, 0), -3, 1)
+        a, d_skip = bs.cut(a, -3, 0), bs.cut(d_skip, -3, 0)
+        b, c = (bs.cut(bs.cut(t, -4, 0), -2, -1) for t in (b, c))
+        if bs.axes(-2):
+            sum_states = lambda y: bs.reduce(y, -2)
+    h_new, yt = ssd_decode_step(state["ssm"], xi, dtv, a, b, c, d_skip,
+                                sum_states=sum_states)
+    if bs is not None:
+        yt = bs.join(bs.join(bs.join(yt, -1), -3, 1), -4, 0)
     y = yt.reshape(bsz, di).to(x.dtype) * F.silu(z)
     out = (y @ params["out_proj"])[:, None, :]
     state["conv"].copy_(conv_in[:, 1:, :])

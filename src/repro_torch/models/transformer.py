@@ -59,20 +59,29 @@ rank's blocks of the params and caches: each block's params are gathered
 just before the block uses them (inside ``_PeriodRemat``, so its backward
 gathers them again), a decode step gathers each layer's cache and puts the
 rank's block back after writing it, and a prefill keeps the rank's block
-of each new cache.
+of each new cache.  With ``pin_cache`` (the reference's
+``pin_decode_cache``) a decode step computes on the rank's cache blocks
+instead and gathers no cache leaf: each self-attention writes the new
+token's K/V into its block (where it holds the slot) and attends over it
+(``_attend_blocks``: partial scores summed over the feature blocks, a
+softmax across the slot blocks, the outputs all-gathered), a cross block
+attends over its block of the image K/V, and a mamba block updates its
+blocks of the conv and SSM states (``ssm.mamba_decode(blocks=)``).
 
-A ``split`` (``launch/sharding.Split``, on that placement; train and
-prefill) is the reference's ``head_spec`` / ``act_spec`` /
+A ``split`` (``launch/sharding.Split``, on that placement; train, prefill
+and decode) is the reference's ``head_spec`` / ``act_spec`` /
 ``moe_expert_spec`` as explicit collectives over 'model': each rank
 computes its heads (K/V repeated to the head count, ``wo`` row-parallel),
 keeps its features of the residual stream between blocks (the norms'
 sums of squares all-reduced, the MLP column- then row-parallel, the
 embedding, head and loss by vocabulary blocks) and runs its experts, with
 the leaves it computes with used as the rank's blocks; a mamba or cross
-block runs whole on every rank.  ``repeat_kv`` reaches the plain
-attention as in the reference.  Not ported: the XLA controls
-``cache_constraint`` and ``unroll`` (``launch/steps.py`` states what each
-does).
+block runs whole on every rank.  A decode step takes q, K and V whole
+from their column-parallel products, attends over its cache (whole, or
+the rank's blocks when pinned) and enters ``wo`` row-parallel with the
+whole output.  ``repeat_kv`` reaches the plain attention as in the
+reference.  Not ported: the XLA control ``unroll`` (``launch/steps.py``
+states what it does).
 """
 from __future__ import annotations
 
@@ -116,7 +125,8 @@ class RunCtx:
     remat_attention: bool = False   # recompute attention chunks in backward
     repeat_kv: bool = False         # GQA: repeat K/V to the head count
     placement: Any = None           # launch/sharding.Placement: gather on use
-    split: Any = None               # launch/sharding.Split: train / prefill
+    split: Any = None               # launch/sharding.Split: not paged
+    pin_cache: bool = False         # decode: compute on the cache blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -383,14 +393,106 @@ def _norm(ctx: RunCtx, x, w):
     return ctx.split.rms_norm(x, w, ctx.cfg.norm_eps)
 
 
+def _write_slot(leaf, new, block, dim: int, slot) -> None:
+    """Write ``new`` (one row along the leaf's ``dim``, counted from the
+    end) at the cache's ``slot`` (a [1] index), in place: into the rank's
+    block where it holds that slot (``block``, a ``CacheBlock``; a rank
+    that does not rewrites a row with its own value, so no host reads
+    the position)."""
+    at = leaf.dim() + dim
+    if block is None or block.parts(dim) == 1:
+        leaf.index_copy_(at, slot, new)
+        return
+    n = leaf.shape[dim]
+    local = slot - block.start(dim, n)
+    held = ((local >= 0) & (local < n)).reshape(())
+    local = local.clamp(0, n - 1)
+    leaf.index_copy_(at, local, torch.where(held, new,
+                                            leaf.index_select(at, local)))
+
+
+def _slot_positions(cache, blocks, pos, length: int):
+    """The positions the slots of the rank's K block hold: read from its
+    block of ``slot_pos`` where that block holds those slots, else derived
+    from ``pos`` by the slot rule (a prefill puts position p at slot ``p %
+    length``, ring buffers included, and each decode step the next
+    position): slot t holds the last position <= ``pos`` at t, -1 where
+    that is negative."""
+    bk, bp = blocks["k"], blocks["slot_pos"]
+    nt, ns = cache["k"].shape[-3], cache["slot_pos"].shape[-1]
+    t0, s0 = bk.start(-3, nt), bp.start(-1, ns)
+    if s0 <= t0 and t0 + nt <= s0 + ns:
+        return cache["slot_pos"].narrow(-1, t0 - s0, nt)
+    t = torch.arange(t0, t0 + nt, dtype=torch.int32, device=pos.device)
+    held = pos - (pos - t) % length
+    return torch.where(held >= 0, held, -1)
+
+
+def _attend_blocks(q, cache, blocks, cur_pos, k_pos, *, window: int = 0,
+                   softcap: float = 0.0, lowp: bool = False):
+    """Decode attention of the whole query ``q`` [B, 1, H, D] over the
+    rank's blocks of a layer's K/V (``blocks`` their ``CacheBlock``s; the
+    pinned decode): the queries cut to the rows, K/V heads (with their G
+    query heads) and features the block holds, the partial scores summed
+    over the ranks that split the features, the softmax across the ranks
+    that split the slots, and the outputs all-gathered back to [B, 1, H,
+    D]."""
+    bk = blocks["k"]
+    b, _, h, hd = q.shape
+    kh = cache["k"].shape[-2] * bk.parts(-2)
+    qf = q.reshape(b, 1, kh, h // kh, hd).float() * attention.attn_scale(hd)
+    qf = bk.cut(bk.cut(bk.cut(qf, -4, 0), -2, -3), -1)
+    out = attention.decode_attention_block(
+        qf, cache["k"], cache["v"], cur_pos, k_pos, window=window,
+        softcap=softcap, lowp=lowp,
+        sum_scores=(lambda s: bk.reduce(s, -1)) if bk.axes(-1) else None,
+        over_slots=((lambda t, op: bk.reduce(t, -3, op))
+                    if bk.parts(-3) > 1 else None))
+    out = bk.join(bk.join(bk.join(out.to(q.dtype), -1), -2, -3), -4, 0)
+    return out.reshape(b, 1, h, hd)
+
+
+def _decode_self_attn(q, k, v, cache, window: int, ctx: RunCtx, key):
+    """One decode step of a self-attention layer on its cache, written in
+    place: ``q`` [B, 1, H, D], the new ``k`` / ``v`` [B, 1, K, D] (after
+    RoPE).  Pinned (``ctx.pin_cache``), ``cache`` is the rank's blocks:
+    the new token's K/V cut to the block and written where the rank holds
+    its slot, then :func:`_attend_blocks`."""
+    cfg = ctx.cfg
+    blocks = ctx.placement.cache_blocks(*key) if ctx.pin_cache else None
+    bk = blocks["k"] if blocks else None
+    length = cache["k"].shape[1] * (bk.parts(-3) if bk else 1)
+    slot = (ctx.pos % length).reshape(1).long()
+    for name, new in (("k", k), ("v", v)):
+        if blocks:
+            bn = blocks[name]
+            new = bn.cut(bn.cut(bn.cut(new, -4), -2), -1)
+        _write_slot(cache[name], new.to(cache[name].dtype),
+                    blocks[name] if blocks else None, -3, slot)
+    _write_slot(cache["slot_pos"], ctx.pos.reshape(1).to(torch.int32),
+                blocks["slot_pos"] if blocks else None, -1, slot)
+    if blocks is None:
+        return attention.decode_attention(
+            q, cache["k"], cache["v"], ctx.pos, window=window,
+            softcap=cfg.attn_softcap, k_pos=cache["slot_pos"],
+            lowp=ctx.decode_lowp)
+    return _attend_blocks(q, cache, blocks, ctx.pos,
+                          _slot_positions(cache, blocks, ctx.pos, length),
+                          window=window, softcap=cfg.attn_softcap,
+                          lowp=ctx.decode_lowp)
+
+
 def _self_attn(p, x, kind: str, ctx: RunCtx, cache, key=()):
     """Self-attention of the normed ``x`` (in the residual's state):
     ``(out in that state, new cache)``.  Under a split with ``heads`` each
     rank computes its ``H / M`` heads: q by the split's rule (a
     row-parallel ``wq`` reduce-scatters onto the heads), K/V whole for the
     rank's own use (a prefill's cache is whole), then repeated to H heads
-    and cut to the rank's; ``wo`` is row-parallel.  Under a split without
-    it every product is whole on every rank."""
+    and cut to the rank's; ``wo`` is row-parallel.  A decode step takes
+    q, K and V column-parallel and whole for its cache (whole, or the
+    rank's blocks when pinned), and its output whole into the row-parallel
+    ``wo``.  Under a split without ``heads`` every product is whole on
+    every rank."""
     cfg = ctx.cfg
     hd = cfg.resolved_head_dim
     window = cfg.window if kind == "local" else 0
@@ -414,22 +516,16 @@ def _self_attn(p, x, kind: str, ctx: RunCtx, cache, key=()):
             y = sp.enter(y, state)
         return y.reshape(b, s, -1, hd)
 
-    q, k, v = proj("wq"), proj("wk", whole=True), proj("wv", whole=True)
+    decode = ctx.mode == "decode"
+    q, k, v = (proj("wq", whole=decode), proj("wk", whole=True),
+               proj("wv", whole=True))
     new_cache = None
-    if ctx.mode == "decode":
+    if decode:
         pos = ctx.pos + torch.zeros((b, 1), dtype=torch.int32,
                                     device=x.device)
         q = layers.apply_rope(q, pos, cfg.rope_theta)
         k = layers.apply_rope(k, pos, cfg.rope_theta)
-        slot = (ctx.pos % cache["k"].shape[1]).reshape(1).long()
-        cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
-        cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
-        cache["slot_pos"].index_copy_(0, slot, ctx.pos.reshape(1).to(
-            torch.int32))
-        out = attention.decode_attention(
-            q, cache["k"], cache["v"], ctx.pos, window=window,
-            softcap=cfg.attn_softcap, k_pos=cache["slot_pos"],
-            lowp=ctx.decode_lowp)
+        out = _decode_self_attn(q, k, v, cache, window, ctx, key[:-1])
         new_cache = cache
     else:
         pos = torch.arange(s, device=x.device)[None, :]
@@ -452,7 +548,8 @@ def _self_attn(p, x, kind: str, ctx: RunCtx, cache, key=()):
         if ctx.mode == "prefill":
             new_cache = _prefill_cache(*kv, kind, ctx)
     out, state = _linear(ctx, out.reshape(b, out.shape[1], -1),
-                         "R" if sp is None else "S", p["wo"], key + ("wo",))
+                         "R" if sp is None or decode else "S", p["wo"],
+                         key + ("wo",))
     return _to(ctx, out, state, xs), new_cache
 
 
@@ -494,11 +591,12 @@ def _moe(p, h, ctx: RunCtx, key):
     return y, aux
 
 
-def _cross_block(p, x, ctx: RunCtx, cache):
+def _cross_block(p, x, ctx: RunCtx, cache, key=()):
     """Gated cross-attention to the image embeddings, then the gated MLP.
     Prefill keeps the image's K/V as the block's cache; a decode step's
     query attends every image key of that cache (no positions: the image
-    sits wholly before the text)."""
+    sits wholly before the text), pinned over the rank's block of it
+    (:func:`_attend_blocks`; nothing is written)."""
     cfg = ctx.cfg
     hd = cfg.resolved_head_dim
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -507,8 +605,16 @@ def _cross_block(p, x, ctx: RunCtx, cache):
         b = x.shape[0]
         q = attention._proj(h, p["xattn"]["wq"]).reshape(b, 1, cfg.n_heads,
                                                          hd)
-        out = attention.decode_attention(q, cache["k"], cache["v"],
-                                         cache["k"].shape[1] - 1)
+        if ctx.pin_cache:
+            blocks = ctx.placement.cache_blocks(*key)
+            nt = cache["k"].shape[1]
+            t0 = blocks["k"].start(-3, nt)
+            out = _attend_blocks(
+                q, cache, blocks, nt * blocks["k"].parts(-3) - 1,
+                torch.arange(t0, t0 + nt, device=x.device))
+        else:
+            out = attention.decode_attention(q, cache["k"], cache["v"],
+                                             cache["k"].shape[1] - 1)
         out = out.reshape(b, 1, cfg.n_heads * hd) @ p["xattn"]["wo"]
         new_cache = cache
     else:
@@ -531,11 +637,15 @@ def _cross_block(p, x, ctx: RunCtx, cache):
     return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * m, new_cache
 
 
-def _mamba_block(p, x, ctx: RunCtx, cache):
-    """The Mamba-2 mixer with its residual: ``(x, new cache)``."""
+def _mamba_block(p, x, ctx: RunCtx, cache, key=()):
+    """The Mamba-2 mixer with its residual: ``(x, new cache)``; a pinned
+    decode step on the rank's blocks of the states."""
     h = layers.rms_norm(x, p["ln"], ctx.cfg.norm_eps)
     if ctx.mode == "decode":
-        out, new_cache = ssm.mamba_decode(p["mixer"], h, cache, ctx.cfg.ssm)
+        out, new_cache = ssm.mamba_decode(
+            p["mixer"], h, cache, ctx.cfg.ssm,
+            blocks=ctx.placement.cache_blocks(*key) if ctx.pin_cache
+            else None)
     elif ctx.mode == "prefill":
         out, new_cache = ssm.mamba_prefill(p["mixer"], h, ctx.cfg.ssm,
                                            chunk=ctx.ssd_chunk,
@@ -561,7 +671,7 @@ def apply_block(kind: str, p, x, ctx: RunCtx, cache, key=()):
     if kind in ("mamba", "cross"):
         xs = _residual(ctx)
         run = _mamba_block if kind == "mamba" else _cross_block
-        y, new_cache = run(p, _to(ctx, x, xs, "R"), ctx, cache)
+        y, new_cache = run(p, _to(ctx, x, xs, "R"), ctx, cache, key)
         return _to(ctx, y, "R", xs), 0.0, new_cache
     h = _norm(ctx, x, p["ln1"])
     out, new_cache = _self_attn(p["attn"], h, kind, ctx, cache,
@@ -635,10 +745,10 @@ def _logits(params, x, ctx: RunCtx, *, whole: bool = True):
 def _with_cache(ctx: RunCtx, run, cache, *key):
     """``run(cache)`` -> ``(x, aux, new_cache)`` on a block's cache: under a
     placement a decode step gathers the cache, writes it in place and puts
-    the rank's block back; a prefill keeps the rank's block of the new
-    cache."""
+    the rank's block back, or, pinned, runs on the rank's blocks as they
+    are; a prefill keeps the rank's block of the new cache."""
     pl = ctx.placement
-    if pl is None or pl.cache is None:
+    if pl is None or pl.cache is None or ctx.pin_cache:
         return run(cache)
     if cache is not None:
         full = pl.gather_cache(cache, *key)
@@ -771,15 +881,19 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
             cache_len: int = 0, use_pallas: bool = False,
             decode_lowp: bool = False, pages=None, remat: str = "none",
             skip_masked_chunks: bool = False, remat_attention: bool = False,
-            repeat_kv: bool = False, placement=None, split=None):
+            repeat_kv: bool = False, placement=None, split=None,
+            pin_cache: bool = False):
     """The shared forward pass.  Returns ``(logits, aux_loss, new_cache)``;
     ``img`` [B, T_img, d] feeds the cross blocks (train and prefill).
     ``placement`` (``launch/sharding.Placement``): ``params`` and a decode
     step's ``cache`` are the rank's blocks, and a prefill's cache comes back
     as the rank's blocks.  ``split`` (``launch/sharding.Split``, on that
-    placement; train and prefill): the compute split over 'model', and a
-    train forward's logits are the rank's vocabulary block where the split
-    divides the vocabulary (``split.vocab``).
+    placement; not paged): the compute split over 'model', and a train
+    forward's logits are the rank's vocabulary block where the split
+    divides the vocabulary (``split.vocab``).  ``pin_cache`` (decode, under
+    a placement of the caches): attend over and write into the rank's
+    cache blocks, with no cache leaf gathered (the reference's
+    ``pin_decode_cache``).
 
     train:   tokens [B,S] -> logits [B,S,Vp], aux, None
     prefill: tokens [B,S] -> logits [B,Vp] (last pos), aux, cache
@@ -789,16 +903,19 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
     """
     if mode not in ("train", "prefill", "decode", "paged"):
         raise ValueError(f"unknown forward mode {mode!r}")
-    if split is not None and (mode not in ("train", "prefill")
+    if split is not None and (mode == "paged"
                               or split.placement is not placement):
-        raise ValueError(f"a compute split runs train and prefill forwards "
-                         f"on its own placement, not a {mode!r} forward")
+        raise ValueError(f"a compute split runs train, prefill and decode "
+                         f"forwards on its own placement, not a {mode!r} "
+                         "forward")
+    pin_cache = pin_cache and mode == "decode" and placement is not None \
+        and placement.cache is not None
     ctx = RunCtx(cfg=cfg, mode=mode, pos=pos, img=img, chunk=chunk,
                  ssd_chunk=ssd_chunk, cache_len=cache_len,
                  use_pallas=use_pallas, decode_lowp=decode_lowp, pages=pages,
                  skip_masked_chunks=skip_masked_chunks,
                  remat_attention=remat_attention, repeat_kv=repeat_kv,
-                 placement=placement, split=split)
+                 placement=placement, split=split, pin_cache=pin_cache)
     x = _embed(params, tokens, ctx)
     reads_cache = mode in ("decode", "paged")
     shared_p = params.get("shared_attn")

@@ -161,8 +161,7 @@ def test_run_combo_on_meta(arch, kind, tmp_path):
                            cfg=cfg, shape=shape, mesh=MESH4,
                            overrides={"chunk": 32, "ssd_chunk": 32})
     assert REFERENCE_KEYS <= set(rec)
-    assert rec["ignored"] == list(steps.IGNORED_KNOBS) == [
-        "unroll", "pin_decode_cache"]
+    assert rec["ignored"] == list(steps.IGNORED_KNOBS) == ["unroll"]
     assert rec["n_chips"] == 4 and rec["hardware"] == "h100-sxm5"
     want_nodes = 4 if kind == "train" else 1
     assert rec["n_nodes"] == want_nodes

@@ -66,6 +66,20 @@ QUIET = dict(log_fn=lambda *_: None)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this module runs (the worker's setting
+    back after).  The presets' models are small: alone the module takes
+    ~50 s, but beside five other test workers, each with a pool of a
+    thread a core, its runs waited on their pools ~10x longer than they
+    computed (637 s of the suite's run at the parent commit; QSGD's three
+    standalone runs 2.8 s alone, 283 s there)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("preset", PRESETS + COMPRESSED)
 def test_port_loads_reference_spec_json(preset):
     ref = japi.presets.get(preset)

@@ -18,7 +18,8 @@ one, how ``sharding.Split.make`` resolves the knobs, and the split's
   dims divide over 'model' (16), and which leaves the split keeps;
 * the dry run on ``meta``: with the knobs on, a rank's temporaries and
   flops fall, the activations' collectives reach the wire, and the record's
-  ``ignored`` list holds ``unroll`` and ``pin_decode_cache`` alone.
+  ``ignored`` list holds ``unroll`` alone; the decode builder takes the
+  split, a paged step refuses one.
 
 The model cut and the numpy inputs are ``test_torch_tp_gloo``'s (the same
 cut across gloo ranks).  Run alone: ``PYTHONPATH=src python -m pytest -q
@@ -153,19 +154,26 @@ def test_one_rank_split_prefill_is_bit_equal(arch, one_rank):
 
 
 def test_split_refuses_decode(one_rank):
+    """The decode builder takes the split (its weight products split over
+    'model' as the prefill's); a paged step still refuses one."""
     mesh, _ = one_rank
     sc = steps.StepConfig(cfg=_cfg("tinyllama-1.1b"), shape=InputShape(
-        "tiny_prefill", 32, 2, "prefill"), n_nodes=1, chunk=8,
+        "tiny_decode", 8, 1, "decode"), n_nodes=1, chunk=8,
         param_dtype=torch.float32, **ALL)
-    fn = steps.build_prefill_step(sc, mesh=mesh)
+    fn = steps.build_decode_step(sc, mesh=mesh)
+    assert fn.split is not None and fn.split.heads and fn.split.features
     params = tf.init_lm(torch.Generator().manual_seed(3), sc.cfg)
-    cache = tf.init_cache(sc.cfg, 1, 8, device="cpu")
-    with pytest.raises(ValueError, match="train and prefill"):
-        tf.decode_step(fn.layout.local("params", params),
-                       torch.zeros((1, 1), dtype=torch.long), 0, cache,
-                       sc.cfg, placement=fn.layout.placement, split=fn.split)
-    # the decode builder keeps the gathers
-    assert steps.build_decode_step(sc, mesh=mesh).split is None
+    token = torch.zeros((1, 1), dtype=torch.long)
+    want, _ = tf.decode_step(params, token, 0,
+                             tf.init_cache(sc.cfg, 1, 8, device="cpu"),
+                             sc.cfg)
+    got, _ = fn(params, token, 0, tf.init_cache(sc.cfg, 1, 8, device="cpu"))
+    assert torch.equal(got, want)
+    pages = tf.init_paged_cache(sc.cfg, 2, 4, device="cpu")
+    with pytest.raises(ValueError, match="not a 'paged' forward"):
+        tf.forward(fn.layout.local("params", params), token, sc.cfg,
+                   mode="paged", cache=pages,
+                   placement=fn.layout.placement, split=fn.split)
 
 
 # ---------------------------------------------------------------------------
@@ -221,7 +229,9 @@ def test_split_make_resolves_each_knob_by_divisibility(arch):
 
 
 def test_ignored_knobs_are_the_scan_and_decode_pins():
-    assert steps.IGNORED_KNOBS == ("unroll", "pin_decode_cache")
+    """``pin_decode_cache`` pins a decode to the cache blocks
+    (``test_torch_decode_split``): the scan's ``unroll`` alone is left."""
+    assert steps.IGNORED_KNOBS == ("unroll",)
 
 
 # ---------------------------------------------------------------------------
@@ -248,13 +258,13 @@ def test_dry_run_traces_the_split_on_meta(arch):
 
 def test_dry_run_record_takes_the_knobs(tmp_path):
     """``--set`` reaches the builders; the record's ``ignored`` list is the
-    two knobs with no counterpart."""
+    one knob with no counterpart."""
     shape = InputShape("tiny_prefill", 32, 2, "prefill")
     mesh = tmesh.MeshShape((("data", 1), ("model", 4)))
     rec = dryrun.run_combo(
         "tinyllama-1.1b", shape.name, "tiny", out_dir=str(tmp_path),
         cfg=_cfg("tinyllama-1.1b"), shape=shape, mesh=mesh, full_only=True,
         overrides=dict(ALL, chunk=8))
-    assert rec["ignored"] == ["unroll", "pin_decode_cache"]
+    assert rec["ignored"] == ["unroll"]
     assert rec["overrides"]["megatron_attn"] == "True"
     assert rec["fits"] is True
