@@ -6333,6 +6333,267 @@ def _pinned_decode(dev, mesh, smi) -> dict:
     return out
 
 
+#: slice 13 (the mamba and cross blocks under the split): zamba2-7b and
+#: the VLM at their published widths, cut in depth as LMSTACK_CUTS cuts
+#: them, fp32, SPLIT_KNOBS on the (1, 1) mesh: zamba2 a [1,
+#: SSM_SPLIT_PREFILL] prefill with ``use_pallas`` and a train step of
+#: SSM_SPLIT_TRAIN tokens a node (2 nodes), the VLM a [1, SSM_SPLIT_TRAIN]
+#: prefill and a train step of one node (two nodes of its fp32 state, the
+#: new state and the gradients pass 80 GB)
+SSM_SPLIT_PREFILL, SSM_SPLIT_TRAIN = 4096, 1024
+SSM_SPLIT_NODES = {ZAMBA2_ARCH: 2, VLM_ARCH: 1}
+#: the SSM heads a rank holds of zamba2's 112 on the reference's meshes,
+#: 'model' 2, 4 and 16: the scan at [1, SSM_SPLIT_PREFILL, H, 64, 64]
+SSM_SPLIT_HEADS = (56, 28, 7)
+
+
+def _split_ssm_scan(dev, smi) -> dict:
+    """``ssd_scan`` at zamba2's shape on a rank's heads (SSM_SPLIT_HEADS),
+    x, B and C views of one ``[x of the heads | B | C]`` buffer as the
+    split's conv output lays them out: y and the final state within
+    SSD_TOL of the plain version, the kernel's ms (CUDA graph) beside the
+    plain one's and the bound (operations over 165 TFLOP/s).  These calls
+    are not the main path's (their launches are not counted there)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as K
+
+    atol, rtol = SSD_TOL["float32"]
+    out = {}
+    for h in SSM_SPLIT_HEADS:
+        case = (1, SSM_SPLIT_PREFILL, h, 64, 64, 128, 1.0)
+        x, dt, a, bm, cm, d = _ssd_inputs(case, torch.float32, dev, 90 + h)
+        n, hp = bm.shape[-1], h * x.shape[-1]
+        buf = torch.cat([x.flatten(2), bm, cm], dim=-1)
+        x, bm, cm = (buf[..., :hp].unflatten(-1, (h, x.shape[-1])),
+                     buf[..., hp:hp + n], buf[..., hp + n:])
+        got, want = K.ssd_scan(x, dt, a, bm, cm, d), ref.ssd_scan(
+            x, dt, a, bm, cm, d)
+        errs = []
+        for g, w, what in zip(got, want, ("y", "state")):
+            diff = (g - w).abs()
+            excess = float((diff - rtol * w.abs()).max())
+            if not torch.isfinite(g).all() or excess > atol:
+                raise AssertionError(
+                    f"split ssd_scan at {h} heads: {what} off its plain "
+                    f"version by {excess:.3e} beyond rtol {rtol}")
+            errs.append(float(diff.max()))
+        flops, nbytes = _ssd_cost(case)
+        bound, by = _bound(nbytes, flops, PEAK_3XTF32_FLOPS)
+        out[h] = {"shape": case[:6], "max_abs_err": max(errs),
+                  "ms": _time_ms(lambda: K.ssd_scan(x, dt, a, bm, cm, d), 4),
+                  "plain_ms": _time_ms(lambda: ref.ssd_scan(
+                      x, dt, a, bm, cm, d), 1, reps=3),
+                  "bound_ms": bound, "bound_by": by, "library_ms": None}
+        log(f"shard [{smi}] split ssd_scan B,S,H,P,N,chunk={case[:6]} fp32, "
+            f"x/B/C views of [x | B | C] (token stride {buf.stride(1)}): "
+            f"max abs err y {errs[0]:.3e}, state {errs[1]:.3e} (atol "
+            f"{atol}, rtol {rtol}); kernel {out[h]['ms']:.6f} ms, plain "
+            f"{out[h]['plain_ms']:.6f} ms, bound {bound:.6f} ms ({by})")
+        del x, dt, a, bm, cm, d, buf, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def _held_equal(what, got, want) -> None:
+    """Two trees (or tensors) on the card equal bit for bit."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    a, b = tree_leaves(got), tree_leaves(want)
+    if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{what}: not bit-equal to mesh=None's")
+
+
+def _split_ssm_cross(dev, mesh, smi) -> dict:
+    """Slice 13 on the (1, 1) mesh with SPLIT_KNOBS: zamba2-7b's mamba
+    blocks on the rank's SSM heads and the VLM's cross block on its heads
+    and features, each against mesh=None with the same knobs, bit for bit
+    (at one rank every collective returns its input's values).  zamba2: a
+    [1, SSM_SPLIT_PREFILL] prefill through ``tf.prefill`` with
+    ``use_pallas`` (logits and every state and cache), each scan kernel
+    launched once a mamba layer, and a train step of ``build_train_step``
+    (loss, params and m_hat; ``qg_step`` once a step for every
+    ``qg_update.MAX_LEAVES`` leaves); the VLM: a [1, SSM_SPLIT_TRAIN]
+    prefill and a train step of one node (QHM: no kernel).  No ``in_proj`` /
+    ``out_proj`` / ``xattn`` / cross MLP block gathered along 'model' (at
+    one rank the prefill's FSDP gathers of their 'data' blocks receive 0
+    bytes); ms and ``max_memory_allocated`` of each run; the scan at a
+    rank's head counts (:func:`_split_ssm_scan`)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import ops, qg_update
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(LAUNCH_SEED + 5)
+    out = {"launches": {}, "runs": {}}
+    split_keys = ("in_proj", "out_proj", "xattn", "mlp")
+
+    def count(label, want):
+        """The launches since ``run`` reset them; the split runs' are the
+        part's main path's (the ``ssm_split launches``)."""
+        counts = ops.launch_counts()
+        _expect_launches(label, counts, want)
+        if "mesh=None" not in label:
+            for k, v in counts.items():
+                out["launches"][k] = out["launches"].get(k, 0) + v
+
+    def run(label, fn):
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        res, ms = _timed(fn)
+        peak = torch.cuda.max_memory_allocated(dev)
+        out["runs"][label] = {"ms": ms, "peak": peak,
+                              "peak_over_args": peak - base}
+        return res
+
+    for arch in (ZAMBA2_ARCH, VLM_ARCH):
+        cfg = dataclasses.replace(get_config(arch), **LMSTACK_CUTS[arch])
+        mambas = sum(k == "mamba" for k in cfg.period) * cfg.n_periods \
+            + (cfg.tail_layers if cfg.period[0] == "mamba" else 0)
+        attns = sum(k in tf.ATTN_KINDS for k in cfg.period) * cfg.n_periods \
+            + (cfg.n_periods if cfg.shared_attn_every else 0)
+        seq = SSM_SPLIT_PREFILL if arch == ZAMBA2_ARCH else SSM_SPLIT_TRAIN
+        params = tf.init_lm(torch.Generator(device=dev).manual_seed(
+            LAUNCH_SEED), cfg)
+        for j, kind in enumerate(cfg.period):
+            if kind == "cross":
+                params["blocks"][j]["gate_attn"].fill_(VLM_GATE)
+                params["blocks"][j]["gate_mlp"].fill_(VLM_GATE)
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, size=(1, seq), dtype=np.int32)).to(dev)
+        img = None
+        if cfg.n_image_tokens:
+            img = torch.from_numpy(rng.standard_normal(
+                (1, cfg.n_image_tokens, cfg.d_model)).astype(
+                    np.float32)).to(dev)
+        psc = steps.StepConfig(cfg, InputShape("split_prefill", seq, 1,
+                                               "prefill"),
+                               n_nodes=1, param_dtype=torch.float32,
+                               **SPLIT_KNOBS)
+        fn = steps.build_prefill_step(psc, mesh=mesh)
+        sp, lay = fn.split, fn.layout
+        if sp is None or not (sp.heads and sp.features and sp.ssm == (
+                "mamba" in cfg.period)):
+            raise AssertionError(f"split: {arch}'s split is {sp}")
+        kw = dict(img=img, ssd_chunk=128, cache_len=seq, repeat_kv=True,
+                  use_pallas=True)
+        # warm-up (cuBLAS, the allocator, each kernel's first launch), so
+        # that the first timed run is not charged for them
+        tf.prefill(params, tokens[:, :256], cfg, **dict(kw, cache_len=256))
+        want = run(f"{arch} prefill mesh=None", lambda: tf.prefill(
+            params, tokens, cfg, **kw))
+        want_launches = {k: mambas for k in SSD_KERNELS}
+        want_launches["flash_attention"] = attns
+        count(f"split {arch} prefill mesh=None", want_launches)
+        got = run(f"{arch} prefill split", lambda: tf.prefill(
+            lay.local("params", params), tokens, cfg, placement=lay.placement,
+            split=sp, **kw))
+        count(f"split {arch} prefill", want_launches)
+        _held_equal(f"split {arch} prefill logits and caches", got, want)
+        if not torch.isfinite(got[0]).all():
+            raise AssertionError(f"split {arch}: the logits are not finite")
+        moved = sorted("/".join(map(str, p)) for p in
+                       lay.placement.tally.leaves
+                       if any(k in p for k in split_keys) and not sp.keep(p))
+        if moved:
+            raise AssertionError(f"split {arch}: gathered whole {moved}")
+        del got, want
+
+        tsc = steps.StepConfig(cfg, InputShape(
+            "split_train", SSM_SPLIT_TRAIN, SSM_SPLIT_NODES[arch], "train"),
+            n_nodes=SSM_SPLIT_NODES[arch], param_dtype=torch.float32,
+            **SPLIT_KNOBS)
+        del params
+        torch.cuda.empty_cache()
+        stacked, batch = _launch_inputs(dev, tsc)
+        for j, kind in enumerate(cfg.period):
+            if kind == "cross":
+                stacked["blocks"][j]["gate_attn"].fill_(VLM_GATE)
+                stacked["blocks"][j]["gate_mlp"].fill_(VLM_GATE)
+        if img is not None:
+            batch["image_embeds"] = img.expand(tsc.n_nodes, *img.shape)
+        # one qg_step launch a step for every MAX_LEAVES leaves; one node
+        # trains with QHM (``steps.make_opt``'s n_nodes=1 reduction),
+        # whose chain takes no kernel
+        qg_launches = -(-len(tree_leaves(stacked)) // qg_update.MAX_LEAVES) \
+            if tsc.n_nodes > 1 else 0
+        for label, mesh_ in (("mesh=None", None), ("split", mesh)):
+            step = steps.build_train_step(tsc, mesh=mesh_)
+            opt = steps.make_opt(tsc).init(stacked)
+            res = run(f"{arch} train {label}",
+                      lambda: step(stacked, opt, batch))
+            count(f"split {arch} train {label}",
+                  {"qg_step": qg_launches} if qg_launches else {})
+            if label == "mesh=None":
+                # m_hat to the host where the split step's working set (its
+                # m_hat and the mesh=None step's peak over its arguments)
+                # would not fit beside it (the VLM's fp32 state)
+                want, want_m = res, None
+                need = _nbytes(opt) + out["runs"][f"{arch} train {label}"][
+                    "peak_over_args"] + (4 << 30)
+                del opt, res
+                torch.cuda.empty_cache()
+                if torch.cuda.mem_get_info(dev)[0] < need:
+                    want_m = [t.cpu() for t in tree_leaves(want[1])]
+                    want = (want[0], None, want[2])
+                    torch.cuda.empty_cache()
+            else:
+                del opt
+                tally, tsp = step.layout.placement.tally, step.split
+                moved = [path for path in tally.leaves if any(
+                    k in path for k in split_keys) and not tsp.keep(path)]
+                if tsp is None or moved:
+                    raise AssertionError(f"split {arch} train: gathered "
+                                         f"whole {sorted(moved)}")
+                out["runs"][f"{arch} train split"]["gathered"] = sorted(
+                    "/".join(map(str, path)) for path in tally.leaves
+                    if not tsp.keep(path))
+        _held_equal(f"split {arch} train loss and params",
+                    (res[0], res[2]), (want[0], want[2]))
+        if want_m is None:
+            _held_equal(f"split {arch} train m_hat", res[1], want[1])
+        else:
+            _held_bitwise(f"split {arch} train m_hat", res[1], want_m)
+        r = out["runs"]
+        r[f"{arch} train split"]["m_hat_to_host"] = want_m is not None
+        log(f"shard [{smi}] split {arch} max_memory_allocated: " + ", ".join(
+            f"{k.split(' ', 1)[1]} {v['peak']} B" for k, v in r.items()
+            if k.startswith(arch)) + f"; mesh=None's m_hat held on the host "
+            f"for the comparison: {want_m is not None}")
+        log(f"shard [{smi}] split {arch} {LMSTACK_CUTS[arch]} fp32 with "
+            f"{SPLIT_KNOBS}: prefill [1, {seq}] (use_pallas) bit-equal to "
+            f"mesh=None (logits, every state and cache), "
+            f"{r[f'{arch} prefill split']['ms']:.1f} ms (peak over the "
+            f"params {r[f'{arch} prefill split']['peak_over_args']} B) vs "
+            f"{r[f'{arch} prefill mesh=None']['ms']:.1f} ms "
+            f"({r[f'{arch} prefill mesh=None']['peak_over_args']} B); train "
+            f"{tsc.n_nodes} node(s) x [1, {SSM_SPLIT_TRAIN}] bit-equal (loss "
+            f"{res[2].item()}, params, m_hat), "
+            f"{r[f'{arch} train split']['ms']:.1f} ms "
+            f"({r[f'{arch} train split']['peak_over_args']} B) vs "
+            f"{r[f'{arch} train mesh=None']['ms']:.1f} ms "
+            f"({r[f'{arch} train mesh=None']['peak_over_args']} B); weights "
+            f"the split step gathers whole "
+            f"{r[f'{arch} train split']['gathered']} (the rest: their 'data' "
+            f"blocks where 'data' stores them, 0 bytes at one rank); "
+            f"launches "
+            f"{want_launches} a prefill, qg_step {qg_launches} a step")
+        del stacked, batch, res, want, want_m
+        torch.cuda.empty_cache()
+    out["scan"] = _split_ssm_scan(dev, smi)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def phase_shard(dev, launch_out) -> dict:
     """Slice 10's main path on the card: the launch tooling's step on a
     ('data', 'model') mesh with the sharded state (``sharding.Placement``:
@@ -6362,18 +6623,22 @@ def phase_shard(dev, launch_out) -> dict:
         out["split"]["granite"] = _split_moe_prefill(dev, mesh, smi)
         out["split"]["seconds"] = time.perf_counter() - t_split
         out["decode"] = _pinned_decode(dev, mesh, smi)
+        out["ssm_split"] = _split_ssm_cross(dev, mesh, smi)
     finally:
         distributed.shutdown()
     out["seconds"] = time.perf_counter() - t_phase
     used = {what: json.dumps({k: v for k, v in counts.items() if v})
             for what, counts in (("shard", out["launches"]),
                                  ("split", out["split"]["launches"]),
-                                 ("decode", out["decode"]["launches"]))}
+                                 ("decode", out["decode"]["launches"]),
+                                 ("ssm_split",
+                                  out["ssm_split"]["launches"]))}
     log(f"shard launches {used['shard']}; split launches {used['split']}; "
-        f"decode launches {used['decode']} "
-        f"({out['seconds']:.1f} s for the phase, "
+        f"decode launches {used['decode']}; ssm/cross split launches "
+        f"{used['ssm_split']} ({out['seconds']:.1f} s for the phase, "
         f"{out['split']['seconds']:.1f} s of it the split's, "
-        f"{out['decode']['seconds']:.1f} s the pinned decode's)")
+        f"{out['decode']['seconds']:.1f} s the pinned decode's, "
+        f"{out['ssm_split']['seconds']:.1f} s the ssm/cross split's)")
     return out
 
 
@@ -6666,6 +6931,9 @@ def main() -> int:
     for row in kernels:  # slice 12's decode runs (the plain attention)
         row["decode_launches"] = shard_out["decode"]["launches"].get(
             row["name"], 0)
+    for row in kernels:  # slice 13's mamba and cross blocks split
+        row["ssm_split_launches"] = shard_out["ssm_split"]["launches"].get(
+            row["name"], 0)
     t = ssd_timed["main"]
     kernels.append({
         "name": "ssd_scan", "route": "cuda", "source": csrc + "ssd_scan.cu",
@@ -6680,6 +6948,11 @@ def main() -> int:
         "split_launches": shard_out["split"]["launches"].get("ssd_scan", 0),
         "decode_launches": shard_out["decode"]["launches"].get("ssd_scan",
                                                                0),
+        "ssm_split_launches": shard_out["ssm_split"]["launches"].get(
+            "ssd_scan", 0),
+        "split_heads": {str(h): {k: v for k, v in row.items()
+                                 if k != "shape"}
+                        for h, row in shard_out["ssm_split"]["scan"].items()},
         "lmstack_launches": lmstack_out["launches"]["ssd_scan"],
         "zamba2": {k: ssd_timed["zamba2"][k]
                    for k in ("ms", "plain_ms", "bound_ms", "bound_by",

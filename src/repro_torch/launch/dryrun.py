@@ -46,7 +46,11 @@ the rank's cache blocks.
 
 Artifacts: experiments/dryrun_torch/<arch>__<shape>__<mesh>[__<gossip>].json,
 with the reference's keys, ``memory`` / ``fits`` and the StepConfig knobs
-that change nothing on a card under ``ignored`` (``steps.IGNORED_KNOBS``).
+that change nothing on a card under ``ignored`` (``steps.IGNORED_KNOBS``);
+on a mesh that shards the weights, ``gathered`` (a rank's gathered weight
+bytes by leaf name), and under the split knobs ``split`` (which parts
+they divide, and the blocks they leave whole on every rank by name:
+``sharding.Split.whole``).
 A model that does not fit even at one node gets a record with ``fits:
 false``.
 """
@@ -194,6 +198,17 @@ def trace_step(sc: steps.StepConfig, plan: sharding.ShardingPlan, *,
     for wire in wires:
         for k, v in wire.items():
             rec["wire"][k] = rec["wire"].get(k, 0.0) + v / per
+    if placement is not None:
+        # a rank's gathered weight bytes by leaf name ("in_proj", ...)
+        rec["gathered"] = {}
+        for path, v in placement.tally.leaves.items():
+            rec["gathered"][path[-1]] = rec["gathered"].get(path[-1], 0.0) \
+                + v / per
+    if fn.split is not None:
+        sp = fn.split
+        rec["split"] = {"heads": sp.heads, "ssm": sp.ssm,
+                        "features": sp.features, "vocab": sp.vocab,
+                        "experts": sp.experts, "whole": list(sp.whole)}
     return rec
 
 
@@ -286,6 +301,9 @@ def run_combo(arch: str, shape_name: str, mesh_name: str, *,
         mem = _memory_summary(memory)
         record["memory"] = memory
         record["fits"] = memory["fits"]
+        for k in ("split", "gathered"):
+            if k in full:
+                record[k] = full[k]
         record["full_compile_s"] = round(time.time() - t0, 1)
     record["memory_analysis"] = mem
 

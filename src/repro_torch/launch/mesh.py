@@ -13,7 +13,8 @@ launch state (``launch/sharding.py``) use:
   ``dist.batch_isend_irecv`` (the counterpart of ``jax.lax.ppermute``);
 * ``all_gather`` / ``gather_nodes`` (``jax.lax.all_gather``);
 * ``all_reduce`` (``psum`` / ``pmax``), ``reduce_scatter_dim``
-  (``psum_scatter``) and ``all_gather_dim``.
+  (``psum_scatter``), ``all_gather_dim`` and ``all_to_all``
+  (``jax.lax.all_to_all``, with blocks of any size).
 
 Build one with :func:`make_node_mesh` after
 :func:`repro_torch.launch.distributed.initialize`.  Its ``shape`` is
@@ -130,6 +131,17 @@ class NodeMesh:
                               + tuple(parts.shape[1:]))
         dist.reduce_scatter_tensor(out, parts, group=self.group)
         return out.movedim(0, dim).contiguous()
+
+    def all_to_all(self, x: torch.Tensor, out_rows, in_rows) -> torch.Tensor:
+        """Rows of ``x`` sent to the ranks in rank order (``in_rows[t]``
+        to rank ``t``), and the rows every rank sends this one joined in
+        rank order (``out_rows[q]`` from rank ``q``), by one
+        ``all_to_all_single``; a new contiguous tensor."""
+        x = x.contiguous()
+        out = x.new_empty((sum(out_rows),) + tuple(x.shape[1:]))
+        dist.all_to_all_single(out, x, list(out_rows), list(in_rows),
+                               group=self.group)
+        return out
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """A new tensor: ``x`` summed (``op='sum'``) or maxed (``'max'``)

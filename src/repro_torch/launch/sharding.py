@@ -44,9 +44,9 @@ for bit.
 The compute split (:class:`Split`): the reference's GSPMD also splits the
 compute over 'model' under ``megatron_attn``, ``shard_activations`` and
 ``pin_moe_dispatch``; the port does it with explicit collectives (*f*,
-all-reduce, reduce-scatter, all-gather, each an autograd function with
-its own vmap rule) on the stored blocks, and never gathers whole a leaf
-the split computes with.  Its leaves a rank computes with are the ones a
+all-reduce, reduce-scatter, all-gather, all-to-all, each an autograd
+function with its own vmap rule) on the stored blocks, and never gathers
+whole a leaf the split computes with.  Its leaves a rank computes with are the ones a
 knob uses; every other leaf is gathered on use as above.
 
 The pinned decode (:class:`CacheBlock`, the reference's
@@ -420,9 +420,10 @@ class Tally:
     weights and caches, ``leaves`` the weights' by leaf path (a tuple of
     keys from the params root), ``caches`` the cache leaves' by path (from
     the cache root), and ``wire`` the collectives of activations by kind
-    (``all-reduce``, ``reduce-scatter``, ``all-gather``; the ring
-    algorithm's bytes): a :class:`Split`'s, and a pinned decode's on the
-    cache blocks (:class:`CacheBlock`)."""
+    (``all-reduce``, ``reduce-scatter``, ``all-gather``, ``all-to-all``;
+    the ring algorithm's bytes, an all-to-all's from the other ranks): a
+    :class:`Split`'s, and a pinned decode's on the cache blocks
+    (:class:`CacheBlock`)."""
 
     def __init__(self):
         self.bytes = 0
@@ -691,12 +692,21 @@ def same_layout(a, b) -> bool:
 # the compute split over 'model'
 # ---------------------------------------------------------------------------
 
-#: the leaves of a self-attention the heads split computes with
+#: the leaves of a self- or cross-attention the heads split computes with
 _ATTN_KEYS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 
-#: the block kinds whose attention, MLP and experts the split divides (a
-#: mamba or cross block runs whole on every rank, its leaves gathered)
-_SPLIT_KINDS = ("dense", "local", "global", "moe")
+#: the leaves of a Mamba-2 mixer the SSM heads split computes with (the
+#: depthwise conv's ``conv_w`` is gathered whole on use: its channel blocks
+#: do not line up with the heads)
+_SSM_KEYS = ("in_proj", "out_proj", "dt_bias", "a_log", "d_skip")
+
+#: the block kinds whose weights the split divides in a train or prefill
+#: forward
+_SPLIT_KINDS = ("dense", "local", "global", "moe", "mamba", "cross")
+
+#: a decode step's: its mamba and cross blocks run whole on every rank,
+#: their weights gathered on use
+_DECODE_KINDS = ("dense", "local", "global", "moe")
 
 
 def _on_stack(fn, in_dims, x, *args):
@@ -799,6 +809,122 @@ class _AllGather(torch.autograd.Function):
         return _on_stack(_AllGather, in_dims, x, dim, split)
 
 
+def _join(parts, like):
+    """``parts`` joined along dim 0 (none: ``like``'s first 0 rows)."""
+    return torch.cat(parts) if parts else like[:0]
+
+
+@dataclasses.dataclass(frozen=True)
+class _Regroup:
+    """Columns of a last dim stored by contiguous blocks of ``width``
+    (rank ``q`` holds ``[q * width, (q + 1) * width)``), moved so that each
+    rank holds the column ranges it computes with, in its own order.
+    ``runs[q][t]``: the ``(start, length)`` runs (whole-dim columns) of
+    rank ``q``'s block that rank ``t`` takes, in ``t``'s order; a column
+    goes to one rank at most.  The methods work on tensors with the columns
+    first (dim 0)."""
+
+    width: int
+    runs: tuple
+    ranges: tuple           # ranges[t]: rank t's (start, length) ranges
+
+    @staticmethod
+    def make(width: int, m: int, ranges) -> "_Regroup":
+        """``ranges(t)``: rank ``t``'s ``(start, length)`` column ranges,
+        in the order it holds them."""
+        held = tuple(tuple(ranges(t)) for t in range(m))
+
+        def cut(q, t):
+            lo, hi = q * width, (q + 1) * width
+            return tuple((max(a, lo), min(a + n, hi) - max(a, lo))
+                         for a, n in held[t] if max(a, lo) < min(a + n, hi))
+
+        return _Regroup(width, tuple(tuple(cut(q, t) for t in range(m))
+                                     for q in range(m)), held)
+
+    def rows(self, q: int, t: int) -> int:
+        """Columns rank ``q`` sends rank ``t``."""
+        return sum(n for _, n in self.runs[q][t])
+
+    def _sent(self, r: int) -> list:
+        """``(offset in r's block, length)`` of each run r sends, in the
+        order sent."""
+        return [(a - r * self.width, n) for row in self.runs[r]
+                for a, n in row]
+
+    def _received(self, r: int) -> list:
+        """``(offset received, offset in r's order, length)`` of each run r
+        receives, in the order received."""
+        bases, at = [], 0
+        for start, n in self.ranges[r]:
+            bases.append((start, n, at))
+            at += n
+        out, at = [], 0
+        for q in range(len(self.runs)):
+            for a, n in self.runs[q][r]:
+                out.append((at, next(base + a - start for start, ln, base
+                                     in bases if start <= a < start + ln),
+                            n))
+                at += n
+        return out
+
+    def take(self, x, r: int):
+        """Rank ``r``'s block cut into what each rank takes."""
+        return _join([x.narrow(0, a, n) for a, n in self._sent(r)], x)
+
+    def order(self, got, r: int):
+        """The received runs in rank ``r``'s order."""
+        return _join([got.narrow(0, g, n) for g, _, n in
+                      sorted(self._received(r), key=lambda e: e[1])], got)
+
+    def unorder(self, g, r: int):
+        """:meth:`order`'s inverse: ``g`` in rank ``r``'s order, cut into
+        the runs as they were received."""
+        return _join([g.narrow(0, o, n) for _, o, n in self._received(r)], g)
+
+    def untake(self, back, r: int):
+        """:meth:`take`'s inverse: the runs rank ``r`` sent, back in its
+        block, zeros where no rank took a column."""
+        at, placed = 0, []
+        for a, n in self._sent(r):
+            placed.append((a, at, n))
+            at += n
+        parts, pos = [], 0
+        for a, b, n in sorted(placed):
+            if a > pos:
+                parts.append(back.new_zeros((a - pos,) + back.shape[1:]))
+            parts.append(back.narrow(0, b, n))
+            pos = a + n
+        if pos < self.width:
+            parts.append(back.new_zeros((self.width - pos,)
+                                        + back.shape[1:]))
+        return torch.cat(parts)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The rank's column block ``x`` regrouped (:class:`_Regroup`) into
+    the column ranges the rank computes with, by one all-to-all over
+    'model'; the backward sends each column's gradient back to the rank
+    that holds it (zero where no rank took a column).  A permutation: the
+    values move, none is summed."""
+
+    @staticmethod
+    def forward(x, plan, split):
+        return split._regroup(x, plan, back=False)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.plan, ctx.split = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.split._regroup(grad, ctx.plan, back=True), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, plan, split):
+        return _on_stack(_AllToAll, in_dims, x, plan, split)
+
+
 class _VocabLogSumExp(torch.autograd.Function):
     """``torch.logsumexp`` over the last dim of logits split over 'model'
     by vocabulary blocks: the max and the sum of exps reduced over 'model',
@@ -833,13 +959,17 @@ class Split:
     """The compute split over the 'model' axis, the reference's GSPMD
     layouts (``megatron_attn``, ``shard_activations``,
     ``pin_moe_dispatch``) as explicit collectives, on a placement's stored
-    blocks.  ``heads``: each rank computes its ``H / M`` heads (K/V
-    repeated to H heads first); ``features``: the residual stream between
-    blocks is the rank's ``D / M`` features, the MLP column- then
+    blocks.  ``heads``: each rank computes its ``H / M`` heads of every
+    self- and cross-attention (K/V repeated to H heads first where their
+    heads do not divide); ``ssm``: its ``nh / M`` heads of every Mamba-2
+    mixer (``models/ssm.py``); ``features``: the residual stream between
+    blocks is the rank's ``D / M`` features, the MLPs column- then
     row-parallel, and with ``vocab`` the embedding and the head split by
     vocabulary rows; ``experts``: each rank runs its ``E / M`` experts on
     every token routed to them.  :meth:`make` turns each knob on where the
-    config's dims divide.
+    config's dims divide, and names in ``whole`` the blocks a knob leaves
+    whole on every rank.  ``kinds`` are the block kinds whose weights the
+    split divides (a decode step's mamba and cross blocks run whole).
 
     One rule for every product with a weight the rank stores a 'model'
     block of (:meth:`linear`): a block of output features is column-parallel
@@ -865,6 +995,9 @@ class Split:
     features: bool = False
     experts: bool = False
     vocab: bool = False
+    ssm: bool = False
+    kinds: tuple = _SPLIT_KINDS
+    whole: tuple = ()
     tally: Tally = dataclasses.field(default_factory=Tally)
     _dims: dict = dataclasses.field(default_factory=dict, repr=False)
 
@@ -872,29 +1005,46 @@ class Split:
 
     @staticmethod
     def make(placement: Placement, cfg, *, heads: bool = False,
-             features: bool = False,
-             experts: bool = False) -> Optional["Split"]:
+             features: bool = False, experts: bool = False,
+             decode: bool = False) -> Optional["Split"]:
         """The split of ``cfg`` on ``placement``'s mesh, or None where its
-        mesh has no 'model' axis or no knob applies.  ``heads`` needs the
-        heads and the K/V features to divide over 'model', ``features`` the
-        model width, ``experts`` the expert stacks stored on 'model'; the
-        vocabulary split follows ``features`` where the embedding (and an
-        untied head) are stored by vocabulary rows."""
+        mesh has no 'model' axis or no knob applies.  ``heads`` splits the
+        attention heads where the config has some (``n_heads > 0``) and
+        they and the K/V features divide over 'model', and the Mamba-2
+        heads where ``nh`` divides; ``features`` needs the model width,
+        ``experts`` the expert stacks stored on 'model'; the vocabulary
+        split follows ``features`` where the embedding (and an untied head)
+        are stored by vocabulary rows.  ``decode``: a decode step's split,
+        which leaves the mamba and cross blocks whole."""
         m = dict(placement.mesh.shape).get("model")
         if placement.params is None or not m:
             return None
+        kinds = _DECODE_KINDS if decode else _SPLIT_KINDS
+        attends = cfg.n_heads > 0 and (cfg.shared_attn_every or any(
+            k != "mamba" for k in cfg.period))
         hd = cfg.resolved_head_dim
-        heads = heads and cfg.n_heads % m == 0 \
+        whole = []
+        attn_heads = heads and attends and cfg.n_heads % m == 0 \
             and (cfg.n_kv_heads * hd) % m == 0
+        if heads and attends and not attn_heads:
+            whole.append(f"attention: {cfg.n_heads} heads, "
+                         f"{cfg.n_kv_heads} x {hd} K/V features over "
+                         f"'model' {m}")
+        nh = cfg.ssm.n_heads(cfg.d_model) if cfg.ssm is not None else 0
+        ssm = heads and not decode and "mamba" in cfg.period \
+            and nh % m == 0
+        if heads and not decode and "mamba" in cfg.period and not ssm:
+            whole.append(f"mamba: {nh} SSM heads over 'model' {m}")
         features = features and cfg.d_model % m == 0
         vocab = features and placement.model_dim(("embed",)) == -2 and (
             cfg.tie_embeddings or placement.model_dim(("lm_head",)) == -1)
         experts = experts and cfg.moe is not None and any(
             placement.model_dim(("blocks", j, "moe", "w_gate")) == -3
             for j, kind in enumerate(cfg.period) if kind == "moe")
-        if not (heads or features or experts):
+        if not (attn_heads or ssm or features or experts):
             return None
-        return Split(placement, cfg, heads, features, experts, vocab)
+        return Split(placement, cfg, attn_heads, features, experts, vocab,
+                     ssm, kinds, tuple(whole))
 
     # -- the axis ------------------------------------------------------------
     @property
@@ -922,11 +1072,13 @@ class Split:
         if kind is None:            # embed, lm_head, final_norm
             return (self.vocab and name in ("embed", "lm_head")) or (
                 self.features and name == "final_norm")
-        if kind not in _SPLIT_KINDS:
+        if kind not in self.kinds:
             return False
-        if path[-2] == "attn":
+        if path[-2] in ("attn", "xattn"):
             return self.heads and name in _ATTN_KEYS
-        if path[-2] in ("mlp", "dense") or name in ("ln1", "ln2"):
+        if path[-2] == "mixer":
+            return self.ssm and name in _SSM_KEYS
+        if path[-2] in ("mlp", "dense") or name in ("ln", "ln1", "ln2"):
             return self.features
         return self.experts and path[-2] == "moe" and name in _EXPERT_KEYS \
             and self.placement.model_dim(path) == -3
@@ -975,6 +1127,30 @@ class Split:
         return _all_gather(x, dim, self.placement.mesh, self.axis,
                            _Count(self.tally, kind="all-gather"))
 
+    def _regroup(self, x, plan: _Regroup, *, back: bool):
+        """:class:`_AllToAll`'s forward (``back`` False: the block ``x`` to
+        the rank's ranges) or backward (the ranges' gradient ``x`` to the
+        block) on tensors: one all-to-all, the bytes from the other ranks
+        counted."""
+        m, r = self.size, self.index
+        cols = x.movedim(-1, 0)
+        send = plan.unorder(cols, r) if back else plan.take(cols, r)
+        sends = [plan.rows(q, r) if back else plan.rows(r, q)
+                 for q in range(m)]
+        recvs = [plan.rows(r, q) if back else plan.rows(q, r)
+                 for q in range(m)]
+        row = math.prod(send.shape[1:]) * send.element_size()
+        self.tally.add(row * (sum(recvs) - recvs[r]), kind="all-to-all")
+        if self._shape_only(x):
+            got = send.new_empty((sum(recvs),) + tuple(send.shape[1:]))
+        else:
+            got = self.placement.mesh.axis(self.axis).all_to_all(
+                send, recvs, sends)
+        out = plan.untake(got, r) if back else plan.order(got, r)
+        # the columns last in memory too, as a product's operand is laid
+        # out without the split (its sums then run in the same order)
+        return out.movedim(0, -1).contiguous()
+
     # -- the collectives, under autograd -------------------------------------
     def copy(self, x):
         """*f*: ``x`` itself; its gradient summed over 'model'."""
@@ -997,6 +1173,15 @@ class Split:
         return _GatherOnUse.apply(x, dim, self.placement.mesh, self.axis,
                                   _Count(self.tally, kind="all-gather"))
 
+    def regroup(self, x, ranges):
+        """The column ranges ``ranges(t)`` (rank ``t``'s ``(start,
+        length)`` runs of the whole last dim, in its order) of a tensor
+        whose last dim is ``"S"``, the rank's contiguous block: this rank's
+        ranges joined in its order, by one all-to-all (:class:`_AllToAll`).
+        A column no rank takes gets no gradient from it."""
+        plan = _Regroup.make(x.shape[-1], self.size, ranges)
+        return _AllToAll.apply(x, plan, self)
+
     def block(self, x, dim: int = -1):
         """The rank's block of ``x`` along ``dim`` (a view)."""
         n = x.shape[dim] // self.size
@@ -1005,6 +1190,12 @@ class Split:
     def cut(self, x, dim: int = -1):
         """The rank's block of a whole ``x``, through *f*."""
         return self.block(self.copy(x), dim)
+
+    def own(self, w, path):
+        """The rank's block along the last dim of the params leaf ``w`` at
+        ``path``: the stored block where the split keeps it, else cut from
+        the whole leaf (:meth:`cut`)."""
+        return w if self.model_dim(path) == -1 else self.cut(w)
 
     def logsumexp(self, x):
         """``torch.logsumexp(x, -1)`` of vocabulary-split logits."""

@@ -44,11 +44,12 @@ The TPU knobs of the reference's ``StepConfig``, one rule each:
 * ``megatron_attn``, ``shard_activations`` and ``pin_moe_dispatch``
   split the train, prefill and decode steps' compute over a mesh's
   'model' axis (``sharding.Split``, on the blocks the placement stores):
-  each rank computes its heads (``megatron_attn``; ``wo`` row-parallel),
-  keeps its features of the residual stream between blocks with the MLP
-  column- then row-parallel and the embedding, head and loss split by
-  vocabulary (``shard_activations``), and runs its experts
-  (``pin_moe_dispatch``).
+  each rank computes its heads (``megatron_attn``; ``wo`` row-parallel;
+  in train and prefill also a cross block's heads and a Mamba-2 mixer's
+  SSM heads, ``out_proj`` row-parallel), keeps its features of the
+  residual stream between blocks with the MLP column- then row-parallel
+  and the embedding, head and loss split by vocabulary
+  (``shard_activations``), and runs its experts (``pin_moe_dispatch``).
   Each knob applies where the config's dims divide over 'model'
   (``Split.make``); off, the weights are gathered whole on use.  At one
   'model' rank the split step is the unsplit step's bits; across ranks
@@ -285,15 +286,15 @@ def _repeat_kv(sc: StepConfig) -> bool:
     return sc.repeat_kv or sc.megatron_attn
 
 
-def make_split(sc: StepConfig, layout):
+def make_split(sc: StepConfig, layout, *, decode: bool = False):
     """The compute split of ``sc``'s knobs on ``layout``'s placement
-    (``sharding.Split.make``), or None."""
+    (``sharding.Split.make``; ``decode`` for a decode step's), or None."""
     if layout is None or layout.placement is None:
         return None
     return sharding.Split.make(layout.placement, sc.cfg,
                                heads=sc.megatron_attn,
                                features=sc.shard_activations,
-                               experts=sc.pin_moe_dispatch)
+                               experts=sc.pin_moe_dispatch, decode=decode)
 
 
 def node_grads(sc: StepConfig, params, batch):
@@ -590,7 +591,7 @@ def build_decode_step(sc: StepConfig, *, cache_constraint=None, mesh=None):
     if cache_constraint is not None:
         _check_constraint(cache_constraint, layout)
         pin = True
-    split = make_split(sc, layout)
+    split = make_split(sc, layout, decode=True)
 
     def decode_step(params, token, pos, cache):
         if layout is not None:

@@ -10,7 +10,7 @@ chunk's scores in the backward), ``decode_attention`` (fp32, and ``lowp``
 over a low-precision cache; through ``decode_attention_block``, which a
 pinned decode runs on the rank's block of the cache with the reductions
 over the other ranks as arguments), ``paged_attention`` and
-``cross_attention``.
+``cross_attention`` (its attention on projected heads: ``cross_attend``).
 Layouts are the reference's: q ``[B, S, H, D]``, k/v ``[B, T, K, D]``, GQA
 by head groups ``H = K * G``.  These are the non-kernel paths
 (``use_pallas=False``); the kernels (``flash_attention``,
@@ -26,7 +26,7 @@ from . import layers
 
 __all__ = ["NEG_INF", "init_attention", "qkv", "chunked_attention",
            "decode_attention", "decode_attention_block", "paged_attention",
-           "cross_attention"]
+           "cross_attention", "cross_attend"]
 
 NEG_INF = -2.0e38
 
@@ -331,5 +331,14 @@ def cross_attention(params: dict, x, kv_src, n_heads: int, n_kv_heads: int,
         b, t, n_kv_heads, head_dim)
     v = _proj(kv_src, params["wv"], params.get("bv")).reshape(
         b, t, n_kv_heads, head_dim)
-    out = chunked_attention(q, k, v, causal=False, chunk=min(1024, t))
-    return out.reshape(b, s, n_heads * head_dim) @ params["wo"]
+    return cross_attend(q, k, v).reshape(b, s, n_heads * head_dim) \
+        @ params["wo"]
+
+
+def cross_attend(q, k, v):
+    """The attention of :func:`cross_attention` on its projected heads: q
+    [B,S,H,D] over every image key of k/v [B,T,K,D] -> [B,S,H,D].  H and K
+    are whatever heads the caller computes (a rank's under the compute
+    split, ``launch/sharding.Split``)."""
+    return chunked_attention(q, k, v, causal=False,
+                             chunk=min(1024, k.shape[1]))

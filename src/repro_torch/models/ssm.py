@@ -149,22 +149,78 @@ def ssd_decode_step(hstate, xt, dtt, a, bt, ct, d_skip, *, sum_states=None):
 # full mixer
 # ---------------------------------------------------------------------------
 
-def _scan_inputs(params: dict, x: torch.Tensor, cfg: SSMConfig):
+def _rank_proj(params: dict, x: torch.Tensor, cfg: SSMConfig, split,
+               state: str, key: tuple):
+    """``(z, raw conv input, dt, conv_w)`` of the rank's ``nh / M`` heads
+    under a ``launch/sharding.Split``, from ``x`` in ``state``, without
+    ``in_proj`` gathered.  Where 'model' stores ``in_proj`` by column
+    blocks (of ``[z | x | B | C | dt]``, which need not line up with the
+    heads), the column-parallel product's blocks are regrouped by one
+    all-to-all into the rank's z, x and dt, and B and C are summed whole
+    from the blocks that hold them (zeros elsewhere) for the rank's own
+    use; else the projection is made whole for the rank's own use (a row
+    block's partial sums all-reduced, a leaf gathered whole entered
+    through *f*) and cut.  Either way B's and C's gradients, which every
+    rank's heads add to, are summed over the ranks.  The conv input is
+    ``[x of its heads | B | C]``, and ``conv_w`` (gathered whole on use)
+    the matching columns, through *f*."""
+    m, r = split.size, split.index
+    d_model = split.cfg.d_model          # x may be the rank's features
+    di, nh, n = cfg.d_inner(d_model), cfg.n_heads(d_model), cfg.d_state
+    dh, hh = di // m, nh // m
+    y, ys = split.linear(x, state, params["in_proj"], key + ("in_proj",))
+    if ys == "S":
+        zxdt = split.regroup(y, lambda t: ((t * dh, dh), (di + t * dh, dh),
+                                           (2 * di + 2 * n + t * hh, hh)))
+        lo, width = r * y.shape[-1], y.shape[-1]
+        a, b = max(lo, 2 * di), min(lo + width, 2 * di + 2 * n)
+        if a >= b:                       # no B or C column in the block
+            a = b = 2 * di
+        bc = split.all_reduce(F.pad(y[..., a - lo:b - lo],
+                                    (a - 2 * di, 2 * di + 2 * n - b)),
+                              local=True)
+        z, xr, dt = zxdt.split([dh, dh, hh], dim=-1)
+        z, (b, c) = z.contiguous(), bc.split([n, n], dim=-1)
+    else:
+        # [z_0 .. z_M-1 | x_0 .. x_M-1 | B | C | dt_0 .. dt_M-1], one split
+        # so that the backward is one concatenation
+        parts = split.enter(y, ys).split(
+            [dh] * (2 * m) + [n, n] + [hh] * m, dim=-1)
+        b, c, xr, dt = parts[2 * m], parts[2 * m + 1], parts[m + r], \
+            parts[2 * m + 2 + r]
+        # a copy: a view would keep the whole projection alive for silu(z)
+        z = parts[r].contiguous()
+    xbc_raw = torch.cat([xr, b, c], dim=-1)
+    w = split.copy(params["conv_w"]).split([dh] * m + [n, n], dim=-1)
+    conv_w = torch.cat([w[r], w[m], w[m + 1]], dim=-1)
+    return z, xbc_raw, dt, conv_w
+
+
+def _scan_inputs(params: dict, x: torch.Tensor, cfg: SSMConfig, split=None,
+                 state: str = "R", key: tuple = ()):
     """``(z, raw conv input [B,S,C], (x [B,S,H,P], dt, a, b, c,
     d_skip))`` of the train/prefill mixer: the scan's operands, x, b and c
-    as views of the conv output, which the kernel reads in place."""
+    as views of the conv output, which the kernel reads in place.  Under a
+    ``split`` (:func:`_rank_proj`) H is the rank's heads and the conv
+    output ``[x of its heads | B | C]``, so the same views hold (a token
+    stride of ``di / M + 2N``)."""
     bsz, s, d_model = x.shape
-    di = cfg.d_inner(d_model)
-    nh = cfg.n_heads(d_model)
     n = cfg.d_state
-    proj = x @ params["in_proj"]
-    z, xbc_raw, dt = _split_proj(proj, di, n, nh)
-    xbc = _causal_conv(xbc_raw, params["conv_w"])
+    if split is None:
+        di, nh = cfg.d_inner(d_model), cfg.n_heads(d_model)
+        z, xbc_raw, dt = _split_proj(x @ params["in_proj"], di, n, nh)
+        conv_w, own = params["conv_w"], lambda name: params[name]
+    else:
+        z, xbc_raw, dt, conv_w = _rank_proj(params, x, cfg, split, state,
+                                            key)
+        di, nh = z.shape[-1], dt.shape[-1]
+        own = lambda name: split.own(params[name], key + (name,))
+    xbc = _causal_conv(xbc_raw, conv_w)
     xi = xbc[..., :di].reshape(bsz, s, nh, cfg.head_dim)
-    dt = F.softplus(dt.float() + params["dt_bias"])
-    a = -torch.exp(params["a_log"])
+    dt = F.softplus(dt.float() + own("dt_bias"))
+    a = -torch.exp(own("a_log"))
     return z, xbc_raw, (xi, dt, a, xbc[..., di:di + n], xbc[..., di + n:],
-                        params["d_skip"])
+                        own("d_skip"))
 
 
 def _conv_state(xbc_raw: torch.Tensor, k: int) -> torch.Tensor:
@@ -174,34 +230,55 @@ def _conv_state(xbc_raw: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _mixer(params: dict, x: torch.Tensor, cfg: SSMConfig, chunk: int,
-           use_pallas: bool):
-    """``(out [B,S,d], final ssm state [B,H,N,P], raw conv input
-    [B,S,C])`` of the train/prefill mixer."""
+           use_pallas: bool, split=None, state: str = "R", key: tuple = ()):
+    """``(out [B,S,d] in ``state``, final ssm state [B,H,N,P], raw conv
+    input [B,S,C])`` of the train/prefill mixer; under a ``split`` H and C
+    are the rank's, and ``out_proj`` takes the rank's heads (its ``di /
+    M`` input rows where it is stored so: row-parallel), its partial sums
+    moved back to ``state``."""
     bsz, s, _ = x.shape
-    z, xbc_raw, scan_args = _scan_inputs(params, x, cfg)
+    z, xbc_raw, scan_args = _scan_inputs(params, x, cfg, split, state, key)
     scan = kops.ssd_scan if use_pallas else ssd_chunked
     y, fin = scan(*scan_args, chunk=chunk)
     y = y.reshape(bsz, s, -1) * F.silu(z)
-    return y @ params["out_proj"], fin, xbc_raw
+    if split is None:
+        return y @ params["out_proj"], fin, xbc_raw
+    out, ys = split.linear(y, "S", params["out_proj"], key + ("out_proj",))
+    return split.to(out, ys, state), fin, xbc_raw
 
 
 def mamba_mixer(params: dict, x: torch.Tensor, cfg: SSMConfig, *,
-                chunk: int = 128, use_pallas: bool = False) -> torch.Tensor:
-    """Train/prefill path.  x: [B,S,d] -> [B,S,d]."""
-    return _mixer(params, x, cfg, chunk, use_pallas)[0]
+                chunk: int = 128, use_pallas: bool = False, split=None,
+                state: str = "R", key: tuple = ()) -> torch.Tensor:
+    """Train/prefill path.  x: [B,S,d] -> [B,S,d].  ``split`` (a
+    ``launch/sharding.Split`` whose ``ssm`` heads divide): ``x`` and the
+    output are in ``state`` ("R" whole, "S" the rank's features), each rank
+    computes its ``nh / M`` heads with the mixer's leaves at ``key`` in the
+    params tree as the split keeps them."""
+    return _mixer(params, x, cfg, chunk, use_pallas, split, state, key)[0]
 
 
 def mamba_prefill(params: dict, x: torch.Tensor, cfg: SSMConfig, *,
-                  chunk: int = 128, use_pallas: bool = False):
+                  chunk: int = 128, use_pallas: bool = False, split=None,
+                  state: str = "R", key: tuple = ()):
     """The prefill mixer and the state it leaves, in one pass: ``(out
     [B,S,d], {"conv": [B,K-1,C], "ssm": [B,H,N,P]})``.  The SSM state is
     the scan's own final state (the kernel's output under ``use_pallas``)
     and the conv state the last K-1 rows of the raw conv input, where the
     reference recomputes both through a second jnp pass
-    (``repro/models/transformer.py:379`` ``_mamba_prefill_state``)."""
-    out, fin, xbc_raw = _mixer(params, x, cfg, chunk, use_pallas)
-    return out, {"conv": _conv_state(xbc_raw, params["conv_w"].shape[0]),
-                 "ssm": fin}
+    (``repro/models/transformer.py:379`` ``_mamba_prefill_state``).  Under
+    a ``split`` (as :func:`mamba_mixer`) the rank's heads of both states
+    are all-gathered whole (the caller keeps the block its cache layout
+    stores)."""
+    out, fin, xbc_raw = _mixer(params, x, cfg, chunk, use_pallas, split,
+                               state, key)
+    conv = _conv_state(xbc_raw, params["conv_w"].shape[0])
+    if split is not None:
+        di = fin.shape[-3] * cfg.head_dim
+        conv = torch.cat([split.all_gather(conv[..., :di]), conv[..., di:]],
+                         dim=-1)
+        fin = split.all_gather(fin, -3)
+    return out, {"conv": conv, "ssm": fin}
 
 
 def mamba_decode(params: dict, x: torch.Tensor, state: dict,

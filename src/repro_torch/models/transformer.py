@@ -75,8 +75,10 @@ computes its heads (K/V repeated to the head count, ``wo`` row-parallel),
 keeps its features of the residual stream between blocks (the norms'
 sums of squares all-reduced, the MLP column- then row-parallel, the
 embedding, head and loss by vocabulary blocks) and runs its experts, with
-the leaves it computes with used as the rank's blocks; a mamba or cross
-block runs whole on every rank.  A decode step takes q, K and V whole
+the leaves it computes with used as the rank's blocks; a cross block
+splits as a self-attention block, and a mamba block its SSM heads
+(``ssm.mamba_mixer(split=)``); in a decode step a mamba or cross block
+runs whole on every rank.  A decode step takes q, K and V whole
 from their column-parallel products, attends over its cache (whole, or
 the rank's blocks when pinned) and enters ``wo`` row-parallel with the
 whole output.  ``repeat_kv`` reaches the plain attention as in the
@@ -482,6 +484,29 @@ def _decode_self_attn(q, k, v, cache, window: int, ctx: RunCtx, key):
                           lowp=ctx.decode_lowp)
 
 
+def _heads_split(ctx: RunCtx):
+    """The split when it divides the attention heads, else None."""
+    return ctx.split if ctx.split is not None and ctx.split.heads else None
+
+
+def _head_proj(ctx: RunCtx, p, name: str, x, state: str, key, inputs,
+               *, whole: bool = False):
+    """``x @ p[name] + bias`` of ``x`` in ``state`` as [B, S, heads, D]:
+    under the heads split the rank's heads, or with ``whole`` all of them
+    for the rank's own use; ``inputs`` shares the moved ``x`` between the
+    products that read it (``_linear``)."""
+    sp = _heads_split(ctx)
+    y, st = _linear(ctx, x, state, p[name], key + (name,), inputs)
+    bias = p.get("b" + name[1])
+    if sp is not None and (bias is not None or not whole):
+        y, st = sp.to(y, st, "S"), "S"
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    if sp is not None and whole:
+        y = sp.enter(y, st)
+    return y.reshape(x.shape[0], x.shape[1], -1, ctx.cfg.resolved_head_dim)
+
+
 def _self_attn(p, x, kind: str, ctx: RunCtx, cache, key=()):
     """Self-attention of the normed ``x`` (in the residual's state):
     ``(out in that state, new cache)``.  Under a split with ``heads`` each
@@ -499,26 +524,12 @@ def _self_attn(p, x, kind: str, ctx: RunCtx, cache, key=()):
     if ctx.mode == "paged":
         return _paged_self_attn(p, x, window, ctx, cache)
     b, s = x.shape[0], x.shape[1]
-    sp = ctx.split if ctx.split is not None and ctx.split.heads else None
+    sp = _heads_split(ctx)
     xs, inputs = _residual(ctx), {}
-
-    def proj(name, whole: bool = False):
-        """``x @ p[name] + bias`` as [B, S, heads, D]: under the heads
-        split the rank's heads, or with ``whole`` all of them for the
-        rank's own use."""
-        y, state = _linear(ctx, x, xs, p[name], key + (name,), inputs)
-        bias = p.get("b" + name[1])
-        if sp is not None and (bias is not None or not whole):
-            y, state = sp.to(y, state, "S"), "S"
-        if bias is not None:
-            y = y + bias.to(y.dtype)
-        if sp is not None and whole:
-            y = sp.enter(y, state)
-        return y.reshape(b, s, -1, hd)
-
     decode = ctx.mode == "decode"
-    q, k, v = (proj("wq", whole=decode), proj("wk", whole=True),
-               proj("wv", whole=True))
+    q, k, v = (_head_proj(ctx, p, name, x, xs, key, inputs, whole=whole)
+               for name, whole in (("wq", decode), ("wk", True),
+                                   ("wv", True)))
     new_cache = None
     if decode:
         pos = ctx.pos + torch.zeros((b, 1), dtype=torch.int32,
@@ -591,15 +602,53 @@ def _moe(p, h, ctx: RunCtx, key):
     return y, aux
 
 
+def _gate(ctx: RunCtx, gate, state: str):
+    """``tanh`` of a 0-d fp32 gate for a branch in ``state``: through *f*
+    where each rank scales its own features, so the gate's gradient is
+    summed over 'model'."""
+    g = torch.tanh(gate)
+    return ctx.split.copy(g) if state == "S" else g
+
+
+def _cross_attn(p, h, ctx: RunCtx, key):
+    """The cross-attention of the normed text ``h`` (in the residual's
+    state) to the whole image ``ctx.img``: ``(out in that state, the
+    image's K/V)``.  Under the heads split each rank computes its ``H /
+    M`` query heads and takes K/V whole from their products for its own
+    use (the prefill's cache is whole), cut to the K/V heads its queries
+    read where the K/V heads divide, else repeated to H heads and cut;
+    ``wo`` is row-parallel."""
+    cfg = ctx.cfg
+    b, s = h.shape[0], h.shape[1]
+    sp = _heads_split(ctx)
+    xs, inputs = _residual(ctx), {}
+    q = _head_proj(ctx, p, "wq", h, xs, key, {})
+    k, v = (_head_proj(ctx, p, name, ctx.img, "R", key, inputs, whole=True)
+            for name in ("wk", "wv"))
+    kv = {"k": k, "v": v}
+    if sp is not None:
+        g = cfg.n_heads // cfg.n_kv_heads
+        if k.shape[2] % sp.size:
+            k, v = (t.repeat_interleave(g, dim=2) for t in (k, v))
+        k, v = sp.block(k, -2), sp.block(v, -2)
+    out = attention.cross_attend(q, k, v).reshape(b, s, -1)
+    out, state = _linear(ctx, out, "R" if sp is None else "S", p["wo"],
+                         key + ("wo",))
+    return _to(ctx, out, state, xs), kv
+
+
 def _cross_block(p, x, ctx: RunCtx, cache, key=()):
-    """Gated cross-attention to the image embeddings, then the gated MLP.
-    Prefill keeps the image's K/V as the block's cache; a decode step's
-    query attends every image key of that cache (no positions: the image
-    sits wholly before the text), pinned over the rank's block of it
+    """Gated cross-attention to the image embeddings, then the gated MLP,
+    on ``x`` in the residual's state (a split takes the heads, the norms
+    and the MLP as a self-attention block's; ``_gate``).  Prefill keeps
+    the image's K/V as the block's cache; a decode step's query attends
+    every image key of that cache (no positions: the image sits wholly
+    before the text), pinned over the rank's block of it
     (:func:`_attend_blocks`; nothing is written)."""
     cfg = ctx.cfg
     hd = cfg.resolved_head_dim
-    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    xs = _residual(ctx)
+    h = _norm(ctx, x, p["ln1"])
     new_cache = None
     if ctx.mode == "decode":
         b = x.shape[0]
@@ -622,38 +671,42 @@ def _cross_block(p, x, ctx: RunCtx, cache, key=()):
             raise ValueError(f"{cfg.name}: a cross block needs the image "
                              f"embeddings (img [B, {cfg.n_image_tokens}, "
                              f"{cfg.d_model}])")
-        out = attention.cross_attention(p["xattn"], h, ctx.img, cfg.n_heads,
-                                        cfg.n_kv_heads, hd)
+        out, kv = _cross_attn(p["xattn"], h, ctx, key + ("xattn",))
         if ctx.mode == "prefill":
-            b, t, _ = ctx.img.shape
-            new_cache = {
-                "k": attention._proj(ctx.img, p["xattn"]["wk"]).reshape(
-                    b, t, cfg.n_kv_heads, hd),
-                "v": attention._proj(ctx.img, p["xattn"]["wv"]).reshape(
-                    b, t, cfg.n_kv_heads, hd)}
-    x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * out
-    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    m = layers.swiglu(h, p["mlp"]["gate"], p["mlp"]["up"], p["mlp"]["down"])
-    return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * m, new_cache
+            new_cache = kv
+    x = x + _gate(ctx, p["gate_attn"], xs).to(x.dtype) * out
+    h = _norm(ctx, x, p["ln2"])
+    m = _mlp(p["mlp"], h, ctx, key + ("mlp",))
+    return x + _gate(ctx, p["gate_mlp"], xs).to(x.dtype) * m, new_cache
 
 
 def _mamba_block(p, x, ctx: RunCtx, cache, key=()):
-    """The Mamba-2 mixer with its residual: ``(x, new cache)``; a pinned
-    decode step on the rank's blocks of the states."""
-    h = layers.rms_norm(x, p["ln"], ctx.cfg.norm_eps)
+    """The Mamba-2 mixer with its residual, on ``x`` in the residual's
+    state: ``(x, new cache)``.  Under a split the norm takes the rank's
+    features and, where the SSM heads divide (``split.ssm``), the mixer its
+    ``nh / M`` heads (``ssm.mamba_mixer(split=)``); else the mixer runs
+    whole.  A pinned decode step runs on the rank's blocks of the
+    states."""
+    h = _norm(ctx, x, p["ln"])
     if ctx.mode == "decode":
         out, new_cache = ssm.mamba_decode(
             p["mixer"], h, cache, ctx.cfg.ssm,
             blocks=ctx.placement.cache_blocks(*key) if ctx.pin_cache
             else None)
-    elif ctx.mode == "prefill":
-        out, new_cache = ssm.mamba_prefill(p["mixer"], h, ctx.cfg.ssm,
-                                           chunk=ctx.ssd_chunk,
-                                           use_pallas=ctx.use_pallas)
+        return x + out, new_cache
+    xs = _residual(ctx)
+    sp = ctx.split if ctx.split is not None and ctx.split.ssm else None
+    if sp is None:
+        h = _to(ctx, h, xs, "R")
+    kw = dict(chunk=ctx.ssd_chunk, use_pallas=ctx.use_pallas, split=sp,
+              state=xs if sp is not None else "R", key=key + ("mixer",))
+    new_cache = cache
+    if ctx.mode == "prefill":
+        out, new_cache = ssm.mamba_prefill(p["mixer"], h, ctx.cfg.ssm, **kw)
     else:
-        out = ssm.mamba_mixer(p["mixer"], h, ctx.cfg.ssm, chunk=ctx.ssd_chunk,
-                              use_pallas=ctx.use_pallas)
-        new_cache = cache
+        out = ssm.mamba_mixer(p["mixer"], h, ctx.cfg.ssm, **kw)
+    if sp is None:
+        out = _to(ctx, out, "R", xs)
     return x + out, new_cache
 
 
@@ -661,17 +714,22 @@ def apply_block(kind: str, p, x, ctx: RunCtx, cache, key=()):
     """One block; returns ``(x, aux_loss, new_cache)`` as the reference.
     ``aux_loss`` is the MoE balance loss (a 0-d tensor) for ``moe`` and
     0.0 for every other kind.  Under a split (``ctx.split``) ``x`` is in
-    the residual's state, ``key`` is the block's path in the params tree
-    (by which the split finds each leaf's 'model' block), and a mamba or
-    cross block runs whole on every rank."""
+    the residual's state and ``key`` is the block's path in the params tree
+    (by which the split finds each leaf's 'model' block); a mamba or cross
+    block whose kind the split does not take (a decode step's) runs whole
+    on every rank, the residual moved into and out of it."""
     if ctx.mode == "paged" and kind not in ATTN_KINDS:
         raise NotImplementedError(
             f"paged serving supports attention-only stacks; block kind "
             f"{kind!r} (mamba/cross state caches are per-slot, not paged)")
     if kind in ("mamba", "cross"):
-        xs = _residual(ctx)
         run = _mamba_block if kind == "mamba" else _cross_block
-        y, new_cache = run(p, _to(ctx, x, xs, "R"), ctx, cache, key)
+        if ctx.split is None or kind in ctx.split.kinds:
+            y, new_cache = run(p, x, ctx, cache, key)
+            return y, 0.0, new_cache
+        xs = _residual(ctx)
+        y, new_cache = run(p, _to(ctx, x, xs, "R"),
+                           dataclasses.replace(ctx, split=None), cache, key)
         return _to(ctx, y, "R", xs), 0.0, new_cache
     h = _norm(ctx, x, p["ln1"])
     out, new_cache = _self_attn(p["attn"], h, kind, ctx, cache,

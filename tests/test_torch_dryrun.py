@@ -13,6 +13,9 @@ compute the same thing.
   train steps and a gemma2 decode step: the reference's record keys,
   nonzero flops, nonzero wire bytes where nodes gossip, per-rank memory
   with ``fits``, the ignored knobs.
+* On the production mesh with the split knobs: zamba2's SSM heads split
+  with no ``in_proj`` / ``out_proj`` byte gathered, mamba2-130m's block
+  named whole (its 24 SSM heads do not divide 16).
 * ``rebuild`` round-trips a record, and on a record without a hardware key
   gives the reference's ``rebuild``.
 * The report's four tables equal the reference's markdown on the same
@@ -196,6 +199,33 @@ def test_run_combo_on_meta(arch, kind, tmp_path):
                                   for t, s in held)
     with open(tmp_path / f"{arch}__{shape.name}__tiny.json") as fh:
         assert json.load(fh)["memory_analysis"] == rec["memory_analysis"]
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-130m"])
+def test_split_ssm_blocks_on_the_production_mesh(arch, tmp_path):
+    """The reference's (16, 16) mesh with the three knobs, one period and
+    the tail at published widths: zamba2's 112 SSM heads split 16 ways
+    and a rank gathers no byte of ``in_proj`` / ``out_proj``; mamba2-130m's
+    24 do not divide 16, so the record names its mamba block whole and the
+    mixer's weights are gathered on use."""
+    cfg = dryrun.probe_cfg(get_config(arch), 1)
+    shape = InputShape("tiny_train", 256, 16, "train")
+    rec = dryrun.run_combo(
+        arch, shape.name, "production", out_dir=str(tmp_path), cfg=cfg,
+        shape=shape, mesh=dryrun.MESHES["production"], full_only=True,
+        overrides={"chunk": 128, "ssd_chunk": 64, "megatron_attn": True,
+                   "shard_activations": True, "pin_moe_dispatch": True})
+    assert rec["n_nodes"] == 16 and rec["node_axis"] == "data"
+    split, gathered = rec["split"], rec["gathered"]
+    assert split["features"] and split["vocab"] and not split["experts"]
+    if arch == "zamba2-7b":
+        assert split["heads"] and split["ssm"] and split["whole"] == []
+        assert gathered.get("in_proj", 0) == gathered.get("out_proj", 0) == 0
+        assert gathered["conv_w"] > 0
+    else:
+        assert not split["heads"] and not split["ssm"]
+        assert split["whole"] == ["mamba: 24 SSM heads over 'model' 16"]
+        assert gathered["in_proj"] > 0 and gathered["out_proj"] > 0
 
 
 def test_a_model_that_does_not_fit_gets_a_record(tmp_path):

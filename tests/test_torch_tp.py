@@ -14,8 +14,15 @@ one, how ``sharding.Split.make`` resolves the knobs, and the split's
   final params and m_hat bit for bit, under ``remat`` full and none, and
   the prefill's logits and caches bit for bit; with the knobs off the step
   keeps the gathers on use (no split);
+* the Mamba-2 and cross blocks under the split (``test_torch_tp_ssm_gloo``'s
+  zamba2, mamba2-130m and VLM cuts): at one rank with the three knobs, 3
+  train steps (losses, final params and m_hat) and the prefill (logits,
+  the SSM and conv states, the shared block's and the image's K/V) bit for
+  bit against ``mesh=None``, no leaf the split computes with gathered;
 * ``Split.make`` on the production mesh: each knob on where the config's
-  dims divide over 'model' (16), and which leaves the split keeps;
+  dims divide over 'model' (16), the attention heads only where the config
+  has some, the SSM heads where they divide (the blocks a knob leaves
+  whole named), and which leaves the split keeps;
 * the dry run on ``meta``: with the knobs on, a rank's temporaries and
   flops fall, the activations' collectives reach the wire, and the record's
   ``ignored`` list holds ``unroll`` alone; the decode builder takes the
@@ -46,6 +53,11 @@ from repro_torch.tree import tree_leaves, tree_paths
 
 from test_torch_tp_gloo import (ALL, ARCHS, _cfg, _numpy_inputs, _one_thread,
                                 _prefill, _prefill_knobs, _train)
+from test_torch_tp_ssm_gloo import ARCHS as SSM_ARCHS
+from test_torch_tp_ssm_gloo import _cfg as _ssm_cfg
+from test_torch_tp_ssm_gloo import _numpy_inputs as _ssm_inputs
+from test_torch_tp_ssm_gloo import _prefill as _ssm_prefill
+from test_torch_tp_ssm_gloo import _train as _ssm_train
 
 #: (arch, knobs, remat) of the one-rank train runs
 ONE_RANK = [("tinyllama-1.1b", {}, "full"),
@@ -153,6 +165,37 @@ def test_one_rank_split_prefill_is_bit_equal(arch, one_rank):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_one_rank_ssm_cross_split_is_bit_equal(arch, one_rank):
+    """The mamba and cross blocks on the rank's blocks, train and
+    prefill."""
+    mesh, _ = one_rank
+    inputs = {arch: _ssm_inputs(arch)}
+    with _one_thread():
+        want_l, want, _ = _ssm_train(arch, inputs)
+        got_l, got, step = _ssm_train(arch, inputs, mesh)
+        want_logits, want_cache, _ = _ssm_prefill(arch, inputs)
+        logits, cache, fn = _ssm_prefill(arch, inputs, mesh)
+    assert np.array_equal(got_l, want_l)
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert np.array_equal(g, w), i
+    assert np.array_equal(logits, want_logits)
+    assert len(cache) == len(want_cache)
+    for i, (g, w) in enumerate(zip(cache, want_cache)):
+        assert np.array_equal(g, w), i
+    cfg = _ssm_cfg(arch)
+    for sp in (step.split, fn.split):
+        assert sp.ssm == ("mamba" in cfg.period) and sp.features
+        assert sp.heads == ("cross" in cfg.period
+                            or bool(cfg.shared_attn_every))
+        assert all(b == 0 for b in sp.tally.wire.values()) and sp.tally.wire
+    # the train step's nodes take no axis: a kept leaf has no gather at all
+    # (the prefill's gathers its blocks over the FSDP 'data' axis)
+    assert not any(step.split.keep(p)
+                   for p in step.layout.placement.tally.leaves)
+
+
 def test_split_refuses_decode(one_rank):
     """The decode builder takes the split (its weight products split over
     'model' as the prefill's); a paged step still refuses one."""
@@ -194,25 +237,36 @@ def _production_split(arch, kind="prefill", **knobs):
 def test_split_make_resolves_each_knob_by_divisibility(arch):
     sp, cfg = _production_split(arch, **ALL)
     m = 16
-    heads = cfg.n_heads % m == 0 and (
+    # the attention heads where the config has some (mamba2-130m has
+    # none), the SSM heads where they divide
+    heads = cfg.n_heads > 0 and cfg.n_heads % m == 0 and (
         cfg.n_kv_heads * cfg.resolved_head_dim) % m == 0
+    ssm = cfg.ssm is not None and cfg.ssm.n_heads(cfg.d_model) % m == 0
     assert sp.heads == heads
+    assert sp.ssm == ssm
     assert sp.features == (cfg.d_model % m == 0)
     assert sp.vocab == sp.features            # every vocabulary divides
     assert sp.experts == (cfg.moe is not None and cfg.moe.n_experts % m == 0)
     assert sp.size == 16 and sp.index == 0 and sp.residual == "S"
-    # which leaves it keeps: the attention's under heads, the MLP's, the
-    # norms' and the vocabulary's under features, the experts' under
-    # experts; never an SSM's, a cross block's or the router
+    # the blocks a knob leaves whole, by name
+    assert [w.split(":")[0] for w in sp.whole] == (
+        (["attention"] if cfg.n_heads and not heads else [])
+        + (["mamba"] if cfg.ssm is not None and not ssm else []))
+    # which leaves it keeps: a self- or cross-attention's under heads, a
+    # mixer's under ssm, the MLP's, the norms' and the vocabulary's under
+    # features, the experts' under experts; never a conv, a gate or the
+    # router
     pl = sp.placement
     for path in tree_paths(pl.params):
-        kind, d, name = sp._kind(path), pl.model_dim(path), path[-1]
+        d, name = pl.model_dim(path), path[-1]
         parent = path[-2] if len(path) > 1 else None
-        if kind in ("mamba", "cross") or name == "router":
+        if name in ("router", "conv_w", "gate_attn", "gate_mlp"):
             want = False
-        elif parent == "attn":
+        elif parent in ("attn", "xattn"):
             want = heads and d is not None
-        elif parent in ("mlp", "dense") or name in ("ln1", "ln2",
+        elif parent == "mixer":
+            want = ssm and d is not None
+        elif parent in ("mlp", "dense") or name in ("ln", "ln1", "ln2",
                                                     "final_norm"):
             want = sp.features and d is not None
         elif name in ("embed", "lm_head"):

@@ -71,6 +71,19 @@ ALL = sorted(joptim.OPTIMIZERS)
 QUIET = dict(log_fn=lambda *_: None)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this module runs (the worker's setting
+    back after), as ``test_torch_slice`` runs: its models are small, and
+    beside five other test workers, each with a pool of a thread a core,
+    its runs waited on their pools longer than they computed (414 s of the
+    suite's run before)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---------------------------------------------------------------------------
 # per-step parity and the golden fingerprints
 # ---------------------------------------------------------------------------
