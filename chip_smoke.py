@@ -6161,12 +6161,49 @@ def _split_moe_prefill(dev, mesh, smi) -> dict:
 #: the prefill builder, then PIN_STEPS greedy decode steps, three ways
 PIN_BATCH, PIN_PROMPT, PIN_STEPS = 8, 1024, 32
 #: the published widths, cut in depth as the lmstack phase cuts them (gemma2
-#: at one period: a local and a global layer): a [PIN_CUT_BATCH,
-#: PIN_CUT_PROMPT] prefill and PIN_CUT_STEPS pinned decode steps
+#: at one period: a local and a global layer; mamba2-130m whole, 24
+#: layers): a [PIN_CUT_BATCH, PIN_CUT_PROMPT] prefill and PIN_CUT_STEPS
+#: pinned decode steps
 PIN_CUTS = {"gemma2-27b": {"n_layers": 2},
             ZAMBA2_ARCH: LMSTACK_CUTS[ZAMBA2_ARCH],
-            VLM_ARCH: LMSTACK_CUTS[VLM_ARCH]}
+            VLM_ARCH: LMSTACK_CUTS[VLM_ARCH],
+            MAMBA_ARCH: {}}
 PIN_CUT_BATCH, PIN_CUT_PROMPT, PIN_CUT_STEPS = 2, 64, 4
+#: the leaves a decode split computes with on the rank's 'model' block
+#: (slice 14): (the parent's name, the leaves' names, the block kinds)
+PIN_KEPT = (("mixer", ("in_proj", "out_proj", "conv_w"), ("mamba",)),
+            ("xattn", ("wq", "wo"), ("cross",)),
+            ("mlp", ("gate", "up", "down"), ("cross",)))
+#: the collectives a mesh's process group runs, counted a decode step
+COLLECTIVES = ("all_gather_into_tensor", "all_reduce",
+               "reduce_scatter_tensor", "all_to_all_single")
+
+
+class _CountCollectives:
+    """Counts the calls to each of ``torch.distributed``'s COLLECTIVES
+    while it is entered (``launch/mesh.py`` reaches them through the
+    module's attributes), and restores them on exit."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.counts = dict.fromkeys(COLLECTIVES, 0)
+        self.saved = {name: getattr(dist, name) for name in COLLECTIVES}
+
+        def wrap(name, fn):
+            def call(*args, **kwargs):
+                self.counts[name] += 1
+                return fn(*args, **kwargs)
+            return call
+
+        for name, fn in self.saved.items():
+            setattr(dist, name, wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for name, fn in self.saved.items():
+            setattr(dist, name, fn)
+        return False
 
 
 def _decode_way(dev, sc, mesh, params, tokens, img, n_steps) -> dict:
@@ -6174,7 +6211,8 @@ def _decode_way(dev, sc, mesh, params, tokens, img, n_steps) -> dict:
     ``n_steps`` greedy decode steps through ``build_decode_step`` (both on
     ``mesh``): every step's logits (stacked, on the card), the final cache
     (the rank's blocks), the decode step, its ms a step (host clock
-    between two syncs) and the peak allocated over the run."""
+    between two syncs), the collectives a decode step by kind
+    (:class:`_CountCollectives`) and the peak allocated over the run."""
     import torch
     from repro_torch.launch import steps
 
@@ -6185,15 +6223,17 @@ def _decode_way(dev, sc, mesh, params, tokens, img, n_steps) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     logits, cache = prefill(params, tokens, img)
     out, ms = [logits], []
-    for i in range(n_steps):
-        token = torch.argmax(logits, -1, keepdim=True)
-        (logits, cache), dt = _timed(decode, params, token,
-                                     tokens.shape[1] + i, cache)
-        out.append(logits)
-        ms.append(dt)
+    with _CountCollectives() as calls:
+        for i in range(n_steps):
+            token = torch.argmax(logits, -1, keepdim=True)
+            (logits, cache), dt = _timed(decode, params, token,
+                                         tokens.shape[1] + i, cache)
+            out.append(logits)
+            ms.append(dt)
     return {"logits": torch.stack(out), "cache": cache, "fn": decode,
             "ms": ms, "peak": torch.cuda.max_memory_allocated(dev),
-            "base": base}
+            "base": base, "collectives": {
+                k: v / n_steps for k, v in calls.counts.items() if v}}
 
 
 def _held_decode(what, got: dict, want: dict) -> None:
@@ -6215,8 +6255,11 @@ def _pinned_decode(dev, mesh, smi) -> dict:
     blocks, pin on, with SPLIT_KNOBS), every step's logits and the final
     cache bit-equal across the three, no cache leaf gathered with the pin,
     no kernel launched (the builders' decode is the plain attention); then
-    gemma2-27b, zamba2-7b and the VLM at published widths (PIN_CUTS), the
-    pinned decode with SPLIT_KNOBS bit-equal to mesh=None."""
+    gemma2-27b, zamba2-7b and the VLM at published widths and mamba2-130m
+    whole (PIN_CUTS), the pinned decode with SPLIT_KNOBS bit-equal to
+    mesh=None, the mamba mixers' projections and ``conv_w`` and the cross
+    blocks' ``wq`` / ``wo`` and MLP on the rank's 'model' blocks
+    (PIN_KEPT, slice 14); the collectives a decode step of each."""
     import dataclasses
     import numpy as np
     import statistics as st
@@ -6226,6 +6269,7 @@ def _pinned_decode(dev, mesh, smi) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
     from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_paths
 
     t0 = time.perf_counter()
     cfg = get_config(LAUNCH_ARCH)
@@ -6263,7 +6307,8 @@ def _pinned_decode(dev, mesh, smi) -> dict:
                              f"{len(off.layout.placement.tally.caches)}")
     out = {"launches": counts, "runs": {
         label: {"ms": r["ms"], "warm_ms": st.mean(r["ms"][1:]),
-                "peak": r["peak"], "peak_over_args": r["peak"] - r["base"]}
+                "peak": r["peak"], "peak_over_args": r["peak"] - r["base"],
+                "collectives": r["collectives"]}
         for label, r in runs.items()},
         "cache_leaves_gathered": {
             "pinned": len(tally.caches),
@@ -6288,7 +6333,10 @@ def _pinned_decode(dev, mesh, smi) -> dict:
         f"{r['mesh=None']['warm_ms']:.3f}, pin off {r['pin off']['warm_ms']:.3f}"
         f", pinned {r['pinned']['warm_ms']:.3f}; max_memory_allocated "
         + ", ".join(f"{k} {v['peak']} B ({v['peak_over_args']} B over the "
-                    "params)" for k, v in r.items()))
+                    "params)" for k, v in r.items())
+        + "; collectives a step: " + ", ".join(
+            f"{k} {sum(v['collectives'].values()):g} {v['collectives']}"
+            for k, v in r.items() if v["collectives"]))
 
     out["cuts"] = {}
     for arch, cut in PIN_CUTS.items():
@@ -6317,17 +6365,33 @@ def _pinned_decode(dev, mesh, smi) -> dict:
             img, PIN_CUT_STEPS)
         _expect_launches(f"decode {arch}", ops.launch_counts(), {})
         _held_decode(f"decode {arch}", got, want)
-        if got["fn"].layout.placement.tally.caches:
+        fn = got["fn"]
+        if fn.layout.placement.tally.caches:
             raise AssertionError(f"decode {arch}: cache leaves gathered")
+        kept = [path for path in tree_paths(params) if len(path) > 1 and any(
+            path[-2] == parent and path[-1] in names and cfg.period[
+                path[1] if path[0] == "blocks" else 0] in kinds
+            for parent, names, kinds in PIN_KEPT)]
+        whole = [p for p in kept if not fn.split.keep(p)]
+        if whole or (("mamba" in cfg.period or "cross" in cfg.period)
+                     and not kept):
+            raise AssertionError(f"decode {arch}: the split gathers "
+                                 f"{whole} whole along 'model'")
+        warm = st.mean(got["ms"][1:]) / st.mean(want["ms"][1:])
+        calls = sum(got["collectives"].values())
         out["cuts"][arch] = {"ms": got["ms"], "mesh_none_ms": want["ms"],
-                             "peak": got["peak"]}
+                             "peak": got["peak"], "split_over_none": warm,
+                             "collectives": got["collectives"],
+                             "kept": len(kept)}
         log(f"shard [{smi}] decode {arch} {cut} at published widths, fp32: "
             f"prefill [{PIN_CUT_BATCH}, {PIN_CUT_PROMPT}] and "
             f"{PIN_CUT_STEPS} pinned steps with {SPLIT_KNOBS} bit-equal to "
-            f"mesh=None (logits, final cache), no cache leaf gathered; ms a "
+            f"mesh=None (logits, final cache), no cache leaf gathered, "
+            f"{len(kept)} mixer / cross leaves on their 'model' blocks; ms a "
             f"step pinned {[round(v, 3) for v in got['ms']]} vs mesh=None "
-            f"{[round(v, 3) for v in want['ms']]}")
-        del params, want, got
+            f"{[round(v, 3) for v in want['ms']]} (warm {warm:.3f}x); "
+            f"collectives a step {calls:g} {got['collectives']}")
+        del params, want, got, fn
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     return out

@@ -32,6 +32,16 @@ caching allocator's counters over the timed steps.  Then one split step
 under ``torch.profiler``: its device and host self-time totals and the ops
 that take the most of each.
 
+The ``pinned_decode`` run times the launch tooling's pinned decode
+(``pin_decode_cache`` with the split's knobs, on that one-rank mesh)
+beside ``mesh=None`` on zamba2-7b and llama-3.2-vision-11b at their
+published widths cut in depth (chip_smoke's ``PIN_CUTS``) and mamba2-130m
+whole, fp32: a [2, 64] prefill through the prefill builder, one warm-up
+decode step, then ``--reps`` steps each timed between two device syncs,
+the ``torch.distributed`` collectives a step (counted by wrapping the
+module's functions), and one more step of each under ``torch.profiler``
+(device and host self-time totals).
+
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed (by
 default this checkout's), so that two commits are timed by the same script
 on the same card: unpack one of them elsewhere and alternate the two.
@@ -59,11 +69,20 @@ SERVE_KW = {"n_slots": 8, "page_size": 16, "max_len": 256,
 SERVE_REQUESTS, SERVE_MAX_NEW = 16, 16
 SERVE_RUN = "tinyllama_serve"
 SPLIT_RUN = "tinyllama_split"
+PIN_RUN = "pinned_decode"
+#: (arch, config overrides): the published widths, cut in depth
+PIN_CUTS = (("zamba2-7b", {"n_layers": 7, "tail_layers": 1}),
+            ("llama-3.2-vision-11b", {"n_layers": 5}),
+            ("mamba2-130m", {}))
+PIN_BATCH, PIN_PROMPT = 2, 64
+COLLECTIVES = ("all_gather_into_tensor", "all_reduce",
+               "reduce_scatter_tensor", "all_to_all_single")
 SPLIT_KNOBS = dict(megatron_attn=True, shard_activations=True,
                    pin_moe_dispatch=True)
 ALLOCATOR = ("num_alloc_retries", "num_sync_all_streams", "num_device_alloc",
              "num_device_free")
-RUN_NAMES = [label for label, _, _ in STEP_RUNS] + [SERVE_RUN, SPLIT_RUN]
+RUN_NAMES = [label for label, _, _ in STEP_RUNS] + [SERVE_RUN, SPLIT_RUN,
+                                                    PIN_RUN]
 
 
 def serve_runs(reps: int):
@@ -187,6 +206,116 @@ def split_runs(reps: int):
         distributed.shutdown()
 
 
+def _profiled(torch, fn, *args) -> dict:
+    """Device and host self-time totals (ms) of one call of ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn(*args)
+        torch.cuda.synchronize()
+    del out
+    ka = prof.key_averages()
+    kernels = [e for e in ka if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+    return {"device_self_ms": sum(e.self_device_time_total
+                                  for e in kernels) / 1e3,
+            "host_self_ms": sum(e.self_cpu_time_total for e in ka) / 1e3}
+
+
+def _counted(counts: dict):
+    """Adds one to ``counts[name]`` a call of each of
+    ``torch.distributed``'s COLLECTIVES (``launch/mesh.py`` reaches them
+    through the module's attributes); returns the restoring function."""
+    import torch.distributed as dist
+    saved = {name: getattr(dist, name) for name in COLLECTIVES}
+
+    def wrap(name, f):
+        def call(*args, **kwargs):
+            counts[name] = counts.get(name, 0) + 1
+            return f(*args, **kwargs)
+        return call
+
+    for name, f in saved.items():
+        setattr(dist, name, wrap(name, f))
+
+    def restore():
+        for name, f in saved.items():
+            setattr(dist, name, f)
+    return restore
+
+
+def pin_runs(reps: int):
+    """``(arch, way, record)`` of the ``pinned_decode`` run (module
+    docstring)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import distributed, steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    store = Path(tempfile.mkdtemp()) / "store"
+    dev = distributed.initialize(f"file://{store}", 1, 0, backend="nccl",
+                                 timeout_s=120)
+    mesh = make_debug_mesh((1, 1), ("data", "model"))
+    rng = np.random.default_rng(0)
+    try:
+        for arch, cut in PIN_CUTS:
+            cfg = dataclasses.replace(get_config(arch), **cut)
+            params = tf.init_lm(torch.Generator(device=dev).manual_seed(0),
+                                cfg)
+            tokens = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, size=(PIN_BATCH, PIN_PROMPT),
+                dtype=np.int32)).to(dev)
+            img = None
+            if cfg.n_image_tokens:
+                img = torch.from_numpy(rng.standard_normal(
+                    (PIN_BATCH, cfg.n_image_tokens, cfg.d_model)).astype(
+                        np.float32)).to(dev)
+            sc = steps.StepConfig(cfg, InputShape(
+                "pin", PIN_PROMPT + reps + 2, PIN_BATCH, "decode"),
+                n_nodes=1, param_dtype=torch.float32)
+            pinned = dataclasses.replace(sc, pin_decode_cache=True,
+                                         **SPLIT_KNOBS)
+            for way, s, mesh_ in (("mesh=None", sc, None),
+                                  ("pinned", pinned, mesh)):
+                logits, cache = steps.build_prefill_step(s, mesh=mesh_)(
+                    params, tokens, img)
+                decode = steps.build_decode_step(s, mesh=mesh_)
+                token = torch.argmax(logits, -1, keepdim=True)
+                pos = PIN_PROMPT
+                _synced_ms(torch, decode, params, token, pos, cache)
+                counts, ms = {}, []
+                restore = _counted(counts)
+                try:
+                    for i in range(reps):
+                        ms.append(_synced_ms(torch, decode, params, token,
+                                             pos + 1 + i, cache)[1])
+                finally:
+                    restore()
+                prof = _profiled(torch, decode, params, token,
+                                 pos + 1 + reps, cache)
+                yield arch, way, {
+                    "ms_per_step": ms,
+                    "collectives_per_step": {k: v / reps
+                                             for k, v in counts.items()},
+                    **prof}
+                del logits, cache, decode
+                torch.cuda.empty_cache()
+            del params
+            torch.cuda.empty_cache()
+    finally:
+        distributed.shutdown()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
@@ -231,6 +360,11 @@ def main() -> int:
             print(json.dumps({"label": args.label, "run": SPLIT_RUN,
                               "step": step, **rec, "card": card}),
                   flush=True)
+    if PIN_RUN in args.runs:
+        for arch, way, rec in pin_runs(args.reps):
+            print(json.dumps({"label": args.label, "run": PIN_RUN,
+                              "arch": arch, "way": way, **rec,
+                              "card": card}), flush=True)
     return 0
 
 

@@ -47,7 +47,12 @@ compute over 'model' under ``megatron_attn``, ``shard_activations`` and
 all-reduce, reduce-scatter, all-gather, all-to-all, each an autograd
 function with its own vmap rule) on the stored blocks, and never gathers
 whole a leaf the split computes with.  Its leaves a rank computes with are the ones a
-knob uses; every other leaf is gathered on use as above.
+knob uses; every other leaf is gathered on use as above.  A decode step's
+split takes every block kind too: a Mamba-2 mixer's ``in_proj`` and
+``out_proj`` on their stored 'model' blocks (the one-token projection
+made whole between them) and its ``conv_w`` where 'model' stores it by the
+conv cache's channel block, and a cross block's ``wq``, ``wo`` and MLP as
+a self-attention block's.
 
 The pinned decode (:class:`CacheBlock`, the reference's
 ``pin_decode_cache``): a decode step attends over, and writes into, the
@@ -695,18 +700,16 @@ def same_layout(a, b) -> bool:
 #: the leaves of a self- or cross-attention the heads split computes with
 _ATTN_KEYS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 
-#: the leaves of a Mamba-2 mixer the SSM heads split computes with (the
-#: depthwise conv's ``conv_w`` is gathered whole on use: its channel blocks
-#: do not line up with the heads)
+#: the leaves of a Mamba-2 mixer the SSM heads split computes with in a
+#: train or prefill forward (the depthwise conv's ``conv_w`` is gathered
+#: whole on use: its channel blocks do not line up with the heads)
 _SSM_KEYS = ("in_proj", "out_proj", "dt_bias", "a_log", "d_skip")
 
-#: the block kinds whose weights the split divides in a train or prefill
-#: forward
-_SPLIT_KINDS = ("dense", "local", "global", "moe", "mamba", "cross")
-
-#: a decode step's: its mamba and cross blocks run whole on every rank,
-#: their weights gathered on use
-_DECODE_KINDS = ("dense", "local", "global", "moe")
+#: a decode step's: the projections on their stored 'model' blocks, and
+#: ``conv_w`` where its block is the conv cache's channel block
+#: (:meth:`Split._conv_on_cache`); the per-head vectors are gathered whole,
+#: as the SSM state is whole over the heads
+_SSM_DECODE_KEYS = ("in_proj", "out_proj", "conv_w")
 
 
 def _on_stack(fn, in_dims, x, *args):
@@ -968,8 +971,11 @@ class Split:
     vocabulary rows; ``experts``: each rank runs its ``E / M`` experts on
     every token routed to them.  :meth:`make` turns each knob on where the
     config's dims divide, and names in ``whole`` the blocks a knob leaves
-    whole on every rank.  ``kinds`` are the block kinds whose weights the
-    split divides (a decode step's mamba and cross blocks run whole).
+    whole on every rank.  ``decode``: a decode step's split, where ``ssm``
+    computes each Mamba-2 mixer's projections on their stored 'model'
+    blocks (``ssm.mamba_decode(split=)``: the one-token state is cut by
+    the cache's layout, not by heads), and a cross block splits as a
+    decode's self-attention block.
 
     One rule for every product with a weight the rank stores a 'model'
     block of (:meth:`linear`): a block of output features is column-parallel
@@ -996,7 +1002,7 @@ class Split:
     experts: bool = False
     vocab: bool = False
     ssm: bool = False
-    kinds: tuple = _SPLIT_KINDS
+    decode: bool = False
     whole: tuple = ()
     tally: Tally = dataclasses.field(default_factory=Tally)
     _dims: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -1011,15 +1017,14 @@ class Split:
         mesh has no 'model' axis or no knob applies.  ``heads`` splits the
         attention heads where the config has some (``n_heads > 0``) and
         they and the K/V features divide over 'model', and the Mamba-2
-        heads where ``nh`` divides; ``features`` needs the model width,
-        ``experts`` the expert stacks stored on 'model'; the vocabulary
-        split follows ``features`` where the embedding (and an untied head)
-        are stored by vocabulary rows.  ``decode``: a decode step's split,
-        which leaves the mamba and cross blocks whole."""
+        heads where ``nh`` divides (in a decode step wherever the config
+        has Mamba blocks); ``features`` needs the model width, ``experts``
+        the expert stacks stored on 'model'; the vocabulary split follows
+        ``features`` where the embedding (and an untied head) are stored by
+        vocabulary rows.  ``decode``: a decode step's split."""
         m = dict(placement.mesh.shape).get("model")
         if placement.params is None or not m:
             return None
-        kinds = _DECODE_KINDS if decode else _SPLIT_KINDS
         attends = cfg.n_heads > 0 and (cfg.shared_attn_every or any(
             k != "mamba" for k in cfg.period))
         hd = cfg.resolved_head_dim
@@ -1031,9 +1036,8 @@ class Split:
                          f"{cfg.n_kv_heads} x {hd} K/V features over "
                          f"'model' {m}")
         nh = cfg.ssm.n_heads(cfg.d_model) if cfg.ssm is not None else 0
-        ssm = heads and not decode and "mamba" in cfg.period \
-            and nh % m == 0
-        if heads and not decode and "mamba" in cfg.period and not ssm:
+        ssm = heads and "mamba" in cfg.period and (decode or nh % m == 0)
+        if heads and "mamba" in cfg.period and not ssm:
             whole.append(f"mamba: {nh} SSM heads over 'model' {m}")
         features = features and cfg.d_model % m == 0
         vocab = features and placement.model_dim(("embed",)) == -2 and (
@@ -1044,7 +1048,7 @@ class Split:
         if not (attn_heads or ssm or features or experts):
             return None
         return Split(placement, cfg, attn_heads, features, experts, vocab,
-                     ssm, kinds, tuple(whole))
+                     ssm, decode, tuple(whole))
 
     # -- the axis ------------------------------------------------------------
     @property
@@ -1060,28 +1064,34 @@ class Split:
         """The residual stream's state between blocks."""
         return "S" if self.features else "R"
 
-    def _kind(self, path):
-        if path[0] == "blocks":
-            return self.cfg.period[path[1]]
-        if path[0] == "tail":
-            return self.cfg.period[0]
-        return "dense" if path[0] == "shared_attn" else None
-
     def _uses(self, path) -> bool:
-        kind, name = self._kind(path), path[-1]
-        if kind is None:            # embed, lm_head, final_norm
+        name = path[-1]
+        if path[0] not in ("blocks", "tail", "shared_attn"):
+            # embed, lm_head, final_norm
             return (self.vocab and name in ("embed", "lm_head")) or (
                 self.features and name == "final_norm")
-        if kind not in self.kinds:
-            return False
         if path[-2] in ("attn", "xattn"):
             return self.heads and name in _ATTN_KEYS
         if path[-2] == "mixer":
-            return self.ssm and name in _SSM_KEYS
+            if not self.decode:
+                return self.ssm and name in _SSM_KEYS
+            return self.ssm and name in _SSM_DECODE_KEYS and (
+                name != "conv_w" or self._conv_on_cache(path))
         if path[-2] in ("mlp", "dense") or name in ("ln", "ln1", "ln2"):
             return self.features
         return self.experts and path[-2] == "moe" and name in _EXPERT_KEYS \
             and self.placement.model_dim(path) == -3
+
+    def _conv_on_cache(self, path) -> bool:
+        """Whether 'model' stores the mixer's ``conv_w`` at ``path`` by the
+        channel block that it stores the layer's conv cache by (the conv
+        then runs on the rank's channels, each with its own weights)."""
+        cache = self.placement.cache
+        if cache is None:
+            return False
+        conv = Placement._at(cache, path[:-2] + ("conv",))
+        return self.placement.model_dim(path) == -1 \
+            and dict(conv.dims).get(-1) == ("model",)
 
     def keep(self, path) -> bool:
         """Whether the split computes with the rank's 'model' block of the

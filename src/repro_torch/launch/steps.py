@@ -45,10 +45,12 @@ The TPU knobs of the reference's ``StepConfig``, one rule each:
   split the train, prefill and decode steps' compute over a mesh's
   'model' axis (``sharding.Split``, on the blocks the placement stores):
   each rank computes its heads (``megatron_attn``; ``wo`` row-parallel;
-  in train and prefill also a cross block's heads and a Mamba-2 mixer's
-  SSM heads, ``out_proj`` row-parallel), keeps its features of the
-  residual stream between blocks with the MLP column- then row-parallel
-  and the embedding, head and loss split by vocabulary
+  also a cross block's heads and, in train and prefill, a Mamba-2 mixer's
+  SSM heads, ``out_proj`` row-parallel; a decode computes the mixer's
+  ``in_proj`` / ``out_proj`` and, where 'model' stores it by the conv
+  cache's channels, ``conv_w`` on their stored blocks), keeps its
+  features of the residual stream between blocks with the MLP column-
+  then row-parallel and the embedding, head and loss split by vocabulary
   (``shard_activations``), and runs its experts (``pin_moe_dispatch``).
   Each knob applies where the config's dims divide over 'model'
   (``Split.make``); off, the weights are gathered whole on use.  At one

@@ -18,7 +18,8 @@ The decode path carries (conv_state, ssm_state) and costs O(1) per token.
 Where the reference returns a new state, :func:`mamba_decode` writes the
 given one in place and returns it, as the port's KV caches are written;
 a pinned decode on a mesh updates the rank's blocks of the two states
-(``blocks=``).
+(``blocks=``), and a decode's split computes the projections on the
+rank's 'model' blocks of the weights (``split=``).
 ``SSMConfig`` lives in ``configs/base.py``.  The reference's ``unroll`` (a
 TPU scan control) is not ported.
 """
@@ -282,7 +283,8 @@ def mamba_prefill(params: dict, x: torch.Tensor, cfg: SSMConfig, *,
 
 
 def mamba_decode(params: dict, x: torch.Tensor, state: dict,
-                 cfg: SSMConfig, *, blocks=None):
+                 cfg: SSMConfig, *, blocks=None, split=None,
+                 residual: str = "R", key: tuple = ()):
     """Decode path.  x: [B,1,d]; state: {conv: [B,K-1,C], ssm: [B,H,N,P]},
     written in place and returned with the output.
 
@@ -292,25 +294,48 @@ def mamba_decode(params: dict, x: torch.Tensor, state: dict,
     all-gathers the output (an activation, whole on every rank), then
     updates its block of the SSM state from the whole ``x``, ``B``, ``C``
     and ``dt`` and all-gathers ``y`` (the readout summed over the ranks
-    that split N); no state leaf is gathered."""
-    bsz, _, d_model = x.shape
+    that split N); no state leaf is gathered.
+
+    ``split`` (a decode's ``launch/sharding.Split`` with ``ssm``): ``x``
+    and the output are in ``residual`` ("R" whole, "S" the rank's
+    features) and the mixer's leaves at ``key`` in the params tree are as
+    the split keeps them.  ``in_proj`` on its stored 'model' block (its
+    columns, or its rows: the partial sums all-reduced) gives the
+    one-token projection, made whole; ``conv_w``, where the split keeps
+    it, is the rank's channel block, so the conv runs on those channels;
+    ``y`` is whole after its joins and ``out_proj`` takes it by the
+    split's rule (row-parallel on the rank's contiguous rows of ``y``),
+    its partial sums moved to ``residual``."""
+    bsz = x.shape[0]
+    d_model = x.shape[-1] if split is None else split.cfg.d_model
     di = cfg.d_inner(d_model)
     nh = cfg.n_heads(d_model)
     n = cfg.d_state
-    proj = (x @ params["in_proj"])[:, 0]
-    z, xbc, dt = _split_proj(proj, di, n, nh)
+    if split is None:
+        proj = x @ params["in_proj"]
+    else:
+        proj = split.to(*split.linear(x, residual, params["in_proj"],
+                                      key + ("in_proj",)), "R")
+    z, xbc, dt = _split_proj(proj[:, 0], di, n, nh)
     w = params["conv_w"]
+    own_w = split is not None and split.keep(key + ("conv_w",))
     bc = bs = None
     if blocks is not None:
         bc, bs = blocks["conv"], blocks["ssm"]
         if bc.axes(-2):
             raise NotImplementedError("a conv state stored by its time dim")
-        xbc, w = bc.cut(bc.cut(xbc, -3, 0), -1), bc.cut(w, -1)
+        xbc = bc.cut(bc.cut(xbc, -3, 0), -1)
+        if not own_w:
+            w = bc.cut(w, -1)
     # rolling conv state
     conv_in = torch.cat([state["conv"], xbc[:, None, :]], dim=1)
-    xbc = F.silu(torch.einsum("bkc,kc->bc", conv_in, w))
+    # a whole conv state meets conv_w's block on the rank's channels
+    own = split.block(conv_in) if own_w and bc is None else conv_in
+    xbc = F.silu(torch.einsum("bkc,kc->bc", own, w))
     if bc is not None:
         xbc = bc.join(bc.join(xbc, -1), -3, 0)
+    elif own_w:
+        xbc = split.all_gather(xbc)
     xi = xbc[..., :di].reshape(bsz, nh, cfg.head_dim).float()
     b = xbc[..., di:di + n].float()
     c = xbc[..., di + n:].float()
@@ -331,10 +356,14 @@ def mamba_decode(params: dict, x: torch.Tensor, state: dict,
     if bs is not None:
         yt = bs.join(bs.join(bs.join(yt, -1), -3, 1), -4, 0)
     y = yt.reshape(bsz, di).to(x.dtype) * F.silu(z)
-    out = (y @ params["out_proj"])[:, None, :]
+    if split is None:
+        out = y @ params["out_proj"]
+    else:
+        out = split.to(*split.linear(y, "R", params["out_proj"],
+                                     key + ("out_proj",)), residual)
     state["conv"].copy_(conv_in[:, 1:, :])
     state["ssm"].copy_(h_new)
-    return out, state
+    return out[:, None, :], state
 
 
 def init_mamba_state(bsz: int, d_model: int, cfg: SSMConfig,

@@ -77,13 +77,17 @@ sums of squares all-reduced, the MLP column- then row-parallel, the
 embedding, head and loss by vocabulary blocks) and runs its experts, with
 the leaves it computes with used as the rank's blocks; a cross block
 splits as a self-attention block, and a mamba block its SSM heads
-(``ssm.mamba_mixer(split=)``); in a decode step a mamba or cross block
-runs whole on every rank.  A decode step takes q, K and V whole
+(``ssm.mamba_mixer(split=)``).  A decode step takes q, K and V whole
 from their column-parallel products, attends over its cache (whole, or
 the rank's blocks when pinned) and enters ``wo`` row-parallel with the
-whole output.  ``repeat_kv`` reaches the plain attention as in the
-reference.  Not ported: the XLA control ``unroll`` (``launch/steps.py``
-states what it does).
+whole output; a cross block's decode takes its q and ``wo`` so, over the
+image K/V in its cache, and its MLP as any MLP under the split; a mamba
+block's decode makes the one-token projection whole from ``in_proj``'s
+stored 'model' block, convolves its conv cache's channels (with
+``conv_w``'s block where 'model' stores it alike) and enters ``out_proj``
+by the split's rule (``ssm.mamba_decode(split=)``).  ``repeat_kv``
+reaches the plain attention as in the reference.  Not ported: the XLA
+control ``unroll`` (``launch/steps.py`` states what it does).
 """
 from __future__ import annotations
 
@@ -652,8 +656,8 @@ def _cross_block(p, x, ctx: RunCtx, cache, key=()):
     new_cache = None
     if ctx.mode == "decode":
         b = x.shape[0]
-        q = attention._proj(h, p["xattn"]["wq"]).reshape(b, 1, cfg.n_heads,
-                                                         hd)
+        q = _head_proj(ctx, p["xattn"], "wq", h, xs, key + ("xattn",), {},
+                       whole=True)
         if ctx.pin_cache:
             blocks = ctx.placement.cache_blocks(*key)
             nt = cache["k"].shape[1]
@@ -664,7 +668,9 @@ def _cross_block(p, x, ctx: RunCtx, cache, key=()):
         else:
             out = attention.decode_attention(q, cache["k"], cache["v"],
                                              cache["k"].shape[1] - 1)
-        out = out.reshape(b, 1, cfg.n_heads * hd) @ p["xattn"]["wo"]
+        out, state = _linear(ctx, out.reshape(b, 1, cfg.n_heads * hd), "R",
+                             p["xattn"]["wo"], key + ("xattn", "wo"))
+        out = _to(ctx, out, state, xs)
         new_cache = cache
     else:
         if ctx.img is None:
@@ -683,28 +689,31 @@ def _cross_block(p, x, ctx: RunCtx, cache, key=()):
 def _mamba_block(p, x, ctx: RunCtx, cache, key=()):
     """The Mamba-2 mixer with its residual, on ``x`` in the residual's
     state: ``(x, new cache)``.  Under a split the norm takes the rank's
-    features and, where the SSM heads divide (``split.ssm``), the mixer its
-    ``nh / M`` heads (``ssm.mamba_mixer(split=)``); else the mixer runs
-    whole.  A pinned decode step runs on the rank's blocks of the
+    features and, where ``split.ssm``, the mixer its ``nh / M`` heads
+    (``ssm.mamba_mixer(split=)``) or, in a decode step, its projections on
+    the rank's weight blocks (``ssm.mamba_decode(split=)``); else the mixer
+    runs whole.  A pinned decode step runs on the rank's blocks of the
     states."""
     h = _norm(ctx, x, p["ln"])
-    if ctx.mode == "decode":
-        out, new_cache = ssm.mamba_decode(
-            p["mixer"], h, cache, ctx.cfg.ssm,
-            blocks=ctx.placement.cache_blocks(*key) if ctx.pin_cache
-            else None)
-        return x + out, new_cache
     xs = _residual(ctx)
     sp = ctx.split if ctx.split is not None and ctx.split.ssm else None
     if sp is None:
         h = _to(ctx, h, xs, "R")
-    kw = dict(chunk=ctx.ssd_chunk, use_pallas=ctx.use_pallas, split=sp,
-              state=xs if sp is not None else "R", key=key + ("mixer",))
+    state = xs if sp is not None else "R"
     new_cache = cache
-    if ctx.mode == "prefill":
-        out, new_cache = ssm.mamba_prefill(p["mixer"], h, ctx.cfg.ssm, **kw)
+    if ctx.mode == "decode":
+        out, new_cache = ssm.mamba_decode(
+            p["mixer"], h, cache, ctx.cfg.ssm,
+            blocks=ctx.placement.cache_blocks(*key) if ctx.pin_cache
+            else None, split=sp, residual=state, key=key + ("mixer",))
     else:
-        out = ssm.mamba_mixer(p["mixer"], h, ctx.cfg.ssm, **kw)
+        kw = dict(chunk=ctx.ssd_chunk, use_pallas=ctx.use_pallas, split=sp,
+                  state=state, key=key + ("mixer",))
+        if ctx.mode == "prefill":
+            out, new_cache = ssm.mamba_prefill(p["mixer"], h, ctx.cfg.ssm,
+                                               **kw)
+        else:
+            out = ssm.mamba_mixer(p["mixer"], h, ctx.cfg.ssm, **kw)
     if sp is None:
         out = _to(ctx, out, "R", xs)
     return x + out, new_cache
@@ -715,22 +724,15 @@ def apply_block(kind: str, p, x, ctx: RunCtx, cache, key=()):
     ``aux_loss`` is the MoE balance loss (a 0-d tensor) for ``moe`` and
     0.0 for every other kind.  Under a split (``ctx.split``) ``x`` is in
     the residual's state and ``key`` is the block's path in the params tree
-    (by which the split finds each leaf's 'model' block); a mamba or cross
-    block whose kind the split does not take (a decode step's) runs whole
-    on every rank, the residual moved into and out of it."""
+    (by which the split finds each leaf's 'model' block)."""
     if ctx.mode == "paged" and kind not in ATTN_KINDS:
         raise NotImplementedError(
             f"paged serving supports attention-only stacks; block kind "
             f"{kind!r} (mamba/cross state caches are per-slot, not paged)")
     if kind in ("mamba", "cross"):
         run = _mamba_block if kind == "mamba" else _cross_block
-        if ctx.split is None or kind in ctx.split.kinds:
-            y, new_cache = run(p, x, ctx, cache, key)
-            return y, 0.0, new_cache
-        xs = _residual(ctx)
-        y, new_cache = run(p, _to(ctx, x, xs, "R"),
-                           dataclasses.replace(ctx, split=None), cache, key)
-        return _to(ctx, y, "R", xs), 0.0, new_cache
+        y, new_cache = run(p, x, ctx, cache, key)
+        return y, 0.0, new_cache
     h = _norm(ctx, x, p["ln1"])
     out, new_cache = _self_attn(p["attn"], h, kind, ctx, cache,
                                 key + ("attn",))

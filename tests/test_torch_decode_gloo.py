@@ -4,18 +4,24 @@ CPU, held against ``mesh=None`` and the JAX package's decode.
 
 The cuts: TinyLlama, gemma2-27b (local/global layers at window 8, both
 softcaps), zamba2-7b (mamba blocks, the shared block at window 8),
-llama-3.2-vision-11b (cross blocks, 16 image tokens) and granite-moe-3b (4
-experts), at 2 layers, d 64, 4 heads / 2 KV heads, ff 128, V 256, fp32;
-on the (1, 4) mesh also TinyLlama at head_dim 6, with 2 KV heads ('model'
-goes to the cache's length: no other dim divides) and with 8 / 4 heads
-('model' on the K/V heads).  Each case: a [B, 12] prefill through the
-split prefill builder, then 3 decode steps of numpy tokens (positions 12
+llama-3.2-vision-11b (cross blocks, 16 image tokens), granite-moe-3b (4
+experts) and mamba2-130m, at 2 layers, d 64, 4 heads / 2 KV heads, ff
+128, V 256, fp32; on the (1, 4) mesh also TinyLlama at head_dim 6, with 2
+KV heads ('model' goes to the cache's length: no other dim divides) and
+with 8 / 4 heads ('model' on the K/V heads), and mamba2-130m at
+``d_state`` 17 (``in_proj`` 298 wide: 'model' 4 stores it by its input
+rows, as at full width, and stores neither ``conv_w`` nor the conv cache).
+The decode split computes the mamba mixers' ``in_proj`` / ``out_proj``
+(and ``conv_w`` where 'model' stores it by the conv cache's channel
+block) and the cross blocks' ``wq`` / ``wo`` and MLP on the rank's
+blocks.  Each case: a [B, 12] prefill through the split prefill builder,
+then 3 decode steps of numpy tokens (positions 12
 to 14, a 24-slot cache; the local layers' 8-slot ring buffers wrap), at B
 2 and, for TinyLlama, B 1 (the cache's length then goes on 'data').
 
 At world size 2 the ``('data', 'model')`` mesh of (1, 2) ('model' on the
 features), and at 4 the meshes (2, 2) (the rows, or at B 1 the slots, on
-'data'), (1, 4) (the head_dim-6 cuts) and ``('pod', 'data', 'model')`` of
+'data'), (1, 4) (the head_dim-6 and ``d_state``-17 cuts) and ``('pod', 'data', 'model')`` of
 (2, 1, 2) (rows and slots on two data axes), the three split knobs on
 (and off for TinyLlama on (1, 2)):
 
@@ -27,11 +33,16 @@ features), and at 4 the meshes (2, 2) (the rows, or at B 1 the slots, on
   fails on the logits near 0: the JAX package's own (2, 2) decode against
   the port's ``mesh=None`` reaches 2.6 times the elementwise bound, and
   1.25e-06 of the largest logit);
-* on (2, 2), TinyLlama at B 1 and gemma2 also of the JAX package's
-  decode jitted on ``make_debug_mesh((2, 2))`` with the ``cache_specs``
-  in-shardings and the ``pin_decode_cache`` constraint, as its dry run's
+* on (2, 2), TinyLlama at B 1, gemma2, zamba2 and the VLM also of the JAX
+  package's decode jitted on ``make_debug_mesh((2, 2))`` with the
+  ``cache_specs`` in-shardings and the ``pin_decode_cache`` constraint
+  (none where no block keeps a K cache: zamba2), as its dry run's
   ``lower_decode`` compiles it (after its own prefill);
-* the placement's tally: 0 bytes gathered of any cache leaf.
+* the placement's tally: 0 bytes gathered of any cache leaf; on the meshes
+  whose 'data' axes are 1, 0 bytes of any mixer's ``in_proj`` /
+  ``out_proj``, of ``conv_w`` where 'model' stores it and the conv cache
+  by the same channel block, and of a cross block's ``xattn.wq`` / ``wo``
+  and MLP leaves.
 
 The JAX package runs in one subprocess (4 forced host devices) started
 with the module's fixture, beside the ranks; the ranks import nothing of
@@ -59,7 +70,7 @@ from repro_torch.configs.base import InputShape
 from repro_torch.launch import distributed, sharding, steps
 from repro_torch.launch import mesh as tmesh
 from repro_torch.models import transformer as tf
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
 JOIN_S = 240
 PROMPT, CAP, STEPS = 12, 24, 3
@@ -77,19 +88,24 @@ CASES = {"dense": ("tinyllama-1.1b", 2, {}),
          "slots": ("tinyllama-1.1b", 2, dict(head_dim=6)),
          "heads": ("tinyllama-1.1b", 2, dict(head_dim=6, n_heads=8,
                                              n_kv_heads=4)),
-         "ssm": ("mamba2-130m", 2, {})}
+         "ssm": ("mamba2-130m", 2, {}),
+         "ssm17": ("mamba2-130m", 2, dict(ssm=dict(d_state=17)))}
 #: the cases the ('data', 'model') meshes of (1, 2) and (2, 2) run with the
 #: knobs on (and (1, 2) "dense" off too)
-BASE = ("dense", "long", "window", "hybrid", "cross", "experts")
+BASE = ("dense", "long", "window", "hybrid", "cross", "experts", "ssm")
 DM = ("data", "model")
 #: world size: {label: (mesh shape, axis names, cases with the knobs on)}
 MESHES = {2: {"1x2": ((1, 2), DM, BASE)},
           4: {"2x2": ((2, 2), DM, BASE),
-              "1x4": ((1, 4), DM, ("slots", "heads")),
+              "1x4": ((1, 4), DM, ("slots", "heads", "ssm17")),
               "2x1x2": ((2, 1, 2), ("pod", "data", "model"),
                         ("long", "hybrid"))}}
 #: the cases the JAX package decodes on its (2, 2) mesh
-JAX_CASES = ("long", "window")
+JAX_CASES = ("long", "window", "hybrid", "cross")
+#: the leaves a decode split computes with on the rank's 'model' block:
+#: (the parent's name, the leaf's names)
+KEPT = (("mixer", ("in_proj", "out_proj")), ("xattn", ("wq", "wo")),
+        ("mlp", ("gate", "up", "down")))
 
 
 def _runs(world, label):
@@ -98,10 +114,41 @@ def _runs(world, label):
     return out + [("dense", "off")] if label == "1x2" else out
 
 
-def _cfg(name):
+def _cfg(name, get=get_config):
+    """The case's cut (``get``: a package's ``get_config``)."""
     arch, _, over = CASES[name]
-    return dataclasses.replace(get_config(arch, reduced=True), **CUT,
-                               **over)
+    over = dict(over)
+    ssm = over.pop("ssm", None)
+    cfg = dataclasses.replace(get(arch, reduced=True), **CUT, **over)
+    if ssm:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                               **ssm))
+    return cfg
+
+
+def _watched(fn, cfg) -> dict:
+    """The bytes a decode step's placement gathered of each leaf that must
+    gather nothing along 'model' (``KEPT``, the MLP's in cross blocks, and
+    each mixer's ``conv_w`` where 'model' stores it by the conv cache's
+    channel block), by path."""
+    lay = fn.layout
+    specs, cache = lay.specs["params"], lay.specs["cache"]
+    out = {}
+    for path in tree_paths(lay.shapes["params"]):
+        if len(path) < 2:
+            continue
+        parent, name = path[-2:]
+        kind = cfg.period[path[1] if path[0] == "blocks" else 0]
+        watched = any(parent == p and name in names for p, names in KEPT) \
+            and (parent != "mlp" or kind == "cross")
+        if parent == "mixer" and name == "conv_w":
+            spec = sharding.Placement._at(specs, path)
+            conv = sharding.Placement._at(cache, path[:-2] + ("conv",))
+            watched = spec[-1] == conv[-1] == "model"
+        if watched:
+            out["/".join(map(str, path))] = \
+                lay.placement.tally.leaves.get(path, 0)
+    return out
 
 
 def _sc(name, knobs, **extra):
@@ -179,7 +226,8 @@ def _rank(rank: int, world: int, store: str, out_dir: str) -> None:
                 key = f"{label}/{name}/{knobs}"
                 out[key] = (logits, cache, fn.pinned,
                             sum(fn.layout.placement.tally.caches.values()),
-                            fn.split is not None)
+                            fn.split is not None,
+                            _watched(fn, _cfg(name)))
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
             pickle.dump(out, fh)
         distributed.shutdown()
@@ -230,9 +278,8 @@ def _jax_decode(name, inputs, mesh):
     from repro.launch import sharding as jsharding
     from repro.launch import steps as jsteps
 
-    arch, b, over = CASES[name]
-    cfg = dataclasses.replace(jget_config(arch, reduced=True), **CUT,
-                              **over)
+    arch, b, _ = CASES[name]
+    cfg = _cfg(name, jget_config)
     sc = jsteps.StepConfig(cfg=cfg, shape=JInputShape("tiny_decode", CAP, b,
                                                       "decode"),
                            n_nodes=1, chunk=8, ssd_chunk=4,
@@ -240,8 +287,9 @@ def _jax_decode(name, inputs, mesh):
     plan = jsharding.make_plan(mesh, n_nodes=1)
     params = jax.tree.map(jnp.asarray, inputs["params"])
     toks = jnp.asarray(inputs["tokens"])
+    img = inputs.get("img")
     logits, cache = jax.jit(jsteps.build_prefill_step(sc))(
-        params, toks[:, :PROMPT])
+        params, toks[:, :PROMPT], None if img is None else jnp.asarray(img))
     specs = jsharding.cache_specs(plan, cache,
                                   shard_features=sc.cache_shard_features)
     flat, _ = jax.tree_util.tree_flatten_with_path(specs)
@@ -291,7 +339,7 @@ class _Reference:
 
     def __init__(self, d):
         self.dir = d
-        names = BASE + ("slots", "heads")
+        names = BASE + ("slots", "heads", "ssm17")
         self.inputs = {name: _numpy_inputs(name) for name in names}
         with open(d / "inputs.pkl", "wb") as fh:
             pickle.dump(self.inputs, fh)
@@ -354,6 +402,24 @@ def _held(got, want, what):
         _close(g, w, f"{what} cache {i}")
 
 
+def _watched_leaves(name, label, knobs, watched, what) -> None:
+    """The leaves :func:`_watched` found: every mixer's projections, and
+    ``conv_w`` where 'model' 2 stores it with the conv cache (not at
+    ``d_state`` 17 on 'model' 4, where neither divides), and the cross
+    blocks' ``wq`` / ``wo`` and MLP."""
+    if knobs != "all":
+        return
+    cfg = _cfg(name)
+    names = {path.split("/")[-1] for path in watched}
+    want = set()
+    if "mamba" in cfg.period:
+        want |= {"in_proj", "out_proj"} | (
+            set() if name == "ssm17" else {"conv_w"})
+    if "cross" in cfg.period:
+        want |= {"wq", "wo", "gate", "up", "down"}
+    assert names == want, (what, sorted(watched))
+
+
 @pytest.mark.parametrize("world", sorted(MESHES))
 def test_pinned_decode_matches_mesh_none_and_reference(world, tmp_path,
                                                        reference):
@@ -364,11 +430,17 @@ def test_pinned_decode_matches_mesh_none_and_reference(world, tmp_path,
     for r, got in enumerate(ranks):
         for label in MESHES[world]:
             for name, knobs in _runs(world, label):
-                logits, cache, pinned, gathered, split = got[
+                logits, cache, pinned, gathered, split, watched = got[
                     f"{label}/{name}/{knobs}"]
                 what = f"rank {r} {label} {name} knobs {knobs}"
                 assert pinned and gathered == 0, (what, gathered)
                 assert split == (knobs == "all"), what
+                shape, axes, _ = MESHES[world][label]
+                data_one = all(n == 1 for a, n in zip(axes, shape)
+                               if a != "model")
+                if knobs == "all" and data_one:
+                    assert not any(watched.values()), (what, watched)
+                _watched_leaves(name, label, knobs, watched, what)
                 _held((logits, cache), reference.none[name], what)
                 if label == "2x2" and knobs == "all" and name in JAX_CASES:
                     _held((logits, cache), jax_out[name], f"{what} vs JAX")

@@ -77,15 +77,20 @@ def test_one_rank_pinned_decode_is_bit_equal(name, extra, knobs, one_rank):
     assert not any(fn.layout.placement.tally.caches.values())
 
 
-def test_unpinned_decode_gathers_every_cache_leaf(one_rank):
+@pytest.mark.parametrize("knobs", ["off", "all"])
+def test_unpinned_decode_gathers_every_cache_leaf(knobs, one_rank):
     """The same steps with the pin off: bit-equal too, each layer's cache
-    gathered on use (one rank: copies) and its block put back."""
+    gathered on use (one rank: copies) and its block put back; with the
+    knobs, the mixers' conv on ``conv_w``'s 'model' block of the whole
+    conv state's channels."""
     inputs = _numpy_inputs("hybrid")
     with _one_thread():
-        want = _decode("hybrid", "off", inputs)[:2]
-        logits, cache, fn = _decode("hybrid", "off", inputs, one_rank,
+        want = _decode("hybrid", knobs, inputs)[:2]
+        logits, cache, fn = _decode("hybrid", knobs, inputs, one_rank,
                                     pin_decode_cache=False)
-    assert not fn.pinned
+    assert not fn.pinned and (fn.split is not None) == (knobs == "all")
+    if knobs == "all":
+        assert fn.split.keep(("blocks", 0, "mixer", "conv_w"))
     assert all(np.array_equal(g, w) for g, w in zip(logits, want[0]))
     assert all(np.array_equal(g, w) for g, w in zip(cache, want[1]))
     gathered = fn.layout.placement.tally.caches

@@ -15,7 +15,8 @@ compute the same thing.
   with ``fits``, the ignored knobs.
 * On the production mesh with the split knobs: zamba2's SSM heads split
   with no ``in_proj`` / ``out_proj`` byte gathered, mamba2-130m's block
-  named whole (its 24 SSM heads do not divide 16).
+  named whole (its 24 SSM heads do not divide 16); their pinned decodes
+  gather ``in_proj`` / ``out_proj`` over 'data' alone and no ``conv_w``.
 * ``rebuild`` round-trips a record, and on a record without a hardware key
   gives the reference's ``rebuild``.
 * The report's four tables equal the reference's markdown on the same
@@ -42,7 +43,7 @@ from repro_torch.configs.base import InputShape
 from repro_torch.launch import dryrun, rebuild, report, roofline, \
     sharding, steps
 from repro_torch.launch.mesh import MeshShape
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_paths
 
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
          "collective-permute")
@@ -226,6 +227,40 @@ def test_split_ssm_blocks_on_the_production_mesh(arch, tmp_path):
         assert not split["heads"] and not split["ssm"]
         assert split["whole"] == ["mamba: 24 SSM heads over 'model' 16"]
         assert gathered["in_proj"] > 0 and gathered["out_proj"] > 0
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-130m"])
+def test_split_ssm_decode_on_the_production_mesh(arch, tmp_path):
+    """The same cut's pinned decode (``pin_decode_cache``) with the three
+    knobs: the decode split takes both archs' mixers (a one-token state is
+    cut by the cache's layout, not by heads), so a rank gathers
+    ``in_proj`` / ``out_proj`` over 'data' alone (at most 1/16 of their
+    bytes: zamba2's; mamba2-130m's ``in_proj`` is stored by 'model' alone,
+    so nothing) and no ``conv_w`` byte ('model' stores it and the conv
+    cache by the same channel block)."""
+    cfg = dryrun.probe_cfg(get_config(arch), 1)
+    shape = InputShape("tiny_decode", 256, 16, "decode")
+    mesh = dryrun.MESHES["production"]
+    knobs = {"megatron_attn": True, "shard_activations": True,
+             "pin_moe_dispatch": True, "pin_decode_cache": True}
+    rec = dryrun.run_combo(
+        arch, shape.name, "production", out_dir=str(tmp_path), cfg=cfg,
+        shape=shape, mesh=mesh, full_only=True, overrides=knobs)
+    split, gathered = rec["split"], rec["gathered"]
+    assert split["ssm"] and split["features"] and split["whole"] == []
+    sc = steps.StepConfig(cfg=cfg, shape=shape, n_nodes=1, **knobs)
+    params = steps.Layout.make(sc, mesh, kind="decode").shapes["params"]
+    whole = {}
+    for path, leaf in zip(tree_paths(params), tree_leaves(params)):
+        whole[path[-1]] = whole.get(path[-1], 0) + \
+            leaf.numel() * leaf.element_size()
+    assert gathered.get("conv_w", 0) == 0
+    if arch == "zamba2-7b":
+        for name in ("in_proj", "out_proj"):
+            assert 0 < gathered[name] <= whole[name] / 16, name
+    else:
+        assert gathered.get("in_proj", 0) == 0
+        assert 0 < gathered["out_proj"] <= whole["out_proj"] / 16
 
 
 def test_a_model_that_does_not_fit_gets_a_record(tmp_path):

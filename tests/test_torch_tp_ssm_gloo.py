@@ -546,7 +546,10 @@ def test_ssm_cross_split_matches_unsplit_and_reference(world, tmp_path,
 def test_ssm_and_cross_leaves_the_split_keeps():
     """Which mixer, cross and norm leaves the split computes with on each
     cut's layout at 'model' 2 and 4 (``MeshShape``): the ones its knobs
-    use where 'model' stores them, ``conv_w`` and the gates never."""
+    use where 'model' stores them, ``conv_w`` and the gates never; a
+    decode's split the mixers' projections and ``conv_w`` (not mamba2-130m's
+    at 'model' 4, where neither it nor the conv cache is stored by
+    'model')."""
     for m in (2, 4):
         mesh = tmesh.MeshShape((("data", 1), ("model", m)))
         for arch in ARCHS:
@@ -563,10 +566,33 @@ def test_ssm_and_cross_leaves_the_split_keeps():
                         parent == "mlp" or name in ("ln", "ln1", "ln2")):
                     want = lay.placement.model_dim(path) is not None
                     assert kept == want, (arch, m, path)
+            # a decode's split: every config's mixers (no heads rule), the
+            # projections where 'model' stores them, ``conv_w`` where it
+            # stores the conv cache by the same channel block, the per-head
+            # vectors gathered; the cross leaves as the prefill's
             dsp = steps.make_split(sc, lay, decode=True)
-            assert dsp.ssm is False and "mamba" not in dsp.kinds
-            assert not any(dsp.keep(p) for p in tree_paths(
-                lay.shapes["params"]) if "xattn" in p or "mixer" in p)
+            cfg = sc.cfg
+            assert dsp.decode and dsp.whole == ()
+            assert dsp.ssm == ("mamba" in cfg.period)
+            for path in tree_paths(lay.shapes["params"]):
+                name, parent = path[-1], path[-2] if len(path) > 1 else None
+                d = lay.placement.model_dim(path)
+                if parent == "mixer" and name in ("in_proj", "out_proj"):
+                    want = d is not None
+                elif parent == "mixer" and name == "conv_w":
+                    conv = sharding.Placement._at(lay.specs["cache"],
+                                                  path[:-2] + ("conv",))
+                    want = d == -1 and conv[-1] == "model"
+                    if arch == "mamba2-130m":     # 162 channels
+                        assert want == (m == 2), (arch, m, path)
+                elif parent == "mixer":
+                    want = False
+                elif parent in ("xattn", "mlp") or name in ("ln", "ln1",
+                                                            "ln2"):
+                    want = sp.keep(path)
+                else:
+                    continue
+                assert dsp.keep(path) == want, (arch, m, path)
 
 
 if __name__ == "__main__":
