@@ -6658,6 +6658,171 @@ def _split_ssm_cross(dev, mesh, smi) -> dict:
     return out
 
 
+#: slice 15: musicgen-medium at its published widths (d_model 1536, 24
+#: heads MHA, ff 6144, vocab 2048), cut to UNEVEN_LAYERS layers, fp32, one
+#: node: UNEVEN_STEPS train steps of [1, UNEVEN_SEQ] and a [1, UNEVEN_SEQ]
+#: prefill with SPLIT_KNOBS on the (1, 1) mesh
+UNEVEN_ARCH, UNEVEN_LAYERS, UNEVEN_SEQ, UNEVEN_STEPS = \
+    "musicgen-medium", 4, 4096, 3
+#: the configs whose attention heads the production mesh's 'model' (16)
+#: does not divide: the split takes them as GSPMD pads them
+UNEVEN_ARCHS = ("granite-moe-3b-a800m", "musicgen-medium", "arctic-480b")
+
+
+def _uneven_rule() -> dict:
+    """``Split.make`` on the production mesh (a ``MeshShape``: no card) for
+    each of UNEVEN_ARCHS, train and prefill, with SPLIT_KNOBS: the heads
+    on, no block left whole, rank 0 (the dry run's trace) with ``ceil(H /
+    16)`` heads and the last ranks with none."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_production_mesh
+
+    mesh = make_production_mesh(device="meta")
+    out = {}
+    for arch in UNEVEN_ARCHS:
+        cfg = get_config(arch)
+        for kind in ("train", "prefill"):
+            sc = steps.StepConfig(cfg, InputShape(f"rule_{kind}", 4096, 16,
+                                                  kind),
+                                  n_nodes=16 if kind == "train" else 1,
+                                  param_dtype=torch.bfloat16, **SPLIT_KNOBS)
+            sp = steps.make_split(sc, steps.Layout.make(sc, mesh, kind=kind))
+            c = -(-cfg.n_heads // 16)
+            counts = [sp.head_range(rank=r)[1] for r in range(16)] \
+                if sp is not None else None
+            if sp is None or not sp.heads or sp.whole or cfg.n_heads % 16 \
+                    == 0 or sp.head_range() != (0, c) or counts[-1] != 0:
+                raise AssertionError(
+                    f"uneven: {arch} {kind} on the production mesh: split "
+                    f"{sp and (sp.heads, sp.whole)}, heads a rank {counts}")
+            out[f"{arch} {kind}"] = counts
+    return out
+
+
+def _split_uneven(dev, mesh, smi) -> dict:
+    """Slice 15: musicgen-medium, whose 24 heads the production mesh's
+    'model' 16 does not divide, at its published widths cut to
+    UNEVEN_LAYERS layers, fp32, one node (QHM: no kernel), with SPLIT_KNOBS
+    on the (1, 1) mesh against mesh=None with the same knobs, bit for bit
+    (at one rank every collective returns its input's values and the
+    padded split is the whole): UNEVEN_STEPS train steps (losses, params,
+    m_hat) and a [1, UNEVEN_SEQ] prefill through the builders (logits and
+    every cache leaf); ``heads`` on, no attention weight gathered along
+    'model', no kernel launched; ms and ``max_memory_allocated`` of each;
+    the rule on the production mesh (:func:`_uneven_rule`)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+
+    t0 = time.perf_counter()
+    out = {"rule": _uneven_rule(), "runs": {}, "launches": {}}
+    cfg = dataclasses.replace(get_config(UNEVEN_ARCH), n_layers=UNEVEN_LAYERS)
+    attn = ("wq", "wk", "wv", "wo")
+
+    def run(label, fn):
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        res, ms = _timed(fn)
+        counts = ops.launch_counts()
+        _expect_launches(f"uneven {label}", counts, {})
+        if "mesh=None" not in label:
+            _add_counts(out["launches"], counts)
+        out["runs"][label] = {
+            "ms": ms, "peak": torch.cuda.max_memory_allocated(dev)}
+        return res
+
+    def split_of(fn, label):
+        sp = fn.split
+        if sp is None or not sp.heads:
+            raise AssertionError(f"uneven {label}: the split is {sp}")
+        moved = sorted("/".join(map(str, p))
+                       for p in fn.layout.placement.tally.leaves
+                       if p[-1] in attn and not sp.keep(p))
+        if moved:
+            raise AssertionError(f"uneven {label}: attention weights "
+                                 f"gathered whole {moved}")
+
+    tsc = steps.StepConfig(cfg, InputShape("uneven_train", UNEVEN_SEQ, 1,
+                                           "train"),
+                           n_nodes=1, param_dtype=torch.float32,
+                           **SPLIT_KNOBS)
+    params, batch = _launch_inputs(dev, tsc)
+    res = {}
+    for label, mesh_ in (("mesh=None", None), ("split", mesh)):
+        step = steps.build_train_step(tsc, mesh=mesh_)
+        state, losses, ms = (params, steps.make_opt(tsc).init(params)), [], []
+        for i in range(UNEVEN_STEPS):
+            p, o, loss = run(f"train {label} {i}",
+                             lambda: step(*state, batch))
+            state = (p, o)
+            losses.append(loss.item())
+        res[label] = (losses, state)
+        if mesh_ is not None:
+            split_of(step, "train")
+        del state, p, o
+    (want_l, want), (got_l, got) = res["mesh=None"], res["split"]
+    if got_l != want_l:
+        raise AssertionError(f"uneven train: losses {got_l} vs mesh=None's "
+                             f"{want_l}")
+    _held_equal("uneven train params and m_hat", got, want)
+    del res, got, want, params, batch
+    torch.cuda.empty_cache()
+
+    psc = dataclasses.replace(tsc, shape=InputShape(
+        "uneven_prefill", UNEVEN_SEQ, 1, "prefill"))
+    params = tf.init_lm(torch.Generator(device=dev).manual_seed(
+        LAUNCH_SEED), cfg)
+    tokens = torch.from_numpy(np.random.default_rng(LAUNCH_SEED + 7).integers(
+        0, cfg.vocab_size, size=(1, UNEVEN_SEQ), dtype=np.int32)).to(dev)
+    got = {}
+    for label, mesh_ in (("mesh=None", None), ("split", mesh)):
+        fn = steps.build_prefill_step(psc, mesh=mesh_)
+        got[label] = run(f"prefill {label}", lambda: fn(params, tokens))
+        if mesh_ is not None:
+            split_of(fn, "prefill")
+    _held_equal("uneven prefill logits and cache", got["split"],
+                got["mesh=None"])
+    if not torch.isfinite(got["split"][0]).all():
+        raise AssertionError("uneven prefill: the logits are not finite")
+    del got, params
+    torch.cuda.empty_cache()
+    r = out["runs"]
+    warm = {label: [r[f"train {label} {i}"]["ms"]
+                    for i in range(UNEVEN_STEPS)]
+            for label in ("mesh=None", "split")}
+    log(f"shard [{smi}] uneven heads: Split.make on the production mesh "
+        f"(16, 16) with {SPLIT_KNOBS}: heads on, none whole, heads a rank "
+        f"{out['rule']}")
+    log(f"shard [{smi}] uneven {UNEVEN_ARCH} ({cfg.n_heads} heads, d_model "
+        f"{cfg.d_model}, ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{UNEVEN_LAYERS} layers) fp32 with {SPLIT_KNOBS} on the (1, 1) "
+        f"mesh: {UNEVEN_STEPS} train steps of [1, {UNEVEN_SEQ}] bit-equal to "
+        f"mesh=None (losses {got_l}, params, m_hat), ms/step split "
+        f"{[round(v, 3) for v in warm['split']]} vs mesh=None "
+        f"{[round(v, 3) for v in warm['mesh=None']]}, max_memory_allocated "
+        f"split {[r[f'train split {i}']['peak'] for i in range(UNEVEN_STEPS)]}"
+        f" B vs mesh=None "
+        f"{[r[f'train mesh=None {i}']['peak'] for i in range(UNEVEN_STEPS)]}"
+        f" B; prefill [1, {UNEVEN_SEQ}] bit-equal (logits, cache), "
+        f"{r['prefill split']['ms']:.1f} ms (max_memory_allocated "
+        f"{r['prefill split']['peak']} B) vs mesh=None "
+        f"{r['prefill mesh=None']['ms']:.1f} ms "
+        f"({r['prefill mesh=None']['peak']} B); launches "
+        f"{ {k: v for k, v in out['launches'].items() if v} }")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def phase_shard(dev, launch_out) -> dict:
     """Slice 10's main path on the card: the launch tooling's step on a
     ('data', 'model') mesh with the sharded state (``sharding.Placement``:
@@ -6688,6 +6853,7 @@ def phase_shard(dev, launch_out) -> dict:
         out["split"]["seconds"] = time.perf_counter() - t_split
         out["decode"] = _pinned_decode(dev, mesh, smi)
         out["ssm_split"] = _split_ssm_cross(dev, mesh, smi)
+        out["uneven"] = _split_uneven(dev, mesh, smi)
     finally:
         distributed.shutdown()
     out["seconds"] = time.perf_counter() - t_phase
@@ -6696,13 +6862,16 @@ def phase_shard(dev, launch_out) -> dict:
                                  ("split", out["split"]["launches"]),
                                  ("decode", out["decode"]["launches"]),
                                  ("ssm_split",
-                                  out["ssm_split"]["launches"]))}
+                                  out["ssm_split"]["launches"]),
+                                 ("uneven", out["uneven"]["launches"]))}
     log(f"shard launches {used['shard']}; split launches {used['split']}; "
         f"decode launches {used['decode']}; ssm/cross split launches "
-        f"{used['ssm_split']} ({out['seconds']:.1f} s for the phase, "
+        f"{used['ssm_split']}; uneven heads split launches {used['uneven']} "
+        f"({out['seconds']:.1f} s for the phase, "
         f"{out['split']['seconds']:.1f} s of it the split's, "
         f"{out['decode']['seconds']:.1f} s the pinned decode's, "
-        f"{out['ssm_split']['seconds']:.1f} s the ssm/cross split's)")
+        f"{out['ssm_split']['seconds']:.1f} s the ssm/cross split's, "
+        f"{out['uneven']['seconds']:.1f} s the uneven heads split's)")
     return out
 
 
@@ -6998,6 +7167,9 @@ def main() -> int:
     for row in kernels:  # slice 13's mamba and cross blocks split
         row["ssm_split_launches"] = shard_out["ssm_split"]["launches"].get(
             row["name"], 0)
+    for row in kernels:  # slice 15's uneven heads split (no kernel)
+        row["uneven_launches"] = shard_out["uneven"]["launches"].get(
+            row["name"], 0)
     t = ssd_timed["main"]
     kernels.append({
         "name": "ssd_scan", "route": "cuda", "source": csrc + "ssd_scan.cu",
@@ -7014,6 +7186,8 @@ def main() -> int:
                                                                0),
         "ssm_split_launches": shard_out["ssm_split"]["launches"].get(
             "ssd_scan", 0),
+        "uneven_launches": shard_out["uneven"]["launches"].get("ssd_scan",
+                                                               0),
         "split_heads": {str(h): {k: v for k, v in row.items()
                                  if k != "shape"}
                         for h, row in shard_out["ssm_split"]["scan"].items()},

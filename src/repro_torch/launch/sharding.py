@@ -47,12 +47,26 @@ compute over 'model' under ``megatron_attn``, ``shard_activations`` and
 all-reduce, reduce-scatter, all-gather, all-to-all, each an autograd
 function with its own vmap rule) on the stored blocks, and never gathers
 whole a leaf the split computes with.  Its leaves a rank computes with are the ones a
-knob uses; every other leaf is gathered on use as above.  A decode step's
-split takes every block kind too: a Mamba-2 mixer's ``in_proj`` and
-``out_proj`` on their stored 'model' blocks (the one-token projection
-made whole between them) and its ``conv_w`` where 'model' stores it by the
-conv cache's channel block, and a cross block's ``wq``, ``wo`` and MLP as
-a self-attention block's.
+knob uses; every other leaf is gathered on use as above.
+
+The attention heads split as GSPMD pads them (``Split.head_range``): with
+H query heads over a 'model' axis of M ranks, ``c = ceil(H / M)``, and
+rank r computes heads ``[r c, min((r + 1) c, H))``, none where ``r c >=
+H`` (24 heads over 16: ranks 0-11 two each, 12-15 none).  Where M divides
+H that is the rank's block.  Else q reaches the rank's heads from the
+stored 'model' block of ``wq`` by one all-to-all (a column block, a
+permutation), or as the whole projection cut to the range (a row block's
+partial sums all-reduced first); the output goes back to the rows that
+'model' stores of ``wo`` by the inverse all-to-all, then row-parallel, its
+partial sums reduced over 'model' in the collective's order, as where M
+divides H.  A dry run on a ``MeshShape`` traces rank 0, which holds ``c``
+heads: the busiest rank.
+
+A decode step's split takes every block kind too: a Mamba-2 mixer's
+``in_proj`` and ``out_proj`` on their stored 'model' blocks (the one-token
+projection made whole between them) and its ``conv_w`` where 'model'
+stores it by the conv cache's channel block, and a cross block's ``wq``,
+``wo`` and MLP as a self-attention block's.
 
 The pinned decode (:class:`CacheBlock`, the reference's
 ``pin_decode_cache``): a decode step attends over, and writes into, the
@@ -908,24 +922,27 @@ class _AllToAll(torch.autograd.Function):
     """The rank's column block ``x`` regrouped (:class:`_Regroup`) into
     the column ranges the rank computes with, by one all-to-all over
     'model'; the backward sends each column's gradient back to the rank
-    that holds it (zero where no rank took a column).  A permutation: the
+    that holds it (zero where no rank took a column).  ``back``: the
+    inverse, the rank's ranges ``x`` back to its block (zero where no rank
+    holds a column), the backward the forward regroup.  A permutation: the
     values move, none is summed."""
 
     @staticmethod
-    def forward(x, plan, split):
-        return split._regroup(x, plan, back=False)
+    def forward(x, plan, split, back):
+        return split._regroup(x, plan, back=back)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.plan, ctx.split = inputs[1:]
+        ctx.plan, ctx.split, ctx.back = inputs[1:]
 
     @staticmethod
     def backward(ctx, grad):
-        return ctx.split._regroup(grad, ctx.plan, back=True), None, None
+        return (ctx.split._regroup(grad, ctx.plan, back=not ctx.back), None,
+                None, None)
 
     @staticmethod
-    def vmap(info, in_dims, x, plan, split):
-        return _on_stack(_AllToAll, in_dims, x, plan, split)
+    def vmap(info, in_dims, x, plan, split, back):
+        return _on_stack(_AllToAll, in_dims, x, plan, split, back)
 
 
 class _VocabLogSumExp(torch.autograd.Function):
@@ -962,15 +979,18 @@ class Split:
     """The compute split over the 'model' axis, the reference's GSPMD
     layouts (``megatron_attn``, ``shard_activations``,
     ``pin_moe_dispatch``) as explicit collectives, on a placement's stored
-    blocks.  ``heads``: each rank computes its ``H / M`` heads of every
-    self- and cross-attention (K/V repeated to H heads first where their
-    heads do not divide); ``ssm``: its ``nh / M`` heads of every Mamba-2
-    mixer (``models/ssm.py``); ``features``: the residual stream between
-    blocks is the rank's ``D / M`` features, the MLPs column- then
-    row-parallel, and with ``vocab`` the embedding and the head split by
-    vocabulary rows; ``experts``: each rank runs its ``E / M`` experts on
-    every token routed to them.  :meth:`make` turns each knob on where the
-    config's dims divide, and names in ``whole`` the blocks a knob leaves
+    blocks.  ``heads``: each rank computes its heads of every self- and
+    cross-attention, ``H / M`` where M divides H, else GSPMD's padded
+    split (:meth:`head_range`: ``ceil(H / M)`` a rank from rank 0 on, none
+    on the ranks past the last head), with K/V repeated to H heads first
+    where their heads do not divide; ``ssm``: its ``nh / M`` heads of
+    every Mamba-2 mixer (``models/ssm.py``); ``features``: the residual
+    stream between blocks is the rank's ``D / M`` features, the MLPs
+    column- then row-parallel, and with ``vocab`` the embedding and the
+    head split by vocabulary rows; ``experts``: each rank runs its ``E /
+    M`` experts on every token routed to them.  :meth:`make` turns each
+    knob on where the config's dims divide (the attention heads wherever
+    the config attends), and names in ``whole`` the blocks a knob leaves
     whole on every rank.  ``decode``: a decode step's split, where ``ssm``
     computes each Mamba-2 mixer's projections on their stored 'model'
     blocks (``ssm.mamba_decode(split=)``: the one-token state is cut by
@@ -1015,26 +1035,20 @@ class Split:
              decode: bool = False) -> Optional["Split"]:
         """The split of ``cfg`` on ``placement``'s mesh, or None where its
         mesh has no 'model' axis or no knob applies.  ``heads`` splits the
-        attention heads where the config has some (``n_heads > 0``) and
-        they and the K/V features divide over 'model', and the Mamba-2
-        heads where ``nh`` divides (in a decode step wherever the config
-        has Mamba blocks); ``features`` needs the model width, ``experts``
-        the expert stacks stored on 'model'; the vocabulary split follows
-        ``features`` where the embedding (and an untied head) are stored by
-        vocabulary rows.  ``decode``: a decode step's split."""
+        attention heads wherever the config attends (``n_heads > 0``), any
+        head count (:meth:`head_range`), and the Mamba-2 heads where ``nh``
+        divides (in a decode step wherever the config has Mamba blocks);
+        ``features`` needs the model width, ``experts`` the expert stacks
+        stored on 'model'; the vocabulary split follows ``features`` where
+        the embedding (and an untied head) are stored by vocabulary rows.
+        ``decode``: a decode step's split."""
         m = dict(placement.mesh.shape).get("model")
         if placement.params is None or not m:
             return None
         attends = cfg.n_heads > 0 and (cfg.shared_attn_every or any(
             k != "mamba" for k in cfg.period))
-        hd = cfg.resolved_head_dim
         whole = []
-        attn_heads = heads and attends and cfg.n_heads % m == 0 \
-            and (cfg.n_kv_heads * hd) % m == 0
-        if heads and attends and not attn_heads:
-            whole.append(f"attention: {cfg.n_heads} heads, "
-                         f"{cfg.n_kv_heads} x {hd} K/V features over "
-                         f"'model' {m}")
+        attn_heads = heads and bool(attends)
         nh = cfg.ssm.n_heads(cfg.d_model) if cfg.ssm is not None else 0
         ssm = heads and "mamba" in cfg.period and (decode or nh % m == 0)
         if heads and "mamba" in cfg.period and not ssm:
@@ -1190,7 +1204,14 @@ class Split:
         ranges joined in its order, by one all-to-all (:class:`_AllToAll`).
         A column no rank takes gets no gradient from it."""
         plan = _Regroup.make(x.shape[-1], self.size, ranges)
-        return _AllToAll.apply(x, plan, self)
+        return _AllToAll.apply(x, plan, self, False)
+
+    def unregroup(self, x, ranges, width: int):
+        """:meth:`regroup`'s inverse: this rank's ranges ``x`` (in its
+        order) back to its contiguous block of ``width`` columns, ``"S"``,
+        by one all-to-all; zeros where no rank holds a column."""
+        plan = _Regroup.make(width, self.size, ranges)
+        return _AllToAll.apply(x, plan, self, True)
 
     def block(self, x, dim: int = -1):
         """The rank's block of ``x`` along ``dim`` (a view)."""
@@ -1200,6 +1221,72 @@ class Split:
     def cut(self, x, dim: int = -1):
         """The rank's block of a whole ``x``, through *f*."""
         return self.block(self.copy(x), dim)
+
+    # -- the attention heads, as GSPMD pads them -----------------------------
+    def head_range(self, n: Optional[int] = None,
+                   rank: Optional[int] = None) -> tuple:
+        """``(first, count)`` of rank ``rank``'s heads (this rank's by
+        default) of ``n`` (the config's query heads by default): ``c =
+        ceil(n / M)`` heads a rank from rank 0 on, as GSPMD pads the head
+        dim to a multiple of 'model'; ``count`` is 0 past the last head.
+        Where M divides ``n`` it is :meth:`block`'s range."""
+        n = self.cfg.n_heads if n is None else n
+        rank = self.index if rank is None else rank
+        c = -(-n // self.size)
+        lo = min(rank * c, n)
+        return lo, min(lo + c, n) - lo
+
+    def head_block(self, x, n: Optional[int] = None, dim: int = -1):
+        """The rank's heads (:meth:`head_range`) of ``x``, whose ``dim``
+        holds ``n`` heads side by side: a view, possibly empty."""
+        n = self.cfg.n_heads if n is None else n
+        lo, count = self.head_range(n)
+        w = x.shape[dim] // n
+        return x.narrow(dim, lo * w, count * w)
+
+    def head_cut(self, x, n: Optional[int] = None, dim: int = -1):
+        """The rank's heads of a whole ``x``, through *f*."""
+        return self.head_block(self.copy(x), n, dim)
+
+    def _head_runs(self, hd: int):
+        """:meth:`regroup`'s ``ranges`` of the query heads: each rank's
+        head range, one run of ``hd``-wide heads (none past the last)."""
+        def ranges(t):
+            lo, count = self.head_range(rank=t)
+            return ((lo * hd, count * hd),) if count else ()
+        return ranges
+
+    def to_heads(self, x, state: str, hd: int):
+        """The rank's query heads of ``x``, whose last dim holds the
+        config's ``H`` heads of ``hd`` features, in ``state``.  Where M
+        divides H, :meth:`to` ``"S"``.  Else a stored column block
+        (``"S"``, ``H * hd / M`` columns, which need not line up with the
+        heads) is regrouped by one all-to-all, and partial sums
+        (``"P"``) are all-reduced whole; a whole ``x`` is cut to the range
+        through *f* (:meth:`head_cut`)."""
+        if self.cfg.n_heads % self.size == 0:
+            return self.to(x, state, "S")
+        if state == "S":
+            return self.regroup(x, self._head_runs(hd))
+        return self.head_cut(self.to(x, state, "R"))
+
+    def linear_heads(self, x, w, path, hd: int):
+        """``x @ w`` of the rank's heads ``x`` of an attention's output (its
+        :meth:`head_range` of the config's heads, ``hd`` features each) and
+        ``wo`` at ``path``, as :meth:`linear`.  Where M divides the heads
+        ``x`` is ``"S"``.  Else, where 'model' stores ``wo`` by rows, ``x``
+        is moved to those rows by one all-to-all (:meth:`unregroup`), then
+        row-parallel; elsewhere ``x`` enters as its partial sums, zero
+        outside the rank's range."""
+        n = self.cfg.n_heads
+        if n % self.size == 0:
+            return self.linear(x, "S", w, path)
+        if self.model_dim(path) == -2:
+            x = self.unregroup(x, self._head_runs(hd), n * hd // self.size)
+            return x @ w, "P"
+        lo, count = self.head_range(n)
+        x = torch.nn.functional.pad(x, (lo * hd, (n - lo - count) * hd))
+        return self.linear(x, "P", w, path)
 
     def own(self, w, path):
         """The rank's block along the last dim of the params leaf ``w`` at

@@ -125,6 +125,15 @@ class _ChunkRemat(torch.autograd.Function):
         return (*vjp(tuple(grads)), None)
 
 
+def _groups(h: int, kh: int) -> int:
+    """Query heads a K/V head: ``h / kh`` (1 for no heads at all)."""
+    if kh == 0:
+        assert h == 0
+        return 1
+    assert h % kh == 0
+    return h // kh
+
+
 def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
                       softcap: float = 0.0, chunk: int = 1024,
                       skip_masked_chunks: bool = False,
@@ -140,15 +149,15 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
     K/V to the H heads first (head ``i`` reads K/V head ``i // G``), as the
     reference does: one head dim, which the heads split over 'model'
     divides.  The values are the same; K/V's gradient sums the G copies
-    after the products, another order than the grouped products' sum."""
+    after the products, another order than the grouped products' sum.
+    Zero heads (a rank past the last head of an uneven split) give an empty
+    output that autograd still reaches q, K and V from."""
     b, s, h, d = q.shape
-    kh = k.shape[2]
-    assert h % kh == 0
-    if repeat_kv and kh != h:
-        k = k.repeat_interleave(h // kh, dim=2)
-        v = v.repeat_interleave(h // kh, dim=2)
+    if repeat_kv and k.shape[2] != h:
+        g = _groups(h, k.shape[2])
+        k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
     t, kh = k.shape[1], k.shape[2]
-    g = h // kh
+    g = _groups(h, kh)
     chunk = min(chunk, t)
     if skip_masked_chunks and window and causal and s == t \
             and t % chunk == 0:
@@ -185,7 +194,7 @@ def _windowed_attention_qchunked(q, k, v, *, window: int, softcap: float,
     of ``min(chunk, S)``."""
     b, s, h, d = q.shape
     kh = k.shape[2]
-    g = h // kh
+    g = _groups(h, kh)
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"query-chunked windowed attention needs the "

@@ -489,39 +489,65 @@ def _decode_self_attn(q, k, v, cache, window: int, ctx: RunCtx, key):
 
 
 def _heads_split(ctx: RunCtx):
-    """The split when it divides the attention heads, else None."""
+    """The split when it computes the rank's attention heads, else None."""
     return ctx.split if ctx.split is not None and ctx.split.heads else None
 
 
 def _head_proj(ctx: RunCtx, p, name: str, x, state: str, key, inputs,
                *, whole: bool = False):
     """``x @ p[name] + bias`` of ``x`` in ``state`` as [B, S, heads, D]:
-    under the heads split the rank's heads, or with ``whole`` all of them
-    for the rank's own use; ``inputs`` shares the moved ``x`` between the
-    products that read it (``_linear``)."""
+    under the heads split the rank's query heads (``Split.to_heads``: its
+    range of them, possibly none), or with ``whole`` all of them for the
+    rank's own use; ``inputs`` shares the moved ``x`` between the products
+    that read it (``_linear``).  A bias that 'model' stores by blocks is
+    added in the block's state, one gathered whole through *f*."""
     sp = _heads_split(ctx)
+    hd = ctx.cfg.resolved_head_dim
     y, st = _linear(ctx, x, state, p[name], key + (name,), inputs)
-    bias = p.get("b" + name[1])
-    if sp is not None and (bias is not None or not whole):
-        y, st = sp.to(y, st, "S"), "S"
-    if bias is not None:
-        y = y + bias.to(y.dtype)
-    if sp is not None and whole:
+    bname = "b" + name[1]
+    bias = p.get(bname)
+    if sp is None:
+        if bias is not None:
+            y = y + bias.to(y.dtype)
+    elif not whole:
+        y = sp.to_heads(y, st, hd)
+        if bias is not None:
+            stored = "S" if sp.model_dim(key + (bname,)) == -1 else "R"
+            y = y + sp.to_heads(bias, stored, hd).to(y.dtype)
+    else:
+        if bias is not None and sp.model_dim(key + (bname,)) == -1:
+            y, st = sp.to(y, st, "S") + bias.to(y.dtype), "S"
+            bias = None
         y = sp.enter(y, st)
-    return y.reshape(x.shape[0], x.shape[1], -1, ctx.cfg.resolved_head_dim)
+        if bias is not None:
+            y = y + sp.copy(bias).to(y.dtype)
+    return y.reshape(x.shape[0], x.shape[1], y.shape[-1] // hd, hd)
+
+
+def _heads_out(ctx: RunCtx, out, p, key, *, whole: bool):
+    """``wo`` of an attention's output ``out`` [B, S, heads, D] (the rank's
+    heads under the heads split, all of them with ``whole``):
+    ``(y, state)`` by the split's rule (``Split.linear_heads``)."""
+    sp = _heads_split(ctx)
+    b, s, h, hd = out.shape
+    out = out.reshape(b, s, h * hd)
+    if sp is None or whole:
+        return _linear(ctx, out, "R", p["wo"], key + ("wo",))
+    return sp.linear_heads(out, p["wo"], key + ("wo",), hd)
 
 
 def _self_attn(p, x, kind: str, ctx: RunCtx, cache, key=()):
     """Self-attention of the normed ``x`` (in the residual's state):
     ``(out in that state, new cache)``.  Under a split with ``heads`` each
-    rank computes its ``H / M`` heads: q by the split's rule (a
-    row-parallel ``wq`` reduce-scatters onto the heads), K/V whole for the
-    rank's own use (a prefill's cache is whole), then repeated to H heads
-    and cut to the rank's; ``wo`` is row-parallel.  A decode step takes
-    q, K and V column-parallel and whole for its cache (whole, or the
-    rank's blocks when pinned), and its output whole into the row-parallel
-    ``wo``.  Under a split without ``heads`` every product is whole on
-    every rank."""
+    rank computes its heads (``Split.head_range``: ``H / M``, or GSPMD's
+    ``ceil(H / M)`` from rank 0 on, possibly none): q by the split's rule
+    (``Split.to_heads``), K/V whole for the rank's own use (a prefill's
+    cache is whole), then repeated to H heads and cut to the rank's; ``wo``
+    takes the output back by the split's rule (``Split.linear_heads``).  A
+    decode step takes q, K and V column-parallel and whole for its cache
+    (whole, or the rank's blocks when pinned), and its output whole into
+    the row-parallel ``wo``.  Under a split without ``heads`` every
+    product is whole on every rank."""
     cfg = ctx.cfg
     hd = cfg.resolved_head_dim
     window = cfg.window if kind == "local" else 0
@@ -549,9 +575,9 @@ def _self_attn(p, x, kind: str, ctx: RunCtx, cache, key=()):
         kv = (k, v)                 # a prefill's cache holds every head
         if sp is not None:
             g = cfg.n_heads // cfg.n_kv_heads
-            k = sp.block(k.repeat_interleave(g, dim=2), -2)
-            v = sp.block(v.repeat_interleave(g, dim=2), -2)
-        if ctx.use_pallas:
+            k, v = (sp.head_block(t.repeat_interleave(g, dim=2), dim=-2)
+                    for t in (k, v))
+        if ctx.use_pallas and q.shape[2]:
             out = kops.flash_attention(q, k, v, causal=True, window=window,
                                        softcap=cfg.attn_softcap)
         else:
@@ -562,9 +588,7 @@ def _self_attn(p, x, kind: str, ctx: RunCtx, cache, key=()):
                 remat_chunks=ctx.remat_attention, repeat_kv=ctx.repeat_kv)
         if ctx.mode == "prefill":
             new_cache = _prefill_cache(*kv, kind, ctx)
-    out, state = _linear(ctx, out.reshape(b, out.shape[1], -1),
-                         "R" if sp is None or decode else "S", p["wo"],
-                         key + ("wo",))
+    out, state = _heads_out(ctx, out, p, key, whole=decode)
     return _to(ctx, out, state, xs), new_cache
 
 
@@ -617,13 +641,13 @@ def _gate(ctx: RunCtx, gate, state: str):
 def _cross_attn(p, h, ctx: RunCtx, key):
     """The cross-attention of the normed text ``h`` (in the residual's
     state) to the whole image ``ctx.img``: ``(out in that state, the
-    image's K/V)``.  Under the heads split each rank computes its ``H /
-    M`` query heads and takes K/V whole from their products for its own
-    use (the prefill's cache is whole), cut to the K/V heads its queries
-    read where the K/V heads divide, else repeated to H heads and cut;
-    ``wo`` is row-parallel."""
+    image's K/V)``.  Under the heads split each rank computes its query
+    heads as a self-attention does (``Split.head_range``) and takes K/V
+    whole from their products for its own use (the prefill's cache is
+    whole), cut to the K/V heads its queries read where both head counts
+    divide, else repeated to H heads and cut to the rank's; ``wo`` as a
+    self-attention's."""
     cfg = ctx.cfg
-    b, s = h.shape[0], h.shape[1]
     sp = _heads_split(ctx)
     xs, inputs = _residual(ctx), {}
     q = _head_proj(ctx, p, "wq", h, xs, key, {})
@@ -631,13 +655,14 @@ def _cross_attn(p, h, ctx: RunCtx, key):
             for name in ("wk", "wv"))
     kv = {"k": k, "v": v}
     if sp is not None:
-        g = cfg.n_heads // cfg.n_kv_heads
-        if k.shape[2] % sp.size:
-            k, v = (t.repeat_interleave(g, dim=2) for t in (k, v))
-        k, v = sp.block(k, -2), sp.block(v, -2)
-    out = attention.cross_attend(q, k, v).reshape(b, s, -1)
-    out, state = _linear(ctx, out, "R" if sp is None else "S", p["wo"],
-                         key + ("wo",))
+        n = k.shape[2]
+        if cfg.n_heads % sp.size or n % sp.size:
+            k, v = (t.repeat_interleave(cfg.n_heads // n, dim=2)
+                    for t in (k, v))
+            n = cfg.n_heads
+        k, v = sp.head_block(k, n, -2), sp.head_block(v, n, -2)
+    out, state = _heads_out(ctx, attention.cross_attend(q, k, v), p, key,
+                            whole=False)
     return _to(ctx, out, state, xs), kv
 
 

@@ -13,7 +13,10 @@ compute the same thing.
   train steps and a gemma2 decode step: the reference's record keys,
   nonzero flops, nonzero wire bytes where nodes gossip, per-rank memory
   with ``fits``, the ignored knobs.
-* On the production mesh with the split knobs: zamba2's SSM heads split
+* On the production mesh with the split knobs: granite-moe-3b's,
+  musicgen-medium's and arctic-480b's attention heads split though 16
+  does not divide them, with no attention weight gathered along 'model';
+  zamba2's SSM heads split
   with no ``in_proj`` / ``out_proj`` byte gathered, mamba2-130m's block
   named whole (its 24 SSM heads do not divide 16); their pinned decodes
   gather ``in_proj`` / ``out_proj`` over 'data' alone and no ``conv_w``.
@@ -227,6 +230,43 @@ def test_split_ssm_blocks_on_the_production_mesh(arch, tmp_path):
         assert not split["heads"] and not split["ssm"]
         assert split["whole"] == ["mamba: 24 SSM heads over 'model' 16"]
         assert gathered["in_proj"] > 0 and gathered["out_proj"] > 0
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "musicgen-medium",
+                                  "arctic-480b"])
+def test_split_uneven_heads_on_the_production_mesh(arch, kind, tmp_path):
+    """The (16, 16) mesh with the three knobs, one period at published
+    widths: 24 (granite, musicgen) or 56 (arctic) heads do not divide 16,
+    and the split takes them as GSPMD pads them (``Split.head_range``; the
+    trace is rank 0's, with the most heads): ``heads`` on, no block named
+    whole, and no byte of ``wq`` / ``wk`` / ``wv`` / ``wo`` gathered along
+    'model' (a train step's nodes ride 'data', so nothing is gathered; a
+    prefill's one node gathers its blocks over the FSDP axis 'data', at
+    most 1/16 of their bytes)."""
+    cfg = dryrun.probe_cfg(get_config(arch), 1)
+    shape = InputShape(f"tiny_{kind}", 256, 16, kind)
+    mesh = dryrun.MESHES["production"]
+    knobs = {"chunk": 128, "megatron_attn": True, "shard_activations": True,
+             "pin_moe_dispatch": True}
+    rec = dryrun.run_combo(
+        arch, shape.name, "production", out_dir=str(tmp_path), cfg=cfg,
+        shape=shape, mesh=mesh, full_only=True, overrides=knobs)
+    split, gathered = rec["split"], rec["gathered"]
+    assert cfg.n_heads % 16
+    assert split["heads"] and split["features"] and split["whole"] == []
+    sc = steps.StepConfig(cfg=cfg, shape=shape, n_nodes=rec["n_nodes"],
+                          **knobs)
+    params = steps.Layout.make(sc, mesh, kind=kind).shapes["params"]
+    whole = {}
+    for path, leaf in zip(tree_paths(params), tree_leaves(params)):
+        whole[path[-1]] = whole.get(path[-1], 0) + \
+            leaf.numel() * leaf.element_size()
+    for name in ("wq", "wk", "wv", "wo"):
+        if kind == "train":
+            assert gathered.get(name, 0) == 0, name
+        else:
+            assert gathered.get(name, 0) <= whole[name] / 16, name
 
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-130m"])

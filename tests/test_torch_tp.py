@@ -20,9 +20,10 @@ one, how ``sharding.Split.make`` resolves the knobs, and the split's
   the SSM and conv states, the shared block's and the image's K/V) bit for
   bit against ``mesh=None``, no leaf the split computes with gathered;
 * ``Split.make`` on the production mesh: each knob on where the config's
-  dims divide over 'model' (16), the attention heads only where the config
-  has some, the SSM heads where they divide (the blocks a knob leaves
-  whole named), and which leaves the split keeps;
+  dims divide over 'model' (16), the attention heads wherever the config
+  has some (GSPMD's padded split where they do not divide), the SSM heads
+  where they divide (the blocks a knob leaves whole named), and which
+  leaves the split keeps;
 * the dry run on ``meta``: with the knobs on, a rank's temporaries and
   flops fall, the activations' collectives reach the wire, and the record's
   ``ignored`` list holds ``unroll`` alone; the decode builder takes the
@@ -237,10 +238,11 @@ def _production_split(arch, kind="prefill", **knobs):
 def test_split_make_resolves_each_knob_by_divisibility(arch):
     sp, cfg = _production_split(arch, **ALL)
     m = 16
-    # the attention heads where the config has some (mamba2-130m has
-    # none), the SSM heads where they divide
-    heads = cfg.n_heads > 0 and cfg.n_heads % m == 0 and (
-        cfg.n_kv_heads * cfg.resolved_head_dim) % m == 0
+    # the attention heads wherever the config has some (mamba2-130m has
+    # none), any head count: GSPMD's padded split where 'model' does not
+    # divide them (granite and musicgen's 24, arctic's 56); the SSM heads
+    # where they divide
+    heads = cfg.n_heads > 0
     ssm = cfg.ssm is not None and cfg.ssm.n_heads(cfg.d_model) % m == 0
     assert sp.heads == heads
     assert sp.ssm == ssm
@@ -248,10 +250,14 @@ def test_split_make_resolves_each_knob_by_divisibility(arch):
     assert sp.vocab == sp.features            # every vocabulary divides
     assert sp.experts == (cfg.moe is not None and cfg.moe.n_experts % m == 0)
     assert sp.size == 16 and sp.index == 0 and sp.residual == "S"
-    # the blocks a knob leaves whole, by name
+    if heads:   # rank 0 (a dry run's trace) holds the most heads
+        c = -(-cfg.n_heads // m)
+        assert sp.head_range() == (0, c)
+        assert [sp.head_range(rank=r)[1] for r in range(m)] == [
+            min(c, max(0, cfg.n_heads - r * c)) for r in range(m)]
+    # the blocks a knob leaves whole, by name: a mixer's alone
     assert [w.split(":")[0] for w in sp.whole] == (
-        (["attention"] if cfg.n_heads and not heads else [])
-        + (["mamba"] if cfg.ssm is not None and not ssm else []))
+        ["mamba"] if cfg.ssm is not None and not ssm else [])
     # which leaves it keeps: a self- or cross-attention's under heads, a
     # mixer's under ssm, the MLP's, the norms' and the vocabulary's under
     # features, the experts' under experts; never a conv, a gate or the
