@@ -6823,6 +6823,209 @@ def _split_uneven(dev, mesh, smi) -> dict:
     return out
 
 
+#: slice 16's rows (``launch/sharding.Rows``: a node's batch rows over the
+#: data axes, each rank computing its own): TinyLlama-1.1B at its published
+#: widths cut to ROWS_LAYERS layers, fp32, on the (1, 1) mesh, where the row
+#: path runs with R = 1 (its collectives called on the one-rank 'data'
+#: group); ROWS_STEPS train steps of 2 nodes x 2 sequences and of one node
+#: (QHM) x 2, ROWS_SEQ tokens; a [ROWS_BATCH, ROWS_PROMPT] prefill and
+#: ROWS_DECODE unpinned decode steps; granite-moe-3b cut to
+#: ROWS_MOE_LAYERS layers at ROWS_MOE_CAPACITY (pairs drop), a
+#: [ROWS_BATCH, ROWS_MOE_PREFILL] prefill
+ROWS_LAYERS, ROWS_SEQ, ROWS_STEPS = 4, 1024, 3
+ROWS_BATCH, ROWS_PROMPT, ROWS_DECODE = 4, 4096, 8
+ROWS_MOE_LAYERS, ROWS_MOE_PREFILL, ROWS_MOE_CAPACITY = 2, 1024, 0.5
+
+
+def _rows_part(dev, mesh, smi) -> dict:
+    """Slice 16 on the (1, 1) mesh: the builders with a node's rows over
+    'data' (``Layout.rows``), against mesh=None bit for bit (at one rank
+    every collective returns its input and R = 1 divides exactly): the
+    train steps (losses, params, m_hat; ``qg_step`` a step with 2 nodes,
+    none with one), the prefill and the decode steps (every step's
+    logits, the final cache), granite's prefill (logits, cache, every MoE
+    call's routes, the pairs dropped); each run's row collectives called
+    (``Rows.calls``); ms and ``max_memory_allocated`` beside mesh=None's."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    t0 = time.perf_counter()
+    out = {"runs": {}, "launches": {}, "calls": {}}
+    cfg = dataclasses.replace(get_config(LAUNCH_ARCH), n_layers=ROWS_LAYERS)
+
+    def rows_of(fn, label, want_calls):
+        rows = fn.layout.rows
+        if rows is None or rows.axes != ("data",):
+            raise AssertionError(f"rows {label}: the layout's rows are "
+                                 f"{rows}")
+        if not all(rows.calls.get(k) for k in want_calls):
+            raise AssertionError(f"rows {label}: collectives called "
+                                 f"{rows.calls}, want {want_calls}")
+        out["calls"][label] = dict(rows.calls)
+
+    # train: 2 nodes (qg_step a step) and one node (QHM: FSDP over 'data',
+    # so the gathers' backward reduce-scatters)
+    for name, n, want, calls in (
+            ("2 nodes", 2, {"qg_step": 1}, ("all-reduce",)),
+            ("QHM", 1, {}, ("all-reduce", "reduce-scatter"))):
+        sc = steps.StepConfig(cfg, InputShape("rows_train", ROWS_SEQ, 2 * n,
+                                              "train"),
+                              n_nodes=n, param_dtype=torch.float32)
+        params, batch = _launch_inputs(dev, sc)
+        res = {}
+        for label, mesh_ in (("mesh=None", None), ("rows", mesh)):
+            step = steps.build_train_step(sc, mesh=mesh_)
+            state, losses = (params, steps.make_opt(sc).init(params)), []
+            for i in range(ROWS_STEPS):
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+                ops.reset_launch_counts()
+                (p, o, loss), ms = _timed(step, *state, batch)
+                counts = ops.launch_counts()
+                _expect_launches(f"rows train {name} {label}", counts, want)
+                if label == "rows":
+                    _add_counts(out["launches"], counts)
+                out["runs"][f"train {name} {label} {i}"] = {
+                    "ms": ms, "peak": torch.cuda.max_memory_allocated(dev)}
+                state = (p, o)
+                losses.append(loss.item())
+            res[label] = (losses, state)
+            if mesh_ is not None:
+                rows_of(step, f"train {name}", calls)
+            del state, p, o
+        (want_l, want_s), (got_l, got_s) = res["mesh=None"], res["rows"]
+        if got_l != want_l:
+            raise AssertionError(f"rows train {name}: losses {got_l} vs "
+                                 f"mesh=None's {want_l}")
+        _held_equal(f"rows train {name} params and m_hat", got_s, want_s)
+        if not np.all(np.isfinite(got_l)):
+            raise AssertionError(f"rows train {name}: losses {got_l}")
+        out[f"losses {name}"] = got_l
+        del res, got_s, want_s, params, batch
+        torch.cuda.empty_cache()
+
+    # a prefill and the unpinned decode steps
+    sc = steps.StepConfig(cfg, InputShape(
+        "rows_decode", ROWS_PROMPT + ROWS_DECODE, ROWS_BATCH, "decode"),
+        n_nodes=1, param_dtype=torch.float32)
+    params = tf.init_lm(torch.Generator(device=dev).manual_seed(LAUNCH_SEED),
+                        cfg)
+    tokens = torch.from_numpy(np.random.default_rng(LAUNCH_SEED + 9).integers(
+        0, cfg.vocab_size, size=(ROWS_BATCH, ROWS_PROMPT),
+        dtype=np.int32)).to(dev)
+    ops.reset_launch_counts()
+    ways = {}
+    for label, mesh_ in (("mesh=None", None), ("rows", mesh)):
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        ways[label] = _decode_way(dev, sc, mesh_, params, tokens, None,
+                                  ROWS_DECODE)
+        ways[label]["s"] = time.perf_counter() - t1
+    _expect_launches("rows decode", ops.launch_counts(), {})
+    if ways["rows"]["fn"].pinned:
+        raise AssertionError("rows decode: the decode is pinned")
+    rows_of(ways["rows"]["fn"], "decode", ("all-gather",))
+    _held_decode("rows decode", ways["rows"], ways["mesh=None"])
+    if not torch.isfinite(ways["rows"]["logits"]).all():
+        raise AssertionError("rows decode: the logits are not finite")
+    for label, w in ways.items():
+        out["runs"][f"decode {label}"] = {
+            "ms": w["ms"], "peak": w["peak"], "s": w["s"]}
+    del ways, params, tokens
+    torch.cuda.empty_cache()
+
+    # granite's prefill at a capacity where pairs drop: the node's queue
+    gcfg = get_config(SPLIT_MOE_ARCH)
+    gcfg = dataclasses.replace(gcfg, n_layers=ROWS_MOE_LAYERS,
+                               moe=dataclasses.replace(
+                                   gcfg.moe,
+                                   capacity_factor=ROWS_MOE_CAPACITY))
+    gsc = steps.StepConfig(gcfg, InputShape(
+        "rows_moe", ROWS_MOE_PREFILL, ROWS_BATCH, "prefill"), n_nodes=1,
+        param_dtype=torch.float32)
+    params = tf.init_lm(torch.Generator(device=dev).manual_seed(LAUNCH_SEED),
+                        gcfg)
+    tokens = torch.from_numpy(np.random.default_rng(LAUNCH_SEED + 10).integers(
+        0, gcfg.vocab_size, size=(ROWS_BATCH, ROWS_MOE_PREFILL),
+        dtype=np.int32)).to(dev)
+    got = {}
+    ops.reset_launch_counts()
+    for label, mesh_ in (("mesh=None", None), ("rows", mesh)):
+        fn = steps.build_prefill_step(gsc, mesh=mesh_)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with moe.recording(routes=True) as rec:
+            (logits, cache), ms = _timed(fn, params, tokens)
+        got[label] = {"out": (logits, cache), "routes": [
+            (r["expert_idx"], r["valid"]) for r in rec["routes"]],
+            "dropped": int(rec["dropped"]), "routed": int(rec["routed"])}
+        out["runs"][f"moe prefill {label}"] = {
+            "ms": ms, "peak": torch.cuda.max_memory_allocated(dev)}
+        if mesh_ is not None:
+            rows_of(fn, "moe prefill", ("all-gather", "all-reduce"))
+    _expect_launches("rows moe prefill", ops.launch_counts(), {})
+    a, b = got["mesh=None"], got["rows"]
+    _held_equal("rows moe prefill logits and cache", b["out"], a["out"])
+    same_routes = len(a["routes"]) == len(b["routes"]) == ROWS_MOE_LAYERS \
+        and all(torch.equal(e1, e2) and torch.equal(v1, v2)
+                for (e1, v1), (e2, v2) in zip(a["routes"], b["routes"]))
+    if not same_routes or a["dropped"] != b["dropped"] or not a["dropped"]:
+        raise AssertionError(
+            f"rows moe prefill: routes equal {same_routes}, dropped "
+            f"{b['dropped']} vs mesh=None's {a['dropped']} (of "
+            f"{a['routed']})")
+    out["moe"] = {"dropped": b["dropped"], "routed": b["routed"]}
+    del got, a, b, params, tokens, logits, cache
+    torch.cuda.empty_cache()
+
+    r = out["runs"]
+
+    def col(name, label):
+        return [round(r[f"train {name} {label} {i}"]["ms"], 3)
+                for i in range(ROWS_STEPS)], \
+            [r[f"train {name} {label} {i}"]["peak"]
+             for i in range(ROWS_STEPS)]
+
+    for name in ("2 nodes", "QHM"):
+        (ms_r, pk_r), (ms_n, pk_n) = col(name, "rows"), col(name,
+                                                           "mesh=None")
+        log(f"shard [{smi}] rows {LAUNCH_ARCH} ({ROWS_LAYERS} layers, fp32) "
+            f"train {name} x [2, {ROWS_SEQ}] a node on the (1, 1) mesh, the "
+            f"rows over 'data': {ROWS_STEPS} steps "
+            f"bit-equal to mesh=None (losses {out[f'losses {name}']}, "
+            f"params, m_hat); ms/step rows {ms_r} vs mesh=None {ms_n}; "
+            f"max_memory_allocated rows {pk_r} B vs mesh=None {pk_n} B; "
+            f"row collectives called {out['calls'][f'train {name}']}")
+    d_r, d_n = r["decode rows"], r["decode mesh=None"]
+    log(f"shard [{smi}] rows {LAUNCH_ARCH} ({ROWS_LAYERS} layers, fp32) "
+        f"prefill [{ROWS_BATCH}, {ROWS_PROMPT}] and {ROWS_DECODE} unpinned "
+        f"decode steps, the rows over 'data': every step's logits and the "
+        f"final cache bit-equal to mesh=None; decode ms/step rows "
+        f"{[round(v, 3) for v in d_r['ms']]} vs mesh=None "
+        f"{[round(v, 3) for v in d_n['ms']]}; prefill + decode "
+        f"{d_r['s']:.2f} s vs {d_n['s']:.2f} s; max_memory_allocated rows "
+        f"{d_r['peak']} B vs mesh=None {d_n['peak']} B; row collectives "
+        f"called {out['calls']['decode']}")
+    m_r, m_n = r["moe prefill rows"], r["moe prefill mesh=None"]
+    log(f"shard [{smi}] rows {SPLIT_MOE_ARCH} ({ROWS_MOE_LAYERS} layers, "
+        f"fp32, capacity factor {ROWS_MOE_CAPACITY}) prefill [{ROWS_BATCH}, "
+        f"{ROWS_MOE_PREFILL}], the node's queue: logits, cache and the "
+        f"routes of {ROWS_MOE_LAYERS} MoE calls bit-equal to mesh=None, "
+        f"{out['moe']['dropped']} of {out['moe']['routed']} pairs dropped in "
+        f"both; {m_r['ms']:.1f} ms (peak {m_r['peak']} B) vs mesh=None "
+        f"{m_n['ms']:.1f} ms (peak {m_n['peak']} B); row collectives called "
+        f"{out['calls']['moe prefill']}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def phase_shard(dev, launch_out) -> dict:
     """Slice 10's main path on the card: the launch tooling's step on a
     ('data', 'model') mesh with the sharded state (``sharding.Placement``:
@@ -6854,6 +7057,7 @@ def phase_shard(dev, launch_out) -> dict:
         out["decode"] = _pinned_decode(dev, mesh, smi)
         out["ssm_split"] = _split_ssm_cross(dev, mesh, smi)
         out["uneven"] = _split_uneven(dev, mesh, smi)
+        out["rows"] = _rows_part(dev, mesh, smi)
     finally:
         distributed.shutdown()
     out["seconds"] = time.perf_counter() - t_phase
@@ -6863,15 +7067,18 @@ def phase_shard(dev, launch_out) -> dict:
                                  ("decode", out["decode"]["launches"]),
                                  ("ssm_split",
                                   out["ssm_split"]["launches"]),
-                                 ("uneven", out["uneven"]["launches"]))}
+                                 ("uneven", out["uneven"]["launches"]),
+                                 ("rows", out["rows"]["launches"]))}
     log(f"shard launches {used['shard']}; split launches {used['split']}; "
         f"decode launches {used['decode']}; ssm/cross split launches "
-        f"{used['ssm_split']}; uneven heads split launches {used['uneven']} "
+        f"{used['ssm_split']}; uneven heads split launches {used['uneven']}; "
+        f"rows launches {used['rows']} "
         f"({out['seconds']:.1f} s for the phase, "
         f"{out['split']['seconds']:.1f} s of it the split's, "
         f"{out['decode']['seconds']:.1f} s the pinned decode's, "
         f"{out['ssm_split']['seconds']:.1f} s the ssm/cross split's, "
-        f"{out['uneven']['seconds']:.1f} s the uneven heads split's)")
+        f"{out['uneven']['seconds']:.1f} s the uneven heads split's, "
+        f"{out['rows']['seconds']:.1f} s the rows')")
     return out
 
 
@@ -7170,6 +7377,9 @@ def main() -> int:
     for row in kernels:  # slice 15's uneven heads split (no kernel)
         row["uneven_launches"] = shard_out["uneven"]["launches"].get(
             row["name"], 0)
+    for row in kernels:  # slice 16's rows (qg_step in the 2-node steps)
+        row["rows_launches"] = shard_out["rows"]["launches"].get(
+            row["name"], 0)
     t = ssd_timed["main"]
     kernels.append({
         "name": "ssd_scan", "route": "cuda", "source": csrc + "ssd_scan.cu",
@@ -7188,6 +7398,7 @@ def main() -> int:
             "ssd_scan", 0),
         "uneven_launches": shard_out["uneven"]["launches"].get("ssd_scan",
                                                                0),
+        "rows_launches": shard_out["rows"]["launches"].get("ssd_scan", 0),
         "split_heads": {str(h): {k: v for k, v in row.items()
                                  if k != "shape"}
                         for h, row in shard_out["ssm_split"]["scan"].items()},

@@ -35,11 +35,15 @@ Per combo this traces (one rank's blocks, ``meta`` tensors):
   probe1/probe2  the 1- and 2-period steps, whose counts
          (``roofline.trace_cost``) extrapolate linearly to the full depth.
 The trace of a node-stacked step holds every node; a rank holds one, so its
-flops, bytes and temp are the trace's over the node count.  The flops split
-into ``replicated`` (the forward and backward, which every rank of a node
-computes whole) and ``sharded`` (the gossip mix over the rank's blocks);
-the wire adds the weights' and the caches' gathers (``all-gather``) and
-the activations' collectives (a split's, a pinned decode's).  A decode
+flops, bytes and temp are the trace's over the node count.  A rank computes
+its rows of its node's batch where the reference's ``batch_specs`` splits
+them over the data axes (``steps.Layout.rows``), and its ``argument``
+counts those rows.  The flops split into ``rows`` (the forward and backward
+of the rank's rows, a node's whole batch where they do not split) and
+``sharded`` (the gossip mix over the rank's blocks); the wire adds the
+weights' and the caches' gathers (``all-gather``), the activations'
+collectives (a split's, a pinned decode's) and the rows' (the gradients'
+``reduce-scatter`` and ``all-reduce``).  A decode
 under ``--set pin_decode_cache=true`` is built with the reference's
 ``cache_constraint`` (``steps.pinned_cache_constraint``) and computes on
 the rank's cache blocks.
@@ -73,7 +77,7 @@ from repro_torch.configs import ARCHS, INPUT_SHAPES, get_config
 from repro_torch.core import gossip
 from repro_torch.launch import roofline, sharding, steps
 from repro_torch.launch.mesh import MeshShape, make_production_mesh
-from repro_torch.tree import tree_flatten, tree_map
+from repro_torch.tree import tree_flatten
 
 __all__ = ["MESHES", "probe_cfg", "trace_step", "run_combo", "main"]
 
@@ -102,11 +106,6 @@ def _peak(mt: MemTracker) -> int:
                    mt.get_tracker_snapshot("peak").values()))
 
 
-def _whole(tree):
-    """Specs that keep every dim of ``tree``'s leaves whole."""
-    return tree_map(lambda t: (None,) * t.dim(), tree)
-
-
 def trace_step(sc: steps.StepConfig, plan: sharding.ShardingPlan, *,
                memory: bool = True) -> dict:
     """Trace one step of ``sc`` on ``meta`` on ``plan.mesh``'s layout
@@ -114,46 +113,48 @@ def trace_step(sc: steps.StepConfig, plan: sharding.ShardingPlan, *,
     ``bytes_accessed``, ``wire`` (bytes by collective kind) and, with
     ``memory``, its ``argument`` / ``output`` / ``temp`` bytes."""
     kind = sc.shape.kind
-    layout = steps.Layout.make(sc, plan.mesh, kind=kind, keep_nodes=True)
+    if kind == "train":
+        fn = steps.build_train_step(sc, mesh=plan.mesh,
+                                    node_axis=plan.node_axis)
+    elif kind == "prefill":
+        fn = steps.build_prefill_step(sc, mesh=plan.mesh)
+    else:
+        # the reference's lower_decode: under pin_decode_cache, the pin of a
+        # layer's K spec (the decode then computes on the cache blocks)
+        fn = steps.build_decode_step(
+            sc, mesh=plan.mesh, cache_constraint=steps.pinned_cache_constraint(
+                steps.Layout.make(sc, plan.mesh, kind=kind))
+            if sc.pin_decode_cache else None)
+    layout = fn.layout
     lp = layout.plan
 
     def local(what):
         return sharding.shard_tree(lp, layout.specs[what],
                                    layout.shapes[what], skip=layout.keep)
 
+    # a rank holds its blocks of the state and its rows of the batch
+    # (``layout.specs["batch"]``: the reference's batch_specs where the
+    # rows split, else the batch whole)
+    held = [(layout.shapes[w], layout.specs[w]) for w in
+            {"train": ("params", "opt_state", "batch"),
+             "prefill": ("params", "batch")}.get(
+                 kind, ("params", "cache", "batch"))]
+    batch = layout.shapes["batch"]
     if kind == "train":
-        args = (local("params"), local("opt_state"),
-                layout.shapes["batch"])
-        held = [(layout.shapes[w], layout.specs[w])
-                for w in ("params", "opt_state", "batch")]
-        fn = steps.build_train_step(sc, mesh=lp.mesh,
-                                    node_axis=lp.node_axis)
+        args = (local("params"), local("opt_state"), batch)
     elif kind == "prefill":
-        ispecs = steps.prefill_specs(sc)
-        inputs = (ispecs["tokens"],) + (
-            (ispecs["img"],) if "img" in ispecs else ())
-        args = (local("params"),) + inputs
-        held = [(layout.shapes["params"], layout.specs["params"]),
-                (inputs, _whole(inputs))]
-        fn = steps.build_prefill_step(sc, mesh=lp.mesh)
+        args = (local("params"),) + tuple(batch.values())
     else:
-        d = steps.decode_specs(sc)
-        args = (local("params"), d["token"], d["pos"], local("cache"))
-        held = [(layout.shapes["params"], layout.specs["params"]),
-                (layout.shapes["cache"], layout.specs["cache"]),
-                ((d["token"], d["pos"]), _whole((d["token"], d["pos"])))]
-        # the reference's lower_decode: under pin_decode_cache, the pin of a
-        # layer's K spec (the decode then computes on the cache blocks)
-        fn = steps.build_decode_step(
-            sc, mesh=lp.mesh, cache_constraint=steps.pinned_cache_constraint(
-                layout) if sc.pin_decode_cache else None)
+        pos = steps.decode_specs(sc)["pos"]
+        args = (local("params"), batch["token"], pos, local("cache"))
+        held.append(((pos,), ((),)))
     mt = MemTracker()
     with mt:
         out, flops, nbytes = roofline.trace_cost(fn, *args)
     per = lp.node_count      # a rank's share of the node-stacked trace
     rec = {"flops": flops / per, "bytes_accessed": nbytes / per,
            "wire": {}}
-    placement = fn.layout.placement
+    placement = layout.placement
     gathered = placement.tally.bytes / per if placement else 0
     sharded = 0.0
     if kind == "train" and sc.n_nodes > 1:
@@ -161,7 +162,9 @@ def trace_step(sc: steps.StepConfig, plan: sharding.ShardingPlan, *,
         # with the weight axes
         sharded = roofline.mix_flops(sc.n_nodes, sum(
             leaf[0].numel() for leaf in tree_flatten(args[0])[0])) / per
-    rec["flops_split"] = {"replicated": rec["flops"] - sharded,
+    # "rows": the forward (and backward) of the rank's rows of its node's
+    # batch (the whole batch where the rows do not split)
+    rec["flops_split"] = {"rows": rec["flops"] - sharded,
                           "sharded": sharded}
     if memory:
         # outputs written in place (a decode step's caches) are arguments
@@ -191,10 +194,14 @@ def trace_step(sc: steps.StepConfig, plan: sharding.ShardingPlan, *,
         rec["wire"]["all-gather"] = rec["wire"].get("all-gather", 0.0) + \
             gathered
     # the activations' collectives: the split's over 'model', a pinned
-    # decode's over its cache blocks' axes
+    # decode's over its cache blocks' axes; the rows' (the gradients'
+    # reduce-scatters and all-reduces, the MoE's counts and means, the
+    # logits gathered whole)
     wires = [fn.split.tally.wire] if fn.split is not None else []
     if placement is not None:
         wires.append(placement.tally.wire)
+    if layout.rows is not None:
+        wires.append(layout.rows.tally.wire)
     for wire in wires:
         for k, v in wire.items():
             rec["wire"][k] = rec["wire"].get(k, 0.0) + v / per

@@ -26,20 +26,28 @@ The port's extensions, each where the reference's rules have no case:
 a mesh without a 'model' axis places no weight axis (the node-only meshes
 of the dry run); a node count that no axis carries on a mesh whose other
 axes are all 1 keeps the node stack whole on every rank (``mesh=None``'s
-layout, on a one-rank 'model' group).  And the batch: the port computes a
-node's whole batch on every rank of that node, so :func:`batch_specs`
-places only the node axis, where the reference spreads a node's batch over
-its data axes.
+layout, on a one-rank 'model' group), and :func:`batch_specs` then skips
+the stack's leading dim as it skips a node axis.
 
 The sharded state (:class:`Placement`): each rank stores only its block of
 every weight, optimizer buffer and cache, cut along the dims these specs
 name (:func:`shard_tree`).  Before each use in the forward the model
 all-gathers the full tensor (:class:`_GatherOnUse`, one
-``all_gather_into_tensor`` a leaf and axis) and drops it after: the
-gradient of a stored block is its slice of the full gradient, taken in the
-gather's backward with no reduction, since every rank of a node computes
-the same forward on the same batch.  The values are the unsharded ones bit
-for bit.
+``all_gather_into_tensor`` a leaf and axis) and drops it after.
+
+The batch (:class:`Rows`, FSDP's data parallelism): a node's batch rows
+lie over the plan's data axes where :func:`batch_specs` puts them, and
+each rank computes its own rows.  The gradient of a block gathered over an
+axis that carries rows is reduce-scattered in the gather's backward (the
+ranks' partial sums, each rank keeping its block); over 'model', whose
+ranks compute the same rows, the backward keeps the rank's slice.  A leaf
+not stored along a row axis has its gradient all-reduced over that axis
+once a step (:meth:`Rows.reduce_grads`).  Each rank's loss is its rows'
+mean over the row count R, so the ranks' losses sum to the node's.  Where
+the reference's constraints name the batch dims None (``shard_activations``
+and ``megatron_attn`` in train and prefill) the batch stays whole, as
+there.  At one rank every collective returns its input and R = 1 divides
+exactly, so the step is ``mesh=None``'s bit for bit.
 
 The compute split (:class:`Split`): the reference's GSPMD also splits the
 compute over 'model' under ``megatron_attn``, ``shard_activations`` and
@@ -91,7 +99,8 @@ from repro_torch.tree import tree_flatten, tree_map, tree_paths, \
 from .mesh import MeshShape
 
 __all__ = ["ShardingPlan", "NamedSharding", "Placement", "CacheBlock",
-           "Split", "Tally", "make_plan", "pinned_cache_spec", "same_layout",
+           "Split", "Rows", "Tally", "make_plan", "pinned_cache_spec",
+           "same_layout", "row_axes",
            "param_specs", "batch_specs", "cache_specs", "named",
            "bytes_per_rank", "local_shape", "shard_tree", "gather_tree",
            "weight_axes"]
@@ -118,6 +127,14 @@ class ShardingPlan:
         """Nodes the node axis carries (1 without one)."""
         return dict(self.mesh.shape)[self.node_axis] if self.node_axis \
             else 1
+
+    @property
+    def keeps_nodes(self) -> bool:
+        """The port's extension: no axis carries the nodes and none shards
+        the weights, on a mesh whose axes other than 'model' are all 1 (the
+        node stack whole on every rank)."""
+        return self.node_axis is None and not self.fsdp_axes \
+            and bool(self.data_axes)
 
 
 def make_plan(mesh, *, n_nodes: int) -> ShardingPlan:
@@ -212,17 +229,77 @@ def param_specs(plan: ShardingPlan, params_shape: PyTree, *,
 
 
 def batch_specs(plan: ShardingPlan, batch_shape: PyTree) -> PyTree:
-    """Batches ``[n_nodes, per_node_batch, ...]``: the node axis on dim 0
-    where the plan has one, every other dim whole (each rank of a node
-    computes the node's whole batch)."""
+    """Batches ``[n_nodes, per_node_batch, ...]`` (or ``[batch, ...]``):
+    the reference's rule leaf by leaf.  The node axis on dim 0 where the
+    plan has one and the dim is over 1, a leading dim of 1 skipped (one
+    node), then the data axes (one axis, or a tuple of them) on the first
+    dim their product divides.  That dim is a leaf's rows wherever they
+    divide; where they do not it can be a later one (:func:`row_axes` says
+    which the step builders take).  A plan that keeps the node stack whole
+    (:attr:`ShardingPlan.keeps_nodes`) skips the stack's dim."""
+    mesh_shape = dict(plan.mesh.shape)
+    daxes = plan.data_axes
+    total = math.prod(mesh_shape[a] for a in daxes)
+
     def spec_for(leaf):
-        spec = [None] * len(leaf.shape)
-        if plan.node_axis and leaf.shape and \
-                leaf.shape[0] == plan.node_count:
+        shape = tuple(leaf.shape)
+        spec = [None] * len(shape)
+        start = 0
+        if plan.node_axis and shape and shape[0] > 1:
             spec[0] = plan.node_axis
+            start = 1
+        elif shape and (shape[0] == 1 or plan.keeps_nodes):
+            start = 1
+        if daxes:
+            for i in range(start, len(shape)):
+                if shape[i] % total == 0 and shape[i] >= total:
+                    spec[i] = daxes if len(daxes) > 1 else daxes[0]
+                    break
         return tuple(spec)
 
     return tree_map(spec_for, batch_shape)
+
+
+def row_axes(plan: ShardingPlan, batch: dict, specs: dict, *, key: str,
+             lead: int) -> tuple:
+    """The data axes that carry a batch's rows under ``specs``
+    (:func:`batch_specs`), decided by its tokens (the leaf ``key``), whose
+    rows are dim ``lead`` (1 under a node stack, else 0); () where they do
+    not divide, and the batch is then whole, as the reference's then is
+    (an image's other dims placed over the data axes alike).  Where the
+    rule puts the tokens' data axes of more than one rank on another dim
+    (their sequence, when the rows do not divide) this raises, naming the
+    leaf: no shape of the dry run on the reference's meshes does that, and
+    the port splits no batch along its sequence.  Every other leaf splits
+    its rows where the tokens do."""
+    mesh_shape = dict(plan.mesh.shape)
+
+    def placed(spec):
+        return [(i, tuple(a for a in _entry_axes(e) if a in plan.data_axes))
+                for i, e in enumerate(spec)
+                if set(_entry_axes(e)) & set(plan.data_axes)]
+
+    def fail(name, i, axes, why):
+        shape = tuple(batch[name].shape)
+        raise ValueError(
+            f"batch leaf {name} of shape {shape}: {why} the data axes {axes} "
+            f"({math.prod(mesh_shape[a] for a in axes)} ranks), which "
+            f"batch_specs puts on its dim {i}; the port splits a batch by "
+            "its rows only")
+
+    axes = ()
+    for i, ax in placed(specs[key]):
+        if i == lead:
+            axes = ax
+        elif math.prod(mesh_shape[a] for a in ax) > 1:
+            fail(key, i, ax, f"its {batch[key].shape[lead]} rows do not "
+                 "divide over")
+    if axes:
+        for name, spec in specs.items():
+            if placed(spec) != [(lead, axes)]:
+                fail(name, lead, axes, "its rows do not split as the "
+                     "tokens' over")
+    return axes
 
 
 def cache_specs(plan: ShardingPlan, cache_shape: PyTree, *,
@@ -474,34 +551,185 @@ class _Count:
                        cache=self.cache)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class Rows:
+    """A node's batch rows over the data ``axes`` (:func:`row_axes`): the
+    rank computes the rows of its block (row-major over the axes, the
+    first outermost, as :func:`_block_index`), and these are the
+    collectives that make the ranks' partial results the node's, each
+    counted in ``tally.wire`` under its kind (the bytes a rank receives)
+    and in ``calls`` (the calls, an axis of one rank's too).  On a
+    ``MeshShape`` (or ``meta``) they give the shapes alone.  At one rank
+    each returns its input's values."""
+
+    mesh: Any
+    axes: tuple
+    tally: Tally = dataclasses.field(default_factory=Tally)
+    calls: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def size(self) -> int:
+        """R, the ranks that split a node's rows."""
+        return math.prod(_axis_size(self.mesh, a) for a in self.axes)
+
+    @property
+    def index(self) -> int:
+        """The rank's block of the rows."""
+        return _block_index(self.mesh, self.axes)
+
+    def _shape_only(self, x) -> bool:
+        return isinstance(self.mesh, MeshShape) or x.device.type == "meta"
+
+    def _count(self, kind: str, nbytes: float) -> None:
+        self.calls[kind] = self.calls.get(kind, 0) + 1
+        if nbytes:      # an axis of one rank moves nothing
+            self.tally.add(nbytes, kind=kind)
+
+    def cut(self, x, dim: int = 0):
+        """The rank's rows of a node's ``x`` along ``dim`` (a view)."""
+        n = x.shape[dim] // self.size
+        return x.narrow(dim, self.index * n, n)
+
+    def reduce(self, x):
+        """``x`` summed over the row ranks (an all-reduce an axis), with no
+        autograd."""
+        for axis in self.axes:
+            m = _axis_size(self.mesh, axis)
+            self._count("all-reduce",
+                        x.numel() * x.element_size() * 2 * (m - 1) / m)
+            x = x.clone() if self._shape_only(x) else \
+                self.mesh.axis(axis).all_reduce(x)
+        return x
+
+    def join(self, x, dim: int = 0):
+        """The row ranks' ``x`` joined along ``dim`` in row order (an
+        all-gather an axis, the inner first), with no autograd."""
+        for axis in reversed(self.axes):
+            self._count("all-gather", x.numel() * x.element_size()
+                        * (_axis_size(self.mesh, axis) - 1))
+            x = _all_gather(x, dim, self.mesh, axis)
+        return x
+
+    def scatter(self, x, dim: int, axis: str):
+        """``x`` summed over ``axis``, the rank keeping its block along
+        ``dim``: one reduce-scatter."""
+        m = _axis_size(self.mesh, axis)
+        self._count("reduce-scatter",
+                    x.numel() * x.element_size() * (m - 1) / m)
+        if self._shape_only(x):
+            shape = list(x.shape)
+            shape[dim] //= m
+            return x.new_empty(shape)
+        return self.mesh.axis(axis).reduce_scatter_dim(x, dim)
+
+    def sum(self, x):
+        """``x`` summed over the row ranks for a value every rank uses (a
+        node's mean over its rows): the backward sums the ranks'
+        gradients too, since the node's loss is the ranks' losses' sum."""
+        return _RowSum.apply(x, self)
+
+    def before(self, x):
+        """The sum of the earlier row ranks' ``x`` (zeros at the first):
+        one all-gather of ``x``, no gradient."""
+        return _RowsBefore.apply(x, self)
+
+    def reduce_grads(self, grads, specs):
+        """The node's gradients from the ranks' partial ones, for the
+        leaves whose spec does not name a row axis (a norm, a bias, a dim
+        no axis divides): all-reduced over each such axis, a leaf at a
+        time (a new tensor each, so no leaf waits on a buffer of all of
+        them).  A leaf stored along a row axis was reduce-scattered over
+        it in its gather's backward."""
+        def one(g, spec):
+            stored = {a for e in spec for a in _entry_axes(e)}
+            for axis in self.axes:
+                if axis in stored:
+                    continue
+                m = _axis_size(self.mesh, axis)
+                self._count("all-reduce",
+                            g.numel() * g.element_size() * 2 * (m - 1) / m)
+                if not self._shape_only(g):
+                    g = self.mesh.axis(axis).all_reduce(g)
+            return g
+
+        return tree_map(one, grads, specs)
+
+
+class _RowSum(torch.autograd.Function):
+    """:meth:`Rows.sum`: an all-reduce over the row axes whose backward is
+    the same all-reduce."""
+
+    @staticmethod
+    def forward(x, rows):
+        return rows.reduce(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.rows = inputs[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.rows.reduce(grad), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, rows):
+        return _on_stack(_RowSum, in_dims, x, rows)
+
+
+class _RowsBefore(torch.autograd.Function):
+    """:meth:`Rows.before` (integer counts: no gradient)."""
+
+    @staticmethod
+    def forward(x, rows):
+        return rows.join(x.unsqueeze(0), 0)[:rows.index].sum(0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, rows):
+        return _on_stack(_RowsBefore, in_dims, x, rows)
+
+
 class _GatherOnUse(torch.autograd.Function):
     """``x``'s blocks over ``axis`` joined along ``dim`` (counted from the
-    end); the backward keeps this rank's slice of the full gradient, with
-    no reduction: every rank of the axis computed the same gradient.
+    end).  The backward keeps this rank's slice of the full gradient where
+    every rank of the axis computed the same gradient ('model'), and
+    reduce-scatters it over an axis that carries rows (``rows``, a
+    :class:`Rows`, whose ranks computed their own rows' partial sums).
     ``torch.func.vmap`` over the node axis runs it on the whole node stack
     at once (one collective a leaf, not one a node)."""
 
     @staticmethod
-    def forward(x, dim, mesh, axis, tally):
+    def forward(x, dim, mesh, axis, tally, rows):
         return _all_gather(x, dim, mesh, axis, tally)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        x, dim, mesh, axis, _ = inputs
+        x, dim, mesh, axis, _, rows = inputs
         ctx.dim, ctx.block = dim, x.shape[dim]
         ctx.index = _coord(mesh, axis)
+        ctx.axis, ctx.rows = axis, rows
 
     @staticmethod
     def backward(ctx, grad):
-        return (grad.narrow(ctx.dim, ctx.index * ctx.block, ctx.block),
-                None, None, None, None)
+        if ctx.rows is not None:
+            grad = ctx.rows.scatter(grad, ctx.dim, ctx.axis)
+        else:
+            grad = grad.narrow(ctx.dim, ctx.index * ctx.block, ctx.block)
+        return grad, None, None, None, None, None
 
     @staticmethod
-    def vmap(info, in_dims, x, dim, mesh, axis, tally):
+    def vmap(info, in_dims, x, dim, mesh, axis, tally, rows):
         if in_dims[0] is None:
-            return _GatherOnUse.apply(x, dim, mesh, axis, tally), None
+            return _GatherOnUse.apply(x, dim, mesh, axis, tally, rows), None
         return _GatherOnUse.apply(x.movedim(in_dims[0], 0), dim, mesh, axis,
-                                  tally), 0
+                                  tally, rows), 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -544,14 +772,18 @@ class Placement:
     mesh: Any
     params: Any = None
     cache: Any = None
+    rows: Optional[Rows] = None
     tally: Tally = dataclasses.field(default_factory=Tally)
     _blocks: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @staticmethod
     def make(plan: ShardingPlan, *, params=None, param_specs=None,
-             cache=None, cache_specs=None) -> "Placement":
+             cache=None, cache_specs=None, rows=None) -> "Placement":
         """From the global trees (``meta`` tensors) and their specs; the
-        node axis is never gathered."""
+        node axis is never gathered.  ``rows`` (a :class:`Rows`): the
+        rank computes its rows, so a gather over a row axis reduce-scatters
+        its gradient; ``cache_specs`` then name no row axis on a cache's
+        rows (they are the rank's already)."""
         skip = (plan.node_axis,) if plan.node_axis else ()
 
         def axes(tree, specs):
@@ -561,7 +793,7 @@ class Placement:
                             specs)
 
         return Placement(plan.mesh, axes(params, param_specs),
-                         axes(cache, cache_specs))
+                         axes(cache, cache_specs), rows)
 
     @staticmethod
     def _at(tree, key):
@@ -574,6 +806,8 @@ class Placement:
         ``keep(path)`` (a :class:`Split`'s) names the leaves whose 'model'
         block the split computes with: those gather their other axes only
         (the FSDP axes) and stay the rank's block along 'model'."""
+        rows = self.rows
+
         def one(path, x, leaf):
             path = key + path
             count = _Count(self.tally, leaf=path)
@@ -581,7 +815,9 @@ class Placement:
             for d, axes in reversed(leaf.dims):
                 for axis in reversed(axes):
                     if axis not in skip:
-                        x = _GatherOnUse.apply(x, d, self.mesh, axis, count)
+                        x = _GatherOnUse.apply(x, d, self.mesh, axis, count,
+                                               rows if rows is not None and
+                                               axis in rows.axes else None)
             return x
 
         leaves, treedef = tree_flatten(tree)
@@ -1195,7 +1431,8 @@ class Split:
         if local:
             return _AllGather.apply(x, dim, self)
         return _GatherOnUse.apply(x, dim, self.placement.mesh, self.axis,
-                                  _Count(self.tally, kind="all-gather"))
+                                  _Count(self.tally, kind="all-gather"),
+                                  None)
 
     def regroup(self, x, ranges):
         """The column ranges ``ranges(t)`` (rank ``t``'s ``(start,

@@ -23,7 +23,13 @@ global trees (each leaf cut to the rank's block) or the blocks, and return
 the blocks; ``sharding.gather_tree`` joins them (a built step's
 ``layout`` attribute is its :class:`Layout`, None without a mesh).  The optimizer runs on the
 blocks: it is elementwise along every dim but the node axis, over which the
-gossip mixes as before.  The values are the unsharded step's bit for bit.
+gossip mixes as before.  A node's batch rows lie over the plan's data axes
+(every axis but the node axis and 'model') where the reference's
+``batch_specs`` puts them, and each rank computes its own rows
+(``Layout.rows``, ``sharding.Rows``): its loss is its rows' mean over R,
+the ranks' gradients are summed over those axes, and a serving step's
+logits are all-gathered whole.  At one rank the values are the unsharded
+step's bit for bit; across ranks the rows' sums meet in another order.
 
 Per-node gradients are ``torch.autograd.grad`` of the node losses' sum (the
 loss mapped over the node axis with ``torch.func.vmap``; node i's loss
@@ -266,11 +272,12 @@ def step_topology(sc: StepConfig) -> topo_lib.Topology:
 # step functions
 # ---------------------------------------------------------------------------
 
-def train_loss_fn(sc: StepConfig, placement=None, split=None):
+def train_loss_fn(sc: StepConfig, placement=None, split=None, rows=None):
     """One node's loss ``loss(params, batch) -> 0-d``: ``tf.train_loss``
     at the StepConfig's chunks, ``remat`` and attention knobs; with a
     ``placement`` the params are the rank's blocks, with a ``split`` the
-    compute is split over 'model'."""
+    compute is split over 'model', with ``rows`` (``sharding.Rows``) the
+    batch is the rank's rows and the loss its share of the node's."""
     cfg = sc.cfg
 
     def loss_fn(p, batch):
@@ -279,7 +286,7 @@ def train_loss_fn(sc: StepConfig, placement=None, split=None):
                              skip_masked_chunks=sc.skip_masked_chunks,
                              remat_attention=sc.remat_attention,
                              repeat_kv=_repeat_kv(sc), placement=placement,
-                             split=split)
+                             split=split, rows=rows)
 
     return loss_fn
 
@@ -305,6 +312,19 @@ def node_grads(sc: StepConfig, params, batch):
     it."""
     _check(sc)
     return _node_grads(train_loss_fn(sc), params, batch)
+
+
+def _row_grads(layout, loss_fn, params, batch):
+    """:func:`_node_grads` on the rank's rows: where a ``layout`` splits
+    the rows (``layout.rows``), the ranks' losses summed into the nodes'
+    and the gradients of the leaves stored along no row axis all-reduced
+    (the others were reduce-scattered in their gathers' backward)."""
+    losses, grads = _node_grads(loss_fn, params, batch)
+    rows = layout.rows if layout is not None else None
+    if rows is None:
+        return losses, grads
+    return rows.reduce(losses), rows.reduce_grads(grads,
+                                                  layout.specs["params"])
 
 
 def _node_grads(loss_fn, params, batch):
@@ -335,25 +355,55 @@ class _OnDevice:
         return self._made[key]
 
 
+def _rows_cut(sc: StepConfig, specs, axes: tuple):
+    """The cache ``specs`` without the row ``axes`` on each leaf's rows
+    (the dim whose length is the batch's: a rank computes its rows of
+    those whole), for a placement that gathers, writes and cuts the rest;
+    a leaf with no rows (a ring buffer's ``slot_pos``) keeps its spec."""
+    one, two = (tf.init_cache(sc.cfg, b, sc.shape.seq_len, device="meta")
+                for b in (1, 2))
+
+    def cut(a, spec, b):
+        rows = [i for i, (m, n) in enumerate(zip(a.shape, b.shape)) if m != n]
+        if not rows:
+            return spec
+        if not sharding.same_layout((spec[rows[0]],), (axes,)):
+            raise ValueError(f"a cache leaf's rows are stored by "
+                             f"{spec[rows[0]]}, not by the row axes {axes}")
+        return tuple(None if i == rows[0] else e for i, e in enumerate(spec))
+
+    return tree_map(cut, one, specs, two)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Layout:
     """A step's state on a mesh (``sharding.make_plan``'s plan): the specs
     of its trees, their global shapes (``meta``) and the ``placement``
     that gathers the weights on use (None where no axis shards a weight).
     ``keep`` names the axes a rank holds whole although the specs name
-    them: the vmap runtime holds every node on each rank."""
+    them: the vmap runtime holds every node on each rank.  ``rows``
+    (``sharding.Rows``, or None): the data axes over which the rank
+    computes its rows of a node's batch (``specs["batch"]``, the
+    reference's ``batch_specs``), None where the batch is whole."""
 
     plan: Any
     specs: dict
     shapes: dict
     placement: Any
     keep: tuple = ()
+    rows: Any = None
 
     @staticmethod
-    def make(sc: StepConfig, mesh, *, kind: str,
-             keep_nodes: bool = False) -> "Layout":
+    def make(sc: StepConfig, mesh, *, kind: str, keep_nodes: bool = False,
+             rows: bool = True) -> "Layout":
         """``kind``: 'train' (node-stacked params, optimizer state and
-        batch), 'prefill' or 'decode' (params, and the caches)."""
+        batch), 'prefill' or 'decode' (params, the caches, and the tokens
+        (and image) as the batch).  ``rows``: split a node's batch rows
+        over the data axes where the reference's ``batch_specs`` does
+        (``sharding.row_axes``), except in train and prefill under
+        ``megatron_attn`` or ``shard_activations``, whose constraints in
+        the reference name the batch dims None; False keeps it whole (the
+        pinned decode, which computes on its cache blocks' rows itself)."""
         n_nodes = sc.n_nodes if kind == "train" else 1
         plan = sharding.make_plan(mesh, n_nodes=n_nodes)
         tie = sc.shard_tie_break_last
@@ -365,28 +415,61 @@ class Layout:
             specs = {"params": sharding.param_specs(
                          plan, p, node_stacked=True, tie_break_last=tie),
                      "opt_state": sharding.param_specs(
-                         plan, o, node_stacked=True, tie_break_last=tie),
-                     "batch": sharding.batch_specs(plan, shapes["batch"])}
+                         plan, o, node_stacked=True, tie_break_last=tie)}
         else:
             p = params_shape(sc, node_stacked=False)
-            shapes = {"params": p, "cache": decode_specs(sc)["cache"]}
+            d = decode_specs(sc)
+            shapes = {"params": p, "cache": d["cache"],
+                      "batch": prefill_specs(sc) if kind == "prefill"
+                      else {"token": d["token"]}}
             specs = {"params": sharding.param_specs(plan, p,
                                                     tie_break_last=tie),
                      "cache": sharding.cache_specs(
                          plan, shapes["cache"],
                          shard_features=sc.cache_shard_features)}
+        specs["batch"] = sharding.batch_specs(plan, shapes["batch"])
+        whole = not rows or (kind != "decode" and (
+            sc.megatron_attn or sc.shard_activations))
+        axes = () if whole else sharding.row_axes(
+            plan, shapes["batch"], specs["batch"],
+            key="token" if kind == "decode" else "tokens",
+            lead=1 if kind == "train" else 0)
+        if not axes:
+            specs["batch"] = tree_map(
+                lambda x, spec: tuple(e if e == plan.node_axis else None
+                                      for e in spec),
+                shapes["batch"], specs["batch"])
+        row_split = sharding.Rows(plan.mesh, axes) if axes else None
+        cache_specs = specs.get("cache")
+        if row_split is not None and cache_specs is not None:
+            cache_specs = _rows_cut(sc, cache_specs, axes)
         placement = None
         if sharding.weight_axes(plan):
             placement = sharding.Placement.make(
                 plan, params=p, param_specs=specs["params"],
-                cache=shapes.get("cache"), cache_specs=specs.get("cache"))
+                cache=shapes.get("cache"), cache_specs=cache_specs,
+                rows=row_split)
         keep = (plan.node_axis,) if keep_nodes and plan.node_axis else ()
-        return Layout(plan, specs, shapes, placement, keep)
+        return Layout(plan, specs, shapes, placement, keep, row_split)
 
     def local(self, what: str, tree):
         """This rank's blocks of the ``what`` tree (global or blocks)."""
         return sharding.shard_tree(self.plan, self.specs[what], tree,
                                    shapes=self.shapes[what], skip=self.keep)
+
+    def batch_leaf(self, name: str, x):
+        """This rank's rows of the batch leaf ``name`` (a serving step's
+        ``tokens``, ``img`` or ``token``, of any length: the node's rows,
+        or the rank's)."""
+        if self.rows is None:
+            return x
+        b = self.shapes["batch"][name].shape[0]
+        if x.shape[0] == b // self.rows.size:
+            return x
+        if x.shape[0] != b:
+            raise ValueError(f"{name}: {x.shape[0]} rows are neither the "
+                             f"batch's {b} nor a rank's {b // self.rows.size}")
+        return self.rows.cut(x).contiguous()
 
 
 def build_train_step(sc: StepConfig, *, mesh=None,
@@ -409,7 +492,9 @@ def build_train_step(sc: StepConfig, *, mesh=None,
         layout = Layout.make(sc, mesh, kind="train",
                              keep_nodes=sc.runtime == "vmap")
     split = make_split(sc, layout)
-    loss_fn = train_loss_fn(sc, layout.placement if layout else None, split)
+    rows = layout.rows if layout else None
+    loss_fn = train_loss_fn(sc, layout.placement if layout else None, split,
+                            rows)
 
     if sc.runtime == "sharded":
         step = _build_sharded_train_step(sc, topo, w_on, loss_fn, opt,
@@ -443,6 +528,7 @@ def build_train_step(sc: StepConfig, *, mesh=None,
         if layout is not None:
             params = layout.local("params", params)
             opt_state = layout.local("opt_state", opt_state)
+            batch = layout.local("batch", batch)
         dev = tree_flatten(params)[0][0].device
         w = w_on(dev)
         step_opt = opt
@@ -450,7 +536,7 @@ def build_train_step(sc: StepConfig, *, mesh=None,
             step_opt = dataclasses.replace(
                 opt, mix_fn=gossip.make_block_mix_fn(plan_on(dev), mesh=None,
                                                      w_ref=w, t=0))
-        losses, grads = _node_grads(loss_fn, params, batch)
+        losses, grads = _row_grads(layout, loss_fn, params, batch)
         with torch.no_grad():
             new_params, new_opt = step_opt.step(params, grads, opt_state,
                                                 w=w, lr=sc.lr, t=0)
@@ -501,7 +587,7 @@ def _build_sharded_train_step(sc: StepConfig, topo, w_on, loss_fn, opt, *,
         opt_state = layout.local("opt_state", opt_state)
         batch = layout.local("batch", batch)
         w = w_on(tree_flatten(params)[0][0].device)
-        losses, grads = _node_grads(loss_fn, params, batch)
+        losses, grads = _row_grads(layout, loss_fn, params, batch)
         mix = gossip.make_local_mix_fn(schedule, mesh=nodes, w_ref=w, t=0)
         with torch.no_grad():
             new_params, new_opt = dataclasses.replace(opt, mix_fn=mix).step(
@@ -514,33 +600,40 @@ def _build_sharded_train_step(sc: StepConfig, topo, w_on, loss_fn, opt, *,
     return train_step
 
 
-def _serve_layout(sc: StepConfig, mesh, kind: str):
+def _serve_layout(sc: StepConfig, mesh, kind: str, rows: bool = True):
     if mesh is None:
         return None, None
-    layout = Layout.make(sc, mesh, kind=kind)
+    layout = Layout.make(sc, mesh, kind=kind, rows=rows)
     return layout, layout.placement
 
 
 def build_prefill_step(sc: StepConfig, *, mesh=None):
     """``prefill_step(params, tokens, img=None) -> (last logits, caches)``.
     With a ``mesh`` the params are global or the rank's blocks and the
-    caches come back as the rank's blocks (``sharding.cache_specs``); every
-    rank holds the whole batch, and the split knobs divide its compute over
-    'model' (:func:`make_split`); the last logits come back whole."""
+    caches come back as the rank's blocks (``sharding.cache_specs``); the
+    tokens and the image are global or the rank's rows, each rank computes
+    its rows where the layout splits them (``Layout.rows``; else the whole
+    batch), and the split knobs divide its compute over 'model'
+    (:func:`make_split`); the last logits come back whole."""
     _check(sc)
     cfg = sc.cfg
     layout, placement = _serve_layout(sc, mesh, "prefill")
     split = make_split(sc, layout)
+    rows = layout.rows if layout else None
 
     def prefill_step(params, tokens, img=None):
         if layout is not None:
             params = layout.local("params", params)
-        return tf.prefill(params, tokens, cfg, img=img, chunk=sc.chunk,
-                          ssd_chunk=sc.ssd_chunk,
-                          cache_len=sc.shape.seq_len,
-                          skip_masked_chunks=sc.skip_masked_chunks,
-                          repeat_kv=_repeat_kv(sc), placement=placement,
-                          split=split)
+            tokens = layout.batch_leaf("tokens", tokens)
+            if img is not None:
+                img = layout.batch_leaf("img", img)
+        logits, cache = tf.prefill(
+            params, tokens, cfg, img=img, chunk=sc.chunk,
+            ssd_chunk=sc.ssd_chunk, cache_len=sc.shape.seq_len,
+            skip_masked_chunks=sc.skip_masked_chunks,
+            repeat_kv=_repeat_kv(sc), placement=placement, split=split,
+            rows=rows)
+        return (logits if rows is None else rows.join(logits)), cache
 
     prefill_step.layout, prefill_step.split = layout, split
     return prefill_step
@@ -577,8 +670,10 @@ def _check_constraint(constraint, layout) -> None:
 def build_decode_step(sc: StepConfig, *, cache_constraint=None, mesh=None):
     """``decode_step(params, token, pos, cache) -> (logits, cache)``, the
     cache written in place (with a ``mesh``: the rank's blocks, as the
-    prefill step returns them; each layer's cache is gathered, written and
-    its block put back).  Pinned (``sc.pin_decode_cache``, or a
+    prefill step returns them; the token is global or the rank's rows, the
+    rank computes its rows where the layout splits them, and each layer's
+    cache is gathered along the other axes, written and its block put
+    back; the logits come back whole).  Pinned (``sc.pin_decode_cache``, or a
     ``cache_constraint`` equal to the layout the cache is stored by, which
     implies the pin; the mesh may come with it, a ``sharding.
     NamedSharding``), the step attends over and writes into the rank's
@@ -588,21 +683,23 @@ def build_decode_step(sc: StepConfig, *, cache_constraint=None, mesh=None):
     if mesh is None and cache_constraint is not None:
         mesh = getattr(cache_constraint, "mesh", None)
     cfg = sc.cfg
-    layout, placement = _serve_layout(sc, mesh, "decode")
-    pin = sc.pin_decode_cache
+    pin = sc.pin_decode_cache or cache_constraint is not None
+    layout, placement = _serve_layout(sc, mesh, "decode", rows=not pin)
     if cache_constraint is not None:
         _check_constraint(cache_constraint, layout)
-        pin = True
     split = make_split(sc, layout, decode=True)
+    rows = layout.rows if layout else None
 
     def decode_step(params, token, pos, cache):
         if layout is not None:
             params = layout.local("params", params)
             cache = layout.local("cache", cache)
-        return tf.decode_step(params, token, pos, cache, cfg,
-                              decode_lowp=sc.decode_lowp,
-                              placement=placement, split=split,
-                              pin_cache=pin)
+            token = layout.batch_leaf("token", token)
+        logits, cache = tf.decode_step(params, token, pos, cache, cfg,
+                                       decode_lowp=sc.decode_lowp,
+                                       placement=placement, split=split,
+                                       pin_cache=pin, rows=rows)
+        return (logits if rows is None else rows.join(logits)), cache
 
     decode_step.layout, decode_step.split = layout, split
     decode_step.pinned = pin and placement is not None

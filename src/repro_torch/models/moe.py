@@ -104,7 +104,7 @@ def _record(rep, valid, expert_idx, sorted_probs) -> None:
 
 
 def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
-            token_mask=None, split=None):
+            token_mask=None, split=None, rows=None):
     """x: [B, S, d] -> (y [B, S, d], aux_loss 0-d fp32).
 
     ``token_mask`` [B, S] bool (serving): masked-out tokens take no queue
@@ -116,12 +116,28 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
     expert stacks are the rank's ``E / M`` experts, every rank routes all
     of ``x``'s tokens (so the capacity and the routes are the unsplit
     ones), runs its experts' queues and returns its partial sums of ``y``
-    (the slots of its experts), which the caller sums over 'model'."""
+    (the slots of its experts), which the caller sums over 'model'.
+
+    ``rows`` (``launch/sharding.Rows``): ``x`` is the rank's rows of a
+    node's batch, R ranks' equal shares of its token stream in row order,
+    and the queues are the node's: the capacity of the node's ``R T``
+    tokens, and each (token, slot) queued after the earlier ranks' entries
+    of its expert (their per-expert counts, one all-gather of an ``[E]``
+    vector).  The rank runs the slots of its own entries, at most ``min(C,
+    T)`` an expert since a token picks an expert once (``C`` where R is 1,
+    ``mesh=None``'s shape), so the drops are the node's.  The balance
+    loss's ``me`` and ``ce`` are the node's means, the ranks' shares
+    summed (``Rows.sum``, whose backward sums the ranks' gradients, as the
+    ranks' losses sum to the node's)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     n_tok = b * s
     tokens = x.reshape(n_tok, d)
     dev = x.device
+    r = 1 if rows is None else rows.size
+    if rows is not None and token_mask is not None:
+        raise ValueError("moe_ffn: a serving token_mask and a node's rows "
+                         "do not meet (the paged step takes no rows)")
 
     logits = tokens.float() @ params["router"].float()
     probs = torch.softmax(logits, dim=-1)                        # [T, E]
@@ -129,7 +145,8 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
     gate_vals, expert_idx = srt.values[:, :k], srt.indices[:, :k]
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
 
-    cap = capacity(n_tok, cfg)
+    cap = capacity(n_tok * r, cfg)
+    ql = cap if r == 1 else min(cap, n_tok)      # a rank's queue length
     experts = torch.arange(e, device=dev)
     flat_e = expert_idx.reshape(-1)                              # [T*k]
     onehot = (flat_e[:, None] == experts).long()                 # [T*k, E]
@@ -140,34 +157,38 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
         onehot = onehot * rep[:, None].long()
     pos = (torch.cumsum(onehot, dim=0) - 1) * onehot
     flat_pos = pos.sum(dim=-1)
-    valid = flat_pos < cap
+    queued = flat_pos
+    if rows is not None:    # the node's queue: after the earlier ranks'
+        queued = flat_pos + rows.before(onehot.sum(dim=0)).index_select(
+            0, flat_e)
+    valid = queued < cap
     if rep is not None:
         valid = valid & rep
     if _RECORD is not None:
         _record(rep, valid, expert_idx, srt.values)
 
     # per-expert queues [E*C (+ the sentinel)]: the token of each filled slot
-    slot = torch.where(valid, flat_e * cap + flat_pos, e * cap)
+    slot = torch.where(valid, flat_e * ql + flat_pos, e * ql)
     token_id = torch.arange(n_tok, device=dev).repeat_interleave(k)
-    tok_for_slot = torch.zeros(e * cap + 1, dtype=torch.long,
+    tok_for_slot = torch.zeros(e * ql + 1, dtype=torch.long,
                                device=dev).scatter(0, slot, token_id)[:-1]
-    filled = torch.zeros(e * cap + 1, dtype=torch.bool, device=dev).scatter(
+    filled = torch.zeros(e * ql + 1, dtype=torch.bool, device=dev).scatter(
         0, slot, torch.ones_like(valid))[:-1]
 
     el, mine, xin, gates = e, valid, tokens, gate_vals
     if split is not None:   # this rank's experts: queue slots lo .. hi - 1
         el = e // split.size
-        lo = split.index * el * cap
-        tok_for_slot = tok_for_slot[lo:lo + el * cap]
-        filled = filled[lo:lo + el * cap]
-        mine = valid & (slot >= lo) & (slot < lo + el * cap)
-        slot = torch.where(mine, slot - lo, el * cap)
+        lo = split.index * el * ql
+        tok_for_slot = tok_for_slot[lo:lo + el * ql]
+        filled = filled[lo:lo + el * ql]
+        mine = valid & (slot >= lo) & (slot < lo + el * ql)
+        slot = torch.where(mine, slot - lo, el * ql)
         xin, gates = split.copy(tokens), split.copy(gate_vals)
     xe = xin.index_select(0, tok_for_slot)                       # [E*C, d]
-    xe = torch.where(filled[:, None], xe, 0.0).reshape(el, cap, d)
+    xe = torch.where(filled[:, None], xe, 0.0).reshape(el, ql, d)
     h = F.silu(torch.matmul(xe, params["w_gate"])) * torch.matmul(
         xe, params["w_up"])
-    ye = torch.matmul(h, params["w_down"]).reshape(el * cap, d)  # [E*C, d]
+    ye = torch.matmul(h, params["w_down"]).reshape(el * ql, d)  # [E*C, d]
 
     # combine by a gather, in rank order: deterministic on every device
     picked = torch.cat([ye, ye.new_zeros(1, d)]).index_select(0, slot)
@@ -186,6 +207,8 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
     if token_mask is None:
         me = probs.mean(dim=0)
         ce = top1.mean(dim=0)
+        if rows is not None:    # the node's means: the ranks' shares summed
+            me, ce = rows.sum(me / r), rows.sum(ce / r)
     else:
         w = tmask.float()[:, None]
         denom = torch.clamp_min(w.sum(), 1.0)

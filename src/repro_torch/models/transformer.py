@@ -133,6 +133,7 @@ class RunCtx:
     placement: Any = None           # launch/sharding.Placement: gather on use
     split: Any = None               # launch/sharding.Split: not paged
     pin_cache: bool = False         # decode: compute on the cache blocks
+    rows: Any = None                # launch/sharding.Rows: the rank's rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -610,10 +611,11 @@ def _mlp(p, h, ctx: RunCtx, key):
 def _moe(p, h, ctx: RunCtx, key):
     """The MoE FFN of the normed ``h`` (in the residual's state).  Under a
     split whose experts are the rank's ``E / M`` (``pin_moe_dispatch``),
-    each rank runs them on the whole batch's routed tokens (the routes and
-    the capacity are the unsplit ones) and the partial sums are reduced
-    over 'model'; under any split the dense residual branch takes
-    :func:`_mlp`'s routes (without one it runs inside ``moe_ffn``)."""
+    each rank runs them on all the routed tokens of its batch (the routes
+    and the capacity are the unsplit ones; under ``ctx.rows`` its rows',
+    in the node's queue) and the partial sums are reduced over 'model';
+    under any split the dense residual branch takes :func:`_mlp`'s routes
+    (without one it runs inside ``moe_ffn``)."""
     mcfg, sp = ctx.cfg.moe, ctx.split
     xs = _residual(ctx)
     experts = sp is not None and sp.model_dim(key + ("w_gate",)) == -3
@@ -623,7 +625,7 @@ def _moe(p, h, ctx: RunCtx, key):
     y, aux = moe.moe_ffn(
         p, _to(ctx, h, xs, "R"),
         mcfg if sp is None else dataclasses.replace(mcfg, dense_ff=0),
-        token_mask=tm, split=sp if experts else None)
+        token_mask=tm, split=sp if experts else None, rows=ctx.rows)
     y = _to(ctx, y, "P" if experts else "R", xs)
     if sp is not None and mcfg.dense_ff:
         y = y + _mlp(p["dense"], h, ctx, key + ("dense",))
@@ -967,7 +969,7 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
             decode_lowp: bool = False, pages=None, remat: str = "none",
             skip_masked_chunks: bool = False, remat_attention: bool = False,
             repeat_kv: bool = False, placement=None, split=None,
-            pin_cache: bool = False):
+            pin_cache: bool = False, rows=None):
     """The shared forward pass.  Returns ``(logits, aux_loss, new_cache)``;
     ``img`` [B, T_img, d] feeds the cross blocks (train and prefill).
     ``placement`` (``launch/sharding.Placement``): ``params`` and a decode
@@ -978,7 +980,10 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
     divides the vocabulary (``split.vocab``).  ``pin_cache`` (decode, under
     a placement of the caches): attend over and write into the rank's
     cache blocks, with no cache leaf gathered (the reference's
-    ``pin_decode_cache``).
+    ``pin_decode_cache``).  ``rows`` (``launch/sharding.Rows``; not paged):
+    ``tokens`` are the rank's rows of a node's batch; every block computes
+    row by row, and the MoE queues them in the node's queue
+    (``moe.moe_ffn(rows=)``).
 
     train:   tokens [B,S] -> logits [B,S,Vp], aux, None
     prefill: tokens [B,S] -> logits [B,Vp] (last pos), aux, cache
@@ -1000,7 +1005,8 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
                  use_pallas=use_pallas, decode_lowp=decode_lowp, pages=pages,
                  skip_masked_chunks=skip_masked_chunks,
                  remat_attention=remat_attention, repeat_kv=repeat_kv,
-                 placement=placement, split=split, pin_cache=pin_cache)
+                 placement=placement, split=split, pin_cache=pin_cache,
+                 rows=rows)
     x = _embed(params, tokens, ctx)
     reads_cache = mode in ("decode", "paged")
     shared_p = params.get("shared_attn")
@@ -1069,13 +1075,16 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, img=None,
 def train_loss(params, batch, cfg: ModelConfig, **kw):
     """batch: ``{tokens [B,S], labels [B,S], (image_embeds [B,T,d])}`` ->
     0-d loss: the mean token cross-entropy over the valid vocab, plus the
-    auxiliary loss."""
+    auxiliary loss.  Under ``rows`` (the batch is the rank's rows of a
+    node's, ``launch/sharding.Rows``) the loss over R, the rank's share:
+    the ranks' losses sum to the node's."""
     logits, aux, _ = forward(params, batch["tokens"], cfg, mode="train",
                              img=batch.get("image_embeds"), **kw)
-    split = kw.get("split")
-    return layers.cross_entropy(
+    split, rows = kw.get("split"), kw.get("rows")
+    loss = layers.cross_entropy(
         logits, batch["labels"], cfg.vocab_size,
         split=split if split is not None and split.vocab else None) + aux
+    return loss if rows is None else loss / rows.size
 
 
 def prefill(params, tokens, cfg: ModelConfig, *, img=None, **kw):

@@ -162,11 +162,19 @@ def test_dry_run_traces_the_pinned_decode_on_meta(name):
     pinned = dryrun.trace_step(dataclasses.replace(
         sc, pin_decode_cache=True), plan)
     whole = dryrun.trace_step(sc, plan)
-    assert pinned["argument"] == whole["argument"]
+    # the unpinned decode holds its rows of the [B, 1] int32 token where
+    # they divide (the reference's batch_specs over 'data' 2), the pinned
+    # one all of it
+    b = CASES[name][1]
+    assert pinned["argument"] == whole["argument"] + (
+        b * 4 // 2 if b % 2 == 0 else 0)
     if name == "hybrid":
         # zamba2's caches (the window's 8 slots, the Mamba states) are
-        # smaller than a layer's gathered weights, which set the peak
-        assert pinned["temp"] <= whole["temp"]
+        # smaller than a layer's gathered weights, which set both peaks;
+        # they differ by the activations of the rows the gathering decode
+        # leaves to the other 'data' rank (the pinned one computes all but
+        # their attention)
+        assert abs(pinned["temp"] - whole["temp"]) < 0.01 * whole["temp"]
     else:
         assert pinned["temp"] < whole["temp"]
     assert pinned["wire"]["all-gather"] < whole["wire"]["all-gather"]

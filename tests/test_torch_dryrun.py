@@ -196,8 +196,9 @@ def test_run_combo_on_meta(arch, kind, tmp_path):
             "all-gather"] > 0
         assert wire == per_node   # one bf16 tree a step, dense gossip
     else:
-        d = steps.decode_specs(sc)
-        held.append(((d["token"], d["pos"]), ((None, None), ())))
+        # the token's rows are in the layout's batch (a rank's 2 of 8)
+        assert layout.specs["batch"] == {"token": ("data", None)}
+        held.append(((steps.decode_specs(sc)["pos"],), ((),)))
         assert layout.placement is not None
     assert mem["argument"] == sum(sharding.bytes_per_rank(plan, t, s)
                                   for t, s in held)

@@ -338,14 +338,21 @@ def test_plan_specs_and_bytes_per_rank():
     real = tree_map(lambda l: torch.zeros(l.shape, dtype=l.dtype), p)
     assert sharding.bytes_per_rank(plan, real, specs) == \
         sharding.bytes_per_rank(plan, p, specs)
-    # one node (QHM): the reference's FSDP over 'data', the batch whole
+    # one node (QHM): the reference's FSDP over 'data', and its batch
+    # rule: the data axes on the first dim they divide (a stack's leading
+    # dim of 1 skipped), a rank's rows
     one = sharding.make_plan(mesh, n_nodes=1)
     assert one.node_axis is None and one.fsdp_axes == ("data",)
     ospecs = sharding.param_specs(one, p, node_stacked=True)
     assert ospecs["embed"] == (None, "data", None)
     assert sharding.bytes_per_rank(one, p, ospecs) * 4 == whole
     assert sharding.batch_specs(one, batch) == {
-        "tokens": (None, None, None), "labels": (None, None, None)}
+        "tokens": ("data", None, None), "labels": ("data", None, None)}
+    qhm = steps.train_batch_specs(dataclasses.replace(sc, n_nodes=1))
+    assert sharding.batch_specs(one, qhm) == {
+        "tokens": (None, "data", None), "labels": (None, "data", None)}
+    assert sharding.bytes_per_rank(one, qhm, sharding.batch_specs(
+        one, qhm)) * 4 == 2 * 8 * 16 * 4
     assert sharding.cache_specs(one, {"k": p["embed"]}) == {
         "k": ("data", None, None)}
 

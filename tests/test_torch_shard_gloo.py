@@ -9,15 +9,20 @@ TinyLlama cut, 2 nodes, 2 steps, on meshes of ``launch/mesh.make_debug_mesh``:
 * world 4, (2, 2): the sharded runtime, one node a 'data' rank, its
   weights in halves over 'model';
 * world 8, ``('pod', 'data', 'model')`` of (2, 2, 2): a node a pod, its
-  weights over 'data' (FSDP) and 'model'.
+  weights over 'data' (FSDP) and 'model', and its 2 sequences over
+  'data' (the reference's ``batch_specs``): each rank computes one.
 
-Each rank gathers each weight on use and keeps its slice of the gradient;
+Each rank gathers each weight on use and keeps its slice of the gradient
+(over 'data' in world 8, the sum of the two ranks' partial gradients);
 the losses of both steps and the gathered params and optimizer state are
-bit-equal to the ``mesh=None`` step in this process (and the prefill's
-logits, the decode steps' logits and the gathered caches to the unsharded
-builders').  Each rank's stored bytes (its blocks of the params, the
-optimizer state and the batch) equal the dry run's per-rank ``argument``
-for the same mesh shape (``dryrun.trace_step`` on ``meta``).
+bit-equal to the ``mesh=None`` step in this process where a rank computes
+its node's whole batch (worlds 2 and 4), and within rtol 1e-5 / atol 1e-6
+of it where the rows split (world 8: the rows' sums meet in another
+order); the prefill's logits, the decode steps' logits and the gathered
+caches are bit-equal to the unsharded builders'.  Each rank's stored
+bytes (its blocks of the params, the optimizer state and its rows of the
+batch) equal the dry run's per-rank ``argument`` for the same mesh shape
+(``dryrun.trace_step`` on ``meta``).
 
 Run alone: ``PYTHONPATH=src python -m pytest -q
 tests/test_torch_shard_gloo.py``.
@@ -163,11 +168,17 @@ def test_sharded_state_is_bit_equal_to_unsharded(world, tmp_path):
     ranks = _spawn(world, tmp_path)
     losses, p, o, _, _ = _train(_sc("vmap"))
     want = tree_leaves((p, o))
+    if world == 8:      # each 'data' rank computes one of a node's rows
+        def same(a, b, what):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6,
+                                       err_msg=str(what))
+    else:
+        def same(a, b, what):
+            assert np.array_equal(a, b), what
     for r, got in enumerate(ranks):
-        assert np.array_equal(got["losses"],
-                              torch.stack(losses).numpy()), r
+        same(got["losses"], torch.stack(losses).numpy(), r)
         for i, w in enumerate(want):
-            assert np.array_equal(got[f"leaf{i}"], w.numpy()), (r, i)
+            same(got[f"leaf{i}"], w.numpy(), (r, i))
     # stored bytes a rank = the dry run's per-rank argument (imported here:
     # the spawned ranks import this module, and the dry run's memory
     # tracker adds seconds to each start)

@@ -7,9 +7,11 @@ For every arch in ``configs/`` at its published size, on
 'data', 'model'))``, with one node (QHM: the weights over every axis) and
 with two (on 'data', or on 'pod' with FSDP over 'data'): ``param_specs``
 of the params and the optimizer state (node-stacked; and the one-node
-params unstacked), with ``tie_break_last`` both ways, and ``cache_specs``
-of a decode cache with ``shard_features`` both ways, equal the
-reference's leaf by leaf.  The reference's side runs in one subprocess
+params unstacked), with ``tie_break_last`` both ways, ``cache_specs``
+of a decode cache with ``shard_features`` both ways, and ``batch_specs``
+of every input shape's batch (a train batch at one and two nodes, a
+prefill's tokens and image, a decode's token) equal the reference's leaf
+by leaf.  The reference's side runs in one subprocess
 with ``XLA_FLAGS=--xla_force_host_platform_device_count=8`` on
 ``ShapeDtypeStruct``s, as the reference's own mesh tests run.
 
@@ -31,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs import ARCHS, INPUT_SHAPES, get_config
 from repro_torch.configs.base import InputShape
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import sharding, steps
@@ -48,7 +50,7 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
 import json, sys
 import jax
 import jax.numpy as jnp
-from repro.configs import ARCHS, get_config
+from repro.configs import ARCHS, INPUT_SHAPES, get_config
 from repro.configs.base import InputShape
 from repro.launch import sharding, steps
 from repro.launch.mesh import make_debug_mesh
@@ -92,6 +94,19 @@ for arch in sorted(ARCHS):
         for feat in (False, True):
             out[f"{name}/{arch}/1/cache/{feat}"] = flat(
                 sharding.cache_specs(plan, cache, shard_features=feat))
+    for sname, shape in sorted(INPUT_SHAPES.items()):
+        for n in ((1, 2) if shape.kind == "train" else (1,)):
+            sc = steps.StepConfig(cfg=cfg, shape=shape, n_nodes=n)
+            if shape.kind == "train":
+                batch = steps.train_batch_specs(sc)
+            elif shape.kind == "prefill":
+                batch = steps.prefill_specs(sc)
+            else:
+                batch = {"token": steps.decode_specs(sc)["token"]}
+            for name, mesh in meshes:
+                plan = sharding.make_plan(mesh, n_nodes=n)
+                out[f"{name}/{arch}/{n}/batch/{sname}"] = flat(
+                    sharding.batch_specs(plan, batch))
 print(json.dumps(out))
 """
 
@@ -142,7 +157,26 @@ def _port_specs() -> dict:
                 out[f"{name}/{arch}/1/cache/{feat}"] = _flat(
                     sharding.cache_specs(plan, cache, shard_features=feat),
                     cache)
+        for sname, shape in sorted(INPUT_SHAPES.items()):
+            for n in ((1, 2) if shape.kind == "train" else (1,)):
+                sc = steps.StepConfig(cfg=cfg, shape=shape, n_nodes=n)
+                if shape.kind == "train":
+                    batch = steps.train_batch_specs(sc)
+                elif shape.kind == "prefill":
+                    batch = steps.prefill_specs(sc)
+                else:
+                    batch = {"token": _token(shape)}
+                for name, mesh in meshes:
+                    plan = sharding.make_plan(mesh, n_nodes=n)
+                    out[f"{name}/{arch}/{n}/batch/{sname}"] = _flat(
+                        sharding.batch_specs(plan, batch), batch)
     return out
+
+
+def _token(shape):
+    """A decode step's token, ``steps.decode_specs``'s without its cache."""
+    return torch.empty((shape.global_batch, 1), dtype=torch.int32,
+                       device="meta")
 
 
 @pytest.fixture(scope="module")
@@ -171,6 +205,18 @@ def test_specs_equal_reference_leaf_by_leaf(reference_specs):
             got[f"{name}/{arch}/1/cache/True"]
         assert got[f"{name}/{arch}/1/params/False"] != \
             got[f"{name}/{arch}/2/params/False"]
+    # the batch: a node's rows over the data axes (every axis but the node
+    # axis and 'model'), a tuple of them across pods
+    assert got["2x2/tinyllama-1.1b/1/batch/prefill_32k"] == [["data", None]]
+    assert got["2x2x2/tinyllama-1.1b/1/batch/prefill_32k"] == [
+        [["pod", "data"], None]]
+    assert got["2x2/tinyllama-1.1b/1/batch/train_4k"] == [
+        [None, "data", None]] * 2
+    assert got["2x2x2/tinyllama-1.1b/2/batch/train_4k"] == [
+        ["pod", "data", None]] * 2
+    assert got["2x2/tinyllama-1.1b/2/batch/train_4k"] == [
+        ["data", None, None]] * 2
+    assert got["2x2/tinyllama-1.1b/1/batch/long_500k"] == [[None, None]]
 
 
 def test_meshes_are_the_reference_shapes():
